@@ -1,0 +1,55 @@
+"""The paper's primary contribution, ported to PyTorch: fast greedy DPP
+MAP inference ("Div-DPP"), the kernel construction, the sliding-window
+variant and the ``GreedySpec`` front door.
+
+Not ported yet (ROADMAP queue 1): the naive determinant oracle, the
+baselines and metrics (item 2), streaming (item 6), the sharded backend
+(item 9).
+"""
+from repro_torch.core.kernel_matrix import (
+    build_kernel_dense,
+    build_kernel_dense_raw,
+    map_relevance,
+    normalize_columns,
+    scaled_features,
+    scaled_features_raw,
+    similarity_from_features,
+)
+from repro_torch.core.greedy_chol import (
+    GreedyResult,
+    dpp_greedy,
+    dpp_greedy_dense,
+    dpp_greedy_dense_batch,
+    dpp_greedy_lowrank,
+    dpp_greedy_lowrank_batch,
+)
+from repro_torch.core.windowed import (
+    dpp_greedy_windowed,
+    dpp_greedy_windowed_batch,
+    dpp_greedy_windowed_lowrank,
+    dpp_greedy_windowed_lowrank_batch,
+)
+from repro_torch.core.dispatch import GreedySpec, GreedySpecError, greedy_map
+
+__all__ = [
+    "GreedyResult",
+    "GreedySpec",
+    "GreedySpecError",
+    "greedy_map",
+    "dpp_greedy_windowed",
+    "dpp_greedy_windowed_batch",
+    "dpp_greedy_windowed_lowrank",
+    "dpp_greedy_windowed_lowrank_batch",
+    "build_kernel_dense",
+    "build_kernel_dense_raw",
+    "map_relevance",
+    "normalize_columns",
+    "scaled_features",
+    "scaled_features_raw",
+    "similarity_from_features",
+    "dpp_greedy",
+    "dpp_greedy_dense",
+    "dpp_greedy_dense_batch",
+    "dpp_greedy_lowrank",
+    "dpp_greedy_lowrank_batch",
+]

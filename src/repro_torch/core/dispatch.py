@@ -1,0 +1,158 @@
+"""One front door for greedy DPP MAP inference.
+
+The torch counterpart of ``repro.core.dispatch``: every greedy variant
+ported so far — exact Algorithm 1 (dense or low-rank, single or batched),
+the sliding-window incremental variant, and the CUDA whole-slate kernels
+— is reachable through ``greedy_map`` with a ``GreedySpec``.
+
+Dispatch rules:
+
+* kernel representation — pass exactly one of ``L`` (dense, (M, M) or
+  (B, M, M)) or ``V`` (low-rank ``L = V^T V``, (D, M) or (B, D, M));
+* ``spec.window`` — ``None`` (or ``>= k``) runs the exact Algorithm 1;
+  smaller windows run the O(w M)-per-step sliding-window greedy;
+* ``spec.backend`` — "torch" runs the plain PyTorch core; "kernel"
+  routes low-rank inputs through ``repro_torch.kernels.dpp_greedy``
+  (CUDA kernels on CUDA tensors, their plain versions on CPU tensors;
+  dense inputs are rejected — the kernels never materialize L); "auto"
+  is "torch";
+* ``spec.tile_m`` — candidate-axis tile for the kernels; it forces the
+  tiled per-step kernels (by default ``TilePolicy`` keeps the resident
+  kernels while they fit shared memory and tiles past that).
+
+Not ported yet, and raising ``NotImplementedError``: the sharded backend
+and ``mesh=`` (ROADMAP queue 1 item 9), ``chunk_size=`` chunked
+execution (item 6), ``tile_m="auto"`` (item 10).
+
+``GreedySpec`` validates itself at construction — a bad config raises
+``GreedySpecError`` (a ``ValueError``) at spec-build time.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core.greedy_chol import (
+    GreedyResult,
+    dpp_greedy_dense_batch,
+    dpp_greedy_lowrank_batch,
+)
+from repro_torch.core.windowed import (
+    dpp_greedy_windowed_batch,
+    dpp_greedy_windowed_lowrank_batch,
+)
+from repro_torch.obs.dispatch import record_greedy_map
+
+_BACKENDS = ("auto", "torch", "kernel")
+
+
+class GreedySpecError(ValueError):
+    """Invalid ``GreedySpec`` — raised at spec construction time."""
+
+
+@dataclasses.dataclass(frozen=True)
+class GreedySpec:
+    """How to run greedy MAP: slate size, window, backend, tolerance."""
+
+    k: int
+    window: Optional[int] = None  # None = exact Algorithm 1
+    backend: str = "auto"  # "auto" | "torch" | "kernel"
+    eps: float = 1e-6
+    mesh: Optional[object] = None  # sharded backend: not ported yet
+    tile_m: Optional[int] = None  # kernel candidate-axis tile (forces tiled)
+    chunk_size: Optional[int] = None  # chunked execution: not ported yet
+
+    def __post_init__(self):
+        if self.k <= 0:
+            raise GreedySpecError(f"k must be >= 1, got {self.k}")
+        if self.window is not None and self.window < 1:
+            raise GreedySpecError(f"window must be >= 1, got {self.window}")
+        if self.backend == "sharded" or self.mesh is not None:
+            raise NotImplementedError(
+                "the sharded backend (mesh=) is not ported yet "
+                "(ROADMAP queue 1 item 9)"
+            )
+        if self.backend not in _BACKENDS:
+            raise GreedySpecError(
+                f"unknown backend {self.backend!r}; expected one of {_BACKENDS}"
+            )
+        if self.chunk_size is not None:
+            raise NotImplementedError(
+                "chunk_size= (chunked, resumable execution) is not ported "
+                "yet (ROADMAP queue 1 item 6)"
+            )
+        if self.tile_m is not None:
+            from repro_torch.kernels.dpp_greedy.tiling import validate_tile_m
+
+            try:
+                validate_tile_m(self.tile_m)
+            except ValueError as e:
+                raise GreedySpecError(str(e)) from None
+            if self.backend != "kernel":
+                raise GreedySpecError(
+                    "tile_m= only applies to the CUDA kernels "
+                    "(backend='kernel') — on the torch backend it would be "
+                    "silently ignored"
+                )
+
+    def windowed(self) -> bool:
+        return self.window is not None and self.window < self.k
+
+
+def greedy_map(
+    spec: GreedySpec,
+    *,
+    L: Optional[torch.Tensor] = None,
+    V: Optional[torch.Tensor] = None,
+    mask: Optional[torch.Tensor] = None,
+) -> GreedyResult:
+    """Run greedy DPP MAP per ``spec`` on a dense (L) or low-rank (V) kernel.
+
+    Accepts single problems (L (M, M) / V (D, M)) and user batches
+    (L (B, M, M) / V (B, D, M)); returns a ``GreedyResult`` whose fields
+    gain a leading batch dimension in the batched case.  ``mask`` may be
+    per-problem ((M,) / (B, M)) or a shared (M,) filter alongside a
+    batched L/V, broadcast to (B, M) here once.
+    """
+    if (L is None) == (V is None):
+        raise ValueError("pass exactly one of L= (dense) or V= (low-rank)")
+    if spec.backend == "kernel" and L is not None:
+        raise ValueError(
+            "backend='kernel' needs the low-rank V — the kernels never "
+            "materialize the dense L"
+        )
+    kern = L if L is not None else V
+    batched = kern.ndim == 3
+    if not batched:
+        kern = kern[None]
+        mask = None if mask is None else mask[None]
+    if mask is not None:
+        mask = mask.to(device=kern.device, dtype=torch.bool).expand(
+            kern.shape[0], kern.shape[-1]
+        )
+
+    backend = "kernel" if spec.backend == "kernel" else "torch"
+    record_greedy_map(backend, B=kern.shape[0], k=spec.k, M=kern.shape[-1])
+
+    if backend == "kernel":
+        from repro_torch.kernels.dpp_greedy import dpp_greedy as dpp_kernel
+
+        sel, dh = dpp_kernel(kern, spec.k, mask=mask, eps=spec.eps,
+                             window=spec.window, tile_m=spec.tile_m)
+        res = GreedyResult(sel, (sel >= 0).sum(-1).to(torch.int32), dh)
+    elif L is not None:
+        if spec.windowed():
+            res = dpp_greedy_windowed_batch(kern, spec.k, spec.window,
+                                            spec.eps, mask)
+        else:
+            res = dpp_greedy_dense_batch(kern, spec.k, spec.eps, mask)
+    elif spec.windowed():
+        res = dpp_greedy_windowed_lowrank_batch(kern, spec.k, spec.window,
+                                                spec.eps, mask)
+    else:
+        res = dpp_greedy_lowrank_batch(kern, spec.k, spec.eps, mask)
+    if batched:
+        return res
+    return GreedyResult(res.indices[0], res.n_selected[0], res.d_hist[0])

@@ -1,0 +1,28 @@
+"""Device resolution for the port's entry points.
+
+Every entry point takes ``device=`` and defaults to ``"cuda"``.  A
+CUDA device on a machine without one is an error, never a silent move
+to the CPU: the tests pass ``device="cpu"`` explicitly.
+"""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DEFAULT_DEVICE = "cuda"
+
+
+def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
+    """``device`` as a ``torch.device`` (None means the card), raising
+    when it names CUDA and no CUDA device is visible."""
+    dev = torch.device(DEFAULT_DEVICE if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(dev)!r} requested but torch sees no CUDA device "
+            f"(torch {torch.__version__}, cuda {torch.version.cuda}); pass "
+            f"device='cpu' to run the plain PyTorch path"
+        )
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {str(dev)!r}: use cpu or cuda")
+    return dev

@@ -1,0 +1,323 @@
+"""Tiled per-step greedy DPP MAP kernels (K3 exact, K4 windowed).
+
+CUDA counterparts of ``repro/kernels/dpp_greedy/tiled.py``'s
+``_pass_full`` and ``_pass_windowed`` (``csrc/tiled.cu``), for candidate
+sets past the resident budget: each greedy step is one launch over
+``(ceil(M / tile_m), B)`` blocks.  Every block applies the update of the
+step's winner to its tile and folds the tile's (max, lowest-index argmax)
+into the next step's winner with one 64-bit ``atomicMax`` on an orderable
+key (:func:`pack_key`), so the k-step loop keeps all state on the device.
+
+Exact steps need nothing between launches: the kernel decodes its winner
+from the key.  Windowed steps resolve the small per-user state between
+launches in PyTorch, as ``repro``'s whole-slate loop does in JAX: the
+winner's columns, the window factor ``C[:, win]`` and the Givens
+coefficients of the eviction (:func:`eviction_coeffs`).
+
+Each kernel has its plain PyTorch version here; a wrapper runs it for
+CPU tensors and launches the kernel for CUDA tensors, or raises.  State
+(``C``, ``d2``, keys) is updated in place on both paths.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.core.greedy_chol import NEG_INF
+from repro_torch.kernels import cuda
+from repro_torch.kernels.dpp_greedy.dpp_greedy import (
+    _cpu_or_cuda,
+    eps_squared,
+    init_gains,
+)
+from repro_torch.kernels.dpp_greedy.tiling import tiled_smem_bytes
+
+_SRC = Path(__file__).resolve().parent / "csrc" / "tiled.cu"
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "tiled_step_exact": [
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+    ],
+    "tiled_step_windowed": [
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+    ],
+}
+_U32 = 2**32
+
+
+# ---------------------------------------------------------------------------
+# Orderable argmax keys (the int64 bits of csrc/common.cuh's u64 keys)
+# ---------------------------------------------------------------------------
+
+
+def pack_key(val: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(value f32, index) -> int64 holding the bits of the kernels' u64
+    key ``ordered(value) << 32 | (2^32 - 1 - index)``, whose unsigned
+    order is (value, then lowest index)."""
+    s = val.contiguous().view(torch.int32).to(torch.int64)
+    ordered = torch.where(s < 0, -s - 1, s + 2**31)  # [0, 2^32)
+    hi = torch.where(ordered >= 2**31, ordered - _U32, ordered)
+    return hi * _U32 + (_U32 - 1 - idx.to(torch.int64))
+
+
+def unpack_key(key: torch.Tensor):
+    """Inverse of :func:`pack_key`: -> (value f32, index int64)."""
+    hi, lo = key >> 32, key & (_U32 - 1)
+    ordered = torch.where(hi < 0, hi + _U32, hi)
+    s = torch.where(ordered >= 2**31, ordered - 2**31, -ordered - 1)
+    return s.to(torch.int32).view(torch.float32), _U32 - 1 - lo
+
+
+def _tile_argmax(d2: torch.Tensor, tile_m: int):
+    """Per-tile (max, lowest-index argmax) folded across tiles — the
+    running reduction of the Pallas sweep.  Returns (max, global index)."""
+    B, M = d2.shape
+    nt = -(-M // tile_m)
+    padded = torch.full((B, nt * tile_m), NEG_INF, dtype=d2.dtype,
+                        device=d2.device)
+    padded[:, :M] = d2
+    tmax, targ = padded.view(B, nt, tile_m).max(dim=2)
+    best = torch.argmax(tmax, dim=1)  # first maximum: the lowest tile
+    ar = torch.arange(B, device=d2.device)
+    return tmax[ar, best], targ[ar, best] + best * tile_m
+
+
+# ---------------------------------------------------------------------------
+# Windowed eviction coefficients
+# ---------------------------------------------------------------------------
+
+
+def eviction_coeffs(Cw, cj, dj2, full, w: int):
+    """Precompute the first-row Cholesky-downdate rotations from the
+    small replicated state, so a tiled step can apply them per column.
+
+    Cw:   (B, w, w) — the window factor C[:, win] (column s = window
+          member s's Cholesky column); empty slots zeroed by the caller.
+    cj:   (B, w) — the winner's PRE-eviction Cholesky column.
+    dj2:  (B,)   — the winner's selection-time marginal gain d_j^2.
+    full: (B,) bool — eviction actually happens this step.
+
+    Returns ``(cos (B, w-1), sin (B, w-1), cj_post (B, w), d2j (B,))`` —
+    identity rotations, ``cj_post = cj`` and ``d2j = dj2`` where ``full``
+    is False.  Applying (cos, sin) to any column reproduces what the
+    in-place rotation sweep of ``core.windowed`` computes, because the
+    sweep only ever reads not-yet-rotated rows (row r+1 at iteration r).
+    """
+    tiny = 1e-30
+    fullb = full[:, None]
+    u_w = torch.where(fullb, Cw[:, 0, :], 0.0)
+    u_c = torch.where(full, cj[:, 0], 0.0)
+    coss, sins, cpost = [], [], []
+    for r in range(w - 1):
+        row_w = torch.where(fullb, Cw[:, r + 1, :], Cw[:, r, :])
+        row_c = torch.where(full, cj[:, r + 1], cj[:, r])
+        a = row_w[:, r + 1]
+        b = u_w[:, r + 1]
+        rho = torch.clamp_min(torch.sqrt(a * a + b * b), tiny)
+        cos = torch.where(full, a / rho, 1.0)
+        sin = torch.where(full, b / rho, 0.0)
+        coss.append(cos)
+        sins.append(sin)
+        cpost.append(cos * row_c + sin * u_c)
+        u_c = cos * u_c - sin * row_c
+        u_w = cos[:, None] * u_w - sin[:, None] * row_w
+    cpost.append(torch.where(full, 0.0, cj[:, w - 1]))
+    empty = torch.zeros(full.shape + (0,), dtype=cj.dtype, device=cj.device)
+    cos_arr = torch.stack(coss, -1) if coss else empty
+    sin_arr = torch.stack(sins, -1) if sins else empty
+    d2j = torch.where(full, dj2 + u_c * u_c, dj2)
+    return cos_arr, sin_arr, torch.stack(cpost, -1), d2j
+
+
+# ---------------------------------------------------------------------------
+# K3: one exact step
+# ---------------------------------------------------------------------------
+
+
+def tiled_step_exact_plain(V, C, d2, keys, flags, sel, dh, t: int,
+                           eps: float, tile_m: int) -> None:
+    """Plain version of K3, same operands, updated in place: decode the
+    winner of step ``t`` from ``keys[t]``, latch the eps-stop into
+    ``flags[t + 1]``, write ``sel``/``dh[:, t]``, append Cholesky row
+    ``t`` and update ``d2``, and pack the next winner into ``keys[t+1]``."""
+    B = V.shape[0]
+    ar = torch.arange(B, device=V.device)
+    eps2 = torch.tensor(eps, dtype=torch.float32, device=V.device) ** 2
+    dj2, j = unpack_key(keys[t])
+    stop = (flags[t] != 0) | (dj2 <= eps2)
+    dj = torch.sqrt(torch.maximum(dj2, eps2))
+    sel[:, t] = torch.where(stop, -1, j).to(torch.int32)
+    dh[:, t] = torch.where(stop, 0.0, dj)
+    flags[t + 1] = stop.to(torch.int32)
+    lj = torch.bmm(V[ar, :, j][:, None, :], V)[:, 0]
+    dots = torch.bmm(C[ar, :, j][:, None, :], C)[:, 0]
+    e = (lj - dots) / dj[:, None]
+    live = ~stop[:, None]
+    C[:, t] = torch.where(live, e, C[:, t])
+    d2_next = d2 - e * e
+    d2_next[ar, j] = NEG_INF
+    d2.copy_(torch.where(live, d2_next, d2))
+    mx, am = _tile_argmax(d2, tile_m)
+    keys[t + 1] = pack_key(mx, am)
+
+
+def tiled_step_exact(V, C, d2, keys, flags, sel, dh, t: int, eps: float,
+                     tile_m: int) -> None:
+    """K3: one launch = one exact greedy step over (ceil(M/tile_m), B)
+    blocks.  V (B, D, M), C (B, k, M), d2 (B, M) f32; keys (k+1, B) int64
+    (row t+1 zero), flags (k+1, B) int32; sel (B, k) int32, dh (B, k)."""
+    if not _cpu_or_cuda(V):
+        return tiled_step_exact_plain(V, C, d2, keys, flags, sel, dh, t, eps,
+                                      tile_m)
+    B, D, M = V.shape
+    k = C.shape[1]
+    cuda.require(V, "V", torch.float32, (B, D, M))
+    cuda.require(C, "C", torch.float32, (B, k, M))
+    cuda.require(d2, "d2", torch.float32, (B, M))
+    cuda.require(keys, "keys", torch.int64, (k + 1, B))
+    cuda.require(flags, "flags", torch.int32, (k + 1, B))
+    cuda.require(sel, "sel", torch.int32, (B, k))
+    cuda.require(dh, "dh", torch.float32, (B, k))
+    if not 0 <= t < k:
+        raise ValueError(f"step t={t} outside [0, {k})")
+    lib = cuda.library(_SRC, _SIGNATURES)
+    err = lib.tiled_step_exact(
+        V.data_ptr(), C.data_ptr(), d2.data_ptr(), keys.data_ptr(),
+        flags.data_ptr(), sel.data_ptr(), dh.data_ptr(), B, D, M, k, t,
+        tile_m, eps_squared(eps), tiled_smem_bytes(D, k, windowed=False),
+        cuda.stream_ptr(V),
+    )
+    cuda.count_launch("tiled_step_exact")
+    cuda.check(err, "tiled_step_exact")
+
+
+# ---------------------------------------------------------------------------
+# K4: one windowed step
+# ---------------------------------------------------------------------------
+
+
+def tiled_step_windowed_plain(V, C, d2, cjp, flt, ints, key_out,
+                              tile_m: int) -> None:
+    """Plain version of K4, same operands, updated in place — the Pallas
+    ``_tile_update_windowed`` over the whole candidate axis: evict with
+    the precomputed rotations (residue repairs d2), append against the
+    post-eviction ring, then pack the next winner into ``key_out``."""
+    B, w, M = C.shape
+    ar = torch.arange(B, device=V.device)
+    djp, stop, full = flt[:, 0], flt[:, 1] > 0, flt[:, 2] > 0
+    cos, sin = flt[:, 3:3 + (w - 1)], flt[:, 3 + (w - 1):]
+    j, pos = ints[:, 0].to(torch.int64), ints[:, 1].to(torch.int64)
+    fc = full[:, None]
+    u = torch.where(fc, C[:, 0], 0.0)
+    rows = []
+    for r in range(w - 1):
+        row = torch.where(fc, C[:, r + 1], C[:, r])
+        rows.append(cos[:, r:r + 1] * row + sin[:, r:r + 1] * u)
+        u = cos[:, r:r + 1] * u - sin[:, r:r + 1] * row
+    rows.append(torch.where(fc, 0.0, C[:, w - 1]))
+    Cpost = torch.stack(rows, 1)
+    d2e = torch.where(fc, d2 + u * u, d2)
+    lj = torch.bmm(V[ar, :, j][:, None, :], V)[:, 0]
+    dots = torch.bmm(cjp[:, None, :], Cpost)[:, 0]
+    e = (lj - dots) / djp[:, None]
+    ring = torch.arange(w, device=V.device)[None, :, None] == pos[:, None, None]
+    Cnew = torch.where(ring, e[:, None, :], Cpost)
+    live = ~stop
+    C.copy_(torch.where(live[:, None, None], Cnew, C))
+    d2_next = d2e - e * e
+    d2_next[ar, j] = NEG_INF
+    d2.copy_(torch.where(live[:, None], d2_next, d2))
+    mx, am = _tile_argmax(d2, tile_m)
+    key_out.copy_(pack_key(mx, am))
+
+
+def tiled_step_windowed(V, C, d2, cjp, flt, ints, key_out,
+                        tile_m: int) -> None:
+    """K4: one launch = one windowed greedy step.  V (B, D, M), C (B, w, M)
+    ring, d2 (B, M) f32; cjp (B, w) f32; flt (B, 3 + 2(w-1)) f32 =
+    [djp, stopped, full, cos.., sin..]; ints (B, 2) int32 = [j, pos];
+    key_out (B,) int64, zero on entry."""
+    if not _cpu_or_cuda(V):
+        return tiled_step_windowed_plain(V, C, d2, cjp, flt, ints, key_out,
+                                         tile_m)
+    B, D, M = V.shape
+    w = C.shape[1]
+    cuda.require(V, "V", torch.float32, (B, D, M))
+    cuda.require(C, "C", torch.float32, (B, w, M))
+    cuda.require(d2, "d2", torch.float32, (B, M))
+    cuda.require(cjp, "cjp", torch.float32, (B, w))
+    cuda.require(flt, "flt", torch.float32, (B, 3 + 2 * (w - 1)))
+    cuda.require(ints, "ints", torch.int32, (B, 2))
+    cuda.require(key_out, "key_out", torch.int64, (B,))
+    lib = cuda.library(_SRC, _SIGNATURES)
+    err = lib.tiled_step_windowed(
+        V.data_ptr(), C.data_ptr(), d2.data_ptr(), cjp.data_ptr(),
+        flt.data_ptr(), ints.data_ptr(), key_out.data_ptr(), B, D, M, w,
+        tile_m, tiled_smem_bytes(D, w, windowed=True), cuda.stream_ptr(V),
+    )
+    cuda.count_launch("tiled_step_windowed")
+    cuda.check(err, "tiled_step_windowed")
+
+
+# ---------------------------------------------------------------------------
+# Whole-slate loop
+# ---------------------------------------------------------------------------
+
+
+def dpp_greedy_tiled(V, mask, k: int, window=None, eps: float = 1e-3,
+                     tile_m: int = 1024):
+    """Batched greedy DPP MAP with the candidate axis swept in tiles.
+
+    V (B, D, M) float32 (any M: the kernels mask the ragged last tile),
+    mask (B, M) bool.  Returns (sel (B, k) int32, d_hist (B, k) f32).
+    One K3/K4 launch per step; nothing is read back to the host.
+    """
+    B, D, M = V.shape
+    dev = V.device
+    w = window if (window is not None and window < k) else None
+    ar = torch.arange(B, device=dev)
+    d2 = init_gains(V, mask)
+    C = torch.zeros((B, k if w is None else w, M), dtype=torch.float32,
+                    device=dev)
+    keys = torch.zeros((k + 1, B), dtype=torch.int64, device=dev)
+    j0 = torch.argmax(d2, dim=1)
+    keys[0] = pack_key(d2[ar, j0], j0)
+    sel = torch.empty((B, k), dtype=torch.int32, device=dev)
+    dh = torch.empty((B, k), dtype=torch.float32, device=dev)
+    if w is None:
+        flags = torch.zeros((k + 1, B), dtype=torch.int32, device=dev)
+        for t in range(k):
+            tiled_step_exact(V, C, d2, keys, flags, sel, dh, t, eps, tile_m)
+        return sel, dh
+
+    eps2 = torch.tensor(eps, dtype=torch.float32, device=dev) ** 2
+    win = torch.full((B, w), -1, dtype=torch.int64, device=dev)
+    stopped = torch.zeros((B,), dtype=torch.bool, device=dev)
+    for t in range(k):
+        dj2, j = unpack_key(keys[t])
+        stopped = stopped | (dj2 <= eps2)
+        sel[:, t] = torch.where(stopped, -1, j).to(torch.int32)
+        dh[:, t] = torch.where(stopped, 0.0,
+                               torch.sqrt(torch.maximum(dj2, eps2)))
+        full = (t >= w) & ~stopped
+        cj_pre = C[ar, :, j]
+        Cw = C.gather(2, win.clamp_min(0)[:, None, :].expand(B, w, w))
+        Cw = torch.where((win >= 0)[:, None, :], Cw, 0.0)
+        cos, sin, cj_post, d2j = eviction_coeffs(Cw, cj_pre, dj2, full, w)
+        djp = torch.sqrt(torch.maximum(d2j, eps2))
+        pos = min(t, w - 1)
+        flt = torch.cat(
+            [torch.stack([djp, stopped.float(), full.float()], 1), cos, sin],
+            1,
+        ).contiguous()
+        ints = torch.stack([j, torch.full_like(j, pos)], 1).to(torch.int32)
+        tiled_step_windowed(V, C, d2, cj_post.contiguous(), flt, ints,
+                            keys[t + 1], tile_m)
+        shifted = torch.roll(win, -1, dims=1)
+        shifted[:, w - 1] = -1
+        win_next = torch.where(full[:, None], shifted, win)
+        win_next[:, pos] = j
+        win = torch.where(stopped[:, None], win, win_next)
+    return sel, dh

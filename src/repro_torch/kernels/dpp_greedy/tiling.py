@@ -1,0 +1,116 @@
+"""Tile policy for the dpp_greedy CUDA kernels — a Hopper on-chip budget
+model.
+
+Same contract as ``repro.kernels.dpp_greedy.tiling.TilePolicy``:
+``decide(D, M, state_rows, windowed)`` returns ``("resident", None)`` or
+``("tiled", tile_m)``.  What is counted differs.  The TPU model counts
+VMEM; here the resident kernels (``dpp_greedy.py``) keep one user's
+marginal gains ``d2 (M,)``, the winner's staged columns and, windowed,
+the ``(w, w)`` window factor in one thread block's shared memory, while
+``V`` and the Cholesky state stay in device memory (L2-resident at the
+default shortlist).  So the resident limit is the 227 KB a block may
+use, and it bounds ``M``, not ``D * M``.
+
+Past the budget, or whenever an explicit ``tile_m`` is given, the tiled
+per-step kernels (``tiled.py``) run: one launch per greedy step over
+``(B, ceil(M / tile_m))`` blocks, with only the winner's columns in
+shared memory, so ``M`` is unbounded.  The TPU's LANE/SUBLANE padding
+does not carry over: the kernels mask their own ragged edge.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+# Shared memory one H100 thread block may use (227 KB, dynamic only
+# past 48 KB; cudaFuncAttributeMaxDynamicSharedMemorySize is raised).
+SMEM_BUDGET_BYTES = 232448
+WARP = 32
+# Reduction scratch in every kernel: one (value, index) pair per warp.
+_RED_FLOATS = 2 * WARP
+# Candidate-axis tile of the tiled kernels when the model picks it: one
+# 256-thread block sweeps 4 columns per thread.
+DEFAULT_TILE_M = 1024
+
+
+def round_up(x: int, m: int) -> int:
+    """Smallest multiple of ``m`` >= ``x``."""
+    return (x + m - 1) // m * m
+
+
+def validate_tile_m(tile_m) -> None:
+    """``None`` (budget model decides) or a positive multiple of the
+    32-thread warp.  ``"auto"`` (the measured autotune cache) is not
+    ported yet."""
+    if tile_m is None:
+        return
+    if tile_m == "auto":
+        raise NotImplementedError(
+            'tile_m="auto" needs the measured autotune cache, which is not '
+            "ported yet (ROADMAP queue 1 item 10); pass None or an int"
+        )
+    if (not isinstance(tile_m, int) or isinstance(tile_m, bool)
+            or tile_m < WARP or tile_m % WARP != 0):
+        raise ValueError(
+            f"tile_m must be None or a positive multiple of the {WARP}-thread "
+            f"warp, got {tile_m!r}"
+        )
+
+
+def resident_smem_bytes(D: int, M: int, state_rows: int,
+                        windowed: bool) -> int:
+    """Dynamic shared memory of one resident block, in the layout the
+    kernels carve it (``csrc/dpp_greedy.cu``): ``d2 (M)``, the winner's
+    ``V`` column ``(D)``, then exact: its Cholesky column ``(k)``;
+    windowed: its pre/post-eviction columns, the ``(w, w)`` window
+    factor, the residue row and the rotation coefficients ``(w)`` each,
+    and the ring ids ``(w)``; plus the reduction scratch."""
+    R = state_rows
+    per_state = R * R + 6 * R if windowed else R
+    return 4 * (M + D + per_state + _RED_FLOATS)
+
+
+def tiled_smem_bytes(D: int, state_rows: int, windowed: bool) -> int:
+    """Dynamic shared memory of one tiled block (``csrc/tiled.cu``): the
+    winner's ``V`` column ``(D)`` and Cholesky column ``(R)``, windowed
+    also the rotation coefficients ``2 (w - 1)``, plus reduction
+    scratch.  Independent of ``tile_m``."""
+    R = state_rows
+    extra = 2 * R if windowed else 0
+    return 4 * (D + R + extra + _RED_FLOATS)
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePolicy:
+    """How the dpp_greedy kernels use shared memory.
+
+    tile_m:
+        Explicit candidate-axis tile width (a multiple of 32).  Forces
+        the tiled kernels even when the resident kernels would fit —
+        that is how tiled-vs-resident parity is tested.  ``None``: the
+        resident kernels while their shared memory fits
+        ``SMEM_BUDGET_BYTES``, else tiles of ``DEFAULT_TILE_M``.
+    """
+
+    tile_m: Optional[int] = None
+
+    def __post_init__(self):
+        validate_tile_m(self.tile_m)
+
+    def decide(
+        self, D: int, M: int, state_rows: int, windowed: bool
+    ) -> tuple[str, Optional[int]]:
+        """-> ("resident", None) | ("tiled", tile_m)."""
+        tiled = tiled_smem_bytes(D, state_rows, windowed)
+        if tiled > SMEM_BUDGET_BYTES:
+            raise ValueError(
+                f"D={D} with {state_rows} state rows needs {tiled} B of "
+                f"shared memory per block even tiled (budget "
+                f"{SMEM_BUDGET_BYTES} B)"
+            )
+        if self.tile_m is not None:
+            return "tiled", self.tile_m
+        smem = resident_smem_bytes(D, M, state_rows, windowed)
+        if smem <= SMEM_BUDGET_BYTES:
+            return "resident", None
+        return "tiled", min(DEFAULT_TILE_M, round_up(M, WARP))

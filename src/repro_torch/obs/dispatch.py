@@ -1,0 +1,74 @@
+"""Dispatch telemetry: which greedy path actually ran.
+
+Small helpers the greedy dispatch layers call to count the kernel
+execution mode ``kernels/dpp_greedy/ops.py`` picked (resident / tiled,
+and the ``TilePolicy`` tile and shared-memory numbers behind it), the
+backend ``greedy_map`` routed to, and the launched work in greedy steps
+and per-step marginal evaluations.  All helpers no-op (one global read)
+when observability is disabled and consume only shapes and config.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import repro_torch.obs as _obs
+
+
+def record_kernel_dispatch(
+    mode: str,
+    *,
+    D: int,
+    M: int,
+    state_rows: int,
+    windowed: bool,
+    tile_m: Optional[int] = None,
+    smem_bytes: Optional[int] = None,
+) -> None:
+    """One ``ops.py`` execution-mode decision: which kernel path won
+    (``ref`` / ``resident`` / ``tiled``) and the ``TilePolicy`` numbers
+    behind it."""
+    reg = _obs.registry()
+    if reg is None:
+        return
+    reg.counter(
+        "dpp_kernel_dispatch_total", "kernel execution modes chosen by ops.py"
+    ).inc(mode=mode, windowed=str(bool(windowed)))
+    reg.gauge(
+        "dpp_tile_m", "candidate-axis tile of the last tiled dispatch (0 = "
+        "whole-M resident)"
+    ).set(0 if tile_m is None else tile_m)
+    if smem_bytes is not None:
+        reg.gauge(
+            "dpp_smem_bytes_est",
+            "TilePolicy shared-memory estimate of the last resident dispatch",
+        ).set(smem_bytes)
+
+
+def record_tile_resolution(source: str) -> None:
+    """Which source decided one tile_m resolution in ``ops.py``
+    (``explicit`` int or the on-chip budget ``model``)."""
+    reg = _obs.registry()
+    if reg is None:
+        return
+    reg.counter(
+        "dpp_tile_source_total",
+        "tile_m resolutions by source (explicit/model)",
+    ).inc(source=source)
+
+
+def record_greedy_map(backend: str, *, B: int, k: int, M: int) -> None:
+    """One whole-slate ``greedy_map`` dispatch and its launched work."""
+    reg = _obs.registry()
+    if reg is None:
+        return
+    reg.counter(
+        "greedy_dispatch_total", "greedy_map dispatches by backend"
+    ).inc(backend=backend, chunked="False")
+    reg.counter(
+        "greedy_steps_total", "greedy steps launched (padded lanes "
+        "included — this is device work, not delivered selections)"
+    ).inc(B * k, backend=backend)
+    reg.counter(
+        "marginal_evals_total", "candidate marginals evaluated: every "
+        "launched step updates and argmaxes M candidate gains"
+    ).inc(B * k * M, backend=backend)

@@ -1,0 +1,230 @@
+"""The serving front door: one session object, one request object (the
+torch counterpart of ``repro.serving.api``).
+
+``Reranker(cfg, device="cuda")`` holds the model-side configuration and
+the device; every call supplies a :class:`RerankRequest` carrying the
+data and the request-side knobs (slate length, shortlist width,
+candidate mask).  ``rerank`` moves the request's arrays (numpy or
+tensors) onto the session's device and dispatches by request shape:
+
+* ``scores (M,)``    -> one slate;
+* ``scores (B, M)``  -> the user batch, with the batch dimension written
+                        out through the shortlist and the greedy kernels.
+
+``stream``, ``session`` and ``submit`` are not ported yet (ROADMAP queue
+1 items 6, 8 and 7) and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import obs
+from repro_torch.core.dispatch import greedy_map
+from repro_torch.device import resolve_device
+from repro_torch.serving.reranker import DPPRerankConfig, _shortlist_kernel
+
+
+def _shape(x) -> tuple:
+    return tuple(x.shape) if hasattr(x, "shape") else np.shape(x)
+
+
+@dataclasses.dataclass(frozen=True)
+class RerankRequest:
+    """One rerank request: the data plus the request-side knobs.
+
+    ``scores`` is ``(M,)`` (single) or ``(B, M)`` (user batch);
+    ``feats`` is ``(M, D)`` — shared across a batch — or per-user
+    ``(B, M, D)``.  ``slate_size`` / ``shortlist`` default to the session
+    config's values; ``mask`` (``(M,)`` or ``(B, M)``) marks selectable
+    candidates; ``deadline`` is a latency budget in seconds (honoured by
+    the router, not ported yet); ``rid`` is an opaque caller tag.
+
+    Validates at construction.
+    """
+
+    scores: Any
+    feats: Any
+    slate_size: Optional[int] = None
+    shortlist: Optional[int] = None
+    mask: Optional[Any] = None
+    deadline: Optional[float] = None
+    rid: Optional[Any] = None
+
+    def __post_init__(self):
+        if self.slate_size is not None and self.slate_size <= 0:
+            raise ValueError(
+                f"slate_size must be >= 1, got {self.slate_size}"
+            )
+        if self.shortlist is not None and self.shortlist <= 0:
+            raise ValueError(f"shortlist must be >= 1, got {self.shortlist}")
+        if self.deadline is not None and not self.deadline > 0:
+            raise ValueError(
+                f"deadline must be a positive seconds budget, got "
+                f"{self.deadline}"
+            )
+        s_shape, f_shape = _shape(self.scores), _shape(self.feats)
+        s_nd, f_nd = len(s_shape), len(f_shape)
+        if s_nd not in (1, 2):
+            raise ValueError(
+                f"scores must be (M,) or a user batch (B, M), got "
+                f"ndim={s_nd}"
+            )
+        if f_nd != 2 and not (s_nd == 2 and f_nd == 3):
+            raise ValueError(
+                f"feats must be (M, D) (shared) or, with batched scores, "
+                f"per-user (B, M, D); got feats ndim={f_nd} with scores "
+                f"ndim={s_nd}"
+            )
+        M = s_shape[-1]
+        if f_shape[-2] != M:
+            raise ValueError(
+                f"scores and feats disagree on the candidate count: scores "
+                f"carry M={M} candidates but feats {f_shape} carry "
+                f"{f_shape[-2]} — every operand must share one M axis"
+            )
+        if s_nd == 2 and f_nd == 3 and f_shape[0] != s_shape[0]:
+            raise ValueError(
+                f"scores and feats disagree on the user batch: scores "
+                f"carry B={s_shape[0]} users but feats {f_shape} carry "
+                f"{f_shape[0]}"
+            )
+        if self.mask is not None:
+            m_shape = _shape(self.mask)
+            if len(m_shape) != 1 and not (s_nd == 2 and len(m_shape) == 2):
+                raise ValueError(
+                    f"mask must be (M,) (shared) or, with batched scores, "
+                    f"per-user (B, M); got mask ndim={len(m_shape)} with "
+                    f"scores ndim={s_nd}"
+                )
+            if m_shape[-1] != M:
+                raise ValueError(
+                    f"scores and mask disagree on the candidate count: "
+                    f"scores carry M={M} candidates but mask {m_shape} "
+                    f"carries {m_shape[-1]} — every operand must share one "
+                    f"M axis"
+                )
+            if len(m_shape) == 2 and m_shape[0] != s_shape[0]:
+                raise ValueError(
+                    f"scores and mask disagree on the user batch: scores "
+                    f"carry B={s_shape[0]} users but mask {m_shape} carries "
+                    f"{m_shape[0]}"
+                )
+
+    @property
+    def batched(self) -> bool:
+        return len(_shape(self.scores)) == 2
+
+    @property
+    def num_candidates(self) -> int:
+        return _shape(self.scores)[-1]
+
+
+class Reranker:
+    """A DPP rerank serving session on one device.
+
+    ``device`` defaults to the card; a CUDA device without one raises
+    here, at construction.  Request arrays (numpy or tensors) are moved
+    onto it by ``rerank``.
+    """
+
+    def __init__(self, cfg: DPPRerankConfig, device="cuda"):
+        if not isinstance(cfg, DPPRerankConfig):
+            raise TypeError(
+                f"Reranker takes a DPPRerankConfig, got {type(cfg).__name__}"
+            )
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if cfg.obs is not None:  # enabled=False configs are a no-op
+            obs.enable(cfg.obs)
+
+    def _cfg_for(self, req: RerankRequest) -> DPPRerankConfig:
+        """The session's model-side knobs with the request's k and
+        shortlist folded in."""
+        k = req.slate_size if req.slate_size is not None else self.cfg.slate_size
+        c = req.shortlist if req.shortlist is not None else self.cfg.shortlist
+        if (k, c) == (self.cfg.slate_size, self.cfg.shortlist):
+            return self.cfg
+        return dataclasses.replace(self.cfg, slate_size=k, shortlist=c)
+
+    @staticmethod
+    def _as_request(req, kwargs) -> RerankRequest:
+        if isinstance(req, RerankRequest):
+            if kwargs:
+                raise TypeError(
+                    "pass request knobs inside the RerankRequest, not as "
+                    f"keyword overrides: {sorted(kwargs)}"
+                )
+            return req
+        raise TypeError(
+            f"expected a RerankRequest, got {type(req).__name__}; build one "
+            f"with RerankRequest(scores=..., feats=..., ...)"
+        )
+
+    def _tensor(self, x, dtype=None) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(device=self.device, dtype=dtype)
+        return torch.as_tensor(np.asarray(x), device=self.device, dtype=dtype)
+
+    def rerank(self, req: RerankRequest, **kwargs):
+        """Whole-slate rerank: ``(indices int32, d_hist)``, shapes ``(N,)``
+        single / ``(B, N)`` batched, global ids into the request's M (-1
+        after an eps-stop)."""
+        req = self._as_request(req, kwargs)
+        cfg = self._cfg_for(req)
+        scores = self._tensor(req.scores)
+        feats = self._tensor(req.feats)
+        mask = None if req.mask is None else self._tensor(req.mask, torch.bool)
+        with obs.span(
+            "serving.rerank", M=req.num_candidates, k=cfg.slate_size,
+            batched=req.batched,
+        ):
+            if req.batched:
+                return _rerank_batch_impl(scores, feats, cfg, mask)
+            return _rerank_impl(scores, feats, cfg, mask)
+
+    def stream(self, req: RerankRequest, chunk_size=None, **kwargs):
+        raise NotImplementedError(
+            "Reranker.stream (chunk-emitting rerank) is not ported yet "
+            "(ROADMAP queue 1 item 6)"
+        )
+
+    def session(self, req: RerankRequest, sid=None, **kwargs):
+        raise NotImplementedError(
+            "Reranker.session (session-aware incremental rerank) is not "
+            "ported yet (ROADMAP queue 1 item 8)"
+        )
+
+    def submit(self, req: RerankRequest, **kwargs):
+        raise NotImplementedError(
+            "Reranker.submit (the continuous-batching router) is not "
+            "ported yet (ROADMAP queue 1 item 7)"
+        )
+
+
+def _rerank_impl(scores, feats, cfg, mask):
+    """One request: scores (M,), feats (M, D), mask (M,) or None."""
+    if scores.ndim != 1:
+        raise ValueError(
+            f"rerank takes a single request (scores (M,)), got "
+            f"ndim={scores.ndim}; batched scores dispatch through "
+            f"Reranker.rerank"
+        )
+    m = None if mask is None else mask[None]
+    sel, dh = _rerank_batch_impl(scores[None], feats, cfg, m)
+    return sel[0], dh[0]
+
+
+def _rerank_batch_impl(scores, feats, cfg, mask):
+    """A user batch: scores (B, M), feats (M, D) or (B, M, D), mask (M,)
+    or (B, M) or None."""
+    if mask is not None:
+        mask = mask.expand(scores.shape)
+    V, m_top, top_i = _shortlist_kernel(scores, feats, cfg, mask)
+    res = greedy_map(cfg.greedy_spec(), V=V, mask=m_top)
+    sel = res.indices.to(torch.int64)
+    out = torch.where(sel >= 0, top_i.gather(1, sel.clamp_min(0)), -1)
+    return out.to(torch.int32), res.d_hist
