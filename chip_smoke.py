@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a),
-then runs five phases through ``repro_torch.serving.Reranker(...,
-use_kernel=True).rerank`` at the paper's §5.1 setup: D = 100
+then runs nine phases through the port's entry points
+(``repro_torch.serving.Reranker(..., use_kernel=True).rerank`` and
+``.stream``, ``repro_torch.core.greedy_map_chunks`` and
+``greedy_chunk_slots``) at the paper's §5.1 setup: D = 100
 column-normalised Gaussian features, uniform relevance, alpha = 3,
 eps = 1e-3, inputs made with numpy from a fixed seed.
 
@@ -16,7 +18,23 @@ eps = 1e-3, inputs made with numpy from a fixed seed.
                       k = 50, 10% of the pool masked as seen;
 4. tiled windowed:    phase 3 with window 10, k = 200;
 5. forced tile:       phase 1's inputs with tile_m = 256; the tiled slate
-                      must equal the resident one.
+                      must equal the resident one;
+6. stream:            ``Reranker.stream`` of phase 1's first user, chunk 8
+                      (seven K5 launches); the concatenated slate must
+                      equal that user's K1 slate;
+7. chunks windowed:   ``greedy_map_chunks`` on phase 2's shortlists
+                      (B = 64, w = 10, k = 200, chunk 16) on K6, against
+                      K2's whole slate;
+8. chunks large pool: ``greedy_map_chunks`` on phases 3 and 4's
+                      shortlists (B = 4, C = 65,536, k = 50 exact and
+                      k = 200 at w = 10, chunk 16), several cooperative
+                      blocks per lane, against K3 / K4;
+9. slots:             ``greedy_chunk_slots`` on 64 slots (exact, k = 50,
+                      chunk 8) holding phase 1's users, half of them
+                      spliced in two chunks after the rest; K5 is held
+                      against its plain version on the same run, and
+                      each slot must equal its user's K1 slate and its
+                      single-request stream.
 
 Each phase resets the kernels' launch counters right before the main-path
 call, reads them right after, and checks them and the mode recorded in
@@ -60,6 +78,12 @@ KERNELS = {
     "tiled_step_windowed": dict(
         source="src/repro_torch/kernels/dpp_greedy/csrc/tiled.cu",
         replaces="src/repro/kernels/dpp_greedy/tiled.py:160"),
+    "fused_chunk_exact": dict(
+        source="src/repro_torch/kernels/dpp_greedy/csrc/chunk.cu",
+        replaces="src/repro/kernels/dpp_greedy/tiled.py:398"),
+    "fused_chunk_windowed": dict(
+        source="src/repro_torch/kernels/dpp_greedy/csrc/chunk.cu",
+        replaces="src/repro/kernels/dpp_greedy/tiled.py:463"),
 }
 
 
@@ -362,8 +386,8 @@ def run_resident(records, rng):
         kernel_record(records, kernel, ms, plain_ms,
                       bound(B, D, C, k, window, (got[0] >= 0).sum(1)), err,
                       "one launch, CUDA events")
-        results[name] = (rr, out)
-    return scores, feats, results["phase 1 resident exact"][1]
+        results[window] = (V, got, out)
+    return scores, feats, results
 
 
 def run_tiled(records, rng):
@@ -374,6 +398,7 @@ def run_tiled(records, rng):
     B, M, C = 4, 1_000_000, 65536
     scores, feats, mask = make_inputs(rng, B, M, seen_frac=0.1)
     base = dict(use_kernel=True, shortlist=C, alpha=ALPHA, eps=EPS)
+    results = {}
     for name, kernel, k, window in (
         ("phase 3 tiled exact", "tiled_step_exact", 50, None),
         ("phase 4 tiled windowed", "tiled_step_windowed", 200, 10),
@@ -406,6 +431,8 @@ def run_tiled(records, rng):
         kernel_record(records, kernel, ms, plain_ms,
                       bound(B, D, C, k, window, (got[0] >= 0).sum(1)), err,
                       f"sum of {k} launches, CUDA events per launch")
+        results[window] = (V, m_top, got)
+    return results
 
 
 def time_tiled(tm, kernel, V, mask, k, window, tile):
@@ -458,6 +485,286 @@ def run_forced_tile(resident_out, scores, feats):
     return counts["tiled_step_exact"]
 
 
+# ---------------------------------------------------------------------------
+# Phases 6-9: resumable streaming on the fused chunk kernels (K5 / K6)
+# ---------------------------------------------------------------------------
+
+
+def drive_chunks(fn):
+    """One streaming main-path run ``fn()`` with the launch counters and
+    dispatch telemetry reset right before and read right after."""
+    from repro_torch import obs
+    from repro_torch.kernels import cuda
+
+    obs.disable()
+    obs.enable(obs.ObsConfig(enabled=True))
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = cuda.launch_counts()
+    modes = obs.registry().counter("dpp_kernel_dispatch_total")._snapshot()
+    obs.disable()
+    return out, counts, modes, wall
+
+
+def stream_slate(V, mask, k, window, chunk):
+    """The concatenated ``greedy_map_chunks`` slate of V (B, D, M) on the
+    kernel backend: (sel (B, k), d_hist (B, k))."""
+    from repro_torch.core import GreedySpec, greedy_map_chunks
+
+    spec = GreedySpec(k=k, window=window, backend="kernel", eps=EPS)
+    parts = list(greedy_map_chunks(spec, V=V, mask=mask, chunk_size=chunk))
+    return (torch.cat([p.indices for p in parts], -1),
+            torch.cat([p.d_hist for p in parts], -1))
+
+
+def with_chunk_kernel(kernel, fn, plain=False, timed=False):
+    """Run ``fn()`` with the port's chunk dispatch calling ``kernel``'s
+    plain version instead of the kernel (``plain``), each launch
+    bracketed by CUDA events (``timed``); returns (fn's result, summed
+    device ms of the launches)."""
+    from repro_torch.kernels.dpp_greedy import ops
+    from repro_torch.kernels.dpp_greedy import tiled as tm
+
+    real = getattr(ops, kernel)
+    impl = real
+    if plain:
+        ref = getattr(tm, kernel + "_plain")
+        impl = lambda *args: ref(*args[:-1])  # noqa: E731 (drops tile_m)
+    acc = []
+
+    def call(*args):
+        if not timed:
+            return impl(*args)
+        out = []
+        acc.append(event_ms(lambda: out.append(impl(*args))))
+        return out[0]
+
+    setattr(ops, kernel, call)
+    try:
+        res = fn()
+    finally:
+        setattr(ops, kernel, real)
+    return res, sum(acc)
+
+
+def chunk_check(name, kernel, V, mask, k, window, chunk, record, records):
+    """Kernel vs plain on the card for one streamed slate (certified as
+    the whole-slate phases are), K5/K6 and their plain versions timed
+    per launch with CUDA events over whole streams; ``record`` puts the
+    numbers into the kernels' JSON record."""
+    def run():
+        return stream_slate(V, mask, k, window, chunk)
+
+    got = run()
+    want, _ = with_chunk_kernel(kernel, run, plain=True)
+    torch.cuda.synchronize()
+    _, err = compare(name, V, mask, got, want, window, EPS)
+    ms = time_events(lambda: with_chunk_kernel(kernel, run, timed=True)[1],
+                     TIMING_REPS)
+    plain_ms = time_events(
+        lambda: with_chunk_kernel(kernel, run, plain=True, timed=True)[1],
+        PLAIN_REPS)
+    n = -(-k // chunk)
+    B, _, M = V.shape
+    bnd = bound(B, D, M, k, window, (got[0] >= 0).sum(1))
+    print(f"  {kernel}: {ms:.4f} ms/slate = {ms / n:.4f} ms/chunk call "
+          f"({n} launches, chunk {chunk}; median of {TIMING_REPS}, CUDA "
+          f"events per launch), plain {plain_ms:.4f} ms/slate, bound "
+          f"{bnd[0]:.4f} ms by {bnd[1]}", flush=True)
+    if record:
+        records[kernel]["calls_launches"] = n
+        kernel_record(records, kernel, ms, plain_ms, bnd, err,
+                      f"sum of {n} chunk launches, CUDA events per launch")
+
+
+def check_equal(name, got, want):
+    """A streamed slate must equal the whole-slate kernel slate index for
+    index; returns the max abs d_hist difference."""
+    if not torch.equal(got[0], want[0]):
+        lanes = (got[0] != want[0]).any(-1).nonzero()[:, 0].tolist() \
+            if got[0].shape == want[0].shape else "all"
+        check(False, f"{name}: streamed slate differs from the whole-slate "
+                     f"slate in lanes {lanes}")
+    err = (got[1] - want[1]).abs().max().item()
+    check(torch.allclose(got[1], want[1], rtol=RTOL, atol=ATOL),
+          f"{name}: d_hist differs from the whole slate by {err}")
+    print(f"  {name}: slate equals the whole-slate kernel slate index for "
+          f"index; d_hist max abs diff {err:.3g}", flush=True)
+    return err
+
+
+def count_chunks(records, name, counts, kernel, expect):
+    check(counts == {kernel: expect},
+          f"{name}: launches {counts}, expected {{{kernel!r}: {expect}}}")
+    records.setdefault(kernel, {"launches": 0})["launches"] += expect
+
+
+def run_stream(records, resident, scores, feats):
+    from repro_torch.serving import DPPRerankConfig, Reranker, RerankRequest
+
+    k, chunk, C = 50, 8, 1000
+    name = "phase 6 stream"
+    print(f"[{name}] Reranker.stream, pool {scores.shape[1]} shortlist {C} "
+          f"k={k} chunk={chunk}", flush=True)
+    rr = Reranker(DPPRerankConfig(slate_size=k, shortlist=C, alpha=ALPHA,
+                                  eps=EPS, use_kernel=True), device="cuda")
+    req = RerankRequest(scores=scores[0], feats=feats)
+
+    def main():
+        gen = rr.stream(req, chunk_size=chunk)
+        return [c for c in gen]
+
+    parts, counts, modes, wall = drive_chunks(main)
+    count_chunks(records, name, counts, "fused_chunk_exact", -(-k // chunk))
+    check(modes == {"mode=fused_chunk,windowed=False": 1},
+          f"{name}: dispatch telemetry {modes}")
+    sel = torch.cat([p[0] for p in parts])[None]
+    dh = torch.cat([p[1] for p in parts])[None]
+    n = check_outputs(name, (sel, dh), 1, k, scores.shape[1], None)
+    print(f"  main path: {wall * 1e3:.1f} ms host wall, launches {counts}, "
+          f"{len(parts)} chunks, {n} items selected", flush=True)
+    out = resident[None][2]
+    check_equal(name + " vs phase 1 (K1)", (sel, dh),
+                (out[0][:1], out[1][:1]))
+    V = resident[None][0][:1]
+    chunk_check(name, "fused_chunk_exact", V, None, k, None, chunk, False,
+                records)
+    # where a single lane's time goes: the same slate as one K1 launch and
+    # as one K5 launch (chunk = k), beside the seven chunk launches above
+    from repro_torch.kernels.dpp_greedy.dpp_greedy import (
+        dpp_greedy_resident,
+        init_gains,
+    )
+
+    d2 = init_gains(V, torch.ones(V.shape[0], V.shape[2], dtype=torch.bool,
+                                  device=V.device))
+    k1 = time_events(lambda: event_ms(
+        lambda: dpp_greedy_resident(V, d2, k, EPS)), TIMING_REPS)
+    one = time_events(lambda: with_chunk_kernel(
+        "fused_chunk_exact", lambda: stream_slate(V, None, k, None, k),
+        timed=True)[1], TIMING_REPS)
+    print(f"  one lane, whole slate: K1 {k1:.4f} ms (one launch), K5 "
+          f"{one:.4f} ms (one launch, chunk {k})", flush=True)
+
+
+def run_chunks_windowed(records, resident):
+    k, w, chunk = 200, 10, 16
+    V, k2, _ = resident[w]
+    name = "phase 7 chunks windowed"
+    print(f"[{name}] greedy_map_chunks B={V.shape[0]} shortlist "
+          f"{V.shape[2]} w={w} k={k} chunk={chunk}", flush=True)
+    got, counts, modes, wall = drive_chunks(
+        lambda: stream_slate(V, None, k, w, chunk))
+    count_chunks(records, name, counts, "fused_chunk_windowed",
+                 -(-k // chunk))
+    check(modes == {"mode=fused_chunk,windowed=True": 1},
+          f"{name}: dispatch telemetry {modes}")
+    print(f"  main path: {wall * 1e3:.1f} ms host wall, launches {counts}",
+          flush=True)
+    check_equal(name + " vs phase 2 (K2)", got, k2)
+    chunk_check(name, "fused_chunk_windowed", V, None, k, w, chunk, False,
+                records)
+
+
+def run_chunks_large(records, tiled):
+    from repro_torch.kernels.dpp_greedy.ops import _stream_tile
+    from repro_torch.kernels.dpp_greedy.tiled import chunk_capacity
+    from repro_torch.kernels.dpp_greedy.tiling import chunk_smem_bytes
+
+    chunk = 16
+    for name, kernel, k, w in (
+        ("phase 8 chunks large exact", "fused_chunk_exact", 50, None),
+        ("phase 8 chunks large windowed", "fused_chunk_windowed", 200, 10),
+    ):
+        V, m_top, whole = tiled[w]
+        B, _, C = V.shape
+        tile = _stream_tile(D, C, w or k, w is not None, None, B, V.device)
+        nt = -(-C // tile)
+        check(nt > 1, f"{name}: expected several tiles per lane, got one "
+                      f"of {tile}")
+        cap = chunk_capacity(w is not None,
+                             chunk_smem_bytes(D, tile, w or k, w is not None),
+                             V.device)
+        print(f"[{name}] greedy_map_chunks B={B} shortlist {C} k={k} "
+              f"window={w} chunk={chunk}: {nt} tiles of {tile} per lane, "
+              f"{B * nt} cooperative blocks (the card keeps {cap} "
+              f"co-resident at this tile's shared memory)", flush=True)
+        got, counts, modes, wall = drive_chunks(
+            lambda: stream_slate(V, m_top, k, w, chunk))
+        count_chunks(records, name, counts, kernel, -(-k // chunk))
+        print(f"  main path: {wall * 1e3:.1f} ms host wall (phase "
+              f"{3 if w is None else 4}'s K3/K4 call is the comparison), "
+              f"launches {counts}", flush=True)
+        check_equal(f"{name} vs phase {3 if w is None else 4} "
+                    f"({'K3' if w is None else 'K4'})", got, whole)
+        chunk_check(name, kernel, V, m_top, k, w, chunk, True, records)
+
+
+def run_slots(records, resident):
+    from repro_torch.core import (
+        GreedySpec,
+        greedy_chunk_slots,
+        greedy_slot_state,
+        greedy_slots_init,
+        slot_pad_v,
+        state_splice,
+    )
+
+    k, chunk, late = 50, 8, 2
+    V, _, _ = resident[None]
+    S, _, M = V.shape
+    name = "phase 9 slots"
+    print(f"[{name}] greedy_chunk_slots S={S} M={M} k={k} chunk={chunk}; "
+          f"slots {S // 2}..{S - 1} spliced after {late} chunks", flush=True)
+    spec = GreedySpec(k=k, backend="kernel", eps=EPS)
+    cycles = late + -(-k // chunk)
+
+    def main():
+        state, Vs = greedy_slots_init(spec, S, D, M, device="cuda")
+        Vs.copy_(V)
+        Vs = slot_pad_v(spec, Vs, state)
+        sels = []
+        for c in range(cycles):
+            for b in range(S):
+                if (b < S // 2 and c == 0) or (b >= S // 2 and c == late):
+                    state = state_splice(
+                        state, greedy_slot_state(spec, V[b]), b)
+            state, sel, dh = greedy_chunk_slots(spec, state, Vs, chunk)
+            sels.append((sel, dh))
+        return sels
+
+    first = torch.full((S,), late * chunk, device="cuda")
+    first[:S // 2] = 0
+    cols = first[:, None] + torch.arange(k, device="cuda")
+
+    def slates(sels):
+        """Each slot's k picks from its own first cycle on: (S, k)."""
+        sel = torch.cat([x[0] for x in sels], 1)
+        dh = torch.cat([x[1] for x in sels], 1)
+        return sel.gather(1, cols), dh.gather(1, cols)
+
+    sels, counts, modes, wall = drive_chunks(main)
+    count_chunks(records, name, counts, "fused_chunk_exact", cycles)
+    print(f"  main path: {wall * 1e3:.1f} ms host wall, launches {counts}",
+          flush=True)
+    got = slates(sels)
+    # K5 against its plain version at the slot path's shapes: the same
+    # splices and chunks, each launch replaced by fused_chunk_exact_plain
+    plain, _ = with_chunk_kernel("fused_chunk_exact", main, plain=True)
+    torch.cuda.synchronize()
+    _, err = compare(name + " K5 vs plain", V, None, got, slates(plain),
+                     None, EPS)
+    rec = records["fused_chunk_exact"]
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    check_equal(name + " vs phase 1 (K1)", got, resident[None][1])
+    want = [stream_slate(V[b:b + 1], None, k, None, chunk) for b in range(S)]
+    want = (torch.cat([x[0] for x in want]), torch.cat([x[1] for x in want]))
+    check_equal(name + " vs single-request streams", got, want)
+
+
 def small_reference_check(rng):
     """The port's kernel path on the card against its plain torch path on
     the CPU, at a small size."""
@@ -488,6 +795,20 @@ def small_reference_check(rng):
         compare(f"small reference window={window} tile_m={tile_m}", V,
                 m_top, (local(gpu[0]), gpu[1]),
                 (local(cpu[0]), cpu[1].to("cuda")), window, EPS)
+        if tile_m is not None:
+            continue
+        # the stream of user 0: K5/K6 on the card vs the torch core on CPU
+        req = RerankRequest(scores=scores[0], feats=feats, mask=mask[0])
+        gpu = [torch.cat(x)[None] for x in zip(*Reranker(
+            DPPRerankConfig(use_kernel=True, **kw), device="cuda").stream(
+                req, chunk_size=7))]
+        cpu = [torch.cat(x)[None].to("cuda") for x in zip(*Reranker(
+            DPPRerankConfig(**kw), device="cpu").stream(RerankRequest(
+                scores=scores[0].cpu(), feats=feats.cpu(),
+                mask=mask[0].cpu()), chunk_size=7))]
+        compare(f"small reference stream window={window}", V[:1], m_top[:1],
+                (local(gpu[0]), gpu[1]), (local(cpu[0]), cpu[1]), window,
+                EPS)
 
 
 def main() -> int:
@@ -523,12 +844,16 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     records = {}
     t0 = time.perf_counter()
-    scores, feats, resident_out = run_resident(records, rng)
+    scores, feats, resident = run_resident(records, rng)
     records["tiled_step_exact"] = {"launches": 0}
     records["tiled_step_exact"]["launches"] += run_forced_tile(
-        resident_out, scores, feats)
+        resident[None][2], scores, feats)
+    tiled = run_tiled(records, rng)
+    run_stream(records, resident, scores, feats)
     del scores, feats
-    run_tiled(records, rng)
+    run_chunks_windowed(records, resident)
+    run_chunks_large(records, tiled)
+    run_slots(records, resident)
     small_reference_check(rng)
     print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
 

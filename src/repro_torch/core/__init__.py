@@ -2,9 +2,12 @@
 MAP inference ("Div-DPP"), the kernel construction, the sliding-window
 variant and the ``GreedySpec`` front door.
 
+Also the resumable streaming layer (``streaming.py``: ``GreedyState``,
+init/step/chunk, the slot substrate and the session delta updates) and
+its generator ``greedy_map_chunks``.
+
 Not ported yet (ROADMAP queue 1): the naive determinant oracle, the
-baselines and metrics (item 2), streaming (item 6), the sharded backend
-(item 9).
+baselines and metrics (item 2), the sharded backend (item 9).
 """
 from repro_torch.core.kernel_matrix import (
     build_kernel_dense,
@@ -29,13 +32,45 @@ from repro_torch.core.windowed import (
     dpp_greedy_windowed_lowrank,
     dpp_greedy_windowed_lowrank_batch,
 )
-from repro_torch.core.dispatch import GreedySpec, GreedySpecError, greedy_map
+from repro_torch.core.dispatch import (
+    GreedySpec,
+    GreedySpecError,
+    greedy_map,
+    greedy_map_chunks,
+)
+from repro_torch.core.streaming import (
+    GreedyState,
+    greedy_chunk,
+    greedy_chunk_slots,
+    greedy_init,
+    greedy_slot_state,
+    greedy_slots_init,
+    greedy_state_extend,
+    greedy_state_rescore,
+    greedy_step,
+    slot_pad_v,
+    state_evict,
+    state_splice,
+)
 
 __all__ = [
     "GreedyResult",
     "GreedySpec",
     "GreedySpecError",
+    "GreedyState",
+    "greedy_chunk",
+    "greedy_chunk_slots",
+    "greedy_init",
     "greedy_map",
+    "greedy_map_chunks",
+    "greedy_slot_state",
+    "greedy_slots_init",
+    "greedy_state_extend",
+    "greedy_state_rescore",
+    "greedy_step",
+    "slot_pad_v",
+    "state_evict",
+    "state_splice",
     "dpp_greedy_windowed",
     "dpp_greedy_windowed_batch",
     "dpp_greedy_windowed_lowrank",

@@ -18,11 +18,21 @@ Dispatch rules:
   is "torch";
 * ``spec.tile_m`` — candidate-axis tile for the kernels; it forces the
   tiled per-step kernels (by default ``TilePolicy`` keeps the resident
-  kernels while they fit shared memory and tiles past that).
+  kernels while they fit shared memory and tiles past that), and sets
+  the tile of the fused chunk kernels;
+* ``spec.chunk_size`` — greedy steps per resumable chunk.  On the kernel
+  backend ``greedy_map`` then runs the slate as fused chunk kernels (one
+  K5/K6 launch per chunk) and returns the identical slate.  The torch
+  whole-slate path has no chunked execution, so ``chunk_size`` with
+  ``backend='torch'`` (or ``'auto'``) is rejected at construction —
+  torch streaming passes ``chunk_size=`` to ``greedy_map_chunks``.
+
+``greedy_map_chunks`` is the streaming front door: a generator yielding
+per-chunk ``GreedyResult``s whose concatenation is the whole-slate
+``greedy_map`` result (see ``repro_torch.core.streaming``).
 
 Not ported yet, and raising ``NotImplementedError``: the sharded backend
-and ``mesh=`` (ROADMAP queue 1 item 9), ``chunk_size=`` chunked
-execution (item 6), ``tile_m="auto"`` (item 10).
+and ``mesh=`` (ROADMAP queue 1 item 9), ``tile_m="auto"`` (item 10).
 
 ``GreedySpec`` validates itself at construction — a bad config raises
 ``GreedySpecError`` (a ``ValueError``) at spec-build time.
@@ -79,10 +89,18 @@ class GreedySpec:
                 f"unknown backend {self.backend!r}; expected one of {_BACKENDS}"
             )
         if self.chunk_size is not None:
-            raise NotImplementedError(
-                "chunk_size= (chunked, resumable execution) is not ported "
-                "yet (ROADMAP queue 1 item 6)"
-            )
+            if self.chunk_size < 1:
+                raise GreedySpecError(
+                    f"chunk_size must be >= 1, got {self.chunk_size}"
+                )
+            if self.backend != "kernel":
+                raise GreedySpecError(
+                    "chunk_size= selects chunked execution, which only the "
+                    "kernel backend (fused chunk kernels) implements — on "
+                    "the torch whole-slate path it would be silently "
+                    "ignored; stream through greedy_map_chunks(..., "
+                    "chunk_size=) instead"
+                )
         if self.tile_m is not None:
             from repro_torch.kernels.dpp_greedy.tiling import validate_tile_m
 
@@ -134,9 +152,17 @@ def greedy_map(
         )
 
     backend = "kernel" if spec.backend == "kernel" else "torch"
-    record_greedy_map(backend, B=kern.shape[0], k=spec.k, M=kern.shape[-1])
+    chunked = spec.chunk_size is not None
+    record_greedy_map(backend, B=kern.shape[0], k=spec.k, M=kern.shape[-1],
+                      chunked=chunked)
 
-    if backend == "kernel":
+    if chunked:
+        # fused chunk kernels, chunk by chunk: the identical slate
+        chunks = list(greedy_map_chunks(spec, V=kern, mask=mask))
+        sel = torch.cat([c.indices for c in chunks], dim=-1)
+        dh = torch.cat([c.d_hist for c in chunks], dim=-1)
+        res = GreedyResult(sel, (sel >= 0).sum(-1).to(torch.int32), dh)
+    elif backend == "kernel":
         from repro_torch.kernels.dpp_greedy import dpp_greedy as dpp_kernel
 
         sel, dh = dpp_kernel(kern, spec.k, mask=mask, eps=spec.eps,
@@ -156,3 +182,48 @@ def greedy_map(
     if batched:
         return res
     return GreedyResult(res.indices[0], res.n_selected[0], res.d_hist[0])
+
+
+def greedy_map_chunks(
+    spec: GreedySpec,
+    *,
+    L: Optional[torch.Tensor] = None,
+    V: Optional[torch.Tensor] = None,
+    mask: Optional[torch.Tensor] = None,
+    chunk_size: Optional[int] = None,
+):
+    """Generator running greedy MAP per ``spec`` in resumable chunks.
+
+    Yields ``ceil(k / chunk)`` :class:`GreedyResult`s whose ``indices`` /
+    ``d_hist`` cover ``chunk`` selections each (the last chunk is short
+    when ``chunk`` does not divide ``k``); their concatenation is the
+    whole-slate ``greedy_map`` result, indices index for index.  After an
+    eps-stop the remaining slots hold -1 / 0, as the whole-slate tail
+    does.
+
+    ``chunk_size`` overrides ``spec.chunk_size`` — that is how the torch
+    backend (whose spec cannot carry a chunk size) streams.  Backends:
+    torch takes single problems (dense L or low-rank V); kernel takes
+    single or batched low-rank V, one K5/K6 launch per chunk.
+    """
+    from repro_torch.core.streaming import (
+        greedy_chunk,
+        greedy_init,
+        resolve_chunk,
+        slot_pad_v,
+    )
+
+    chunk = resolve_chunk(spec, chunk_size)
+    kern = L if L is not None else V
+    if mask is not None and kern is not None and kern.ndim == 3 \
+            and mask.ndim == 1:
+        mask = mask.expand(kern.shape[0], mask.shape[0])
+    state = greedy_init(spec, L=L, V=V, mask=mask)
+    if V is not None:
+        V = slot_pad_v(spec, V, state)  # once, so no chunk copies V
+    done = 0
+    while done < spec.k:
+        c = min(chunk, spec.k - done)
+        state, sel, dh = greedy_chunk(spec, state, L=L, V=V, chunk_size=c)
+        yield GreedyResult(sel, (sel >= 0).sum(-1).to(torch.int32), dh)
+        done += c

@@ -46,17 +46,25 @@ class GreedyResult(NamedTuple):
     d_hist: torch.Tensor
 
 
+def lane_steps(t, B: int, device) -> torch.Tensor:
+    """A step index — an int or per-lane counters — as ``(B,)`` int64."""
+    return torch.as_tensor(t, device=device).to(torch.int64).expand(B)
+
+
 def greedy_step_exact(row_fn, t, c, d2, stopped, eps2):
     """One step of Algorithm 1 on the column-layout state ``c (B, M, k)``.
 
     ``d2 (B, M)``, ``stopped (B,)`` bool, ``eps2`` a 0-d tensor of the
     state dtype; ``row_fn(j)`` returns the rows ``L[b, j[b]]`` as
     ``(B, M)``.  ``t`` is the absolute step index (the column of ``c``
-    the new Cholesky row lands in); ``c`` is updated in place.
+    the new Cholesky row lands in): an int, or a ``(B,)`` tensor of
+    per-lane counters (the streaming slot layout); ``c`` is updated in
+    place, and a stopped lane's column is left as it is.
 
     Returns ``(c, d2, stopped, j, dj)``.
     """
     ar = torch.arange(d2.shape[0], device=d2.device)
+    col = lane_steps(t, d2.shape[0], d2.device).clamp_max(c.shape[2] - 1)
     j = torch.argmax(d2, dim=1)
     dj2 = d2[ar, j]
     # Stop rule (eq. 20): d_j <= eps  <=>  d_j^2 <= eps^2 (d_j >= 0).
@@ -66,7 +74,7 @@ def greedy_step_exact(row_fn, t, c, d2, stopped, eps2):
     cj = c[ar, j]  # (B, k)
     e = (row_fn(j) - torch.bmm(c, cj[:, :, None])[..., 0]) / dj[:, None]
     e = torch.where(stopped[:, None], 0.0, e)
-    c[:, :, t] = e
+    c[ar, :, col] = torch.where(stopped[:, None], c[ar, :, col], e)
     d2_next = d2 - e * e
     d2_next[ar, j] = NEG_INF  # remove j from candidates
     d2 = torch.where(stopped[:, None], d2, d2_next)

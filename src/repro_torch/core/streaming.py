@@ -1,0 +1,500 @@
+"""Step-resumable greedy MAP — the state/init/step/chunk layer under
+streaming slate emission (the torch counterpart of
+``repro.core.streaming``).
+
+The greedy loop is a recurrence on a small state (the incremental
+Cholesky rows, the marginal gains ``d2`` and, windowed, the ring order).
+This module reifies it as :class:`GreedyState` and exposes it in
+resumable pieces:
+
+* ``greedy_init(spec, L=|V=, mask=)``  -> initial state;
+* ``greedy_step(spec, state, ...)``    -> one selection;
+* ``greedy_chunk(spec, state, ...)``   -> ``chunk_size`` selections.
+
+Chunks concatenate exactly to the whole-slate result, because each
+backend's chunk executor runs the per-step op sequence of its
+whole-slate loop:
+
+* torch  — ``greedy_step_exact`` / ``greedy_step_windowed``, the very
+           functions the whole-slate loops call;
+* kernel — the fused chunk kernels K5/K6
+           (``repro_torch.kernels.dpp_greedy.ops.dpp_greedy_stream_*``):
+           one cooperative CUDA launch per chunk, sharing the per-column
+           device functions of the resident kernels K1/K2 (their plain
+           versions on CPU tensors).
+
+``GreedyState`` is backend-specific: the torch exact state keeps the
+paper's column layout ``C (M, k)``, the torch windowed state the ring
+``C (w, M)`` (single problems), the kernel state the row layout
+``C (B, R, M)`` with per-lane ``stopped (B,)``.  Thread a state back
+into the same ``spec`` that created it.  Unlike ``repro``'s immutable
+arrays, the port updates a state's tensors in place where that saves an
+O(R M) copy per chunk (exact ``C``; every kernel-state leaf; slot
+splices): keep the returned state and drop the one passed in.
+
+The exact state holds ``k`` Cholesky rows; a lane whose step counter
+reaches ``k`` latches stopped (``repro`` drops the row write there
+instead; neither slate nor stream ever runs past ``k``).
+
+The serving front door is ``repro_torch.serving.Reranker.stream``; the
+dispatch-level generator is ``repro_torch.core.dispatch.
+greedy_map_chunks``; :func:`greedy_chunk_slots` advances a batch of
+slots at heterogeneous progress (the continuous-batching substrate).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.core.greedy_chol import (
+    NEG_INF,
+    _dense_rows,
+    _lowrank_rows,
+    greedy_step_exact,
+    lane_steps,
+)
+from repro_torch.core.windowed import greedy_step_windowed
+from repro_torch.obs.dispatch import record_chunk
+
+
+class GreedyState(NamedTuple):
+    """Resumable greedy MAP state (backend-specific layouts, see module
+    docstring).
+
+    t:       () int32 — the next absolute step index ((S,) per slot).
+    stopped: () bool  — eps-stop latch ((B,) for kernel states).
+    C:       Cholesky state — torch exact ``(M, k)`` columns, windowed
+             ``(w, M)`` ring rows; kernel ``(B, R, M)`` rows.
+    d2:      marginal gains with the selectability mask folded in
+             (masked candidates sit at -inf) — ``(M,)`` / ``(B, M)``.
+    win:     window ring ids, oldest first (``(0,)``-shaped when exact).
+    """
+
+    t: torch.Tensor
+    stopped: torch.Tensor
+    C: torch.Tensor
+    d2: torch.Tensor
+    win: torch.Tensor
+
+
+def _check_kernel_args(spec, L, V):
+    if (L is None) == (V is None):
+        raise ValueError("pass exactly one of L= (dense) or V= (low-rank)")
+    if L is not None and spec.backend == "kernel":
+        raise ValueError(
+            "backend 'kernel' streams the low-rank V only — the kernels "
+            "never materialize a dense L"
+        )
+
+
+def resolve_chunk(spec, chunk_size: Optional[int]) -> int:
+    """The effective chunk size: the explicit argument wins, else
+    ``spec.chunk_size``; one of them must be set and positive."""
+    c = chunk_size if chunk_size is not None else spec.chunk_size
+    if c is None:
+        raise ValueError(
+            "no chunk size: pass chunk_size= or set GreedySpec.chunk_size"
+        )
+    if c < 1:
+        raise ValueError(f"chunk_size must be >= 1, got {c}")
+    return c
+
+
+# ---------------------------------------------------------------------------
+# torch executors (single problem; dense L or low-rank V)
+# ---------------------------------------------------------------------------
+
+
+def _init_torch(k: int, window: Optional[int], L, V, mask) -> GreedyState:
+    kern = L if L is not None else V
+    if kern.ndim != 2:
+        raise ValueError(
+            f"torch streaming takes a single problem (L (M, M) / V (D, M)), "
+            f"got ndim={kern.ndim}"
+        )
+    M = kern.shape[-1]
+    dtype, dev = kern.dtype, kern.device
+    if mask is None:
+        mask = torch.ones((M,), dtype=torch.bool, device=dev)
+    diag = torch.diagonal(L) if L is not None else (V * V).sum(0)
+    d2 = torch.where(mask.to(device=dev, dtype=torch.bool), diag, NEG_INF)
+    if window is not None and window < k:
+        C = torch.zeros((window, M), dtype=dtype, device=dev)
+        win = torch.full((window,), -1, dtype=torch.int64, device=dev)
+    else:
+        C = torch.zeros((M, k), dtype=dtype, device=dev)
+        win = torch.zeros((0,), dtype=torch.int64, device=dev)
+    return GreedyState(
+        torch.zeros((), dtype=torch.int32, device=dev),
+        torch.zeros((), dtype=torch.bool, device=dev), C, d2, win,
+    )
+
+
+def _chunk_body(row_fn, state: GreedyState, chunk: int, eps: float):
+    """``chunk`` steps of the shared per-step bodies on a *batched* state
+    (leading lane axis on every leaf, ``t`` a scalar or per lane), at
+    absolute step ``t + s`` — the whole-slate loops' op sequence."""
+    C, d2, win, stopped = state.C, state.d2, state.win, state.stopped
+    B = d2.shape[0]
+    dtype, dev = d2.dtype, d2.device
+    eps2 = torch.tensor(eps, dtype=dtype, device=dev) ** 2
+    tiny = torch.tensor(1e-30, dtype=dtype, device=dev)
+    t = lane_steps(state.t, B, dev)
+    windowed = win.shape[-1] > 0
+    sel = torch.full((B, chunk), -1, dtype=torch.int32, device=dev)
+    dh = torch.zeros((B, chunk), dtype=dtype, device=dev)
+    for s in range(chunk):
+        if windowed:
+            C, d2, win, stopped, j, dj = greedy_step_windowed(
+                row_fn, t + s, C, d2, win, stopped, w=C.shape[1],
+                eps2=eps2, tiny=tiny,
+            )
+        else:
+            stopped = stopped | (t + s >= C.shape[2])
+            C, d2, stopped, j, dj = greedy_step_exact(
+                row_fn, t + s, C, d2, stopped, eps2
+            )
+        sel[:, s] = torch.where(stopped, -1, j).to(torch.int32)
+        dh[:, s] = torch.where(stopped, 0.0, dj)
+    return GreedyState(state.t + chunk, stopped, C, d2, win), sel, dh
+
+
+def _batch1(state: GreedyState) -> GreedyState:
+    return GreedyState(*(x[None] for x in state))
+
+
+def _chunk_single(kern, dense: bool, state: GreedyState, chunk: int,
+                  eps: float):
+    row_fn = _dense_rows(kern[None]) if dense else _lowrank_rows(kern[None])
+    st, sel, dh = _chunk_body(row_fn, _batch1(state), chunk, eps)
+    return GreedyState(*(x[0] for x in st)), sel[0], dh[0]
+
+
+# ---------------------------------------------------------------------------
+# Dispatch-aware front doors
+# ---------------------------------------------------------------------------
+
+
+def greedy_init(spec, *, L=None, V=None, mask=None) -> GreedyState:
+    """Initial resumable state for ``spec`` on a dense (L) or low-rank
+    (V) kernel.  ``mask`` marks selectable candidates; it is folded into
+    the state (masked entries can never be selected in any later chunk).
+    """
+    _check_kernel_args(spec, L, V)
+    if spec.backend == "kernel":
+        from repro_torch.kernels.dpp_greedy import dpp_greedy_stream_init
+
+        return dpp_greedy_stream_init(
+            V, spec.k, mask=mask, window=spec.window, tile_m=spec.tile_m
+        )
+    return _init_torch(spec.k, spec.window, L, V, mask)
+
+
+def greedy_chunk(
+    spec, state: GreedyState, *, L=None, V=None,
+    chunk_size: Optional[int] = None,
+):
+    """Advance ``chunk_size`` greedy steps (default ``spec.chunk_size``).
+
+    Returns ``(next_state, sel (chunk,), d_hist (chunk,))`` — with a
+    leading batch axis on ``sel``/``d_hist`` for batched kernel states.
+    Slots after an eps-stop hold -1 / 0, as the whole-slate result's
+    tail does.  ``state.t`` advances by the chunk even across an
+    eps-stop.  The caller sizes chunks so the total never exceeds
+    ``spec.k`` on the exact path (the windowed ring is unbounded);
+    ``repro_torch.core.dispatch.greedy_map_chunks`` does this.
+    """
+    _check_kernel_args(spec, L, V)
+    chunk = resolve_chunk(spec, chunk_size)
+    kern = L if L is not None else V
+    record_chunk(
+        "kernel" if spec.backend == "kernel" else "torch",
+        B=kern.shape[0] if kern.ndim == 3 else 1,
+        chunk=chunk,
+        M=kern.shape[-1],
+    )
+    if spec.backend == "kernel":
+        from repro_torch.kernels.dpp_greedy import dpp_greedy_stream_chunk
+
+        return dpp_greedy_stream_chunk(
+            V, state, chunk, eps=spec.eps, tile_m=spec.tile_m
+        )
+    return _chunk_single(kern, L is not None, state, chunk, float(spec.eps))
+
+
+def greedy_step(spec, state: GreedyState, *, L=None, V=None):
+    """One greedy step: ``(next_state, idx, d)`` with scalar ``idx``/``d``
+    (-1 / 0 once eps-stopped).  Sugar for a chunk of one."""
+    state, sel, dh = greedy_chunk(spec, state, L=L, V=V, chunk_size=1)
+    return state, sel[..., 0], dh[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# Session delta updates — recondition a windowed state on a pool delta
+# ---------------------------------------------------------------------------
+#
+# A windowed state is fully determined by the pool ``V``, the last-w
+# shown ids and the dead set (shown + masked): ``d2_i = L_ii -
+# ||C[:, i]||^2`` for live i, and ``C[:, i] = V_W^{-1} L_{W, i}`` depends
+# only on the window columns of V.  So when a block of candidate columns
+# is appended or overwritten, only that block's C columns and d2 entries
+# change; the block is re-solved against the window factor ``C[:, win]``
+# (lower-triangular) with one triangular solve — O(w^2 + w dM D), never
+# O(k M) like a from-scratch rerun.
+
+
+def _delta_cols(V, C, d2, win, start: int, V_blk, mask_blk,
+                keep_dead: bool):
+    """Recompute C/d2 for pool columns ``[start, start + dM)`` after
+    writing ``V_blk`` there.  Unbatched leaves: V (D, M), C (w, M),
+    d2 (M,), win (w,).  ``keep_dead`` preserves dead columns (d2 at
+    -inf: shown, masked) bit for bit — the rescore contract.  Returns
+    new tensors; the inputs are not modified."""
+    w = C.shape[0]
+    dtype = C.dtype
+    dm = V_blk.shape[1]
+    ids = win.clamp_min(0)
+    valid = win >= 0
+
+    # the window's lower-triangular Cholesky factor, read off C itself;
+    # empty ring slots become identity rows so the solve is a no-op there
+    eye = torch.eye(w, dtype=dtype, device=C.device)
+    Vw = torch.where(valid[:, None], C[:, ids].T, eye)
+    # b[r] = L_{win[r], blk} from the (unchanged) window columns of V
+    b = torch.where(valid[:, None], V[:, ids].T @ V_blk, 0.0)
+    c = torch.linalg.solve_triangular(Vw, b.to(dtype), upper=False)
+    diag_blk = (V_blk * V_blk).sum(0)
+    d2_blk = torch.where(mask_blk, diag_blk - (c * c).sum(0), NEG_INF)
+
+    sl = slice(start, start + dm)
+    if keep_dead:
+        dead = torch.isneginf(d2[sl])
+        V_blk = torch.where(dead[None, :], V[:, sl], V_blk)
+        c = torch.where(dead[None, :], C[:, sl], c)
+        d2_blk = torch.where(dead, d2[sl], d2_blk)
+
+    V, C, d2 = V.clone(), C.clone(), d2.clone()
+    V[:, sl] = V_blk.to(V.dtype)
+    C[:, sl] = c.to(dtype)
+    d2[sl] = d2_blk.to(d2.dtype)
+    return V, C, d2
+
+
+def _state_delta(spec, state, V, start, V_new, mask_new, keep_dead, op):
+    if state.win.shape[-1] == 0:
+        raise ValueError(
+            f"{op} needs a windowed state (window < slate size): the "
+            f"exact C (M, k) layout does not expose the conditioning "
+            f"window, so a column delta cannot be re-solved in O(w*dM)"
+        )
+    if V_new.ndim != 2:
+        raise ValueError(f"{op}: V_new must be (D, dM), got ndim={V_new.ndim}")
+    dm = V_new.shape[1]
+    M = V.shape[-1]
+    if V_new.shape[0] != V.shape[-2]:
+        raise ValueError(
+            f"{op}: V_new has D={V_new.shape[0]} rows but the pool operand "
+            f"carries D={V.shape[-2]}"
+        )
+    start = int(start)
+    if start < 0 or start + dm > M:
+        raise ValueError(
+            f"{op}: block [{start}, {start + dm}) exceeds the pool's "
+            f"{M} columns — size the session capacity up front"
+        )
+    if mask_new is None:
+        mask_new = torch.ones((dm,), dtype=torch.bool, device=V.device)
+    mask_new = mask_new.to(device=V.device, dtype=torch.bool)
+    V_blk = V_new.to(device=V.device, dtype=V.dtype)
+    if spec.backend == "kernel":
+        if state.C.ndim != 3 or state.C.shape[0] != 1:
+            raise ValueError(
+                f"{op} takes a single-request kernel stream state "
+                f"(leading batch axis 1); slot-batched delta updates come "
+                f"with the router (ROADMAP queue 1 item 7)"
+            )
+        V2, C2, d22 = _delta_cols(
+            V[0] if V.ndim == 3 else V, state.C[0], state.d2[0],
+            state.win[0], start, V_blk, mask_new, keep_dead,
+        )
+        C2, d22 = C2[None], d22[None]
+        if V.ndim == 3:
+            V2 = V2[None]
+    else:
+        V2, C2, d22 = _delta_cols(
+            V, state.C, state.d2, state.win, start, V_blk, mask_new,
+            keep_dead,
+        )
+    # a delta can revive a stopped state: new or raised columns may now
+    # clear the eps gate, so the latch re-arms.  The revived resume must
+    # condition on the live ring: a stopped chunk advances t past the
+    # last real pick, and a stale t >= w would evict a window item that
+    # was never followed by a pick.  Ring occupancy is the true pick count
+    # below w, and any t >= w behaves the same once the ring is full — so
+    # t is re-derived from the ring.
+    t2 = (state.win >= 0).sum(-1).to(torch.int32)
+    if t2.ndim:  # single-request kernel state: one lane, scalar counter
+        t2 = t2[0]
+    new_state = GreedyState(
+        t2, torch.zeros_like(state.stopped), C2, d22, state.win.clone()
+    )
+    return new_state, V2
+
+
+def greedy_state_extend(spec, state: GreedyState, V, start, V_new,
+                        mask_new=None):
+    """Append ``dM`` candidate columns at ``start`` of the pool operand.
+
+    Writes ``V_new (D, dM)`` into columns ``[start, start + dM)`` of
+    ``V``, re-solves exactly those columns' Cholesky state against the
+    state's current window and returns ``(state', V')`` — O(w * dM),
+    independent of how many steps the state has already taken.  The
+    target region is overwritten blind (the caller's padding or retired
+    region); ``mask_new`` marks which new columns are selectable.
+    Windowed states only.  The dtype of ``V`` and the state threads
+    through: nothing is cast to float32 on the way.
+    """
+    return _state_delta(
+        spec, state, V, start, V_new, mask_new, False, "greedy_state_extend"
+    )
+
+
+def greedy_state_rescore(spec, state: GreedyState, V, start, V_new,
+                         mask_new=None):
+    """Overwrite ``dM`` existing columns with refreshed vectors.
+
+    Same geometry and cost as :func:`greedy_state_extend`, with one
+    contract change: dead columns (d2 at -inf — already shown, masked
+    out) keep their exact old V/C/d2 bits, so the shown history and the
+    window factor are never rewritten by a score refresh.  ``mask_new``
+    False additionally retires a live column.
+    """
+    return _state_delta(
+        spec, state, V, start, V_new, mask_new, True, "greedy_state_rescore"
+    )
+
+
+# ---------------------------------------------------------------------------
+# Slot-batched execution — the continuous-batching substrate
+# ---------------------------------------------------------------------------
+#
+# A router coalesces heterogeneous live requests into one batch of S
+# slots and advances all of them with one chunk call per cycle.  Slots
+# join and leave mid-flight, so the slot state carries a per-slot step
+# counter ``t (S,)``; the per-step bodies consume ``t`` per lane (it only
+# feeds the Cholesky row index and the ring position), so a slot's
+# selections are those of a single-request state at the same ``t``.
+#
+# Layout: every leaf gains a leading slot axis — torch exact
+# ``C (S, M, k)``, windowed ``C (S, w, M)``, kernel ``(S, R, M)`` — and
+# parked (empty) slots hold ``stopped=True`` with ``d2`` at -inf, so
+# they select -1 while occupied neighbours compute.
+
+
+def greedy_slot_state(spec, V, mask=None, dtype=None) -> GreedyState:
+    """Single-request state in ``spec``'s slot layout.
+
+    ``spec.k`` is the slot capacity, not the request's own slate length:
+    every slot shares one Cholesky geometry so states splice into any
+    slot.  ``V (D, M)`` must already span the slot batch's width (mask
+    False over padding).  ``dtype`` casts ``V`` first so the state's
+    leaves match the slot batch it will be spliced into; the kernels
+    compute in float32 regardless.
+    """
+    if dtype is not None:
+        V = V.to(dtype)
+    if spec.backend == "kernel":
+        from repro_torch.kernels.dpp_greedy import dpp_greedy_stream_init
+
+        st = dpp_greedy_stream_init(
+            V, spec.k, mask=mask, window=spec.window, tile_m=spec.tile_m
+        )
+        return GreedyState(st.t, st.stopped[0], st.C[0], st.d2[0], st.win[0])
+    return _init_torch(spec.k, spec.window, None, V, mask)
+
+
+def slot_pad_v(spec, V, state):
+    """``V`` in the slot executor's geometry.  The port pads nothing (the
+    kernels mask their own ragged edge), so this is the identity, kept
+    for ``repro``'s name; the kernel backend casts to contiguous
+    float32 once so no chunk call copies V."""
+    if spec.backend == "kernel":
+        from repro_torch.kernels.dpp_greedy import dpp_greedy_stream_pad
+
+        return dpp_greedy_stream_pad(V, state)
+    return V
+
+
+def greedy_slots_init(spec, slots: int, D: int, M: int,
+                      dtype=torch.float32, device="cpu"):
+    """Parked S-slot batch state + its zeroed V operand.
+
+    Returns ``(state, V_slots)``: every slot is parked (``stopped``,
+    ``d2`` -inf, ``t`` 0) and ``V_slots`` is zeros ``(S, D, M)``.  Admit
+    requests with :func:`state_splice`, free slots with
+    :func:`state_evict`.  ``dtype`` is the resident element type; it
+    must match the lanes that will be spliced in.
+    """
+    if slots < 1:
+        raise ValueError(f"slots must be >= 1, got {slots}")
+    Vz = torch.zeros((D, M), dtype=dtype, device=device)
+    single = greedy_slot_state(
+        spec, Vz, mask=torch.zeros((M,), dtype=torch.bool, device=device)
+    )
+    single = single._replace(stopped=torch.ones_like(single.stopped))
+    state = GreedyState(*(
+        x.expand((slots,) + tuple(x.shape)).clone() for x in single
+    ))
+    Vp = slot_pad_v(spec, Vz, state)
+    V_slots = torch.zeros((slots,) + tuple(Vp.shape), dtype=Vp.dtype,
+                          device=device)
+    return state, V_slots
+
+
+def state_splice(state: GreedyState, single: GreedyState,
+                 slot: int) -> GreedyState:
+    """Write a single-request state (``greedy_slot_state``, same spec and
+    geometry) into ``slot`` of a slot-batched state, in place; each leaf
+    is cast to the batch leaf's dtype.  Returns ``state``."""
+    for b, s in zip(state, single):
+        b[slot] = s.to(b.dtype)
+    return state
+
+
+def state_evict(state: GreedyState, slot: int) -> GreedyState:
+    """Park ``slot`` in place: eps-stopped with every candidate at -inf,
+    step counter rewound, Cholesky rows zeroed (so a later splice starts
+    from the bits of a fresh single-request state).  Returns ``state``."""
+    state.t[slot] = 0
+    state.stopped[slot] = True
+    state.C[slot] = 0.0
+    state.d2[slot] = NEG_INF
+    if state.win.shape[-1]:
+        state.win[slot] = -1
+    return state
+
+
+def greedy_chunk_slots(spec, state: GreedyState, V_slots, chunk: int):
+    """Advance every slot ``chunk`` greedy steps in one batched call.
+
+    ``V_slots (S, D, M)`` is the stacked per-slot kernel operand.
+    Returns ``(state, sel (S, chunk), d_hist (S, chunk))`` — parked and
+    stopped slots yield -1 / 0.  On the kernel backend this is one K5/K6
+    launch for all slots; per-request k, mask and progress live in data.
+    """
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    record_chunk(
+        "kernel" if spec.backend == "kernel" else "torch",
+        B=V_slots.shape[0],
+        chunk=chunk,
+        M=V_slots.shape[-1],
+    )
+    if spec.backend == "kernel":
+        from repro_torch.kernels.dpp_greedy import dpp_greedy_stream_chunk
+
+        return dpp_greedy_stream_chunk(
+            V_slots, state, chunk, eps=spec.eps, tile_m=spec.tile_m
+        )
+    return _chunk_body(_lowrank_rows(V_slots), state, chunk, float(spec.eps))

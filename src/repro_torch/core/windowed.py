@@ -27,6 +27,7 @@ from repro_torch.core.greedy_chol import (
     _full_mask,
     _lowrank_rows,
     _unbatch,
+    lane_steps,
 )
 
 
@@ -36,7 +37,8 @@ def greedy_step_windowed(row_fn, t, C, d2, win, stopped, *, w, eps2, tiny):
     ``d2 (B, M)``, ``win (B, w)`` int64 ring ids (-1 = empty slot),
     ``stopped (B,)``; ``eps2``/``tiny`` 0-d tensors of the state dtype.
     ``t`` is the absolute step index (it decides eviction, ``t >= w``,
-    and the ring row ``pos``).
+    and the ring row ``pos``): an int, or a ``(B,)`` tensor of per-lane
+    counters (the streaming slot layout).
 
     Returns ``(C, d2, win, stopped, j, dj)``.
     """
@@ -51,7 +53,7 @@ def greedy_step_windowed(row_fn, t, C, d2, win, stopped, *, w, eps2, tiny):
     dj = torch.sqrt(torch.maximum(dj2, eps2))
 
     # ---- evict the oldest window item to make room (window full only)
-    full = (t >= w) & ~stopped  # (B,)
+    full = (lane_steps(t, B, d2.device) >= w) & ~stopped  # (B,)
     fullc = full[:, None]
     C = C.clone()
     u = torch.where(fullc, C[:, 0], 0.0)
@@ -81,13 +83,13 @@ def greedy_step_windowed(row_fn, t, C, d2, win, stopped, *, w, eps2, tiny):
     djp = torch.sqrt(torch.maximum(d2[ar, j], eps2))
     cj = C[ar, :, j]  # (B, w)
     e = (row_fn(j) - torch.bmm(cj[:, None, :], C)[:, 0]) / djp[:, None]
-    pos = min(t, w - 1)
+    pos = lane_steps(t, B, d2.device).clamp_max(w - 1)
     C_next = C.clone()
-    C_next[:, pos] = e
+    C_next[ar, pos] = e
     d2_next = d2 - e * e
     d2_next[ar, j] = NEG_INF
     win_next = win.clone()
-    win_next[:, pos] = j
+    win_next[ar, pos] = j
 
     stc = stopped[:, None]
     C = torch.where(stc[:, :, None], C0, C_next)

@@ -1,5 +1,5 @@
-// Device helpers shared by the resident (dpp_greedy.cu) and tiled
-// (tiled.cu) greedy DPP kernels.
+// Device helpers shared by the resident (dpp_greedy.cu), tiled
+// (tiled.cu) and fused-chunk (chunk.cu) greedy DPP kernels.
 //
 // The per-column update of one greedy step is written once here and
 // used by both kernel families, with explicitly rounded intrinsics
@@ -67,6 +67,52 @@ __device__ __forceinline__ void givens(float c, float s, float row, float u,
                                        float& new_row, float& new_u) {
   new_row = __fadd_rn(__fmul_rn(c, row), __fmul_rn(s, u));
   new_u = __fsub_rn(__fmul_rn(c, u), __fmul_rn(s, row));
+}
+
+// The windowed eviction's small per-user state, run by one whole warp
+// (every lane calls it): from the (w, w) window factor Cw (Cw[r*w+s] =
+// C[r, win[s]]) and the winner's pre-eviction column cj, derive the w-1
+// Givens pairs (cs, sn) of the first-row downdate with the
+// eviction_coeffs recurrence, the winner's post-eviction column cjp and
+// its repaired gain *d2j.  These are the values the in-place sweep of
+// repro.core.windowed computes: at iteration r it reads row r+1 before
+// any rotation wrote it, and the same givens() runs on the same
+// operands.  Not full: no eviction, cjp = cj over the live rows.  uw (w)
+// is scratch.  Shared by the resident (K2) and fused-chunk (K6) kernels
+// so both derive identical bits.
+__device__ __forceinline__ void evict_coeffs_warp(
+    int lane, int w, bool full, int live, const float* Cw, const float* cj,
+    float dj2, float* uw, float* cs, float* sn, float* cjp, float* d2j) {
+  if (full) {
+    for (int s = lane; s < w; s += 32) uw[s] = Cw[s];
+    float uc = cj[0];
+    __syncwarp();
+    for (int r = 0; r < w - 1; ++r) {
+      const float a = Cw[(r + 1) * w + (r + 1)];
+      const float bb = uw[r + 1];
+      const float rho = fmaxf(
+          __fsqrt_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(bb, bb))), 1e-30f);
+      const float c = __fdiv_rn(a, rho), s_ = __fdiv_rn(bb, rho);
+      __syncwarp();
+      for (int s = lane; s < w; s += 32) {
+        float unused;
+        givens(c, s_, Cw[(r + 1) * w + s], uw[s], unused, uw[s]);
+      }
+      if (lane == 0) {
+        cs[r] = c;
+        sn[r] = s_;
+        givens(c, s_, cj[r + 1], uc, cjp[r], uc);
+      }
+      __syncwarp();
+    }
+    if (lane == 0) {
+      cjp[w - 1] = 0.f;
+      *d2j = __fmaf_rn(uc, uc, dj2);
+    }
+  } else {
+    for (int r = lane; r < live; r += 32) cjp[r] = cj[r];
+    if (lane == 0) *d2j = dj2;
+  }
 }
 
 // Exact step, column i: e = (V[:,j]^T V[:,i] - C[:t,j]^T C[:t,i]) / d_j,

@@ -148,39 +148,9 @@ dpp_resident_windowed_kernel(const float* __restrict__ V,
       }
     __syncthreads();
 
-    if (warp == 0) {
-      if (full) {
-        for (int s = lane; s < w; s += 32) uw[s] = Cw[s];
-        float uc = cj[0];
-        __syncwarp();
-        for (int r = 0; r < w - 1; ++r) {
-          const float a = Cw[(r + 1) * w + (r + 1)];
-          const float bb = uw[r + 1];
-          const float rho = fmaxf(
-              __fsqrt_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(bb, bb))),
-              1e-30f);
-          const float c = __fdiv_rn(a, rho), s_ = __fdiv_rn(bb, rho);
-          __syncwarp();
-          for (int s = lane; s < w; s += 32) {
-            float unused;
-            givens(c, s_, Cw[(r + 1) * w + s], uw[s], unused, uw[s]);
-          }
-          if (lane == 0) {
-            cs[r] = c;
-            sn[r] = s_;
-            givens(c, s_, cj[r + 1], uc, cjp[r], uc);
-          }
-          __syncwarp();
-        }
-        if (lane == 0) {
-          cjp[w - 1] = 0.f;
-          s_d2j = __fmaf_rn(uc, uc, dj2);
-        }
-      } else {
-        for (int r = lane; r < live; r += 32) cjp[r] = cj[r];
-        if (lane == 0) s_d2j = dj2;
-      }
-    }
+    if (warp == 0)
+      evict_coeffs_warp(lane, w, full, live, Cw, cj, dj2, uw, cs, sn, cjp,
+                        &s_d2j);
     __syncthreads();
     const float djp = __fsqrt_rn(fmaxf(s_d2j, eps2));
     for (int i = tid; i < M; i += DPP_THREADS)

@@ -14,27 +14,40 @@ launches in PyTorch, as ``repro``'s whole-slate loop does in JAX: the
 winner's columns, the window factor ``C[:, win]`` and the Givens
 coefficients of the eviction (:func:`eviction_coeffs`).
 
+The fused chunk kernels K5/K6 (``csrc/chunk.cu``, counterparts of
+``_chunk_pass_full`` / ``_chunk_pass_windowed`` with their winner fold
+``_reduce_argmax_and_cols``) advance a resumable streaming state
+(``repro_torch.core.streaming``) by ``chunk`` steps in one cooperative
+launch: :func:`fused_chunk_exact`, :func:`fused_chunk_windowed`.
+
 Each kernel has its plain PyTorch version here; a wrapper runs it for
 CPU tensors and launches the kernel for CUDA tensors, or raises.  State
-(``C``, ``d2``, keys) is updated in place on both paths.
+(``C``, ``d2``, keys; for the chunk kernels also ``stopped`` and the
+ring ids) is updated in place on both paths.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
 
-from repro_torch.core.greedy_chol import NEG_INF
+from repro_torch.core.greedy_chol import NEG_INF, _lowrank_rows
+from repro_torch.core.windowed import greedy_step_windowed
 from repro_torch.kernels import cuda
 from repro_torch.kernels.dpp_greedy.dpp_greedy import (
     _cpu_or_cuda,
     eps_squared,
     init_gains,
 )
-from repro_torch.kernels.dpp_greedy.tiling import tiled_smem_bytes
+from repro_torch.kernels.dpp_greedy.tiling import (
+    chunk_smem_bytes,
+    tiled_smem_bytes,
+)
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "tiled.cu"
+_CHUNK_SRC = Path(__file__).resolve().parent / "csrc" / "chunk.cu"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "tiled_step_exact": [
@@ -42,6 +55,17 @@ _SIGNATURES = {
     ],
     "tiled_step_windowed": [
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+    ],
+}
+_CHUNK_SIGNATURES = {
+    "fused_chunk_capacity": [_I, _I, ctypes.POINTER(ctypes.c_int)],
+    "fused_chunk_exact": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+        _P,
+    ],
+    "fused_chunk_windowed": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        _I, _F, _I, _P,
     ],
 }
 _U32 = 2**32
@@ -259,6 +283,193 @@ def tiled_step_windowed(V, C, d2, cjp, flt, ints, key_out,
     )
     cuda.count_launch("tiled_step_windowed")
     cuda.check(err, "tiled_step_windowed")
+
+
+# ---------------------------------------------------------------------------
+# K5 / K6: fused multi-step chunks of a resumable state
+# ---------------------------------------------------------------------------
+
+
+def fused_chunk_exact_plain(V, C, d2, t, stopped, chunk: int, eps: float):
+    """Plain version of K5, same operands: ``chunk`` exact steps from
+    the per-lane step counters ``t``, updating ``C``, ``d2`` and
+    ``stopped`` in place.  A lane whose counter reaches the state's
+    capacity ``R`` latches stopped.  Returns (sel, dh) (B, chunk)."""
+    B, D, M = V.shape
+    R = C.shape[1]
+    ar = torch.arange(B, device=V.device)
+    eps2 = torch.tensor(eps, dtype=torch.float32, device=V.device) ** 2
+    t = t.to(torch.int64)
+    sel = torch.empty((B, chunk), dtype=torch.int32, device=V.device)
+    dh = torch.empty((B, chunk), dtype=torch.float32, device=V.device)
+    for s in range(chunk):
+        ts = t + s
+        j = torch.argmax(d2, dim=1)
+        dj2 = d2[ar, j]
+        stopped |= (dj2 <= eps2) | (ts >= R)
+        dj = torch.sqrt(torch.maximum(dj2, eps2))
+        sel[:, s] = torch.where(stopped, -1, j).to(torch.int32)
+        dh[:, s] = torch.where(stopped, 0.0, dj)
+        lj = torch.bmm(V[ar, :, j][:, None, :], V)[:, 0]
+        dots = torch.bmm(C[ar, :, j][:, None, :], C)[:, 0]
+        e = (lj - dots) / dj[:, None]
+        live = ~stopped[:, None]
+        row = ts.clamp_max(R - 1)
+        C[ar, row] = torch.where(live, e, C[ar, row])
+        d2_next = d2 - e * e
+        d2_next[ar, j] = NEG_INF
+        d2.copy_(torch.where(live, d2_next, d2))
+    return sel, dh
+
+
+def fused_chunk_windowed_plain(V, C, d2, t, stopped, win, chunk: int,
+                               eps: float):
+    """Plain version of K6, same operands: ``chunk`` sliding-window steps
+    (``repro_torch.core.windowed.greedy_step_windowed`` on the (B, w, M)
+    ring, per-lane ``t``), updating ``C``, ``d2``, ``stopped`` and the
+    ring ids ``win`` in place.  Returns (sel, dh) (B, chunk)."""
+    B, D, M = V.shape
+    w = C.shape[1]
+    dev = V.device
+    eps2 = torch.tensor(eps, dtype=torch.float32, device=dev) ** 2
+    tiny = torch.tensor(1e-30, dtype=torch.float32, device=dev)
+    row_fn = _lowrank_rows(V)
+    t = t.to(torch.int64)
+    Cs, d2s, wins, st = C, d2, win.to(torch.int64), stopped
+    sel = torch.empty((B, chunk), dtype=torch.int32, device=dev)
+    dh = torch.empty((B, chunk), dtype=torch.float32, device=dev)
+    for s in range(chunk):
+        Cs, d2s, wins, st, j, dj = greedy_step_windowed(
+            row_fn, t + s, Cs, d2s, wins, st, w=w, eps2=eps2, tiny=tiny
+        )
+        sel[:, s] = torch.where(st, -1, j).to(torch.int32)
+        dh[:, s] = torch.where(st, 0.0, dj)
+    C.copy_(Cs)
+    d2.copy_(d2s)
+    win.copy_(wins)
+    stopped.copy_(st)
+    return sel, dh
+
+
+@functools.lru_cache(maxsize=None)
+def _capacity(windowed: bool, smem: int, index: int) -> int:
+    with torch.cuda.device(index):
+        lib = cuda.library(_CHUNK_SRC, _CHUNK_SIGNATURES)
+        n = ctypes.c_int(0)
+        cuda.check(lib.fused_chunk_capacity(int(windowed), smem,
+                                            ctypes.byref(n)),
+                   "fused_chunk_capacity")
+    return n.value
+
+
+def chunk_capacity(windowed: bool, smem: int, device) -> int:
+    """Blocks of K5 (or K6) that ``device`` keeps co-resident at ``smem``
+    bytes of shared memory per block — the most one cooperative launch
+    may hold (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` x SMs,
+    queried once per card and size)."""
+    device = torch.device(device)
+    index = device.index
+    return _capacity(bool(windowed), int(smem),
+                     torch.cuda.current_device() if index is None else index)
+
+
+# cudaErrorCooperativeLaunchTooLarge: the grid cannot all be co-resident
+_COOPERATIVE_TOO_LARGE = 720
+
+
+def _check_cooperative(err: int, name: str, B: int, M: int,
+                       tile_m: int) -> None:
+    if err == _COOPERATIVE_TOO_LARGE:
+        raise ValueError(
+            f"{name}: the grid of {B * -(-M // tile_m)} blocks ({B} lanes x "
+            f"tiles of {tile_m} columns) cannot be co-resident for one "
+            f"cooperative launch; size the tile with TilePolicy.decide(..., "
+            f"chunked=True, capacity=chunk_capacity)"
+        )
+    cuda.check(err, name)
+
+
+def _keys_and_barrier(chunk: int, B: int, device):
+    """One zeroed allocation: the per-step argmax keys (chunk+1, B) and,
+    behind them, the grid barrier's counter and generation; returns
+    (scratch, keys pointer, barrier pointer)."""
+    scratch = torch.zeros(((chunk + 1) * B + 1,), dtype=torch.int64,
+                          device=device)
+    return scratch, scratch.data_ptr(), scratch[-1:].data_ptr()
+
+
+def _chunk_operands(V, C, d2, t, stopped, R):
+    B, D, M = V.shape
+    cuda.require(V, "V", torch.float32, (B, D, M))
+    cuda.require(C, "C", torch.float32, (B, R, M))
+    cuda.require(d2, "d2", torch.float32, (B, M))
+    cuda.require(t, "t", torch.int32, (B,))
+    cuda.require(stopped, "stopped", torch.bool, (B,))
+
+
+def fused_chunk_exact(V, C, d2, t, stopped, chunk: int, eps: float,
+                      tile_m: int):
+    """K5: one cooperative launch = ``chunk`` exact greedy steps over
+    ``(ceil(M / tile_m), B)`` blocks.  V (B, D, M), C (B, R, M), d2 (B, M)
+    f32; t (B,) int32 step counters; stopped (B,) bool.  C, d2 and
+    stopped are updated in place; returns (sel (B, chunk) int32,
+    dh (B, chunk) f32)."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if not _cpu_or_cuda(V):
+        return fused_chunk_exact_plain(V, C, d2, t, stopped, chunk, eps)
+    B, D, M = V.shape
+    R = C.shape[1]
+    _chunk_operands(V, C, d2, t, stopped, R)
+    smem = chunk_smem_bytes(D, tile_m, R, windowed=False)
+    lib = cuda.library(_CHUNK_SRC, _CHUNK_SIGNATURES)
+    scratch, keys, bar = _keys_and_barrier(chunk, B, V.device)
+    sel = torch.empty((B, chunk), dtype=torch.int32, device=V.device)
+    dh = torch.empty((B, chunk), dtype=torch.float32, device=V.device)
+    err = lib.fused_chunk_exact(
+        V.data_ptr(), C.data_ptr(), d2.data_ptr(), t.data_ptr(),
+        stopped.data_ptr(), keys, bar, sel.data_ptr(), dh.data_ptr(),
+        B, D, M, R, chunk, tile_m, eps_squared(eps), smem,
+        cuda.stream_ptr(V),
+    )
+    cuda.count_launch("fused_chunk_exact")
+    _check_cooperative(err, "fused_chunk_exact", B, M, tile_m)
+    return sel, dh
+
+
+def fused_chunk_windowed(V, C, d2, t, stopped, win, chunk: int, eps: float,
+                         tile_m: int):
+    """K6: one cooperative launch = ``chunk`` sliding-window steps.
+    C (B, w, M) ring, win (B, w) int32 ring ids (oldest first, -1 empty);
+    the rest as :func:`fused_chunk_exact`.  C, d2, stopped and win are
+    updated in place; returns (sel, dh) (B, chunk)."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if not _cpu_or_cuda(V):
+        return fused_chunk_windowed_plain(V, C, d2, t, stopped, win, chunk,
+                                          eps)
+    B, D, M = V.shape
+    w = C.shape[1]
+    _chunk_operands(V, C, d2, t, stopped, w)
+    cuda.require(win, "win", torch.int32, (B, w))
+    nt = -(-M // tile_m)
+    smem = chunk_smem_bytes(D, tile_m, w, windowed=True)
+    lib = cuda.library(_CHUNK_SRC, _CHUNK_SIGNATURES)
+    dev = V.device
+    scratch, keys, bar = _keys_and_barrier(chunk, B, dev)
+    cand = torch.empty((2, B, nt, w), dtype=torch.float32, device=dev)
+    wcol = torch.empty((2, B, w, w), dtype=torch.float32, device=dev)
+    sel = torch.empty((B, chunk), dtype=torch.int32, device=dev)
+    dh = torch.empty((B, chunk), dtype=torch.float32, device=dev)
+    err = lib.fused_chunk_windowed(
+        V.data_ptr(), C.data_ptr(), d2.data_ptr(), t.data_ptr(),
+        stopped.data_ptr(), win.data_ptr(), keys, bar, cand.data_ptr(),
+        wcol.data_ptr(), sel.data_ptr(), dh.data_ptr(), B, D, M, w, chunk,
+        tile_m, eps_squared(eps), smem, cuda.stream_ptr(V),
+    )
+    cuda.count_launch("fused_chunk_windowed")
+    _check_cooperative(err, "fused_chunk_windowed", B, M, tile_m)
+    return sel, dh
 
 
 # ---------------------------------------------------------------------------

@@ -16,11 +16,24 @@ per-step kernels (``tiled.py``) run: one launch per greedy step over
 ``(B, ceil(M / tile_m))`` blocks, with only the winner's columns in
 shared memory, so ``M`` is unbounded.  The TPU's LANE/SUBLANE padding
 does not carry over: the kernels mask their own ragged edge.
+
+``decide(..., chunked=True, lanes=B, capacity=)`` sizes the fused chunk
+kernels (``csrc/chunk.cu``, K5/K6): one cooperative launch per chunk
+over ``(ceil(M / tile_m), B)`` blocks that each keep their tile's gains
+in shared memory for the whole chunk (:func:`chunk_smem_bytes`) and meet
+at a grid-wide barrier between steps.  A cooperative grid must be
+co-resident, so besides the 227 KB per block the model bounds the block
+count by ``capacity(smem)``, the blocks the card keeps co-resident at
+that much shared memory per block (``tiled.chunk_capacity``): one
+whole-M tile per lane while that fits, else tiles of at least
+``DEFAULT_TILE_M`` columns, widened until ``B`` lanes of tiles fit.
+Without a ``capacity`` (the plain versions on the CPU, which launch no
+grid) only the shared memory bounds the tile.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 # Shared memory one H100 thread block may use (227 KB, dynamic only
 # past 48 KB; cudaFuncAttributeMaxDynamicSharedMemorySize is raised).
@@ -80,6 +93,18 @@ def tiled_smem_bytes(D: int, state_rows: int, windowed: bool) -> int:
     return 4 * (D + R + extra + _RED_FLOATS)
 
 
+def chunk_smem_bytes(D: int, tile_m: int, state_rows: int,
+                     windowed: bool) -> int:
+    """Dynamic shared memory of one fused-chunk block, in the layout
+    ``csrc/chunk.cu`` carves it: the tile's gains ``d2 (tile_m)``, kept
+    for the whole chunk, then the same per-step staging as a resident
+    block — the winner's ``V`` column ``(D)``; exact: its Cholesky column
+    ``(R)``; windowed: its pre/post-eviction columns, the ``(w, w)``
+    window factor, the residue row, the rotation coefficients and the
+    ring ids ``(w)`` each — plus the reduction scratch."""
+    return resident_smem_bytes(D, tile_m, state_rows, windowed)
+
+
 @dataclasses.dataclass(frozen=True)
 class TilePolicy:
     """How the dpp_greedy kernels use shared memory.
@@ -98,9 +123,22 @@ class TilePolicy:
         validate_tile_m(self.tile_m)
 
     def decide(
-        self, D: int, M: int, state_rows: int, windowed: bool
+        self, D: int, M: int, state_rows: int, windowed: bool,
+        chunked: bool = False, lanes: int = 1,
+        capacity: Optional[Callable[[int], int]] = None,
     ) -> tuple[str, Optional[int]]:
-        """-> ("resident", None) | ("tiled", tile_m)."""
+        """-> ("resident", None) | ("tiled", tile_m).
+
+        ``chunked=True`` sizes the fused chunk kernels for ``lanes``
+        users: ``("resident", None)`` is one whole-M tile per lane,
+        ``("tiled", tile_m)`` splits M so that the cooperative grid of
+        ``lanes * ceil(M / tile_m)`` blocks stays within
+        ``capacity(smem)`` (see the module docstring); raises when no
+        tile fits.
+        """
+        if chunked:
+            return self._decide_chunked(D, M, state_rows, windowed, lanes,
+                                        capacity)
         tiled = tiled_smem_bytes(D, state_rows, windowed)
         if tiled > SMEM_BUDGET_BYTES:
             raise ValueError(
@@ -114,3 +152,39 @@ class TilePolicy:
         if smem <= SMEM_BUDGET_BYTES:
             return "resident", None
         return "tiled", min(DEFAULT_TILE_M, round_up(M, WARP))
+
+    def _decide_chunked(self, D, M, R, windowed, lanes, capacity):
+        # the most gains columns one block's shared memory holds
+        room = (SMEM_BUDGET_BYTES - chunk_smem_bytes(D, 0, R, windowed)) // 4
+        if self.tile_m is not None:
+            tile = self.tile_m
+        elif M <= room:
+            tile = M  # one whole-M tile per lane
+        else:
+            tile = DEFAULT_TILE_M
+        if min(tile, M) > room:
+            raise ValueError(
+                f"D={D} with {R} state rows leaves room for a gains tile of "
+                f"at most {max(room, 0)} columns in one block's "
+                f"{SMEM_BUDGET_BYTES} B of shared memory, not {min(tile, M)}"
+            )
+        while capacity is not None:
+            nt = -(-M // tile)
+            cap = capacity(chunk_smem_bytes(D, min(tile, M), R, windowed))
+            if lanes * nt <= cap:
+                break
+            per_lane = cap // lanes
+            wider = round_up(-(-M // per_lane), WARP) if per_lane else None
+            if self.tile_m is not None or wider is None or wider > room:
+                raise ValueError(
+                    f"fused chunk grid of {lanes * nt} blocks ({lanes} lanes "
+                    f"x {nt} tiles of {min(tile, M)} columns) exceeds the "
+                    f"{cap} blocks the card keeps co-resident for one "
+                    f"cooperative launch: "
+                    + ("pass a wider tile_m or fewer lanes"
+                       if self.tile_m is not None else "split the batch")
+                )
+            tile = wider
+        if self.tile_m is None and tile >= M:
+            return "resident", None
+        return "tiled", tile

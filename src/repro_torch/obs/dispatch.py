@@ -3,8 +3,9 @@
 Small helpers the greedy dispatch layers call to count the kernel
 execution mode ``kernels/dpp_greedy/ops.py`` picked (resident / tiled,
 and the ``TilePolicy`` tile and shared-memory numbers behind it), the
-backend ``greedy_map`` routed to, and the launched work in greedy steps
-and per-step marginal evaluations.  All helpers no-op (one global read)
+backend ``greedy_map`` routed to, the resumable chunk launches of the
+streaming layer, and the launched work in greedy steps and per-step
+marginal evaluations.  All helpers no-op (one global read)
 when observability is disabled and consume only shapes and config.
 """
 from __future__ import annotations
@@ -25,8 +26,8 @@ def record_kernel_dispatch(
     smem_bytes: Optional[int] = None,
 ) -> None:
     """One ``ops.py`` execution-mode decision: which kernel path won
-    (``ref`` / ``resident`` / ``tiled``) and the ``TilePolicy`` numbers
-    behind it."""
+    (``ref`` / ``resident`` / ``tiled`` / ``fused_chunk``) and the
+    ``TilePolicy`` numbers behind it."""
     reg = _obs.registry()
     if reg is None:
         return
@@ -56,19 +57,39 @@ def record_tile_resolution(source: str) -> None:
     ).inc(source=source)
 
 
-def record_greedy_map(backend: str, *, B: int, k: int, M: int) -> None:
-    """One whole-slate ``greedy_map`` dispatch and its launched work."""
+def record_greedy_map(backend: str, *, B: int, k: int, M: int,
+                      chunked: bool = False) -> None:
+    """One whole-slate ``greedy_map`` dispatch.  Launched work (steps,
+    marginal evaluations) is counted here for unchunked runs; chunked
+    runs count it per chunk in :func:`record_chunk` instead."""
     reg = _obs.registry()
     if reg is None:
         return
     reg.counter(
         "greedy_dispatch_total", "greedy_map dispatches by backend"
-    ).inc(backend=backend, chunked="False")
+    ).inc(backend=backend, chunked=str(bool(chunked)))
+    if not chunked:
+        _count_steps(reg, backend, B * k, B * k * M)
+
+
+def record_chunk(backend: str, *, B: int, chunk: int, M: int) -> None:
+    """One resumable chunk launch: ``B`` lanes x ``chunk`` greedy steps
+    over ``M`` candidate columns."""
+    reg = _obs.registry()
+    if reg is None:
+        return
     reg.counter(
-        "greedy_steps_total", "greedy steps launched (padded lanes "
+        "greedy_chunks_total", "resumable chunk launches by backend"
+    ).inc(backend=backend)
+    _count_steps(reg, backend, B * chunk, B * chunk * M)
+
+
+def _count_steps(reg, backend: str, steps: int, evals: int) -> None:
+    reg.counter(
+        "greedy_steps_total", "greedy steps launched (padded/parked lanes "
         "included — this is device work, not delivered selections)"
-    ).inc(B * k, backend=backend)
+    ).inc(steps, backend=backend)
     reg.counter(
         "marginal_evals_total", "candidate marginals evaluated: every "
         "launched step updates and argmaxes M candidate gains"
-    ).inc(B * k * M, backend=backend)
+    ).inc(evals, backend=backend)

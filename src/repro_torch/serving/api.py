@@ -11,19 +11,27 @@ tensors) onto the session's device and dispatches by request shape:
 * ``scores (B, M)``  -> the user batch, with the batch dimension written
                         out through the shortlist and the greedy kernels.
 
-``stream``, ``session`` and ``submit`` are not ported yet (ROADMAP queue
-1 items 6, 8 and 7) and raise ``NotImplementedError``.
+``stream`` emits one request's slate in chunks as it is selected (one
+K5/K6 launch per chunk with ``use_kernel``).  ``session`` and ``submit``
+are not ported yet (ROADMAP queue 1 items 8 and 7) and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import obs
 from repro_torch.core.dispatch import greedy_map
+from repro_torch.core.streaming import (
+    greedy_chunk,
+    greedy_init,
+    resolve_chunk,
+    slot_pad_v,
+)
 from repro_torch.device import resolve_device
 from repro_torch.serving.reranker import DPPRerankConfig, _shortlist_kernel
 
@@ -186,11 +194,67 @@ class Reranker:
                 return _rerank_batch_impl(scores, feats, cfg, mask)
             return _rerank_impl(scores, feats, cfg, mask)
 
-    def stream(self, req: RerankRequest, chunk_size=None, **kwargs):
-        raise NotImplementedError(
-            "Reranker.stream (chunk-emitting rerank) is not ported yet "
-            "(ROADMAP queue 1 item 6)"
+    def stream(self, req: RerankRequest, chunk_size: Optional[int] = None,
+               **kwargs) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+        """Stream one request's slate as it is selected.
+
+        Returns a generator of ``(indices (c,) int32 global ids,
+        d_hist (c,))`` chunks whose concatenation is a prefix of
+        ``rerank(req)`` (same shortlist, same greedy sequence) covering
+        every real selection; the last chunk is short when ``chunk``
+        does not divide the slate, and once an eps-stop surfaces (a -1
+        tail slot) the generator ends instead of launching further
+        all -1 chunks.  ``chunk_size`` overrides ``cfg.chunk_size``.
+
+        Preparation — validation, the top-C shortlist, the resumable
+        greedy state — happens here, not at the first ``next()``: the
+        generator's resume path costs O(chunk), nothing O(M).
+        """
+        req = self._as_request(req, kwargs)
+        cfg = self._cfg_for(req)
+        if req.batched:
+            raise ValueError(
+                "stream serves a single request (scores (M,)); batch "
+                "serving goes through rerank"
+            )
+        spec = cfg.greedy_spec()
+        chunk = resolve_chunk(
+            spec, chunk_size if chunk_size is not None else cfg.chunk_size
         )
+        k = cfg.slate_size
+        with obs.span(
+            "serving.stream.prep", M=req.num_candidates, k=k, chunk=chunk,
+        ):
+            scores = self._tensor(req.scores)
+            feats = self._tensor(req.feats)
+            mask = (None if req.mask is None
+                    else self._tensor(req.mask, torch.bool)[None])
+            V, m_top, top_i = _shortlist_kernel(scores[None], feats, cfg,
+                                                mask)
+            V, top_i = V[0], top_i[0]
+            m_top = None if m_top is None else m_top[0]
+            state = greedy_init(spec, V=V, mask=m_top)
+            V = slot_pad_v(spec, V, state)
+
+        def emit():
+            done, st = 0, state
+            while done < k:
+                c = min(chunk, k - done)
+                with obs.span("serving.stream.chunk", chunk=c, done=done):
+                    st, sel, dh = greedy_chunk(spec, st, V=V, chunk_size=c)
+                    sel = sel.to(torch.int64)
+                    sel = torch.where(sel >= 0, top_i[sel.clamp_min(0)], -1)
+                yield sel.to(torch.int32), dh
+                done += c
+                # eps-stop latch: once a chunk's tail slot is -1 the state
+                # is stopped and every further chunk would be a dead
+                # launch emitting all -1s.  The consumer reads the yielded
+                # chunk anyway, so reading its last slot costs no extra
+                # device round trip.
+                if done < k and int(sel[-1]) < 0:
+                    break
+
+        return emit()
 
     def session(self, req: RerankRequest, sid=None, **kwargs):
         raise NotImplementedError(

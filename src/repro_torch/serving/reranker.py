@@ -34,10 +34,11 @@ class DPPRerankConfig:
     """Model-side serving configuration.
 
     ``slate_size`` / ``shortlist`` are session defaults that a
-    ``RerankRequest`` may override.  ``mesh=`` (the sharded backend,
-    ROADMAP queue 1 item 9), ``chunk_size=`` (streaming emission, item 6)
-    and ``tile_m="auto"`` (item 10) are not ported yet and raise
-    ``NotImplementedError``.
+    ``RerankRequest`` may override.  ``chunk_size`` is the default chunk
+    of ``Reranker.stream`` (and, with ``use_kernel``, runs the whole
+    slate as fused chunk kernels).  ``mesh=`` (the sharded backend,
+    ROADMAP queue 1 item 9) and ``tile_m="auto"`` (item 10) are not
+    ported yet and raise ``NotImplementedError``.
     """
 
     slate_size: int = 50  # N (session default; RerankRequest overrides)
@@ -65,10 +66,9 @@ class DPPRerankConfig:
                 "mesh= (the candidate-sharded backend) is not ported yet "
                 "(ROADMAP queue 1 item 9)"
             )
-        if self.chunk_size is not None:
-            raise NotImplementedError(
-                "chunk_size= (streaming emission) is not ported yet "
-                "(ROADMAP queue 1 item 6)"
+        if self.chunk_size is not None and self.chunk_size <= 0:
+            raise ValueError(
+                f"chunk_size must be >= 1, got {self.chunk_size}"
             )
         if self.tile_m is not None:
             from repro_torch.kernels.dpp_greedy.tiling import validate_tile_m
@@ -88,6 +88,10 @@ class DPPRerankConfig:
             backend="kernel" if self.use_kernel else "torch",
             eps=self.eps,
             tile_m=self.tile_m,
+            # the torch spec cannot carry a chunk size (its whole-slate
+            # path would silently ignore it — GreedySpec rejects that);
+            # Reranker.stream passes it to the chunk executor directly
+            chunk_size=self.chunk_size if self.use_kernel else None,
         )
 
 

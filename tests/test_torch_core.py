@@ -193,7 +193,9 @@ def test_greedy_map_single_dense():
     ({"k": 4, "backend": "kernel", "tile_m": "auto"}, NotImplementedError),
     ({"k": 4, "mesh": object()}, NotImplementedError),
     ({"k": 4, "backend": "sharded"}, NotImplementedError),
-    ({"k": 4, "backend": "kernel", "chunk_size": 2}, NotImplementedError),
+    # a chunked kernel spec still refuses the unported sharded backend
+    ({"k": 4, "backend": "kernel", "chunk_size": 2, "mesh": object()},
+     NotImplementedError),
 ])
 def test_greedy_spec_validation(kw, err):
     with pytest.raises(err):

@@ -7,12 +7,24 @@ machine without them:
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
 Slates index for index, ``d_hist`` within rtol 3e-4 / atol 1e-5 (small,
-well-separated inputs: no near-ties at these sizes).
+well-separated inputs: no near-ties at these sizes).  The fused chunk
+kernels K5/K6 are also held against the whole-slate kernels on the card
+(the same per-column device code: equal bits) and counted at one launch
+per chunk, multi-tile cooperative grids and slots at mixed progress
+included.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import (
+    GreedySpec,
+    greedy_chunk_slots,
+    greedy_map_chunks,
+    greedy_slot_state,
+    greedy_slots_init,
+    state_splice,
+)
 from repro_torch.kernels import cuda
 from repro_torch.kernels.dpp_greedy import dpp_greedy
 from repro_torch.serving import DPPRerankConfig, Reranker, RerankRequest
@@ -67,3 +79,86 @@ def test_reranker_on_card_matches_cpu(card, window):
     assert got[0].is_cuda
     assert torch.equal(got[0].cpu(), want[0])
     torch.testing.assert_close(got[1].cpu(), want[1], rtol=RTOL, atol=ATOL)
+
+
+def _stream(V, mask, k, window, chunk, tile_m=None):
+    spec = GreedySpec(k=k, window=window, backend="kernel", eps=1e-6,
+                      tile_m=tile_m)
+    parts = list(greedy_map_chunks(spec, V=V, mask=mask, chunk_size=chunk))
+    return (torch.cat([p.indices for p in parts], -1),
+            torch.cat([p.d_hist for p in parts], -1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile_m", [None, 128])
+@pytest.mark.parametrize("window", [None, 4])
+def test_chunk_kernels_match_plain_one_launch_per_chunk(card, window, tile_m):
+    V, mask = _inputs(2)
+    k, chunk = (16, 5) if window is None else (40, 7)
+    want = _stream(V, mask, k, window, chunk, tile_m)
+    cuda.reset_launch_counts()
+    got = _stream(V.cuda(), mask.cuda(), k, window, chunk, tile_m)
+    torch.cuda.synchronize()
+    name = "fused_chunk_exact" if window is None else "fused_chunk_windowed"
+    assert cuda.launch_counts() == {name: -(-k // chunk)}
+    assert torch.equal(got[0].cpu(), want[0])
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=RTOL, atol=ATOL)
+    # the resident whole-slate kernel K1/K2 on the same inputs: the same
+    # per-column device code, so the same bits
+    whole = dpp_greedy(V.cuda(), k, mask.cuda(), eps=1e-6, window=window)
+    assert torch.equal(got[0], whole[0])
+    assert torch.equal(got[1], whole[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 4])
+def test_chunk_kernels_past_one_block_per_sm(card, window):
+    # 200 lanes, more than the card's 132 SMs: the tile model sizes the
+    # cooperative grid by the occupancy the card reports
+    V, mask = _inputs(4, B=200, D=16, M=256)
+    k, chunk = 12, 5
+    want = _stream(V, mask, k, window, chunk)
+    cuda.reset_launch_counts()
+    got = _stream(V.cuda(), mask.cuda(), k, window, chunk)
+    torch.cuda.synchronize()
+    name = "fused_chunk_exact" if window is None else "fused_chunk_windowed"
+    assert cuda.launch_counts() == {name: -(-k // chunk)}
+    assert torch.equal(got[0].cpu(), want[0])
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=RTOL, atol=ATOL)
+    # 200 lanes x 8 tiles of 32 columns cannot be co-resident: refused
+    # before any launch, with no fallback
+    cuda.reset_launch_counts()
+    with pytest.raises(ValueError, match="wider tile_m"):
+        _stream(V.cuda(), mask.cuda(), k, window, chunk, tile_m=32)
+    assert cuda.launch_counts() == {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 4])
+def test_chunk_slots_mixed_progress_on_card(card, window):
+    V, mask = _inputs(3, B=4)
+    k, chunk = 24, 4
+    spec = GreedySpec(k=k, window=window, backend="kernel", eps=1e-6)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        state, Vs = greedy_slots_init(spec, 4, V.shape[1], V.shape[2],
+                                      device=dev)
+        Vs.copy_(V)
+        out = []
+        for c in range(8):
+            for b in range(4):
+                if c == b:  # slot b joins at cycle b: t differs per lane
+                    single = greedy_slot_state(spec, V[b].to(dev),
+                                               mask=mask[b].to(dev))
+                    state = state_splice(state, single, b)
+            cuda.reset_launch_counts()
+            state, sel, dh = greedy_chunk_slots(spec, state, Vs, chunk)
+            if dev == "cuda":
+                assert cuda.launch_counts() == {
+                    "fused_chunk_exact" if window is None
+                    else "fused_chunk_windowed": 1}
+            out.append((sel.cpu(), dh.cpu()))
+        runs[dev] = out
+    for (gs, gd), (ws, wd) in zip(runs["cuda"], runs["cpu"]):
+        assert torch.equal(gs, ws)
+        torch.testing.assert_close(gd, wd, rtol=RTOL, atol=ATOL)

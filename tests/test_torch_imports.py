@@ -31,9 +31,7 @@ def _forbidden(name: str) -> bool:
     return top in ("jax", "jaxlib", "repro")
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
-                         ids=lambda p: str(p.relative_to(PKG)))
-def test_no_jax_or_repro_imports(path):
+def _imports_of(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = []
     for node in ast.walk(tree):
@@ -42,12 +40,26 @@ def test_no_jax_or_repro_imports(path):
         elif isinstance(node, ast.ImportFrom) and node.module:
             if node.level == 0 and _forbidden(node.module):
                 bad.append(node.module)
+    return bad
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PKG)))
+def test_no_jax_or_repro_imports(path):
+    bad = _imports_of(path)
+    assert not bad, f"{path}: imports {bad}"
+
+
+def test_chip_smoke_imports_no_jax_or_repro():
+    path = ROOT / "chip_smoke.py"
+    bad = _imports_of(path)
     assert not bad, f"{path}: imports {bad}"
 
 
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert "repro_torch.serving.api" in mods
+    assert "repro_torch.core.streaming" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

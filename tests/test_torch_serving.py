@@ -168,14 +168,14 @@ def test_request_validation(kw, match):
     (dict(tile_m=100, use_kernel=True), ValueError),
     (dict(tile_m="auto", use_kernel=True), NotImplementedError),
     (dict(mesh=object()), NotImplementedError),
-    (dict(chunk_size=4), NotImplementedError),
+    (dict(chunk_size=4, mesh=object()), NotImplementedError),
 ])
 def test_config_validation(kw, err):
     with pytest.raises(err):
         ts.DPPRerankConfig(**kw)
 
 
-@pytest.mark.parametrize("verb", ["stream", "session", "submit"])
+@pytest.mark.parametrize("verb", ["session", "submit"])
 def test_unported_verbs_raise(verb):
     rr = ts.Reranker(ts.DPPRerankConfig(), device="cpu")
     scores, feats, _ = _data(8, M=20)
