@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's whole-slate DPP rerank on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU: the DPP rerank, DeepFM
+scoring into the rerank, and the fused scoring top-c.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a),
-then runs nine phases through the port's entry points
+then runs twelve phases through the port's entry points.  Phases 1-9
 (``repro_torch.serving.Reranker(..., use_kernel=True).rerank`` and
 ``.stream``, ``repro_torch.core.greedy_map_chunks`` and
-``greedy_chunk_slots``) at the paper's §5.1 setup: D = 100
+``greedy_chunk_slots``) run at the paper's §5.1 setup: D = 100
 column-normalised Gaussian features, uniform relevance, alpha = 3,
 eps = 1e-3, inputs made with numpy from a fixed seed.
 
@@ -36,14 +37,37 @@ eps = 1e-3, inputs made with numpy from a fixed seed.
                       each slot must equal its user's K1 slate and its
                       single-request stream.
 
+Phases 10-12 run the recsys serving path, ``repro_torch.launch.serve.
+serve_batch``, at DeepFM's published width (arXiv:1703.04247: 39 fields,
+22,187,008 fused rows x embed 10, MLP 400-400-400; random weights from a
+seeded ``torch.Generator``), and ``repro_torch.kernels.scored_topk``:
+
+10. recsys serve:     the ``serve_p99`` shape, B = 512 users x 2000
+                      candidates (1,024,000 scored rows), shortlist 200,
+                      slate 10: K8 once per forward, K1 once; first-batch
+                      and steady host wall;
+11. retrieval:        the ``retrieval_cand`` shape, one user x 10^6
+                      candidates, shortlist 1000, slate 50; diversity from
+                      the slate's own rows;
+    reference check:  phase 10's first 4 users through the same
+                      ``serve_batch`` on the CPU with the parameters
+                      copied there: scores within rtol 1e-5 / atol 1e-6,
+                      slates equal up to a certified near-tie;
+12. scored_topk:      exact ties (small integers, M = 100,000, D = 16,
+                      c = 1000) index for index; timed (phase 3's pool,
+                      M = 10^6, D = 100, c = 1000) against the plain
+                      version and ``torch.topk(emb @ q, c)``; ragged
+                      (M = 10^6 + 3, D = 10, c = 128).
+
 Each phase resets the kernels' launch counters right before the main-path
 call, reads them right after, and checks them and the mode recorded in
 dispatch telemetry; holds the kernel against its plain PyTorch version on
 the same inputs (d_hist rtol 3e-4 / atol 1e-5; a slate may differ only
 after a float64-certified near-tie, with every later pick float64
-greedy-valid); times the kernel and the plain version with CUDA events;
-and checks the outputs.  Any failure exits non-zero.  The second-to-last
-line is the kernels' JSON record, the last the device line.
+greedy-valid; K8 rtol 1e-5 / atol 1e-6; K7 values within 1e-5); times the
+kernel and the plain version with CUDA events; and checks the outputs.
+Any failure exits non-zero.  The second-to-last line is the kernels'
+JSON record, the last the device line.
 """
 from __future__ import annotations
 
@@ -84,7 +108,17 @@ KERNELS = {
     "fused_chunk_windowed": dict(
         source="src/repro_torch/kernels/dpp_greedy/csrc/chunk.cu",
         replaces="src/repro/kernels/dpp_greedy/tiled.py:463"),
+    "scored_topk": dict(
+        source="src/repro_torch/kernels/scored_topk/csrc/scored_topk.cu",
+        replaces="src/repro/kernels/scored_topk/scored_topk.py:28"),
+    "fm_interaction": dict(
+        source="src/repro_torch/kernels/fm_interaction/csrc/"
+               "fm_interaction.cu",
+        replaces="src/repro/kernels/fm_interaction/fm_interaction.py:23"),
 }
+FM_RTOL, FM_ATOL = 1e-5, 1e-6  # K8 vs plain: f32 sums in another order
+SCORE_RTOL, SCORE_ATOL = 1e-5, 1e-6  # recsys scores, card vs CPU
+TK_TOL = 1e-5  # K7 values vs plain: f32 dot products in another order
 
 
 class SmokeFailure(SystemExit):
@@ -325,17 +359,28 @@ def phase(name, kernel, rr, scores, feats, mask, window, expect_mode,
     return out, V, m_top, top_i
 
 
-def kernel_record(records, kernel, ms, plain_ms, bnd, err, note):
+def kernel_record(records, kernel, ms, plain_ms, bnd, err, note,
+                  library_ms=None,
+                  library="no library call computes a greedy DPP slate"):
     b_ms, by, nbytes, flops = bnd
     rec = records[kernel]
     rec.update(name=kernel, route="cuda", **KERNELS[kernel],
                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=by, library_ms=None)
+               bound_by=by, library_ms=library_ms)
+    lib = "null" if library_ms is None else f"{library_ms:.4f} ms"
     print(f"  {kernel}: {ms:.4f} ms/call (median of {TIMING_REPS}, {note}), "
           f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {by} "
           f"({nbytes} B, {flops} FP32 FLOP), launches/call "
-          f"{rec['calls_launches']}, no library call computes a greedy DPP "
-          f"slate (library_ms null)", flush=True)
+          f"{rec['calls_launches']}, {library} (library_ms {lib})",
+          flush=True)
+
+
+def bound_of(nbytes, flops):
+    """(least ms, "bytes" or "operations", bytes, FLOPs): the larger of
+    bytes over 3.35 TB/s and FP32 FLOPs over 67 TFLOP/s."""
+    t_bytes, t_flops = nbytes / HBM_BYTES_S, flops / FP32_FLOPS_S
+    by = "bytes" if t_bytes >= t_flops else "operations"
+    return 1e3 * max(t_bytes, t_flops), by, nbytes, flops
 
 
 def run_resident(records, rng):
@@ -432,7 +477,7 @@ def run_tiled(records, rng):
                       bound(B, D, C, k, window, (got[0] >= 0).sum(1)), err,
                       f"sum of {k} launches, CUDA events per launch")
         results[window] = (V, m_top, got)
-    return results
+    return results, feats
 
 
 def time_tiled(tm, kernel, V, mask, k, window, tile):
@@ -811,6 +856,323 @@ def small_reference_check(rng):
                 EPS)
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-12: DeepFM scoring into the rerank (K8, K1) and scored_topk (K7)
+# ---------------------------------------------------------------------------
+
+
+def serve_outputs(name, scores, slates, B, Mc, k):
+    """Scores (B, Mc) finite in (0, 1); slates (B, k) of distinct
+    candidate positions, a -1 tail only after an eps-stop.  Returns the
+    number of items selected."""
+    check(tuple(scores.shape) == (B, Mc) and scores.dtype == torch.float32,
+          f"{name}: scores {tuple(scores.shape)} {scores.dtype}")
+    check(bool(torch.isfinite(scores).all()), f"{name}: non-finite score")
+    check(bool(((scores > 0) & (scores < 1)).all()),
+          f"{name}: a score outside (0, 1)")
+    check(tuple(slates.shape) == (B, k) and slates.dtype == torch.int32,
+          f"{name}: slates {tuple(slates.shape)} {slates.dtype}")
+    live = slates >= 0
+    check(bool(live[:, 0].all()), f"{name}: a user got an empty slate")
+    check(bool((slates < Mc).all()), f"{name}: id out of range")
+    check(bool((live[:, :-1] | ~live[:, 1:]).all()),
+          f"{name}: a pick after an eps-stop")
+    srt = torch.sort(torch.where(live, slates, -1 - torch.arange(
+        k, device=slates.device, dtype=slates.dtype)), 1).values
+    check(bool((srt[:, 1:] != srt[:, :-1]).all()), f"{name}: repeated id")
+    return int(live.sum())
+
+
+def serve_phase(name, records, model, cfg, user, cand, rr, reps):
+    """``reps`` main-path ``serve_batch`` calls, each with the counters
+    and dispatch telemetry reset right before and read right after; K8
+    must launch once per forward and K1 once per rerank."""
+    from repro_torch.launch.serve import serve_batch
+
+    walls, out = [], None
+    for _ in range(reps):
+        out, counts, modes, wall = drive_chunks(
+            lambda: serve_batch(model, user, cand, cfg, rr))
+        check(counts == {"fm_interaction": 1, "dpp_greedy_resident": 1},
+              f"{name}: launches {counts}, expected one fm_interaction and "
+              f"one dpp_greedy_resident")
+        check(modes == {"mode=resident,windowed=False": 1},
+              f"{name}: dispatch telemetry {modes}")
+        for kernel, n in counts.items():
+            records.setdefault(kernel, {"launches": 0})["launches"] += n
+        walls.append(wall)
+    return out, counts, walls
+
+
+def run_recsys_serve(records):
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.data import recsys_batches
+    from repro_torch.kernels.fm_interaction import (
+        fm_interaction,
+        fm_interaction_ref,
+    )
+    from repro_torch.launch.serve import candidate_ids, report
+    from repro_torch.models import recsys
+    from repro_torch.serving import DPPRerankConfig, Reranker, RerankRequest
+
+    cfg = get_arch("deepfm").config
+    B, Mc, C, k = RECSYS_SHAPES["serve_p99"].batch, 2000, 200, 10
+    name = "phase 10 recsys serve"
+    t0 = time.perf_counter()
+    model = recsys.init_params(torch.Generator("cuda").manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    nparam = sum(p.numel() for p in model.parameters())
+    print(f"[{name}] deepfm {cfg.n_fields} fields, table "
+          f"{tuple(model.table.shape)}, MLP {cfg.mlp_dims}: {nparam} "
+          f"parameters ({4 * nparam / 1e9:.3f} GB) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s; B={B} x {Mc} candidates "
+          f"({B * Mc} scored rows), shortlist {C}, slate {k}", flush=True)
+    user = torch.as_tensor(next(recsys_batches(cfg.vocab_sizes, B, seed=1))
+                           ["ids"], device="cuda")
+    cand = torch.arange(Mc, dtype=torch.int32, device="cuda")
+    rr = Reranker(DPPRerankConfig(slate_size=k, shortlist=C, alpha=ALPHA,
+                                  eps=EPS, use_kernel=True), device="cuda")
+    (scores, slates), counts, walls = serve_phase(name, records, model, cfg,
+                                                  user, cand, rr, 2)
+    n = serve_outputs(name, scores, slates, B, Mc, k)
+    with torch.inference_mode():
+        feats = recsys.item_embeddings(model, cand, cfg)
+        ids = candidate_ids(user, cand, cfg)
+        emb, _ = recsys.embed(model, ids, cfg)
+    rep = report("deepfm", scores, slates, feats, walls[0], walls[1])
+    print(f"  main path: first batch {walls[0] * 1e3:.1f} ms, steady "
+          f"{walls[1] * 1e3:.1f} ms host wall; launches per call {counts}; "
+          f"{n} items selected", flush=True)
+    print("  report " + json.dumps(rep), flush=True)
+
+    # where a steady call's device time goes, stage by stage
+    with torch.inference_mode():
+        stages = {
+            "embedding bags": lambda: recsys.embed(model, ids, cfg),
+            "forward (scores)": lambda: recsys.serve_scores(model, ids, cfg),
+            "rerank (shortlist + K1)": lambda: rr.rerank(RerankRequest(
+                scores=scores, feats=feats)),
+        }
+        for stage, fn in stages.items():
+            ms = time_events(lambda: event_ms(fn), PLAIN_REPS)
+            print(f"  stage {stage}: {ms:.4f} ms (CUDA events, median of "
+                  f"{PLAIN_REPS})", flush=True)
+
+        # K8 against its plain version on the forward's own embeddings
+        got, want = fm_interaction(emb), fm_interaction_ref(emb)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(torch.allclose(got, want, rtol=FM_RTOL, atol=FM_ATOL),
+              f"{name}: K8 differs from its plain version by {err}")
+        print(f"  fm_interaction vs plain on emb {tuple(emb.shape)}: max abs "
+              f"err {err:.3g} (rtol {FM_RTOL} / atol {FM_ATOL})", flush=True)
+        ms = time_events(lambda: event_ms(lambda: fm_interaction(emb)),
+                         TIMING_REPS)
+        plain_ms = time_events(
+            lambda: event_ms(lambda: fm_interaction_ref(emb)), PLAIN_REPS)
+    N, F, Dm = emb.shape
+    records["fm_interaction"]["calls_launches"] = 1
+    kernel_record(records, "fm_interaction", ms, plain_ms,
+                  bound_of(4 * N * F * Dm + 4 * N,
+                           N * (3 * F * Dm + 3 * Dm + 1)),
+                  err, "one launch, CUDA events", None,
+                  "no single PyTorch call computes the FM term")
+    return model, cfg, user[:4], cand, scores[:4], slates[:4], feats, rr.cfg
+
+
+def run_retrieval(records, model, cfg):
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.data import recsys_batches
+    from repro_torch.launch.serve import report
+    from repro_torch.models import recsys
+    from repro_torch.serving import DPPRerankConfig, Reranker
+
+    shape = RECSYS_SHAPES["retrieval_cand"]
+    B, Mc, C, k = shape.batch, shape.n_candidates, 1000, 50
+    name = "phase 11 retrieval"
+    check(Mc <= cfg.vocab_sizes[cfg.item_field],
+          f"{name}: the item field holds fewer than {Mc} ids")
+    print(f"[{name}] B={B} x {Mc} candidates (item field of "
+          f"{cfg.vocab_sizes[cfg.item_field]} ids), shortlist {C}, slate {k}",
+          flush=True)
+    user = torch.as_tensor(next(recsys_batches(cfg.vocab_sizes, B, seed=1))
+                           ["ids"], device="cuda")
+    cand = torch.arange(Mc, dtype=torch.int32, device="cuda")
+    rr = Reranker(DPPRerankConfig(slate_size=k, shortlist=C, alpha=ALPHA,
+                                  eps=EPS, use_kernel=True), device="cuda")
+    (scores, slates), counts, walls = serve_phase(name, records, model, cfg,
+                                                  user, cand, rr, 1)
+    n = serve_outputs(name, scores, slates, B, Mc, k)
+    with torch.inference_mode():
+        feats = recsys.item_embeddings(model, cand, cfg)
+    rep = report("deepfm", scores, slates, feats, walls[0], walls[0])
+    print(f"  main path: {walls[0] * 1e3:.1f} ms host wall; launches "
+          f"{counts}; {n} of {k} slots selected (the features have rank "
+          f"{cfg.embed_dim}: past it the gains fall under eps)", flush=True)
+    print("  report " + json.dumps(rep), flush=True)
+
+
+def recsys_reference_check(model, cfg, user, cand, scores, slates, feats,
+                           rr_cfg):
+    """Phase 10's first users through the same ``serve_batch`` on the CPU
+    (the parameters moved there): scores within rtol 1e-5 / atol 1e-6;
+    slates equal, or the shortlist differs only by a score near-tie at
+    its boundary, or the greedy diverges at a float64-certified near-tie.
+    Moves ``model`` to the CPU."""
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.serving import Reranker
+    from repro_torch.serving.reranker import _shortlist_kernel
+
+    name = "recsys reference check"
+    B = user.shape[0]
+    model.to("cpu")
+    s_cpu, sl_cpu = serve_batch(model, user.cpu(), cand.cpu(), cfg,
+                                Reranker(rr_cfg, device="cpu"))
+    err = (scores.cpu() - s_cpu).abs().max().item()
+    check(torch.allclose(scores.cpu(), s_cpu, rtol=SCORE_RTOL,
+                         atol=SCORE_ATOL),
+          f"{name}: scores differ from the CPU by {err}")
+    same = [b for b in range(B) if torch.equal(slates[b].cpu(), sl_cpu[b])]
+    C = min(rr_cfg.shortlist, cand.shape[0])
+    for b in sorted(set(range(B)) - set(same)):
+        V, _, top_i = _shortlist_kernel(scores[b:b + 1], feats, rr_cfg, None)
+        _, _, top_c = _shortlist_kernel(s_cpu[b:b + 1], feats.cpu(), rr_cfg,
+                                        None)
+        g, c_ = set(top_i[0].tolist()), set(top_c[0].tolist())
+        if g != c_:
+            edge = scores[b, top_i[0, C - 1]].item()
+            for x in g ^ c_:
+                sx = scores[b, x].item()
+                check(abs(sx - edge) <= SCORE_ATOL + SCORE_RTOL * abs(edge),
+                      f"{name}: user {b} shortlists differ at {x} (score "
+                      f"{sx}, boundary {edge}) without a near-tie")
+            print(f"  user {b}: shortlists differ by a score near-tie at "
+                  f"the boundary", flush=True)
+            continue
+        inv = {int(x): i for i, x in enumerate(top_i[0].tolist())}
+        loc = [[inv[int(x)] if x >= 0 else -1 for x in sl.tolist()]
+               for sl in (slates[b], sl_cpu[b])]
+        got, want = (torch.tensor([x], device="cuda") for x in loc)
+        certify(f"{name} user {b}", V, None, got, want, None, rr_cfg.eps)
+    print(f"  {name}: {B} users, scores max abs err {err:.3g} (rtol "
+          f"{SCORE_RTOL} / atol {SCORE_ATOL}); {len(same)} of {B} slates "
+          f"equal index for index, the rest certified", flush=True)
+
+
+def topk_check(name, vals, idx, rvals, ridx, s64):
+    """K7 against the plain top-c: values within TK_TOL; an index may
+    differ only where the two scores are within TK_TOL of each other (a
+    float32 near-tie, certified in float64).  Returns the max abs value
+    error."""
+    err = (vals - rvals).abs().max().item()
+    check(torch.allclose(vals, rvals, rtol=TK_TOL, atol=TK_TOL),
+          f"{name}: values differ from the plain version by {err}")
+    diff = (idx != ridx).nonzero()[:, 0]
+    for p in diff.tolist():
+        a, b = s64[int(idx[p])].item(), s64[int(ridx[p])].item()
+        check(abs(a - b) <= TK_TOL * (1 + abs(b)),
+              f"{name}: position {p} holds {int(idx[p])} (score {a}) where "
+              f"the plain version has {int(ridx[p])} ({b})")
+    return err, len(diff)
+
+
+def run_scored_topk(records, pool):
+    from repro_torch.kernels.scored_topk import (
+        scored_topk,
+        scored_topk_blocks,
+        scored_topk_blocks_plain,
+        scored_topk_ref,
+    )
+
+    def main_path(name, emb, q, c):
+        out, counts, _, wall = drive_chunks(
+            lambda: scored_topk(emb, q, c=c))
+        check(counts == {"scored_topk": 1},
+              f"{name}: launches {counts}, expected one scored_topk")
+        records.setdefault("scored_topk", {"launches": 0})["launches"] += 1
+        vals, idx = out
+        M = emb.shape[0]
+        check(tuple(vals.shape) == (c,) and tuple(idx.shape) == (c,),
+              f"{name}: shapes {tuple(vals.shape)} {tuple(idx.shape)}")
+        check(bool(torch.isfinite(vals).all()), f"{name}: non-finite value")
+        check(bool(((idx >= 0) & (idx < M)).all()), f"{name}: id out of range")
+        check(idx.unique().numel() == c, f"{name}: repeated id")
+        check(bool((vals[1:] <= vals[:-1]).all()), f"{name}: not descending")
+        print(f"  main path: {wall * 1e3:.2f} ms host wall, launches "
+              f"{counts}", flush=True)
+        return vals, idx
+
+    g = torch.Generator("cuda").manual_seed(SEED)
+    name = "phase 12 scored_topk exact ties"
+    M, Dt, c = 100_000, 16, 1000
+    e = torch.randint(-3, 4, (M, Dt), generator=g, device="cuda").float()
+    q = torch.randint(-3, 4, (Dt,), generator=g, device="cuda").float()
+    print(f"[{name}] M={M} D={Dt} c={c}, small-integer data", flush=True)
+    vals, idx = main_path(name, e, q, c)
+    rvals, ridx = scored_topk_ref(e, q, c)
+    check(torch.equal(idx, ridx) and torch.equal(vals, rvals),
+          f"{name}: differs from the plain version")
+    bv, bi = scored_topk_blocks(e, q, c)
+    pv, pi = scored_topk_blocks_plain(e, q, c)
+    check(torch.equal(bi, pi) and torch.equal(bv, pv),
+          f"{name}: block survivors differ from the plain version")
+    print(f"  {vals.unique().numel()} distinct values among the {c}: result "
+          f"and {bi.shape[0]} blocks' survivors equal the plain version "
+          f"index for index", flush=True)
+
+    name = "phase 12 scored_topk timed"
+    M, Dt = pool.shape
+    q = torch.from_numpy(np.random.default_rng(SEED + 12).standard_normal(
+        Dt, dtype=np.float32)).to("cuda")
+    print(f"[{name}] phase 3's pool M={M} D={Dt}, c={c}, block_m 8192",
+          flush=True)
+    vals, idx = main_path(name, pool, q, c)
+    rvals, ridx = scored_topk_ref(pool, q, c)
+    s64 = pool.double() @ q.double()
+    err, moved = topk_check(name, vals, idx, rvals, ridx, s64)
+    check(set(idx.tolist()) == set(ridx.tolist()),
+          f"{name}: index sets differ from the plain version")
+    bv, bi = scored_topk_blocks(pool, q, c)
+    pv, pi = scored_topk_blocks_plain(pool, q, c)
+    for r in range(bv.shape[0]):
+        e_b, _ = topk_check(f"{name} block {r}", bv[r], bi[r], pv[r], pi[r],
+                            s64)
+        err = max(err, e_b)
+    print(f"  values max abs err {err:.3g} (tolerance {TK_TOL}); the index "
+          f"sets equal; {moved} positions swapped at float64-certified "
+          f"near-ties", flush=True)
+    ms = time_events(lambda: event_ms(lambda: scored_topk(pool, q, c=c)),
+                     TIMING_REPS)
+    blocks_ms = time_events(
+        lambda: event_ms(lambda: scored_topk_blocks(pool, q, c)), TIMING_REPS)
+    plain_ms = time_events(
+        lambda: event_ms(lambda: scored_topk_ref(pool, q, c)), PLAIN_REPS)
+    lib_ms = time_events(
+        lambda: event_ms(lambda: torch.topk(pool @ q, c)), TIMING_REPS)
+    print(f"  the block kernel alone: {blocks_ms:.4f} ms; the rest of the "
+          f"call is the final top-{c} over {bv.numel()} survivors",
+          flush=True)
+    records["scored_topk"]["calls_launches"] = 1
+    kernel_record(records, "scored_topk", ms, plain_ms,
+                  bound_of(4 * M * Dt + 4 * Dt + 8 * c, 2 * M * Dt), err,
+                  "one launch + the final top-c, CUDA events", lib_ms,
+                  "library call torch.topk(emb @ q, c)")
+
+    name = "phase 12 scored_topk ragged"
+    M, Dt, c = 1_000_003, 10, 128
+    e = torch.randn((M, Dt), generator=g, device="cuda")
+    q = torch.randn((Dt,), generator=g, device="cuda")
+    print(f"[{name}] M={M} D={Dt} c={c}", flush=True)
+    vals, idx = main_path(name, e, q, c)
+    rvals, ridx = scored_topk_ref(e, q, c)
+    err, _ = topk_check(name, vals, idx, rvals, ridx, e.double() @ q.double())
+    check(bool((idx < M).all()), f"{name}: an id past M")
+    records["scored_topk"]["max_abs_err"] = max(
+        records["scored_topk"]["max_abs_err"], err)
+    print(f"  no id past M; values max abs err {err:.3g}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -848,19 +1210,27 @@ def main() -> int:
     records["tiled_step_exact"] = {"launches": 0}
     records["tiled_step_exact"]["launches"] += run_forced_tile(
         resident[None][2], scores, feats)
-    tiled = run_tiled(records, rng)
+    tiled, pool = run_tiled(records, rng)
     run_stream(records, resident, scores, feats)
     del scores, feats
     run_chunks_windowed(records, resident)
     run_chunks_large(records, tiled)
     run_slots(records, resident)
     small_reference_check(rng)
+    del resident, tiled
+    model, cfg, user, cand, scores, slates, feats, rr_cfg = run_recsys_serve(
+        records)
+    run_retrieval(records, model, cfg)
+    recsys_reference_check(model, cfg, user, cand, scores, slates, feats,
+                           rr_cfg)
+    del model
+    run_scored_topk(records, pool)
     print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = []
     for name in KERNELS:
         rec = dict(records[name])
-        rec.pop("calls_launches")
+        rec.pop("calls_launches", None)
         kernels.append({key: rec[key] for key in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})

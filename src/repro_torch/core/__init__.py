@@ -6,8 +6,11 @@ Also the resumable streaming layer (``streaming.py``: ``GreedyState``,
 init/step/chunk, the slot substrate and the session delta updates) and
 its generator ``greedy_map_chunks``.
 
-Not ported yet (ROADMAP queue 1): the naive determinant oracle, the
-baselines and metrics (item 2), the sharded backend (item 9).
+And the numpy evaluation side: the slate metrics (``metrics.py``) and
+the Top-N and random baselines (``baselines.py``).
+
+Not ported yet (ROADMAP queue 1): the naive determinant oracle and the
+MMR and greedy-avg baselines (item 2), the sharded backend (item 9).
 """
 from repro_torch.core.kernel_matrix import (
     build_kernel_dense,
@@ -38,6 +41,14 @@ from repro_torch.core.dispatch import (
     greedy_map,
     greedy_map_chunks,
 )
+from repro_torch.core.baselines import random_top_select, top_n_select
+from repro_torch.core.metrics import (
+    log_det_objective,
+    mean_slate_diversity,
+    mean_slate_diversity_rows,
+    recall_at_n,
+    slate_diversity,
+)
 from repro_torch.core.streaming import (
     GreedyState,
     greedy_chunk,
@@ -54,6 +65,13 @@ from repro_torch.core.streaming import (
 )
 
 __all__ = [
+    "log_det_objective",
+    "mean_slate_diversity",
+    "mean_slate_diversity_rows",
+    "random_top_select",
+    "recall_at_n",
+    "slate_diversity",
+    "top_n_select",
     "GreedyResult",
     "GreedySpec",
     "GreedySpecError",

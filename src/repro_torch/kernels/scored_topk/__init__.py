@@ -1,0 +1,13 @@
+from repro_torch.kernels.scored_topk.ops import scored_topk
+from repro_torch.kernels.scored_topk.ref import scored_topk_ref
+from repro_torch.kernels.scored_topk.scored_topk import (
+    scored_topk_blocks,
+    scored_topk_blocks_plain,
+)
+
+__all__ = [
+    "scored_topk",
+    "scored_topk_blocks",
+    "scored_topk_blocks_plain",
+    "scored_topk_ref",
+]

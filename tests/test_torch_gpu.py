@@ -12,6 +12,13 @@ kernels K5/K6 are also held against the whole-slate kernels on the card
 (the same per-column device code: equal bits) and counted at one launch
 per chunk, multi-tile cooperative grids and slots at mixed progress
 included.
+
+K8 (``fm_interaction``) and K7 (``scored_topk``) are held against their
+plain versions on the CPU: K8 within rtol 1e-5 / atol 2e-6 * F * D
+(float32 sums of F * D unit-normal terms in another order, whose
+cancellation leaves an absolute error that grows with F * D), K7 index
+for index on small-integer data (exact float32 dot products, many ties),
+and within rtol / atol 1e-5 with equal index sets on Gaussian data.
 """
 import numpy as np
 import pytest
@@ -27,6 +34,16 @@ from repro_torch.core import (
 )
 from repro_torch.kernels import cuda
 from repro_torch.kernels.dpp_greedy import dpp_greedy
+from repro_torch.kernels.fm_interaction import (
+    fm_interaction,
+    fm_interaction_ref,
+)
+from repro_torch.kernels.scored_topk import (
+    scored_topk,
+    scored_topk_blocks,
+    scored_topk_blocks_plain,
+    scored_topk_ref,
+)
 from repro_torch.serving import DPPRerankConfig, Reranker, RerankRequest
 
 RTOL, ATOL = 3e-4, 1e-5
@@ -162,3 +179,83 @@ def test_chunk_slots_mixed_progress_on_card(card, window):
     for (gs, gd), (ws, wd) in zip(runs["cuda"], runs["cpu"]):
         assert torch.equal(gs, ws)
         torch.testing.assert_close(gd, wd, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,F,D,block_b", [
+    (1, 1, 1, 128), (130, 39, 10, 128), (1000, 26, 32, 32), (257, 4, 8, 64),
+    (3, 400, 130, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fm_interaction_kernel_matches_plain(card, N, F, D, block_b, dtype):
+    rng = np.random.default_rng(N + F + D)
+    x = torch.from_numpy(rng.normal(size=(N, F, D)).astype(np.float32))
+    x = x.to(dtype)
+    want = fm_interaction_ref(x)
+    cuda.reset_launch_counts()
+    got = fm_interaction(x.cuda(), block_b=block_b)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts() == {"fm_interaction": 1}
+    assert got.dtype == torch.float32 and got.shape == (N,)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                               atol=2e-6 * F * D)
+
+
+@pytest.mark.gpu
+def test_fm_interaction_kernel_refuses_grad(card):
+    x = torch.randn(4, 3, 2, device="cuda", requires_grad=True)
+    cuda.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fm_interaction(x)
+    assert cuda.launch_counts() == {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,D,c,block_m", [
+    (1000, 16, 8, 256), (4097, 16, 128, 1024), (130, 64, 128, 128),
+    (1024, 8, 256, 256), (100_003, 10, 128, 8192), (3000, 100, 1000, 8192)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_scored_topk_kernel_matches_plain_exact(card, M, D, c, block_m,
+                                                dtype):
+    """Small integers (exact in bf16 and in every float32 summation
+    order): the block survivors and the global top-c equal the plain
+    versions index for index, ragged edges and c = block rows included."""
+    rng = np.random.default_rng(M + c)
+    e = torch.from_numpy(rng.integers(-3, 4, size=(M, D)).astype(np.float32))
+    q = torch.from_numpy(rng.integers(-3, 4, size=(D,)).astype(np.float32))
+    e, q = e.to(dtype), q.to(dtype)
+    ge, gq = e.cuda(), q.cuda()
+    bv, bi = scored_topk_blocks(ge, gq, c, block_m)
+    pv, pi = scored_topk_blocks_plain(e, q, c, block_m)
+    torch.cuda.synchronize()
+    assert torch.equal(bi.cpu(), pi) and torch.equal(bv.cpu(), pv)
+    cuda.reset_launch_counts()
+    vals, idx = scored_topk(ge, gq, c=c, block_m=block_m)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts() == {"scored_topk": 1}
+    rv, ri = scored_topk_ref(e, q, c)
+    assert torch.equal(idx.cpu(), ri) and torch.equal(vals.cpu(), rv)
+    assert bool((idx < M).all())
+
+
+@pytest.mark.gpu
+def test_scored_topk_kernel_gaussian(card):
+    rng = np.random.default_rng(11)
+    e = torch.from_numpy(rng.normal(size=(50_000, 64)).astype(np.float32))
+    q = torch.from_numpy(rng.normal(size=(64,)).astype(np.float32))
+    vals, idx = scored_topk(e.cuda(), q.cuda(), c=200, block_m=4096)
+    rv, ri = scored_topk_ref(e, q, 200)
+    torch.testing.assert_close(vals.cpu(), rv, rtol=1e-5, atol=1e-5)
+    assert set(idx.cpu().tolist()) == set(ri.tolist())
+
+
+@pytest.mark.gpu
+def test_scored_topk_kernel_refuses_oversized_blocks(card):
+    e, q = torch.zeros(40_000, 8, device="cuda"), torch.zeros(8, device="cuda")
+    cuda.reset_launch_counts()
+    with pytest.raises(ValueError, match="shared"):
+        scored_topk_blocks(e, q, 16, 32768)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        scored_topk_blocks(e.half(), q.half(), 16)
+    assert cuda.launch_counts() == {}

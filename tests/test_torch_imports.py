@@ -60,6 +60,8 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     assert "repro_torch.serving.api" in mods
     assert "repro_torch.core.streaming" in mods
+    assert "repro_torch.models.recsys" in mods
+    assert "repro_torch.launch.serve" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
