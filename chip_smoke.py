@@ -17,19 +17,21 @@ eps = 1e-3, inputs made with numpy from a fixed seed.
 2. resident windowed: phase 1 with window 10, k = 200;
 3. tiled exact:       B = 4 users, pool 1,000,000, shortlist 65,536,
                       k = 50, 10% of the pool masked as seen;
-4. tiled windowed:    phase 3 with window 10, k = 200;
+4. tiled windowed:    phase 3 with window 10, k = 200; a TorchDispatchMode
+                      around a second main-path call shows that no aten
+                      op runs between its first and last K4 launch;
 5. forced tile:       phase 1's inputs with tile_m = 256; the tiled slate
                       must equal the resident one;
 6. stream:            ``Reranker.stream`` of phase 1's first user, chunk 8
                       (seven K5 launches); the concatenated slate must
                       equal that user's K1 slate;
 7. chunks windowed:   ``greedy_map_chunks`` on phase 2's shortlists
-                      (B = 64, w = 10, k = 200, chunk 16) on K6, against
-                      K2's whole slate;
+                      (B = 64, w = 10, k = 200, chunk 16) on K6 with its
+                      V tiles in shared memory, against K2's whole slate;
 8. chunks large pool: ``greedy_map_chunks`` on phases 3 and 4's
                       shortlists (B = 4, C = 65,536, k = 50 exact and
                       k = 200 at w = 10, chunk 16), several cooperative
-                      blocks per lane, against K3 / K4;
+                      blocks per lane, V streamed, against K3 / K4;
 9. slots:             ``greedy_chunk_slots`` on 64 slots (exact, k = 50,
                       chunk 8) holding phase 1's users, half of them
                       spliced in two chunks after the rest; K5 is held
@@ -65,7 +67,13 @@ dispatch telemetry; holds the kernel against its plain PyTorch version on
 the same inputs (d_hist rtol 3e-4 / atol 1e-5; a slate may differ only
 after a float64-certified near-tie, with every later pick float64
 greedy-valid; K8 rtol 1e-5 / atol 1e-6; K7 values within 1e-5); times the
-kernel and the plain version with CUDA events; and checks the outputs.
+kernel and the plain version with CUDA events (the multi-launch kernels
+K3-K6 one event pair per launch, summed, with torch.profiler's device
+time of the same launches beside it as ``device_ms``); and checks the
+outputs.
+Phases 4, 7 and 8 also print the windowed kernels' streaming floor: V's
+bytes once per step over 3.35 TB/s, since V does not stay on the chip
+between steps there (the bound in the kernels' record counts V once).
 Any failure exits non-zero.  The second-to-last line is the kernels'
 JSON record, the last the device line.
 """
@@ -80,6 +88,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -253,6 +262,40 @@ def event_ms(fn):
     return start.elapsed_time(end)
 
 
+def device_ms(fn, kernel, launches, reps=TIMING_REPS // 4):
+    """Device time of ``kernel``'s launches in one ``fn()`` call, summed,
+    by torch.profiler (CUPTI); the median over ``reps`` profiled calls
+    after one warm call.  Unlike a CUDA event pair around a launch it
+    leaves out the wrapper's host time.  A profiled call in which the
+    profiler did not see exactly ``launches`` launches of the kernel
+    (CUPTI may drop activity records) is discarded and made again, up
+    to ``4 * reps`` calls in all; None, said on a line of its own, if
+    none of them saw every launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    out, missed = [], []
+    for _ in range(4 * reps):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen = sum(e.count for e in prof.key_averages()
+                   if e.key.split("(")[0] == kernel + "_kernel")
+        if seen != launches:
+            missed.append(seen)
+            continue
+        total = sum(e.device_time_total for e in prof.key_averages()
+                    if e.key.split("(")[0] == kernel + "_kernel")
+        out.append(total / 1e3)
+        if len(out) == reps:
+            break
+    if missed:
+        print(f"  torch.profiler saw {missed} of {launches} {kernel} "
+              f"launches in {len(missed)} profiled calls; those calls were "
+              f"discarded", flush=True)
+    return statistics.median(out) if out else None
+
+
 def bound(B, D, M, k, window, nsteps):
     """Least time for one whole-slate call: the larger of the bytes that
     must move (V and the initial gains read once, sel and d_hist written
@@ -317,10 +360,29 @@ def check_outputs(name, out, B, k, M, mask):
     return int(live.sum())
 
 
+class LaunchGapLog(TorchDispatchMode):
+    """Each aten op dispatched, with the count of ``kernel``'s launches
+    at that moment: an op seen at a count in [1, n) ran between the
+    first and the last of n launches."""
+
+    def __init__(self, kernel):
+        super().__init__()
+        self.kernel, self.ops = kernel, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from repro_torch.kernels import cuda
+
+        self.ops.append((str(func),
+                         cuda.launch_counts().get(self.kernel, 0)))
+        return func(*args, **(kwargs or {}))
+
+
 def phase(name, kernel, rr, scores, feats, mask, window, expect_mode,
-          expect_launches, records, single=False):
+          expect_launches, records, single=False, watch=False):
     """Drive one phase end to end; return the kernel's plain-vs-kernel
-    inputs so the caller can reuse them."""
+    inputs so the caller can reuse them.  ``watch``: a second main-path
+    call runs under a :class:`LaunchGapLog`, which must see no op between
+    the kernel's first and last launch."""
     from repro_torch.serving import RerankRequest
     from repro_torch.serving.reranker import _shortlist_kernel
 
@@ -340,10 +402,29 @@ def phase(name, kernel, rr, scores, feats, mask, window, expect_mode,
     check(modes == {f"mode={expect_mode},windowed={windowed}": 1},
           f"{name}: dispatch telemetry {modes}, expected one {expect_mode}")
     n = check_outputs(name, out, B, k, M, mask)
-    print(f"  main path: {wall * 1e3:.1f} ms host wall, launches {counts}, "
-          f"mode {expect_mode}, {n} items selected", flush=True)
+    was = (" (829.3 ms on an H100 when the loop still worked out the "
+           "step state in PyTorch between launches)") if watch else ""
+    print(f"  main path: {wall * 1e3:.1f} ms host wall{was}, launches "
+          f"{counts}, mode {expect_mode}, {n} items selected", flush=True)
     rec = records.setdefault(kernel, {"launches": 0})
     rec["launches"] += counts[kernel]
+    if watch:
+        log = LaunchGapLog(kernel)
+        with log:
+            again, a_counts, _ = drive(rr, req)
+        check(a_counts == {kernel: expect_launches}
+              and torch.equal(again[0], out[0]),
+              f"{name}: a second main-path call differs ({a_counts})")
+        rec["launches"] += a_counts[kernel]
+        gap = [op for op, n in log.ops if 0 < n < expect_launches]
+        check(not gap, f"{name}: {len(gap)} aten ops between the first and "
+                       f"the last {kernel} launch, e.g. {gap[:5]}")
+        before = sum(1 for _, n in log.ops if n == 0)
+        after = sum(1 for _, n in log.ops if n >= expect_launches)
+        print(f"  the main path again under a TorchDispatchMode: the same "
+              f"slate, 0 aten ops between the first and the last of its "
+              f"{expect_launches} {kernel} launches ({before} before, "
+              f"{after} after)", flush=True)
     if single:
         s_out, s_counts, _ = drive(rr, RerankRequest(
             scores=scores[0], feats=feats,
@@ -361,18 +442,46 @@ def phase(name, kernel, rr, scores, feats, mask, window, expect_mode,
 
 def kernel_record(records, kernel, ms, plain_ms, bnd, err, note,
                   library_ms=None,
-                  library="no library call computes a greedy DPP slate"):
+                  library="no library call computes a greedy DPP slate",
+                  device=None):
+    """Put one kernel's numbers into the JSON record and print them.
+    ``ms`` is CUDA event time for every kernel; ``device``, where it was
+    measured, the same launches' device time by torch.profiler, kept
+    beside it as ``device_ms``."""
     b_ms, by, nbytes, flops = bnd
     rec = records[kernel]
     rec.update(name=kernel, route="cuda", **KERNELS[kernel],
                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=by, library_ms=library_ms)
+               bound_by=by, library_ms=library_ms, device_ms=device)
     lib = "null" if library_ms is None else f"{library_ms:.4f} ms"
+    if device is not None:
+        note += f"; device time by torch.profiler {device:.4f} ms"
     print(f"  {kernel}: {ms:.4f} ms/call (median of {TIMING_REPS}, {note}), "
           f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {by} "
           f"({nbytes} B, {flops} FP32 FLOP), launches/call "
           f"{rec['calls_launches']}, {library} (library_ms {lib})",
           flush=True)
+
+
+def stream_floor(B, M, steps, ms, v_resident=False):
+    """Print the windowed kernels' streaming floor: V (B, D, M) float32
+    read once per step over 3.35 TB/s, beside ``ms`` of device time
+    (torch.profiler, None when not measured) for ``steps`` steps
+    (``v_resident``: K6 keeps V in shared memory, so it reads V from
+    device memory once per launch and the floor is a yardstick only)."""
+    step_ms = 1e3 * 4 * B * D * M / HBM_BYTES_S
+    note = ("; V stays in shared memory here, read from device memory once "
+            "per chunk launch" if v_resident else "")
+    got = ("device time not measured" if ms is None else
+           f"device time {ms / steps * 1e3:.1f} us a step, "
+           f"{ms / (step_ms * steps):.2f}x the floor")
+    print(f"  streaming floor (V once per step, {4 * B * D * M} B over "
+          f"3.35 TB/s): {step_ms * 1e3:.1f} us a step, {step_ms * steps:.4f} "
+          f"ms for {steps} steps; {got}{note}", flush=True)
+
+
+def ms_text(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def bound_of(nbytes, flops):
@@ -452,7 +561,7 @@ def run_tiled(records, rng):
                       device="cuda")
         out, V, m_top, top_i = phase(
             name, kernel, rr, scores, feats, mask, window, "tiled", k,
-            records)
+            records, watch=window is not None)
         tile = TilePolicy().decide(D, C, window or k, windowed=window
                                    is not None)[1]
         # kernel vs plain: the same whole-slate loop with the plain steps
@@ -471,40 +580,66 @@ def run_tiled(records, rng):
             .to(torch.int32), out[0]),
             f"{name}: direct kernel call differs from the main path")
         _, err = compare(name, V, m_top, got, want, window, EPS)
-        ms, plain_ms = time_tiled(tm, kernel, V, m_top, k, window, tile)
+        ms, plain_ms, span = time_tiled(tm, kernel, V, m_top, k, window,
+                                        tile)
+        dev = device_ms(lambda: tm.dpp_greedy_tiled(V, m_top, k, window, EPS,
+                                                    tile), kernel, k)
         records[kernel]["calls_launches"] = k
         kernel_record(records, kernel, ms, plain_ms,
                       bound(B, D, C, k, window, (got[0] >= 0).sum(1)), err,
-                      f"sum of {k} launches, CUDA events per launch")
+                      f"sum of {k} launches, CUDA events per launch",
+                      device=dev)
+        busy = ("" if dev is None else f"; device time is {dev / span:.1%} "
+                f"of it, the rest the card waits for the host")
+        print(f"  {kernel}: from before the first launch to after the last, "
+              f"CUDA events: {span:.4f} ms{busy}", flush=True)
+        if window is not None:
+            stream_floor(B, C, k, dev)
         results[window] = (V, m_top, got)
     return results, feats
 
 
 def time_tiled(tm, kernel, V, mask, k, window, tile):
-    """Kernel and plain device time of one whole-slate tiled call, each
-    launch bracketed by its own CUDA events: the whole-slate loop runs
-    with the step function wrapped, so the PyTorch work between the
-    windowed launches is outside the sum."""
+    """Kernel and plain time of one whole-slate tiled call as the sum of
+    one CUDA event pair per launch (each pair also holds the wrapper's
+    host time), and the kernel's span from one event right before the
+    first step's launch to one right after the last (the loop issues
+    nothing between its k launches)."""
     real = getattr(tm, kernel)
     plain = getattr(tm, kernel + "_plain")
-    out = []
-    for fn, reps in ((real, TIMING_REPS), (plain, PLAIN_REPS)):
-        acc = []
 
-        def timed(*args, _fn=fn, **kw):
-            acc.append(event_ms(lambda: _fn(*args, **kw)))
+    def run_with(step):
+        setattr(tm, kernel, step)
+        try:
+            tm.dpp_greedy_tiled(V, mask, k, window, EPS, tile)
+        finally:
+            setattr(tm, kernel, real)
 
+    def summed(fn):
         def one():
-            acc.clear()
-            setattr(tm, kernel, timed)
-            try:
-                tm.dpp_greedy_tiled(V, mask, k, window, EPS, tile)
-            finally:
-                setattr(tm, kernel, real)
+            acc = []
+            run_with(lambda *args: acc.append(event_ms(lambda: fn(*args))))
             return sum(acc)
+        return one
 
-        out.append(time_events(one, reps))
-    return out
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def bracketed(*args):
+        t = args[-3]
+        if t == 0:
+            ev[0].record()
+        real(*args)
+        if t == k - 1:
+            ev[1].record()
+
+    def span():
+        run_with(bracketed)
+        ev[1].synchronize()
+        return ev[0].elapsed_time(ev[1])
+
+    return (time_events(summed(real), TIMING_REPS),
+            time_events(summed(plain), PLAIN_REPS),
+            time_events(span, TIMING_REPS))
 
 
 def run_forced_tile(resident_out, scores, feats):
@@ -577,7 +712,9 @@ def with_chunk_kernel(kernel, fn, plain=False, timed=False):
     impl = real
     if plain:
         ref = getattr(tm, kernel + "_plain")
-        impl = lambda *args: ref(*args[:-1])  # noqa: E731 (drops tile_m)
+        # the plain versions take neither the tile nor K6's V residency
+        keep = {"fused_chunk_exact": 7, "fused_chunk_windowed": 8}[kernel]
+        impl = lambda *args: ref(*args[:keep])  # noqa: E731
     acc = []
 
     def call(*args):
@@ -607,22 +744,29 @@ def chunk_check(name, kernel, V, mask, k, window, chunk, record, records):
     want, _ = with_chunk_kernel(kernel, run, plain=True)
     torch.cuda.synchronize()
     _, err = compare(name, V, mask, got, want, window, EPS)
-    ms = time_events(lambda: with_chunk_kernel(kernel, run, timed=True)[1],
-                     TIMING_REPS)
+    n = -(-k // chunk)
+    ms = time_events(
+        lambda: with_chunk_kernel(kernel, run, timed=True)[1], TIMING_REPS)
+    dev = device_ms(run, kernel, n)
     plain_ms = time_events(
         lambda: with_chunk_kernel(kernel, run, plain=True, timed=True)[1],
         PLAIN_REPS)
-    n = -(-k // chunk)
     B, _, M = V.shape
     bnd = bound(B, D, M, k, window, (got[0] >= 0).sum(1))
     print(f"  {kernel}: {ms:.4f} ms/slate = {ms / n:.4f} ms/chunk call "
           f"({n} launches, chunk {chunk}; median of {TIMING_REPS}, CUDA "
-          f"events per launch), plain {plain_ms:.4f} ms/slate, bound "
-          f"{bnd[0]:.4f} ms by {bnd[1]}", flush=True)
+          f"events per launch); device time by torch.profiler "
+          f"{ms_text(dev)}/slate (median of {TIMING_REPS // 4}); plain "
+          f"{plain_ms:.4f} ms/slate, bound {bnd[0]:.4f} ms by {bnd[1]}",
+          flush=True)
+    if window is not None:
+        stream_floor(B, M, k, dev, chunk_tiles(M, window, True, B,
+                                               V.device)[2])
     if record:
         records[kernel]["calls_launches"] = n
         kernel_record(records, kernel, ms, plain_ms, bnd, err,
-                      f"sum of {n} chunk launches, CUDA events per launch")
+                      f"sum of {n} chunk launches, CUDA events per launch",
+                      device=dev)
 
 
 def check_equal(name, got, want):
@@ -695,12 +839,36 @@ def run_stream(records, resident, scores, feats):
           f"{one:.4f} ms (one launch, chunk {k})", flush=True)
 
 
+def chunk_tiles(M, R, windowed, lanes, device):
+    """The fused chunk kernel's tiling of ``lanes`` lanes of ``M``
+    candidates and ``R`` state rows on this card and, windowed, whether
+    V stays in shared memory: (one line of text, tiles per lane, V in
+    shared memory)."""
+    from repro_torch.kernels.dpp_greedy.ops import _stream_tile
+    from repro_torch.kernels.dpp_greedy.tiled import chunk_capacity
+    from repro_torch.kernels.dpp_greedy.tiling import chunk_smem_bytes
+
+    tile, vres = _stream_tile(D, M, R, windowed, None, lanes, device)
+    smem = chunk_smem_bytes(D, tile, R, windowed, vres)
+    cap = chunk_capacity(windowed, smem, device)
+    nt = -(-M // tile)
+    mode = ("V in shared memory" if vres else "V streamed") \
+        + (", ring in shared memory" if windowed else "")
+    return (f"{nt} tiles of {tile} per lane, {lanes * nt} cooperative "
+            f"blocks, {smem} B of shared memory each ({mode}; the card "
+            f"keeps {cap} co-resident at this size)"), nt, vres
+
+
 def run_chunks_windowed(records, resident):
     k, w, chunk = 200, 10, 16
     V, k2, _ = resident[w]
     name = "phase 7 chunks windowed"
-    print(f"[{name}] greedy_map_chunks B={V.shape[0]} shortlist "
-          f"{V.shape[2]} w={w} k={k} chunk={chunk}", flush=True)
+    B, _, C = V.shape
+    line, nt, vres = chunk_tiles(C, w, True, B, V.device)
+    check(vres and nt == 2, f"{name}: expected V in shared memory over two "
+                            f"tiles per lane: {line}")
+    print(f"[{name}] greedy_map_chunks B={B} shortlist {C} w={w} k={k} "
+          f"chunk={chunk}: {line}", flush=True)
     got, counts, modes, wall = drive_chunks(
         lambda: stream_slate(V, None, k, w, chunk))
     count_chunks(records, name, counts, "fused_chunk_windowed",
@@ -715,10 +883,6 @@ def run_chunks_windowed(records, resident):
 
 
 def run_chunks_large(records, tiled):
-    from repro_torch.kernels.dpp_greedy.ops import _stream_tile
-    from repro_torch.kernels.dpp_greedy.tiled import chunk_capacity
-    from repro_torch.kernels.dpp_greedy.tiling import chunk_smem_bytes
-
     chunk = 16
     for name, kernel, k, w in (
         ("phase 8 chunks large exact", "fused_chunk_exact", 50, None),
@@ -726,17 +890,11 @@ def run_chunks_large(records, tiled):
     ):
         V, m_top, whole = tiled[w]
         B, _, C = V.shape
-        tile = _stream_tile(D, C, w or k, w is not None, None, B, V.device)
-        nt = -(-C // tile)
-        check(nt > 1, f"{name}: expected several tiles per lane, got one "
-                      f"of {tile}")
-        cap = chunk_capacity(w is not None,
-                             chunk_smem_bytes(D, tile, w or k, w is not None),
-                             V.device)
+        line, nt, vres = chunk_tiles(C, w or k, w is not None, B, V.device)
+        check(nt > 1 and not vres, f"{name}: expected several tiles per "
+                                   f"lane with V streamed: {line}")
         print(f"[{name}] greedy_map_chunks B={B} shortlist {C} k={k} "
-              f"window={w} chunk={chunk}: {nt} tiles of {tile} per lane, "
-              f"{B * nt} cooperative blocks (the card keeps {cap} "
-              f"co-resident at this tile's shared memory)", flush=True)
+              f"window={w} chunk={chunk}: {line}", flush=True)
         got, counts, modes, wall = drive_chunks(
             lambda: stream_slate(V, m_top, k, w, chunk))
         count_chunks(records, name, counts, kernel, -(-k // chunk))
@@ -1233,7 +1391,8 @@ def main() -> int:
         rec.pop("calls_launches", None)
         kernels.append({key: rec[key] for key in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms")})
     print("kernels: " + ", ".join(f"{k['name']} ok" for k in kernels))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -28,6 +28,7 @@ from repro_torch.kernels.dpp_greedy.tiling import (
     SMEM_BUDGET_BYTES,
     TilePolicy,
     chunk_smem_bytes,
+    chunk_v_resident,
     resident_smem_bytes,
     tiled_smem_bytes,
 )
@@ -56,6 +57,7 @@ __all__ = [
     "SMEM_BUDGET_BYTES",
     "TilePolicy",
     "chunk_smem_bytes",
+    "chunk_v_resident",
     "resident_smem_bytes",
     "tiled_smem_bytes",
 ]

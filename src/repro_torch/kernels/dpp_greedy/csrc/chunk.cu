@@ -12,7 +12,7 @@
 // What bounds it on an H100: like K3/K4, each step streams the lane's V
 // (D x M) and the live Cholesky rows through the SMs for two GEMVs,
 // 2 (D + rows) FLOPs per 4 bytes, then an argmax across the whole lane:
-// L2 / device-memory bandwidth and the per-step grid barrier, not FLOPs.
+// L2 / device-memory bandwidth and the per-step barrier, not FLOPs.
 //
 // Design: the Pallas grid (B, chunk, nt) ran its tiles in order and
 // carried C/d2 across steps in output blocks revisited out of order;
@@ -20,12 +20,12 @@
 // (cudaLaunchCooperativeKernel, which refuses a grid that cannot be
 // co-resident) runs a grid of (nt, B) blocks: each block owns one M-tile
 // of one lane for all `chunk` steps, keeps the tile's gains d2 in shared
-// memory, and meets the other blocks at a grid barrier between steps.
-// The barrier is grid_barrier() below, on a counter the wrapper zeroes
-// per launch, rather than cooperative_groups' grid.sync(): in the exact
-// kernel the latter compiled to a call that held the column loop to 40
-// registers with spills, and tripled the step time on an H100.  Every
-// block of a lane
+// memory, and meets the other blocks at a barrier between steps: K5 the
+// whole grid's (grid_barrier), K6 only its lane's (lane_barrier), both on
+// counters the wrapper zeroes per launch, rather than cooperative_groups'
+// grid.sync(): in the exact kernel the latter compiled to a call that
+// held the column loop to 40 registers with spills, and tripled the step
+// time on an H100.  Every block of a lane
 // folds its tile's (max, lowest-index argmax) into one 64-bit atomicMax
 // on an orderable key (common.cuh), one key slot per step, so after the
 // barrier every block decodes the same winner with jnp.argmax's
@@ -43,10 +43,25 @@
 // (wcol), both before the barrier into step-parity double buffers; every
 // block then derives the eviction's Givens pairs from its own copy with
 // the same evict_coeffs_warp() as K2, so all blocks agree bit for bit
-// with no further barrier.  The per-column updates are common.cuh's
-// col_exact / col_windowed, and the initial gains are init_gains', so a
-// stream's concatenated chunks equal the resident K1/K2 slate bit for
-// bit.  Nothing leaves the card inside a chunk.
+// with no further barrier.  The initial gains are init_gains', and the
+// per-column updates are common.cuh's col_exact and, windowed,
+// cols_windowed, which computes col_windowed's bits for several columns
+// per thread with their loads in flight, so a stream's concatenated
+// chunks equal the resident K1/K2 slate bit for bit.  Nothing leaves the
+// card inside a chunk.
+//
+// Windowed, the block alone owns its tile's slice of the ring for the
+// whole chunk, so the slice lives in shared memory: loaded once per
+// launch (cp.async, every copy in flight), rotated, repaired and
+// appended there every step, published from there, and written back to
+// C once at the end.  Its steps meet at a barrier per lane, not across
+// the grid: the lanes share nothing.  Where the tile's
+// V slice fits beside it (tiling.chunk_v_resident: one block's 227 KB,
+// and the grid still co-resident), V is loaded into shared memory once
+// per launch too, and every step of the chunk reads it from there (at
+// B = 64, C = 1000, D = 100, w = 10: two tiles of 512 per lane, one
+// block per SM); otherwise V streams from device memory every step with
+// the evict-first hint.
 #include "common.cuh"
 
 // Grid-wide barrier of a co-resident grid: bar[0] counts the arrived
@@ -72,6 +87,59 @@ __device__ __forceinline__ void grid_barrier(unsigned int* bar) {
     __threadfence();
   }
   __syncthreads();
+}
+
+// Barrier of the co-resident blocks of one lane (K6: the lanes share
+// nothing, so they need not wait for each other) on the lane's own
+// arrival counter (zero at launch), which only grows: the n-th barrier
+// of the launch waits until it reaches n * (the lane's block count),
+// `target`.  Thread 0 arrives with a release add and spins on acquire
+// loads, so the block's writes before it are visible to every block of
+// the lane after it, with two round trips to L2 and no reset.
+__device__ __forceinline__ void lane_barrier(unsigned int* ctr,
+                                             unsigned int target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned int v;
+    asm volatile("atom.add.release.gpu.u32 %0, [%1], 1;"
+                 : "=r"(v) : "l"(ctr) : "memory");
+    for (++v; v < target;)
+      asm volatile("ld.acquire.gpu.u32 %0, [%1];"
+                   : "=r"(v) : "l"(ctr) : "memory");
+  }
+  __syncthreads();
+}
+
+// Copy rows [0, rows) x columns [0, n) from device memory (row stride
+// gs) to shared memory (row stride ss) with cp.async: every copy of the
+// thread is in flight at once, none through registers; 16 bytes a copy
+// where both sides' rows start 16-byte aligned, else 4.  The caller
+// waits with cp_async_wait_all() and a __syncthreads.
+__device__ __forceinline__ void stage_async(float* dst, size_t ss,
+                                            const float* src, size_t gs,
+                                            int rows, int n) {
+  const bool wide = ((uintptr_t)src & 15) == 0 && (gs & 3) == 0 &&
+                    (__cvta_generic_to_shared(dst) & 15) == 0 &&
+                    (ss & 3) == 0;
+  const int n4 = wide ? n / 4 : 0;
+  for (int r = 0; r < rows; ++r) {
+    float* d = dst + (size_t)r * ss;
+    const float* g = src + (size_t)r * gs;
+    for (int q = threadIdx.x; q < n4; q += DPP_THREADS) {
+      const unsigned int a = (unsigned int)__cvta_generic_to_shared(d + 4 * q);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+                   "l"(g + 4 * q));
+    }
+    for (int x = 4 * n4 + threadIdx.x; x < n; x += DPP_THREADS) {
+      const unsigned int a = (unsigned int)__cvta_generic_to_shared(d + x);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a),
+                   "l"(g + x));
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
 }
 
 // Fold the tile's gains (shared d2, columns [i0, i1)) into this block's
@@ -159,10 +227,15 @@ fused_chunk_exact_kernel(const float* __restrict__ V, float* __restrict__ C,
 // K6: `chunk` sliding-window steps.  C (B, w, M) ring in window order,
 // win (B, w) ring ids (-1 = empty), updated; cand (2, B, nt, w) and
 // wcol (2, B, w, w) the step-parity exchange buffers (no initial
-// contents needed).  Per step, as K2: select, derive the eviction from
+// contents needed); bar (B, 2) u32, the lanes' barrier counters in
+// column 0, zeroed.  Per step, as K2: select, derive the eviction from
 // the window factor, rotate + repair + append every column of the tile,
-// then shift the ring.
-__global__ void __launch_bounds__(DPP_THREADS)
+// then shift the ring.  The block keeps its tile's gains and its
+// (w, tile_m) slice of the ring in shared memory for the whole chunk
+// (loaded at the start, written back at the end) and, with vres, its
+// (D, tile_m) slice of V as well; otherwise V streams from device
+// memory every step.
+__global__ void __launch_bounds__(DPP_THREADS, 2)
 fused_chunk_windowed_kernel(const float* __restrict__ V,
                             float* __restrict__ C, float* __restrict__ d2g,
                             const int* __restrict__ t_in,
@@ -171,10 +244,13 @@ fused_chunk_windowed_kernel(const float* __restrict__ V,
                             float* cand,
                             float* wcol, int* __restrict__ sel,
                             float* __restrict__ dh, int B, int D, int M,
-                            int w, int chunk, int tile_m, float eps2) {
+                            int w, int chunk, int tile_m, int vres,
+                            float eps2) {
   extern __shared__ float sm[];
-  float* d2 = sm;                  // tile_m  the tile's gains
-  float* vj = d2 + tile_m;         // D       winner's V column
+  float* d2 = sm;                              // tile_m    the tile's gains
+  float* ring = d2 + tile_m;                   // w*tile_m  the tile's ring
+  float* Vs = ring + (size_t)w * tile_m;       // D*tile_m  with vres
+  float* vj = Vs + (vres ? (size_t)D * tile_m : 0);  // D  winner's V column
   float* cj = vj + D;              // w       pre-eviction winner column
   float* cjp = cj + w;             // w       post-eviction winner column
   float* Cw = cjp + w;             // w*w     window factor, Cw[r*w+s]
@@ -192,6 +268,7 @@ fused_chunk_windowed_kernel(const float* __restrict__ V,
   const int nt = gridDim.x, blk = blockIdx.x;
   const int i0 = blk * tile_m;
   const int i1 = min(i0 + tile_m, M);
+  const int n = i1 - i0;
   const float* Vb = V + (size_t)b * D * M;
   float* Cb = C + (size_t)b * w * M;
   float* d2b = d2g + (size_t)b * M;
@@ -199,28 +276,32 @@ fused_chunk_windowed_kernel(const float* __restrict__ V,
   const int t0 = t_in[b];
   bool stop = stopped[b] != 0;
   const size_t ww = (size_t)w * w;
+  unsigned int* lbar = bar + 2 * b;  // the lane's arrival counter
 
   // publish this block's tile argmax column and its ring members'
-  // columns into parity slot p (after a __syncthreads that follows the
-  // column writes and the ring update)
+  // columns into parity slot p, from the shared ring (after a
+  // __syncthreads that follows the column writes and the ring update)
   auto publish = [&](int p) {
     float* cb = cand + (((size_t)p * B + b) * nt + blk) * w;
     for (int r = tid; r < w; r += DPP_THREADS)
-      cb[r] = Cb[(size_t)r * M + s_am];
+      cb[r] = ring[(size_t)r * tile_m + (s_am - i0)];
     float* wb = wcol + ((size_t)p * B + b) * ww;
     for (int q = tid; q < w * w; q += DPP_THREADS) {
       const int r = q / w, m = win[q % w];
-      if (m >= i0 && m < i1) wb[q] = Cb[(size_t)r * M + m];
+      if (m >= i0 && m < i1) wb[q] = ring[(size_t)r * tile_m + (m - i0)];
     }
   };
 
   for (int s = tid; s < w; s += DPP_THREADS) win[s] = win_g[(size_t)b * w + s];
-  for (int i = i0 + tid; i < i1; i += DPP_THREADS) d2[i - i0] = d2b[i];
+  stage_async(d2, 0, d2b + i0, 0, 1, n);
+  stage_async(ring, tile_m, Cb + i0, M, w, n);
+  if (vres) stage_async(Vs, tile_m, Vb + i0, M, D, n);
+  cp_async_wait_all();
   __syncthreads();
   tile_argmax(d2, i0, i1, redv, redi, &s_mx, &s_am);
   if (tid == 0) atomicMax(&keys[b], pack_key(s_mx, s_am));
   publish(0);
-  grid_barrier(bar);
+  lane_barrier(lbar, nt);  // the launch's first barrier
 
   for (int s = 0; s < chunk; ++s) {
     const int t = t0 + s;
@@ -245,16 +326,28 @@ fused_chunk_windowed_kernel(const float* __restrict__ V,
       if (full)
         for (int q = tid; q < w * w; q += DPP_THREADS) Cw[q] = __ldcg(&wb[q]);
       __syncthreads();
-      if (warp == 0)
-        evict_coeffs_warp(lane, w, full, live, Cw, cj, dj2, uw, cs, sn, cjp,
-                          &s_d2j);
-      __syncthreads();
-      const float djp = __fsqrt_rn(fmaxf(s_d2j, eps2));
-      for (int i = i0 + tid; i < i1; i += DPP_THREADS)
-        d2[i - i0] = col_windowed(Vb, Cb, M, D, w, full, pos, cs, sn, vj, cjp,
-                                  djp, i, j, d2[i - i0]);
-      __syncthreads();
-      tile_argmax(d2, i0, i1, redv, redi, &s_mx, &s_am);
+      auto ready = [&]() {
+        if (warp == 0 && w <= 32)
+          evict_coeffs_warp_reg(lane, w, full, live, Cw, cj, dj2, cs, sn,
+                                cjp, &s_d2j);
+        else if (warp == 0)
+          evict_coeffs_warp(lane, w, full, live, Cw, cj, dj2, uw, cs, sn,
+                            cjp, &s_d2j);
+        __syncthreads();
+        return __fsqrt_rn(fmaxf(s_d2j, eps2));
+      };
+      float bv = -INFINITY;
+      int bi = INT_MAX;
+      if (vres)
+        cols_windowed<3, LoadPlain>(Vs, tile_m, ring, tile_m, d2, n, i0, D,
+                                    w, full, pos, cs, sn, vj, cjp, ready, j,
+                                    bv, bi);
+      else
+        cols_windowed<5, LoadStreaming>(Vb + i0, M, ring, tile_m, d2, n, i0,
+                                        D, w, full, pos, cs, sn, vj, cjp,
+                                        ready, j, bv, bi);
+      // ends in a __syncthreads: the ring writes are visible to publish
+      block_argmax(bv, bi, redv, redi, &s_mx, &s_am);
       if (tid == 0) {
         atomicMax(&keys[(size_t)(s + 1) * B + b], pack_key(s_mx, s_am));
         if (full) {
@@ -266,9 +359,12 @@ fused_chunk_windowed_kernel(const float* __restrict__ V,
       __syncthreads();
       publish(p ^ 1);
     }
-    grid_barrier(bar);
+    lane_barrier(lbar, (unsigned int)nt * (s + 2));
   }
-  for (int i = i0 + tid; i < i1; i += DPP_THREADS) d2b[i] = d2[i - i0];
+  for (int x = tid; x < n; x += DPP_THREADS) d2b[i0 + x] = d2[x];
+  for (int r = 0; r < w; ++r)
+    for (int x = tid; x < n; x += DPP_THREADS)
+      Cb[(size_t)r * M + i0 + x] = ring[(size_t)r * tile_m + x];
   if (lead) {
     stopped[b] = stop ? 1 : 0;
     for (int q = 0; q < w; ++q) win_g[(size_t)b * w + q] = win[q];
@@ -328,15 +424,15 @@ extern "C" int fused_chunk_windowed(const float* V, float* C, float* d2,
                                     unsigned int* bar, float* cand,
                                     float* wcol, int* sel,
                                     float* dh, int B, int D, int M, int w,
-                                    int chunk, int tile_m, float eps2,
-                                    int smem, void* stream) {
+                                    int chunk, int tile_m, int vres,
+                                    float eps2, int smem, void* stream) {
   const void* fn = chunk_kernel(1);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&V, &C, &d2, &t, &stopped, &win, &keys, &bar, &cand,
-                  &wcol,
-                  &sel, &dh, &B, &D, &M, &w, &chunk, &tile_m, &eps2};
+                  &wcol, &sel, &dh, &B, &D, &M, &w, &chunk, &tile_m,
+                  &vres, &eps2};
   dim3 grid((M + tile_m - 1) / tile_m, B);
   return (int)cudaLaunchCooperativeKernel(fn, grid, dim3(DPP_THREADS), args,
                                           (size_t)smem,

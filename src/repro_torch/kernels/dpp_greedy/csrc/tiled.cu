@@ -11,7 +11,9 @@
 // What bounds it on an H100: each step reads V (B x D x M) and the live
 // Cholesky rows once from device memory and writes one row (exact) or
 // the ring (windowed) back, for 2 (D + rows) FLOPs per 4 bytes: device
-// memory bandwidth bound (3.35 TB/s), plus one launch per step.
+// memory bandwidth bound (3.35 TB/s), plus one launch per step.  V does
+// not stay on the chip past the resident budget (at B = 4, M = 65,536 it
+// is 104.9 MB), so every step streams it: 31.3 us a step at best.
 //
 // Design: the TPU kernel ran its tiles in order and carried the running
 // argmax in a revisited output cell; here the tiles run in parallel, so
@@ -20,12 +22,19 @@
 // index; common.cuh), which keeps the largest gain and, on equal gains,
 // the lowest global index, as jnp.argmax does.  The next launch decodes
 // the winner from that key, so the k-step loop runs with no host round
-// trip and, exact, no PyTorch op between launches.  Each thread owns
-// strided columns of its tile, reading V and C coalesced along M and
-// updating C and d2 in place (a column is only ever touched by its own
-// thread).  The ragged last tile is masked by its bounds.  FP32 FMA on
-// CUDA cores.  Later work: a CUDA graph over the k launches, a fused
-// multi-step persistent kernel (ROADMAP queue 2).
+// trip and no PyTorch op between launches, exact or windowed: the
+// windowed step's small per-user state (the winner's pre-eviction
+// column, the (w, w) window factor, the ring ids) crosses from one
+// launch to the next through step-parity buffers, with the kernel
+// boundary as the barrier, and every block derives the eviction's
+// Givens pairs itself with K2's evict_coeffs_warp.  Exact: each thread
+// owns strided columns of its tile, reading V and C coalesced along M.
+// Windowed: cols_windowed (common.cuh) runs five columns per thread of
+// warps 1-7 with eight rows of V (four of the ring) loaded ahead of the
+// FMAs, while warp 0 derives the eviction, and reads V with the
+// evict-first hint so the ring and d2 stay in L2 between launches.  C and d2 are updated in place (a column is only ever
+// touched by its own thread).  The ragged last tile is masked by its
+// bounds.  FP32 FMA on CUDA cores.
 #include "common.cuh"
 
 // K3: one exact step t.  keys (k+1, B) u64: row t holds this step's
@@ -85,66 +94,122 @@ tiled_step_exact_kernel(const float* __restrict__ V, float* __restrict__ C,
     atomicMax(&keys[(size_t)(t + 1) * B + b], pack_key(s_mx, s_am));
 }
 
-// K4: one windowed step.  The small per-user state of the step is
-// resolved between launches by the PyTorch whole-slate loop (tiled.py:
-// eviction_coeffs over the (w, w) window factor) and passed in:
-// flt (B, 3 + 2(w-1)) = [djp, stopped, full, cos_0.., sin_0..],
-// ints (B, 2) = [j, pos], cjp (B, w) the winner's post-eviction column.
-// C (B, w, M) ring and d2 (B, M) updated in place; the tile's argmax goes
-// to key_out (B,) (zeroed) by atomicMax.
-__global__ void __launch_bounds__(DPP_THREADS)
+// K4: one windowed step t, with its small per-user state resolved on
+// the card (nothing runs between launches).  keys / flags / sel / dh as
+// K3.  Step-parity buffers, parity p = t & 1 read, p ^ 1 written:
+// win (2, B, w) the ring ids (-1 = empty), cand (2, B, nt, w) each
+// tile's argmax column after its update, wcol (2, B, w, w) the window
+// factor C[:, win] after the update, published by the members' owners
+// (all three zero / empty at parity 0 before step 0).  Each block
+// decodes the winner j from keys[t], stages j's pre-eviction column from
+// its tile's cand and the window factor from wcol, derives the Givens
+// pairs with evict_coeffs_warp (as K2 and K6), updates its tile with
+// cols_windowed, folds its argmax into keys[t + 1], and publishes parity
+// p ^ 1; block 0 writes the next ring ids.  C (B, w, M) ring and
+// d2 (B, M) updated in place.
+__global__ void __launch_bounds__(DPP_THREADS, 2)
 tiled_step_windowed_kernel(const float* __restrict__ V, float* __restrict__ C,
                            float* __restrict__ d2,
-                           const float* __restrict__ cjp_in,
-                           const float* __restrict__ flt,
-                           const int* __restrict__ ints,
-                           unsigned long long* __restrict__ key_out, int D,
-                           int M, int w, int tile_m) {
+                           unsigned long long* __restrict__ keys,
+                           int* __restrict__ flags, int* __restrict__ sel,
+                           float* __restrict__ dh, int* __restrict__ win_g,
+                           float* __restrict__ cand,
+                           float* __restrict__ wcol, int B, int D, int M,
+                           int w, int k, int t, int tile_m, float eps2) {
   extern __shared__ float sm[];
-  float* vj = sm;                 // D
-  float* cjp = vj + D;            // w
-  float* cs = cjp + w;            // w (w-1 used)
-  float* sn = cs + w;             // w (w-1 used)
-  float* redv = sn + w;           // 32
-  int* redi = (int*)(redv + 32);  // 32
-  __shared__ float s_mx;
+  float* vj = sm;                  // D       winner's V column
+  float* cj = vj + D;              // w       pre-eviction winner column
+  float* cjp = cj + w;             // w       post-eviction winner column
+  float* Cw = cjp + w;             // w*w     window factor, Cw[r*w+s]
+  float* uw = Cw + w * w;          // w       residue row on the window
+  float* cs = uw + w;              // w       cos (w-1 used)
+  float* sn = cs + w;              // w       sin (w-1 used)
+  int* win = (int*)(sn + w);       // w       ring ids, -1 = empty
+  float* redv = (float*)(win + w); // 32
+  int* redi = (int*)(redv + 32);   // 32
+  __shared__ float s_mx, s_d2j;
   __shared__ int s_am;
 
   const int b = blockIdx.y, tid = threadIdx.x;
-  const int nf = 3 + 2 * (w - 1);
-  const int i0 = blockIdx.x * tile_m;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int nt = gridDim.x, blk = blockIdx.x;
+  const int i0 = blk * tile_m;
   const int i1 = min(i0 + tile_m, M);
+  const int p = t & 1;
+  const size_t ww = (size_t)w * w;
   const float* Vb = V + (size_t)b * D * M;
   float* Cb = C + (size_t)b * w * M;
   float* d2b = d2 + (size_t)b * M;
-  const float* fb = flt + (size_t)b * nf;
-  const float djp = fb[0];
-  const bool stop = fb[1] > 0.f;
-  const bool full = fb[2] > 0.f;
-  const int j = ints[2 * b], pos = ints[2 * b + 1];
 
+  float dj2;
+  int j;
+  unpack_key(keys[(size_t)t * B + b], dj2, j);
+  const bool stop = flags[(size_t)t * B + b] != 0 || dj2 <= eps2;
+  if (blk == 0 && tid == 0) {
+    sel[(size_t)b * k + t] = stop ? -1 : j;
+    dh[(size_t)b * k + t] = stop ? 0.f : __fsqrt_rn(fmaxf(dj2, eps2));
+    flags[(size_t)(t + 1) * B + b] = stop ? 1 : 0;
+  }
+  for (int s = tid; s < w; s += DPP_THREADS)
+    win[s] = win_g[((size_t)p * B + b) * w + s];
+
+  const bool full = t >= w;
+  const int pos = t < w - 1 ? t : w - 1;
   float bv = -INFINITY;
   int bi = INT_MAX;
   if (!stop) {
+    const int live = t < w ? t : w;
+    const float* cb = cand + (((size_t)p * B + b) * nt + j / tile_m) * w;
+    const float* wb = wcol + ((size_t)p * B + b) * ww;
     for (int d = tid; d < D; d += DPP_THREADS) vj[d] = Vb[(size_t)d * M + j];
-    for (int r = tid; r < w; r += DPP_THREADS) cjp[r] = cjp_in[(size_t)b * w + r];
-    for (int r = tid; r < w - 1; r += DPP_THREADS) {
-      cs[r] = fb[3 + r];
-      sn[r] = fb[3 + (w - 1) + r];
-    }
+    for (int r = tid; r < live; r += DPP_THREADS) cj[r] = cb[r];
+    if (full)
+      for (int q = tid; q < w * w; q += DPP_THREADS) Cw[q] = wb[q];
     __syncthreads();
-    for (int i = i0 + tid; i < i1; i += DPP_THREADS) {
-      const float v = col_windowed(Vb, Cb, M, D, w, full, pos, cs, sn, vj,
-                                   cjp, djp, i, j, d2b[i]);
-      d2b[i] = v;
-      argmax_merge(bv, bi, v, i);
-    }
+    auto ready = [&]() {
+      if (warp == 0 && w <= 32)
+        evict_coeffs_warp_reg(lane, w, full, live, Cw, cj, dj2, cs, sn, cjp,
+                              &s_d2j);
+      else if (warp == 0)
+        evict_coeffs_warp(lane, w, full, live, Cw, cj, dj2, uw, cs, sn, cjp,
+                          &s_d2j);
+      __syncthreads();
+      return __fsqrt_rn(fmaxf(s_d2j, eps2));
+    };
+    cols_windowed<5, LoadStreaming>(Vb + i0, M, Cb + i0, M, d2b + i0,
+                                    i1 - i0, i0, D, w, full, pos, cs, sn, vj,
+                                    cjp, ready, j, bv, bi);
   } else {
     for (int i = i0 + tid; i < i1; i += DPP_THREADS)
       argmax_merge(bv, bi, d2b[i], i);
   }
+  // ends in a __syncthreads: the tile's column writes are visible below
   block_argmax(bv, bi, redv, redi, &s_mx, &s_am);
-  if (tid == 0) atomicMax(&key_out[b], pack_key(s_mx, s_am));
+  if (tid == 0) {
+    atomicMax(&keys[(size_t)(t + 1) * B + b], pack_key(s_mx, s_am));
+    if (!stop) {
+      if (full) {
+        for (int q = 0; q < w - 1; ++q) win[q] = win[q + 1];
+        win[w - 1] = -1;
+      }
+      win[pos] = j;
+    }
+  }
+  __syncthreads();
+  const int pn = p ^ 1;
+  if (!stop) {
+    float* co = cand + (((size_t)pn * B + b) * nt + blk) * w;
+    for (int r = tid; r < w; r += DPP_THREADS)
+      co[r] = Cb[(size_t)r * M + s_am];
+    float* wo = wcol + ((size_t)pn * B + b) * ww;
+    for (int q = tid; q < w * w; q += DPP_THREADS) {
+      const int r = q / w, m = win[q % w];
+      if (m >= i0 && m < i1) wo[q] = Cb[(size_t)r * M + m];
+    }
+  }
+  if (blk == 0)
+    for (int s = tid; s < w; s += DPP_THREADS)
+      win_g[((size_t)pn * B + b) * w + s] = win[s];
 }
 
 extern "C" int tiled_step_exact(const float* V, float* C, float* d2,
@@ -163,11 +228,11 @@ extern "C" int tiled_step_exact(const float* V, float* C, float* d2,
 }
 
 extern "C" int tiled_step_windowed(const float* V, float* C, float* d2,
-                                   const float* cjp, const float* flt,
-                                   const int* ints,
-                                   unsigned long long* key_out, int B, int D,
-                                   int M, int w, int tile_m, int smem,
-                                   void* stream) {
+                                   unsigned long long* keys, int* flags,
+                                   int* sel, float* dh, int* win, float* cand,
+                                   float* wcol, int B, int D, int M, int w,
+                                   int k, int t, int tile_m, float eps2,
+                                   int smem, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       tiled_step_windowed_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -175,6 +240,7 @@ extern "C" int tiled_step_windowed(const float* V, float* C, float* d2,
   dim3 grid((M + tile_m - 1) / tile_m, B);
   tiled_step_windowed_kernel<<<grid, DPP_THREADS, smem,
                                (cudaStream_t)stream>>>(
-      V, C, d2, cjp, flt, ints, key_out, D, M, w, tile_m);
+      V, C, d2, keys, flags, sel, dh, win, cand, wcol, B, D, M, w, k, t,
+      tile_m, eps2);
   return (int)cudaGetLastError();
 }

@@ -102,8 +102,9 @@ def dpp_greedy(
 @functools.lru_cache(maxsize=256)
 def _stream_tile(D: int, M: int, state_rows: int, windowed: bool,
                  tile_m: Optional[int], lanes: int,
-                 device: torch.device) -> int:
-    """The candidate-axis tile of a fused chunk launch: one whole-M tile
+                 device: torch.device) -> tuple[int, bool]:
+    """The candidate-axis tile of a fused chunk launch and, windowed,
+    whether K6 keeps V in shared memory: one whole-M tile
     per lane while one block's shared memory holds it, else the tile
     that keeps the cooperative grid co-resident (``TilePolicy``, bounded
     on a card by the occupancy it reports, ``chunk_capacity``; the plain
@@ -112,10 +113,10 @@ def _stream_tile(D: int, M: int, state_rows: int, windowed: bool,
     same tile once."""
     capacity = (functools.partial(chunk_capacity, windowed, device=device)
                 if device.type == "cuda" else None)
-    mode, tm = TilePolicy(tile_m=tile_m).decide(
+    mode, tm, v_resident = TilePolicy(tile_m=tile_m).decide(
         D, M, state_rows, windowed, chunked=True, lanes=lanes,
         capacity=capacity)
-    return M if mode == "resident" else min(tm, M)
+    return (M if mode == "resident" else min(tm, M)), v_resident
 
 
 def dpp_greedy_stream_init(
@@ -142,10 +143,10 @@ def dpp_greedy_stream_init(
     B, D, M = Vb.shape
     windowed = window is not None and window < k
     R = min(window, k) if windowed else k
-    tile = _stream_tile(D, M, R, windowed, tile_m, B, Vb.device)
+    tile, vres = _stream_tile(D, M, R, windowed, tile_m, B, Vb.device)
     record_kernel_dispatch(
         "fused_chunk", D=D, M=M, state_rows=R, windowed=windowed,
-        tile_m=tile, smem_bytes=chunk_smem_bytes(D, tile, R, windowed),
+        tile_m=tile, smem_bytes=chunk_smem_bytes(D, tile, R, windowed, vres),
     )
     if mask is None:
         mask = torch.ones((B, M), dtype=torch.bool, device=Vb.device)
@@ -197,12 +198,12 @@ def dpp_greedy_stream_chunk(
             f"state was built for {state.d2.shape[-1]} candidates, but V "
             f"carries M={M} — pass the V the state was initialized with"
         )
-    tile = _stream_tile(D, M, R, windowed, tile_m, B, Vb.device)
+    tile, vres = _stream_tile(D, M, R, windowed, tile_m, B, Vb.device)
     t = state.t.to(torch.int32).expand(B).contiguous()
     if windowed:
         sel, dh = fused_chunk_windowed(
             Vb, state.C, state.d2, t, state.stopped, state.win, chunk,
-            float(eps), tile,
+            float(eps), tile, vres,
         )
     else:
         sel, dh = fused_chunk_exact(

@@ -8,11 +8,16 @@ step's winner to its tile and folds the tile's (max, lowest-index argmax)
 into the next step's winner with one 64-bit ``atomicMax`` on an orderable
 key (:func:`pack_key`), so the k-step loop keeps all state on the device.
 
-Exact steps need nothing between launches: the kernel decodes its winner
-from the key.  Windowed steps resolve the small per-user state between
-launches in PyTorch, as ``repro``'s whole-slate loop does in JAX: the
-winner's columns, the window factor ``C[:, win]`` and the Givens
-coefficients of the eviction (:func:`eviction_coeffs`).
+No step needs anything between launches: the kernel decodes its winner
+from the key and latches the eps-stop itself.  Windowed, the small
+per-user state that ``repro``'s whole-slate loop resolves between
+sweeps in JAX (the winner's pre-eviction column, the window factor
+``C[:, win]``, the ring ids) crosses from one launch to the next
+through step-parity buffers on the card, and every block derives the
+eviction's Givens coefficients from them, as the fused chunk kernel K6
+does; the plain version derives them with :func:`eviction_coeffs`.
+So the k-step loop of :func:`dpp_greedy_tiled` issues no PyTorch op
+between its launches.
 
 The fused chunk kernels K5/K6 (``csrc/chunk.cu``, counterparts of
 ``_chunk_pass_full`` / ``_chunk_pass_windowed`` with their winner fold
@@ -54,7 +59,8 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P,
     ],
     "tiled_step_windowed": [
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        _F, _I, _P,
     ],
 }
 _CHUNK_SIGNATURES = {
@@ -65,7 +71,7 @@ _CHUNK_SIGNATURES = {
     ],
     "fused_chunk_windowed": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-        _I, _F, _I, _P,
+        _I, _I, _F, _I, _P,
     ],
 }
 _U32 = 2**32
@@ -94,18 +100,25 @@ def unpack_key(key: torch.Tensor):
     return s.to(torch.int32).view(torch.float32), _U32 - 1 - lo
 
 
-def _tile_argmax(d2: torch.Tensor, tile_m: int):
-    """Per-tile (max, lowest-index argmax) folded across tiles — the
-    running reduction of the Pallas sweep.  Returns (max, global index)."""
+def _tile_maxes(d2: torch.Tensor, tile_m: int):
+    """Each tile's (max, lowest-index argmax as a global index), (B, nt)
+    each; the ragged last tile padded with -inf."""
     B, M = d2.shape
     nt = -(-M // tile_m)
     padded = torch.full((B, nt * tile_m), NEG_INF, dtype=d2.dtype,
                         device=d2.device)
     padded[:, :M] = d2
     tmax, targ = padded.view(B, nt, tile_m).max(dim=2)
+    return tmax, targ + torch.arange(nt, device=d2.device) * tile_m
+
+
+def _tile_argmax(d2: torch.Tensor, tile_m: int):
+    """Per-tile (max, lowest-index argmax) folded across tiles — the
+    running reduction of the Pallas sweep.  Returns (max, global index)."""
+    tmax, targ = _tile_maxes(d2, tile_m)
     best = torch.argmax(tmax, dim=1)  # first maximum: the lowest tile
-    ar = torch.arange(B, device=d2.device)
-    return tmax[ar, best], targ[ar, best] + best * tile_m
+    ar = torch.arange(d2.shape[0], device=d2.device)
+    return tmax[ar, best], targ[ar, best]
 
 
 # ---------------------------------------------------------------------------
@@ -222,17 +235,35 @@ def tiled_step_exact(V, C, d2, keys, flags, sel, dh, t: int, eps: float,
 # ---------------------------------------------------------------------------
 
 
-def tiled_step_windowed_plain(V, C, d2, cjp, flt, ints, key_out,
-                              tile_m: int) -> None:
-    """Plain version of K4, same operands, updated in place — the Pallas
+def tiled_step_windowed_plain(V, C, d2, keys, flags, sel, dh, win, cand,
+                              wcol, t: int, eps: float, tile_m: int) -> None:
+    """Plain version of K4, same operands, updated in place.  Decode the
+    winner of step ``t`` from ``keys[t]`` and latch the eps-stop as K3
+    does; take its pre-eviction column from its tile's ``cand[p]`` and
+    the window factor from ``wcol[p]`` (``p = t % 2``), derive the
+    rotations with :func:`eviction_coeffs`; then the Pallas
     ``_tile_update_windowed`` over the whole candidate axis: evict with
-    the precomputed rotations (residue repairs d2), append against the
-    post-eviction ring, then pack the next winner into ``key_out``."""
-    B, w, M = C.shape
+    the rotations (the residue repairs d2), append against the
+    post-eviction ring; pack the next winner into ``keys[t + 1]`` and
+    publish parity ``1 - p``: the ring ids, each tile's argmax column and
+    the window factor after the step."""
+    B, w, _ = C.shape
     ar = torch.arange(B, device=V.device)
-    djp, stop, full = flt[:, 0], flt[:, 1] > 0, flt[:, 2] > 0
-    cos, sin = flt[:, 3:3 + (w - 1)], flt[:, 3 + (w - 1):]
-    j, pos = ints[:, 0].to(torch.int64), ints[:, 1].to(torch.int64)
+    eps2 = torch.tensor(eps, dtype=torch.float32, device=V.device) ** 2
+    p = t % 2
+    dj2, j = unpack_key(keys[t])
+    stop = (flags[t] != 0) | (dj2 <= eps2)
+    sel[:, t] = torch.where(stop, -1, j).to(torch.int32)
+    dh[:, t] = torch.where(stop, 0.0, torch.sqrt(torch.maximum(dj2, eps2)))
+    flags[t + 1] = stop.to(torch.int32)
+    ring = win[p].to(torch.int64)
+    full = (t >= w) & ~stop
+    pos = min(t, w - 1)
+    cj_pre = cand[p, ar, j // tile_m]
+    Cw = torch.where((ring >= 0)[:, None, :], wcol[p], 0.0)
+    cos, sin, cjp, d2j = eviction_coeffs(Cw, cj_pre, dj2, full, w)
+    djp = torch.sqrt(torch.maximum(d2j, eps2))
+
     fc = full[:, None]
     u = torch.where(fc, C[:, 0], 0.0)
     rows = []
@@ -246,40 +277,64 @@ def tiled_step_windowed_plain(V, C, d2, cjp, flt, ints, key_out,
     lj = torch.bmm(V[ar, :, j][:, None, :], V)[:, 0]
     dots = torch.bmm(cjp[:, None, :], Cpost)[:, 0]
     e = (lj - dots) / djp[:, None]
-    ring = torch.arange(w, device=V.device)[None, :, None] == pos[:, None, None]
-    Cnew = torch.where(ring, e[:, None, :], Cpost)
+    Cpost[:, pos] = e
     live = ~stop
-    C.copy_(torch.where(live[:, None, None], Cnew, C))
+    C.copy_(torch.where(live[:, None, None], Cpost, C))
     d2_next = d2e - e * e
     d2_next[ar, j] = NEG_INF
     d2.copy_(torch.where(live[:, None], d2_next, d2))
-    mx, am = _tile_argmax(d2, tile_m)
-    key_out.copy_(pack_key(mx, am))
+    tmax, tile_am = _tile_maxes(d2, tile_m)
+    best = torch.argmax(tmax, dim=1)
+    keys[t + 1] = pack_key(tmax[ar, best], tile_am[ar, best])
+
+    shifted = torch.roll(ring, -1, dims=1)
+    shifted[:, w - 1] = -1
+    ring_next = torch.where(fc, shifted, ring)
+    ring_next[:, pos] = j
+    ring_next = torch.where(live[:, None], ring_next, ring)
+    win[1 - p] = ring_next.to(torch.int32)
+    nt = tile_am.shape[1]
+    cols = C.gather(2, tile_am[:, None, :].expand(B, w, nt)).transpose(1, 2)
+    cand[1 - p] = torch.where(live[:, None, None], cols, cand[1 - p])
+    member = C.gather(2, ring_next.clamp_min(0)[:, None, :].expand(B, w, w))
+    keep = live[:, None, None] & (ring_next >= 0)[:, None, :]
+    wcol[1 - p] = torch.where(keep, member, wcol[1 - p])
 
 
-def tiled_step_windowed(V, C, d2, cjp, flt, ints, key_out,
-                        tile_m: int) -> None:
-    """K4: one launch = one windowed greedy step.  V (B, D, M), C (B, w, M)
-    ring, d2 (B, M) f32; cjp (B, w) f32; flt (B, 3 + 2(w-1)) f32 =
-    [djp, stopped, full, cos.., sin..]; ints (B, 2) int32 = [j, pos];
-    key_out (B,) int64, zero on entry."""
+def tiled_step_windowed(V, C, d2, keys, flags, sel, dh, win, cand, wcol,
+                        t: int, eps: float, tile_m: int) -> None:
+    """K4: one launch = one windowed greedy step over
+    (ceil(M/tile_m), B) blocks, with its per-user state on the card.
+    V (B, D, M), C (B, w, M) ring, d2 (B, M) f32; keys (k+1, B) int64
+    (row t+1 zero), flags (k+1, B) int32; sel (B, k) int32, dh (B, k);
+    the step-parity buffers win (2, B, w) int32, cand (2, B, nt, w) and
+    wcol (2, B, w, w) f32 (parity 0: ids -1, zeros before step 0)."""
     if not _cpu_or_cuda(V):
-        return tiled_step_windowed_plain(V, C, d2, cjp, flt, ints, key_out,
-                                         tile_m)
+        return tiled_step_windowed_plain(V, C, d2, keys, flags, sel, dh, win,
+                                         cand, wcol, t, eps, tile_m)
     B, D, M = V.shape
     w = C.shape[1]
+    k = sel.shape[1]
+    nt = -(-M // tile_m)
     cuda.require(V, "V", torch.float32, (B, D, M))
     cuda.require(C, "C", torch.float32, (B, w, M))
     cuda.require(d2, "d2", torch.float32, (B, M))
-    cuda.require(cjp, "cjp", torch.float32, (B, w))
-    cuda.require(flt, "flt", torch.float32, (B, 3 + 2 * (w - 1)))
-    cuda.require(ints, "ints", torch.int32, (B, 2))
-    cuda.require(key_out, "key_out", torch.int64, (B,))
+    cuda.require(keys, "keys", torch.int64, (k + 1, B))
+    cuda.require(flags, "flags", torch.int32, (k + 1, B))
+    cuda.require(sel, "sel", torch.int32, (B, k))
+    cuda.require(dh, "dh", torch.float32, (B, k))
+    cuda.require(win, "win", torch.int32, (2, B, w))
+    cuda.require(cand, "cand", torch.float32, (2, B, nt, w))
+    cuda.require(wcol, "wcol", torch.float32, (2, B, w, w))
+    if not 0 <= t < k:
+        raise ValueError(f"step t={t} outside [0, {k})")
     lib = cuda.library(_SRC, _SIGNATURES)
     err = lib.tiled_step_windowed(
-        V.data_ptr(), C.data_ptr(), d2.data_ptr(), cjp.data_ptr(),
-        flt.data_ptr(), ints.data_ptr(), key_out.data_ptr(), B, D, M, w,
-        tile_m, tiled_smem_bytes(D, w, windowed=True), cuda.stream_ptr(V),
+        V.data_ptr(), C.data_ptr(), d2.data_ptr(), keys.data_ptr(),
+        flags.data_ptr(), sel.data_ptr(), dh.data_ptr(), win.data_ptr(),
+        cand.data_ptr(), wcol.data_ptr(), B, D, M, w, k, t, tile_m,
+        eps_squared(eps), tiled_smem_bytes(D, w, windowed=True),
+        cuda.stream_ptr(V),
     )
     cuda.count_launch("tiled_step_windowed")
     cuda.check(err, "tiled_step_windowed")
@@ -389,13 +444,15 @@ def _check_cooperative(err: int, name: str, B: int, M: int,
     cuda.check(err, name)
 
 
-def _keys_and_barrier(chunk: int, B: int, device):
+def _keys_and_barrier(chunk: int, B: int, device, barriers: int = 1):
     """One zeroed allocation: the per-step argmax keys (chunk+1, B) and,
-    behind them, the grid barrier's counter and generation; returns
-    (scratch, keys pointer, barrier pointer)."""
-    scratch = torch.zeros(((chunk + 1) * B + 1,), dtype=torch.int64,
+    behind them, ``barriers`` barriers' counter and generation (K5: one
+    for the grid, K6: one per lane); returns (scratch, keys pointer,
+    barrier pointer)."""
+    scratch = torch.zeros(((chunk + 1) * B + barriers,), dtype=torch.int64,
                           device=device)
-    return scratch, scratch.data_ptr(), scratch[-1:].data_ptr()
+    return (scratch, scratch.data_ptr(),
+            scratch[(chunk + 1) * B:].data_ptr())
 
 
 def _chunk_operands(V, C, d2, t, stopped, R):
@@ -438,11 +495,14 @@ def fused_chunk_exact(V, C, d2, t, stopped, chunk: int, eps: float,
 
 
 def fused_chunk_windowed(V, C, d2, t, stopped, win, chunk: int, eps: float,
-                         tile_m: int):
+                         tile_m: int, v_resident: bool = False):
     """K6: one cooperative launch = ``chunk`` sliding-window steps.
     C (B, w, M) ring, win (B, w) int32 ring ids (oldest first, -1 empty);
     the rest as :func:`fused_chunk_exact`.  C, d2, stopped and win are
-    updated in place; returns (sel, dh) (B, chunk)."""
+    updated in place; returns (sel, dh) (B, chunk).  Each block keeps
+    its slice of the ring in shared memory for the chunk, and its slice
+    of V too when ``v_resident`` (the tile policy's answer,
+    ``TilePolicy.decide(..., chunked=True)``)."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if not _cpu_or_cuda(V):
@@ -453,10 +513,10 @@ def fused_chunk_windowed(V, C, d2, t, stopped, win, chunk: int, eps: float,
     _chunk_operands(V, C, d2, t, stopped, w)
     cuda.require(win, "win", torch.int32, (B, w))
     nt = -(-M // tile_m)
-    smem = chunk_smem_bytes(D, tile_m, w, windowed=True)
-    lib = cuda.library(_CHUNK_SRC, _CHUNK_SIGNATURES)
     dev = V.device
-    scratch, keys, bar = _keys_and_barrier(chunk, B, dev)
+    smem = chunk_smem_bytes(D, tile_m, w, True, v_resident)
+    lib = cuda.library(_CHUNK_SRC, _CHUNK_SIGNATURES)
+    scratch, keys, bar = _keys_and_barrier(chunk, B, dev, barriers=B)
     cand = torch.empty((2, B, nt, w), dtype=torch.float32, device=dev)
     wcol = torch.empty((2, B, w, w), dtype=torch.float32, device=dev)
     sel = torch.empty((B, chunk), dtype=torch.int32, device=dev)
@@ -465,7 +525,7 @@ def fused_chunk_windowed(V, C, d2, t, stopped, win, chunk: int, eps: float,
         V.data_ptr(), C.data_ptr(), d2.data_ptr(), t.data_ptr(),
         stopped.data_ptr(), win.data_ptr(), keys, bar, cand.data_ptr(),
         wcol.data_ptr(), sel.data_ptr(), dh.data_ptr(), B, D, M, w, chunk,
-        tile_m, eps_squared(eps), smem, cuda.stream_ptr(V),
+        tile_m, int(v_resident), eps_squared(eps), smem, cuda.stream_ptr(V),
     )
     cuda.count_launch("fused_chunk_windowed")
     _check_cooperative(err, "fused_chunk_windowed", B, M, tile_m)
@@ -483,7 +543,9 @@ def dpp_greedy_tiled(V, mask, k: int, window=None, eps: float = 1e-3,
 
     V (B, D, M) float32 (any M: the kernels mask the ragged last tile),
     mask (B, M) bool.  Returns (sel (B, k) int32, d_hist (B, k) f32).
-    One K3/K4 launch per step; nothing is read back to the host.
+    One K3/K4 launch per step, with every buffer allocated up front: no
+    PyTorch op runs between the launches and nothing is read back to
+    the host.
     """
     B, D, M = V.shape
     dev = V.device
@@ -495,40 +557,19 @@ def dpp_greedy_tiled(V, mask, k: int, window=None, eps: float = 1e-3,
     keys = torch.zeros((k + 1, B), dtype=torch.int64, device=dev)
     j0 = torch.argmax(d2, dim=1)
     keys[0] = pack_key(d2[ar, j0], j0)
+    flags = torch.zeros((k + 1, B), dtype=torch.int32, device=dev)
     sel = torch.empty((B, k), dtype=torch.int32, device=dev)
     dh = torch.empty((B, k), dtype=torch.float32, device=dev)
     if w is None:
-        flags = torch.zeros((k + 1, B), dtype=torch.int32, device=dev)
         for t in range(k):
             tiled_step_exact(V, C, d2, keys, flags, sel, dh, t, eps, tile_m)
         return sel, dh
 
-    eps2 = torch.tensor(eps, dtype=torch.float32, device=dev) ** 2
-    win = torch.full((B, w), -1, dtype=torch.int64, device=dev)
-    stopped = torch.zeros((B,), dtype=torch.bool, device=dev)
+    nt = -(-M // tile_m)
+    win = torch.full((2, B, w), -1, dtype=torch.int32, device=dev)
+    cand = torch.zeros((2, B, nt, w), dtype=torch.float32, device=dev)
+    wcol = torch.zeros((2, B, w, w), dtype=torch.float32, device=dev)
     for t in range(k):
-        dj2, j = unpack_key(keys[t])
-        stopped = stopped | (dj2 <= eps2)
-        sel[:, t] = torch.where(stopped, -1, j).to(torch.int32)
-        dh[:, t] = torch.where(stopped, 0.0,
-                               torch.sqrt(torch.maximum(dj2, eps2)))
-        full = (t >= w) & ~stopped
-        cj_pre = C[ar, :, j]
-        Cw = C.gather(2, win.clamp_min(0)[:, None, :].expand(B, w, w))
-        Cw = torch.where((win >= 0)[:, None, :], Cw, 0.0)
-        cos, sin, cj_post, d2j = eviction_coeffs(Cw, cj_pre, dj2, full, w)
-        djp = torch.sqrt(torch.maximum(d2j, eps2))
-        pos = min(t, w - 1)
-        flt = torch.cat(
-            [torch.stack([djp, stopped.float(), full.float()], 1), cos, sin],
-            1,
-        ).contiguous()
-        ints = torch.stack([j, torch.full_like(j, pos)], 1).to(torch.int32)
-        tiled_step_windowed(V, C, d2, cj_post.contiguous(), flt, ints,
-                            keys[t + 1], tile_m)
-        shifted = torch.roll(win, -1, dims=1)
-        shifted[:, w - 1] = -1
-        win_next = torch.where(full[:, None], shifted, win)
-        win_next[:, pos] = j
-        win = torch.where(stopped[:, None], win, win_next)
+        tiled_step_windowed(V, C, d2, keys, flags, sel, dh, win, cand, wcol,
+                            t, eps, tile_m)
     return sel, dh

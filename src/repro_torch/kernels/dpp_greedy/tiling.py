@@ -18,17 +18,23 @@ shared memory, so ``M`` is unbounded.  The TPU's LANE/SUBLANE padding
 does not carry over: the kernels mask their own ragged edge.
 
 ``decide(..., chunked=True, lanes=B, capacity=)`` sizes the fused chunk
-kernels (``csrc/chunk.cu``, K5/K6): one cooperative launch per chunk
-over ``(ceil(M / tile_m), B)`` blocks that each keep their tile's gains
-in shared memory for the whole chunk (:func:`chunk_smem_bytes`) and meet
-at a grid-wide barrier between steps.  A cooperative grid must be
-co-resident, so besides the 227 KB per block the model bounds the block
-count by ``capacity(smem)``, the blocks the card keeps co-resident at
-that much shared memory per block (``tiled.chunk_capacity``): one
-whole-M tile per lane while that fits, else tiles of at least
-``DEFAULT_TILE_M`` columns, widened until ``B`` lanes of tiles fit.
-Without a ``capacity`` (the plain versions on the CPU, which launch no
-grid) only the shared memory bounds the tile.
+kernels (``csrc/chunk.cu``, K5/K6) and returns ``(mode, tile_m,
+v_resident)``: one cooperative launch per chunk over ``(ceil(M /
+tile_m), B)`` blocks that each keep their tile's gains (and, windowed,
+their slice of the ring) in shared memory for the whole chunk
+(:func:`chunk_smem_bytes`) and meet at a barrier between steps.  A
+cooperative grid must be co-resident, so besides the 227 KB per block
+the model bounds the block count by ``capacity(smem)``, the blocks the
+card keeps co-resident at that much shared memory per block
+(``tiled.chunk_capacity``).  Windowed, it first tries to keep ``V`` in
+shared memory too (:func:`chunk_v_resident`): each lane split into the
+fewest tiles whose ``V``, ring, gains and staging fit one block, if that
+grid co-resides.  Otherwise, and always for the exact kernel, ``V``
+streams from device memory every step: one whole-M tile per lane while
+that fits, else tiles of at least ``DEFAULT_TILE_M`` columns, widened
+until ``B`` lanes of tiles fit.  Without a ``capacity`` (the plain
+versions on the CPU, which launch no grid) only the shared memory bounds
+the tile.
 """
 from __future__ import annotations
 
@@ -85,24 +91,45 @@ def resident_smem_bytes(D: int, M: int, state_rows: int,
 
 def tiled_smem_bytes(D: int, state_rows: int, windowed: bool) -> int:
     """Dynamic shared memory of one tiled block (``csrc/tiled.cu``): the
-    winner's ``V`` column ``(D)`` and Cholesky column ``(R)``, windowed
-    also the rotation coefficients ``2 (w - 1)``, plus reduction
-    scratch.  Independent of ``tile_m``."""
-    R = state_rows
-    extra = 2 * R if windowed else 0
-    return 4 * (D + R + extra + _RED_FLOATS)
+    winner's ``V`` column ``(D)``; exact: its Cholesky column ``(R)``;
+    windowed: the same per-step staging as a resident block (the
+    winner's pre/post-eviction columns, the ``(w, w)`` window factor,
+    the residue row, the rotation coefficients and the ring ids), plus
+    reduction scratch.  Independent of ``tile_m``."""
+    return resident_smem_bytes(D, 0, state_rows, windowed)
 
 
 def chunk_smem_bytes(D: int, tile_m: int, state_rows: int,
-                     windowed: bool) -> int:
+                     windowed: bool, v_resident: bool = False) -> int:
     """Dynamic shared memory of one fused-chunk block, in the layout
     ``csrc/chunk.cu`` carves it: the tile's gains ``d2 (tile_m)``, kept
-    for the whole chunk, then the same per-step staging as a resident
-    block — the winner's ``V`` column ``(D)``; exact: its Cholesky column
+    for the whole chunk; windowed, the tile's ring ``(w, tile_m)`` and,
+    ``v_resident``, its ``V`` slice ``(D, tile_m)``, both kept for the
+    whole chunk too; then the same per-step staging as a resident block
+    — the winner's ``V`` column ``(D)``; exact: its Cholesky column
     ``(R)``; windowed: its pre/post-eviction columns, the ``(w, w)``
     window factor, the residue row, the rotation coefficients and the
     ring ids ``(w)`` each — plus the reduction scratch."""
-    return resident_smem_bytes(D, tile_m, state_rows, windowed)
+    R = state_rows
+    if not windowed:
+        return resident_smem_bytes(D, tile_m, R, False)
+    per_col = R + (D if v_resident else 0)
+    return resident_smem_bytes(D, tile_m, R, True) + 4 * tile_m * per_col
+
+
+def chunk_v_resident(D: int, M: int, tile_m: int, state_rows: int,
+                     lanes: int = 1,
+                     capacity: Optional[Callable[[int], int]] = None) -> bool:
+    """Whether the windowed chunk kernel K6 keeps each tile's ``V`` slice
+    in shared memory for the whole chunk: exactly when that block fits
+    the 227 KB and, on a card (``capacity``), the grid of
+    ``lanes * ceil(M / tile_m)`` blocks still co-resides at that size.
+    ``TilePolicy.decide(..., chunked=True)`` decides by this and hands
+    the answer on with the tile."""
+    smem = chunk_smem_bytes(D, tile_m, state_rows, True, v_resident=True)
+    if smem > SMEM_BUDGET_BYTES:
+        return False
+    return capacity is None or lanes * -(-M // tile_m) <= capacity(smem)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,12 +153,14 @@ class TilePolicy:
         self, D: int, M: int, state_rows: int, windowed: bool,
         chunked: bool = False, lanes: int = 1,
         capacity: Optional[Callable[[int], int]] = None,
-    ) -> tuple[str, Optional[int]]:
+    ) -> tuple:
         """-> ("resident", None) | ("tiled", tile_m).
 
         ``chunked=True`` sizes the fused chunk kernels for ``lanes``
-        users: ``("resident", None)`` is one whole-M tile per lane,
-        ``("tiled", tile_m)`` splits M so that the cooperative grid of
+        users and returns a third item, ``v_resident``: whether K6 keeps
+        each tile's ``V`` in shared memory (always False exact).
+        ``("resident", None, v)`` is one whole-M tile per lane,
+        ``("tiled", tile_m, v)`` splits M so that the cooperative grid of
         ``lanes * ceil(M / tile_m)`` blocks stays within
         ``capacity(smem)`` (see the module docstring); raises when no
         tile fits.
@@ -154,8 +183,15 @@ class TilePolicy:
         return "tiled", min(DEFAULT_TILE_M, round_up(M, WARP))
 
     def _decide_chunked(self, D, M, R, windowed, lanes, capacity):
-        # the most gains columns one block's shared memory holds
-        room = (SMEM_BUDGET_BYTES - chunk_smem_bytes(D, 0, R, windowed)) // 4
+        if windowed and self.tile_m is None:
+            split = _v_resident_split(D, M, R, lanes, capacity)
+            if split is not None:
+                return split
+        # the most gains (and, windowed, ring) columns one block holds
+        # with V streamed from device memory
+        per_col = 4 * (1 + R) if windowed else 4
+        room = (SMEM_BUDGET_BYTES - chunk_smem_bytes(D, 0, R, windowed)) \
+            // per_col
         if self.tile_m is not None:
             tile = self.tile_m
         elif M <= room:
@@ -164,13 +200,18 @@ class TilePolicy:
             tile = DEFAULT_TILE_M
         if min(tile, M) > room:
             raise ValueError(
-                f"D={D} with {R} state rows leaves room for a gains tile of "
-                f"at most {max(room, 0)} columns in one block's "
-                f"{SMEM_BUDGET_BYTES} B of shared memory, not {min(tile, M)}"
+                f"D={D} with {R} state rows leaves room for a tile of at most "
+                f"{max(room, 0)} columns in one block's {SMEM_BUDGET_BYTES} B "
+                f"of shared memory, not {min(tile, M)}"
             )
-        while capacity is not None:
+        while True:
             nt = -(-M // tile)
-            cap = capacity(chunk_smem_bytes(D, min(tile, M), R, windowed))
+            cols = min(tile, M)
+            vres = windowed and chunk_v_resident(D, M, cols, R, lanes,
+                                                 capacity)
+            if capacity is None:
+                break
+            cap = capacity(chunk_smem_bytes(D, cols, R, windowed, vres))
             if lanes * nt <= cap:
                 break
             per_lane = cap // lanes
@@ -186,5 +227,28 @@ class TilePolicy:
                 )
             tile = wider
         if self.tile_m is None and tile >= M:
-            return "resident", None
-        return "tiled", tile
+            return "resident", None, vres
+        return "tiled", tile, vres
+
+
+def _v_resident_split(D, M, R, lanes, capacity):
+    """The windowed chunk tiling with ``V`` in shared memory: each lane
+    split into the fewest tiles (a multiple of the warp, or the whole
+    lane) whose ``V``, ring, gains and staging fit one block, if that
+    grid co-resides: ``decide``'s answer with V in shared memory, else
+    None."""
+    per_col = 4 * (1 + R + D)
+    room = (SMEM_BUDGET_BYTES - chunk_smem_bytes(D, 0, R, True)) // per_col
+    if M <= room:
+        tile = M
+    elif room < WARP:
+        return None
+    else:
+        nt = -(-M // room)
+        tile = round_up(-(-M // nt), WARP)
+        while tile > room:
+            nt += 1
+            tile = round_up(-(-M // nt), WARP)
+    if not chunk_v_resident(D, M, tile, R, lanes, capacity):
+        return None
+    return ("resident", None, True) if tile >= M else ("tiled", tile, True)

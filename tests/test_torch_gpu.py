@@ -11,7 +11,9 @@ well-separated inputs: no near-ties at these sizes).  The fused chunk
 kernels K5/K6 are also held against the whole-slate kernels on the card
 (the same per-column device code: equal bits) and counted at one launch
 per chunk, multi-tile cooperative grids and slots at mixed progress
-included.
+included.  K4 runs each step with its state on the card; K6 keeps its
+ring (and, where it fits, V) in shared memory: both are held against
+their plain versions, and K6 against K2 and K4 bit for bit.
 
 K8 (``fm_interaction``) and K7 (``scored_topk``) are held against their
 plain versions on the CPU: K8 within rtol 1e-5 / atol 2e-6 * F * D
@@ -34,6 +36,8 @@ from repro_torch.core import (
 )
 from repro_torch.kernels import cuda
 from repro_torch.kernels.dpp_greedy import dpp_greedy
+from repro_torch.kernels.dpp_greedy import tiled
+from repro_torch.kernels.dpp_greedy.ops import _stream_tile
 from repro_torch.kernels.fm_interaction import (
     fm_interaction,
     fm_interaction_ref,
@@ -179,6 +183,62 @@ def test_chunk_slots_mixed_progress_on_card(card, window):
     for (gs, gd), (ws, wd) in zip(runs["cuda"], runs["cpu"]):
         assert torch.equal(gs, ws)
         torch.testing.assert_close(gd, wd, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,w,k,eps", [
+    (32, 4, 40, 1e-6),  # the ring full for 36 of the 40 steps
+    (3, 4, 10, 0.05),   # rank 3: an eps-stop at step 3, then latched
+    (64, 40, 60, 1e-6),  # w > 32: the shared-memory eviction derivation
+])
+def test_k4_matches_plain(card, D, w, k, eps):
+    # five tiles of 128 (the last ragged), the winner's column and the
+    # window factor crossing tiles through the step-parity buffers
+    V, mask = _inputs(5, B=3, D=D, M=600)
+    want = tiled.dpp_greedy_tiled(V, mask, k, w, eps, 128)
+    cuda.reset_launch_counts()
+    got = tiled.dpp_greedy_tiled(V.cuda(), mask.cuda(), k, w, eps, 128)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts() == {"tiled_step_windowed": k}
+    assert torch.equal(got[0].cpu(), want[0])
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=RTOL, atol=ATOL)
+    if D == 3:
+        assert bool((want[0][:, 3:] == -1).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,D,M,w,tile_m,vres", [
+    (2, 32, 512, 4, None, True),     # one whole-M V-resident tile per lane
+    (2, 100, 1000, 10, None, True),  # phase 7's split: 2 tiles of 512
+    (2, 64, 2048, 4, 1024, False),   # V streams: 69 floats a column > 227 KB
+    # w > 32 (the shared-memory eviction derivation) in both modes
+    (2, 64, 512, 40, None, True),    # 105 floats a column: 222,912 B
+    (2, 64, 2048, 40, 1024, False),
+])
+def test_k6_modes_match_plain_and_k2_k4_bits(card, B, D, M, w, tile_m,
+                                             vres):
+    V, mask = _inputs(6, B=B, D=D, M=M)
+    k, chunk = 3 * w + 2, 5
+    assert _stream_tile(D, M, w, True, tile_m, B,
+                        torch.device("cuda"))[1] == vres
+    want = _stream(V, mask, k, w, chunk, tile_m)
+    cuda.reset_launch_counts()
+    got = _stream(V.cuda(), mask.cuda(), k, w, chunk, tile_m)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts() == {"fused_chunk_windowed": -(-k // chunk)}
+    assert torch.equal(got[0].cpu(), want[0])
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=RTOL, atol=ATOL)
+    # K2 (resident) and K4 (tiled per step) on the same inputs: the same
+    # per-column arithmetic, so the same bits
+    cuda.reset_launch_counts()
+    k2 = dpp_greedy(V.cuda(), k, mask.cuda(), eps=1e-6, window=w)
+    k4 = dpp_greedy(V.cuda(), k, mask.cuda(), eps=1e-6, window=w,
+                    tile_m=256)
+    assert cuda.launch_counts() == {"dpp_greedy_resident_windowed": 1,
+                                    "tiled_step_windowed": k}
+    for whole in (k2, k4):
+        assert torch.equal(got[0], whole[0])
+        assert (got[1] - whole[1]).abs().max().item() == 0.0
 
 
 @pytest.mark.gpu

@@ -37,9 +37,11 @@ from repro_torch import obs
 from repro_torch.kernels.dpp_greedy import (
     TilePolicy,
     chunk_smem_bytes,
+    chunk_v_resident,
     fused_chunk_exact,
     fused_chunk_windowed,
 )
+from repro_torch.kernels.dpp_greedy.tiling import round_up
 
 RTOL, ATOL = 3e-4, 1e-5
 BACKENDS = ["torch", "kernel"]
@@ -527,23 +529,25 @@ def _card_like(smem):
 
 @pytest.mark.parametrize("D,M,R,windowed,lanes,mode", [
     (100, 1000, 50, False, 64, "resident"),  # default shortlist, B = 64
-    (100, 1000, 10, True, 64, "resident"),
+    (100, 1000, 10, True, 64, "tiled"),      # V-resident: 2 tiles per lane
     (100, 65536, 50, False, 4, "tiled"),     # the large pool
     (100, 65536, 10, True, 4, "tiled"),
 ])
 def test_chunked_tile_model(D, M, R, windowed, lanes, mode):
     for capacity in (None, _card_like):
-        got, tm = TilePolicy().decide(D, M, R, windowed, chunked=True,
-                                      lanes=lanes, capacity=capacity)
+        got, tm, vres = TilePolicy().decide(D, M, R, windowed, chunked=True,
+                                            lanes=lanes, capacity=capacity)
         assert got == mode
         cols = M if mode == "resident" else tm
-        smem = chunk_smem_bytes(D, cols, R, windowed)
+        assert vres == (windowed and chunk_v_resident(D, M, cols, R, lanes,
+                                                      capacity))
+        smem = chunk_smem_bytes(D, cols, R, windowed, vres)
         assert smem <= 232448 and (mode == "resident" or tm % 32 == 0)
         if capacity is not None:
             assert lanes * -(-M // cols) <= capacity(smem)
         assert TilePolicy(tile_m=256).decide(
             D, M, R, windowed, chunked=True, lanes=lanes,
-            capacity=capacity) == ("tiled", 256)
+            capacity=capacity)[:2] == ("tiled", 256)
     # without a card nothing bounds the lanes; on one, its capacity does
     assert TilePolicy().decide(D, M, R, windowed, chunked=True,
                                lanes=200)[0] == mode
@@ -552,13 +556,48 @@ def test_chunked_tile_model(D, M, R, windowed, lanes, mode):
                             capacity=lambda smem: 132)
 
 
+@pytest.mark.parametrize("M,lanes,tile,vres", [
+    # phase 7's shape: V, ring, gains and staging of 512 columns fill
+    # 228,624 of a block's 232,448 B; 128 blocks, one per SM
+    (1000, 64, 512, True),
+    # the large pool: 128 V-resident tiles per lane cannot co-reside, so
+    # V streams through tiles of 1024 with the ring in shared memory
+    (65536, 4, 1024, False),
+    # 200 lanes of the short list: 400 V-resident blocks do not fit a
+    # card of 132 SMs, one whole-M streaming tile per lane does
+    (1000, 100, 1000, False),
+])
+def test_windowed_chunk_tile_model_keeps_v_resident_where_it_fits(
+        M, lanes, tile, vres):
+    D, R = 100, 10
+    mode, tm, got = TilePolicy().decide(D, M, R, True, chunked=True,
+                                        lanes=lanes, capacity=_card_like)
+    assert (tm or M) == tile
+    assert mode == ("resident" if tile == M else "tiled")
+    assert got == vres
+    assert chunk_v_resident(D, M, tile, R, lanes, _card_like) == vres
+    smem = chunk_smem_bytes(D, tile, R, True, vres)
+    assert smem <= 232448
+    assert lanes * -(-M // tile) <= _card_like(smem)
+    # the layout chunk.cu carves: gains + ring (+ V) per column, then the
+    # staging (V column, w x w window factor, 6 w-vectors) and reduction
+    per_col = 1 + R + (D if vres else 0)
+    assert smem == 4 * (tile * per_col + D + R * R + 6 * R + 64)
+    if vres:
+        # the fewest tiles: one fewer V-resident tile does not fit a block
+        fewer = -(-M // tile) - 1
+        wider = round_up(-(-M // fewer), 32)
+        assert chunk_smem_bytes(D, wider, R, True, True) > 232448
+
+
 def test_chunked_tile_model_widens_to_fit_the_card():
     # 4 lanes of the large pool at the 1024-column floor need 256 blocks;
     # a card that holds 100 gets tiles wide enough for 25 per lane
     D, M, R = 100, 65536, 50
-    mode, tm = TilePolicy().decide(D, M, R, False, chunked=True, lanes=4,
-                                   capacity=lambda smem: 100)
+    mode, tm, vres = TilePolicy().decide(D, M, R, False, chunked=True,
+                                         lanes=4, capacity=lambda smem: 100)
     assert mode == "tiled" and tm == 2624 and 4 * -(-M // tm) <= 100
+    assert not vres
     with pytest.raises(ValueError, match="wider tile_m"):
         TilePolicy(tile_m=1024).decide(D, M, R, False, chunked=True,
                                        lanes=4, capacity=lambda smem: 100)
