@@ -21,10 +21,12 @@ eps = 1e-3, inputs made with numpy from a fixed seed.
                       around a second main-path call shows that no aten
                       op runs between its first and last K4 launch;
 5. forced tile:       phase 1's inputs with tile_m = 256; the tiled slate
-                      must equal the resident one;
+                      and d_hist must equal the resident ones bit for
+                      bit; K3 timed alone at this shape;
 6. stream:            ``Reranker.stream`` of phase 1's first user, chunk 8
-                      (seven K5 launches); the concatenated slate must
-                      equal that user's K1 slate;
+                      (seven K5 launches, V in shared memory over two
+                      tiles of 512); the concatenated slate must equal
+                      that user's K1 slate;
 7. chunks windowed:   ``greedy_map_chunks`` on phase 2's shortlists
                       (B = 64, w = 10, k = 200, chunk 16) on K6 with its
                       V tiles in shared memory, against K2's whole slate;
@@ -34,8 +36,9 @@ eps = 1e-3, inputs made with numpy from a fixed seed.
                       blocks per lane, V streamed, against K3 / K4;
 9. slots:             ``greedy_chunk_slots`` on 64 slots (exact, k = 50,
                       chunk 8) holding phase 1's users, half of them
-                      spliced in two chunks after the rest; K5 is held
-                      against its plain version on the same run, and
+                      spliced in two chunks after the rest, V in shared
+                      memory over two tiles per slot; K5 is held against
+                      its plain version on the same run and timed, and
                       each slot must equal its user's K1 slate and its
                       single-request stream.
 
@@ -71,14 +74,20 @@ kernel and the plain version with CUDA events (the multi-launch kernels
 K3-K6 one event pair per launch, summed, with torch.profiler's device
 time of the same launches beside it as ``device_ms``); and checks the
 outputs.
-Phases 4, 7 and 8 also print the windowed kernels' streaming floor: V's
-bytes once per step over 3.35 TB/s, since V does not stay on the chip
-between steps there (the bound in the kernels' record counts V once).
+Phases 3, 4 and 6-9 also print the per-step streaming floor beside the
+kernel's device time: V's bytes once per step over 3.35 TB/s and, for
+the exact kernels, the live Cholesky rows read, row t written and the
+gains read and written, since none of it stays on the chip between
+steps where V streams (the bound in the kernels' record counts V once;
+where K5/K6 keep V in shared memory the floor is a yardstick only).
+Every streamed slate must equal its whole-slate kernel slate bit for
+bit, d_hist included.
 Any failure exits non-zero.  The second-to-last line is the kernels'
 JSON record, the last the device line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -463,21 +472,31 @@ def kernel_record(records, kernel, ms, plain_ms, bnd, err, note,
           flush=True)
 
 
-def stream_floor(B, M, steps, ms, v_resident=False):
-    """Print the windowed kernels' streaming floor: V (B, D, M) float32
-    read once per step over 3.35 TB/s, beside ``ms`` of device time
-    (torch.profiler, None when not measured) for ``steps`` steps
-    (``v_resident``: K6 keeps V in shared memory, so it reads V from
-    device memory once per launch and the floor is a yardstick only)."""
-    step_ms = 1e3 * 4 * B * D * M / HBM_BYTES_S
+def stream_floor(B, M, steps, ms, v_resident=False, exact=False):
+    """Print the per-step streaming floor beside ``ms`` of device time
+    (torch.profiler, None when not measured) for ``steps`` steps from
+    t = 0: V (B, D, M) float32 read once per step over 3.35 TB/s and,
+    ``exact``, the live Cholesky rows (t rows at step t) read, row t
+    written and the gains d2 read and written (``v_resident``: the chunk
+    kernel keeps V in shared memory, so it reads V from device memory
+    once per launch and the floor is a yardstick only)."""
+    v_ms = 1e3 * 4 * B * D * M / HBM_BYTES_S
+    total = v_ms * steps
+    what = "V once per step"
+    if exact:
+        rows = steps * (steps - 1) // 2 + steps  # read over the steps, + row t
+        total += 1e3 * 4 * B * M * (rows + 2 * steps) / HBM_BYTES_S
+        what += ", the live C rows, row t and d2"
+    step_ms = total / steps
     note = ("; V stays in shared memory here, read from device memory once "
             "per chunk launch" if v_resident else "")
     got = ("device time not measured" if ms is None else
            f"device time {ms / steps * 1e3:.1f} us a step, "
-           f"{ms / (step_ms * steps):.2f}x the floor")
-    print(f"  streaming floor (V once per step, {4 * B * D * M} B over "
-          f"3.35 TB/s): {step_ms * 1e3:.1f} us a step, {step_ms * steps:.4f} "
-          f"ms for {steps} steps; {got}{note}", flush=True)
+           f"{ms / total:.2f}x the floor")
+    print(f"  streaming floor ({what}, over 3.35 TB/s): "
+          f"{step_ms * 1e3:.1f} us a step (V alone {v_ms * 1e3:.1f} us, "
+          f"{4 * B * D * M} B), {total:.4f} ms for {steps} steps; {got}"
+          f"{note}", flush=True)
 
 
 def ms_text(ms):
@@ -566,13 +585,8 @@ def run_tiled(records, rng):
                                    is not None)[1]
         # kernel vs plain: the same whole-slate loop with the plain steps
         got = tm.dpp_greedy_tiled(V, m_top, k, window, EPS, tile)
-        real = getattr(tm, kernel)
-        plain = getattr(tm, kernel + "_plain")
-        setattr(tm, kernel, plain)
-        try:
+        with patched_steps(tm, plain=True):
             want = tm.dpp_greedy_tiled(V, m_top, k, window, EPS, tile)
-        finally:
-            setattr(tm, kernel, real)
         torch.cuda.synchronize()
         check(torch.equal(
             torch.where(got[0] >= 0,
@@ -580,8 +594,7 @@ def run_tiled(records, rng):
             .to(torch.int32), out[0]),
             f"{name}: direct kernel call differs from the main path")
         _, err = compare(name, V, m_top, got, want, window, EPS)
-        ms, plain_ms, span = time_tiled(tm, kernel, V, m_top, k, window,
-                                        tile)
+        ms, plain_ms, span = time_tiled(tm, V, m_top, k, window, tile)
         dev = device_ms(lambda: tm.dpp_greedy_tiled(V, m_top, k, window, EPS,
                                                     tile), kernel, k)
         records[kernel]["calls_launches"] = k
@@ -593,56 +606,73 @@ def run_tiled(records, rng):
                 f"of it, the rest the card waits for the host")
         print(f"  {kernel}: from before the first launch to after the last, "
               f"CUDA events: {span:.4f} ms{busy}", flush=True)
-        if window is not None:
-            stream_floor(B, C, k, dev)
+        stream_floor(B, C, k, dev, exact=window is None)
         results[window] = (V, m_top, got)
     return results, feats
 
 
-def time_tiled(tm, kernel, V, mask, k, window, tile):
+@contextlib.contextmanager
+def patched_steps(tm, plain=False, wrap=None):
+    """Within the block, ``dpp_greedy_tiled``'s per-step function runs
+    the plain step (``plain``) instead of the kernel's launch, and is
+    wrapped as ``wrap(step)`` when given; the loop calls it once a step."""
+    real = tm.step_launcher
+
+    def launcher(kernel, operands, eps, tile):
+        if plain:
+            ref = getattr(tm, kernel + "_plain")
+            step = lambda t: ref(*operands, t, eps, tile)  # noqa: E731
+        else:
+            step = real(kernel, operands, eps, tile)
+        return step if wrap is None else wrap(step)
+
+    tm.step_launcher = launcher
+    try:
+        yield
+    finally:
+        tm.step_launcher = real
+
+
+def time_tiled(tm, V, mask, k, window, tile):
     """Kernel and plain time of one whole-slate tiled call as the sum of
-    one CUDA event pair per launch (each pair also holds the wrapper's
-    host time), and the kernel's span from one event right before the
-    first step's launch to one right after the last (the loop issues
-    nothing between its k launches)."""
-    real = getattr(tm, kernel)
-    plain = getattr(tm, kernel + "_plain")
-
-    def run_with(step):
-        setattr(tm, kernel, step)
-        try:
+    one CUDA event pair per step (each pair also holds the step
+    function's host time: one ctypes call), and the kernel's span from
+    one event right before the first step's launch to one right after
+    the last (the loop issues nothing between its k launches)."""
+    def run(plain=False, wrap=None):
+        with patched_steps(tm, plain, wrap):
             tm.dpp_greedy_tiled(V, mask, k, window, EPS, tile)
-        finally:
-            setattr(tm, kernel, real)
 
-    def summed(fn):
+    def summed(plain):
         def one():
             acc = []
-            run_with(lambda *args: acc.append(event_ms(lambda: fn(*args))))
+            run(plain, lambda step: lambda t: acc.append(
+                event_ms(lambda: step(t))))
             return sum(acc)
         return one
 
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
 
-    def bracketed(*args):
-        t = args[-3]
-        if t == 0:
-            ev[0].record()
-        real(*args)
-        if t == k - 1:
-            ev[1].record()
+    def bracketed(step):
+        def one(t):
+            if t == 0:
+                ev[0].record()
+            step(t)
+            if t == k - 1:
+                ev[1].record()
+        return one
 
     def span():
-        run_with(bracketed)
+        run(wrap=bracketed)
         ev[1].synchronize()
         return ev[0].elapsed_time(ev[1])
 
-    return (time_events(summed(real), TIMING_REPS),
-            time_events(summed(plain), PLAIN_REPS),
+    return (time_events(summed(False), TIMING_REPS),
+            time_events(summed(True), PLAIN_REPS),
             time_events(span, TIMING_REPS))
 
 
-def run_forced_tile(resident_out, scores, feats):
+def run_forced_tile(resident_out, resident_V, scores, feats):
     from repro_torch.serving import DPPRerankConfig, Reranker, RerankRequest
 
     rr = Reranker(DPPRerankConfig(use_kernel=True, shortlist=1000,
@@ -658,10 +688,23 @@ def run_forced_tile(resident_out, scores, feats):
     check(torch.equal(out[0], resident_out[0]),
           "phase 5: tiled slate differs from the resident slate")
     err = (out[1] - resident_out[1]).abs().max().item()
-    check(torch.allclose(out[1], resident_out[1], rtol=RTOL, atol=ATOL),
-          f"phase 5: d_hist differs from resident by {err}")
-    print(f"  launches {counts}; slate equals phase 1's resident slate; "
-          f"d_hist max abs diff {err:.3g}", flush=True)
+    check(err == 0.0, f"phase 5: d_hist differs from resident by {err}")
+    print(f"  launches {counts}; slate and d_hist equal phase 1's resident "
+          f"ones bit for bit (d_hist max abs diff {err})", flush=True)
+    # K3 alone at this shape (B = 64, C = 1000, 4 tiles of 256 a lane)
+    from repro_torch.kernels.dpp_greedy import tiled as tm
+
+    V = resident_V
+    mask = torch.ones(V.shape[0], V.shape[2], dtype=torch.bool,
+                      device=V.device)
+    ms, plain_ms, span = time_tiled(tm, V, mask, 50, None, 256)
+    dev = device_ms(lambda: tm.dpp_greedy_tiled(V, mask, 50, None, EPS,
+                                                256), "tiled_step_exact", 50)
+    print(f"  tiled_step_exact at this shape: {ms:.4f} ms for 50 launches "
+          f"({ms / 50 * 1e3:.1f} us a launch; median of {TIMING_REPS}, CUDA "
+          f"events per launch); device time by torch.profiler "
+          f"{ms_text(dev)}; first to last launch {span:.4f} ms; plain "
+          f"{plain_ms:.4f} ms", flush=True)
     return counts["tiled_step_exact"]
 
 
@@ -759,9 +802,9 @@ def chunk_check(name, kernel, V, mask, k, window, chunk, record, records):
           f"{ms_text(dev)}/slate (median of {TIMING_REPS // 4}); plain "
           f"{plain_ms:.4f} ms/slate, bound {bnd[0]:.4f} ms by {bnd[1]}",
           flush=True)
-    if window is not None:
-        stream_floor(B, M, k, dev, chunk_tiles(M, window, True, B,
-                                               V.device)[2])
+    stream_floor(B, M, k, dev, chunk_tiles(M, window or k, window is not None,
+                                           B, V.device)[2],
+                 exact=window is None)
     if record:
         records[kernel]["calls_launches"] = n
         kernel_record(records, kernel, ms, plain_ms, bnd, err,
@@ -771,17 +814,17 @@ def chunk_check(name, kernel, V, mask, k, window, chunk, record, records):
 
 def check_equal(name, got, want):
     """A streamed slate must equal the whole-slate kernel slate index for
-    index; returns the max abs d_hist difference."""
+    index and its d_hist bit for bit (the same per-column device code);
+    returns the max abs d_hist difference, 0."""
     if not torch.equal(got[0], want[0]):
         lanes = (got[0] != want[0]).any(-1).nonzero()[:, 0].tolist() \
             if got[0].shape == want[0].shape else "all"
         check(False, f"{name}: streamed slate differs from the whole-slate "
                      f"slate in lanes {lanes}")
     err = (got[1] - want[1]).abs().max().item()
-    check(torch.allclose(got[1], want[1], rtol=RTOL, atol=ATOL),
-          f"{name}: d_hist differs from the whole slate by {err}")
+    check(err == 0.0, f"{name}: d_hist differs from the whole slate by {err}")
     print(f"  {name}: slate equals the whole-slate kernel slate index for "
-          f"index; d_hist max abs diff {err:.3g}", flush=True)
+          f"index; d_hist max abs diff {err} (bit for bit)", flush=True)
     return err
 
 
@@ -796,8 +839,11 @@ def run_stream(records, resident, scores, feats):
 
     k, chunk, C = 50, 8, 1000
     name = "phase 6 stream"
+    line, nt, vres = chunk_tiles(C, k, False, 1, scores.device)
+    check(vres and nt == 2, f"{name}: expected V in shared memory over two "
+                            f"tiles: {line}")
     print(f"[{name}] Reranker.stream, pool {scores.shape[1]} shortlist {C} "
-          f"k={k} chunk={chunk}", flush=True)
+          f"k={k} chunk={chunk}: {line}", flush=True)
     rr = Reranker(DPPRerankConfig(slate_size=k, shortlist=C, alpha=ALPHA,
                                   eps=EPS, use_kernel=True), device="cuda")
     req = RerankRequest(scores=scores[0], feats=feats)
@@ -841,9 +887,9 @@ def run_stream(records, resident, scores, feats):
 
 def chunk_tiles(M, R, windowed, lanes, device):
     """The fused chunk kernel's tiling of ``lanes`` lanes of ``M``
-    candidates and ``R`` state rows on this card and, windowed, whether
-    V stays in shared memory: (one line of text, tiles per lane, V in
-    shared memory)."""
+    candidates and ``R`` state rows on this card and whether V stays in
+    shared memory, as the wrappers get it (``ops._stream_tile``): (one
+    line of text, tiles per lane, V in shared memory)."""
     from repro_torch.kernels.dpp_greedy.ops import _stream_tile
     from repro_torch.kernels.dpp_greedy.tiled import chunk_capacity
     from repro_torch.kernels.dpp_greedy.tiling import chunk_smem_bytes
@@ -920,8 +966,12 @@ def run_slots(records, resident):
     V, _, _ = resident[None]
     S, _, M = V.shape
     name = "phase 9 slots"
+    line, nt, vres = chunk_tiles(M, k, False, S, V.device)
+    check(vres and nt == 2, f"{name}: expected V in shared memory over two "
+                            f"tiles per slot: {line}")
     print(f"[{name}] greedy_chunk_slots S={S} M={M} k={k} chunk={chunk}; "
-          f"slots {S // 2}..{S - 1} spliced after {late} chunks", flush=True)
+          f"slots {S // 2}..{S - 1} spliced after {late} chunks: {line}",
+          flush=True)
     spec = GreedySpec(k=k, backend="kernel", eps=EPS)
     cycles = late + -(-k // chunk)
 
@@ -962,6 +1012,13 @@ def run_slots(records, resident):
                      None, EPS)
     rec = records["fused_chunk_exact"]
     rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    ms = time_events(lambda: with_chunk_kernel(
+        "fused_chunk_exact", main, timed=True)[1], TIMING_REPS)
+    dev = device_ms(main, "fused_chunk_exact", cycles)
+    print(f"  fused_chunk_exact at the slots' shape: {ms:.4f} ms for "
+          f"{cycles} launches ({ms / cycles:.4f} ms a launch; median of "
+          f"{TIMING_REPS}, CUDA events per launch); device time by "
+          f"torch.profiler {ms_text(dev)}", flush=True)
     check_equal(name + " vs phase 1 (K1)", got, resident[None][1])
     want = [stream_slate(V[b:b + 1], None, k, None, chunk) for b in range(S)]
     want = (torch.cat([x[0] for x in want]), torch.cat([x[1] for x in want]))
@@ -1358,7 +1415,8 @@ def main() -> int:
           f"source)", flush=True)
     for log in sorted((cuda.KERNELS_DIR).glob("*/build/*.log")):
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry function" in line):
                 print(f"  ptxas {log.stem[:12]}: {line.strip()}")
 
     rng = np.random.default_rng(SEED)
@@ -1367,7 +1425,7 @@ def main() -> int:
     scores, feats, resident = run_resident(records, rng)
     records["tiled_step_exact"] = {"launches": 0}
     records["tiled_step_exact"]["launches"] += run_forced_tile(
-        resident[None][2], scores, feats)
+        resident[None][2], resident[None][0], scores, feats)
     tiled, pool = run_tiled(records, rng)
     run_stream(records, resident, scores, feats)
     del scores, feats

@@ -116,6 +116,27 @@ def library(src: Path, signatures: dict) -> ctypes.CDLL:
     return lib
 
 
+_SMEM_LIMITS: Dict[tuple, int] = {}
+
+
+def raise_smem(lib: ctypes.CDLL, setter: str, which: int, smem: int,
+               device: torch.device) -> None:
+    """Let kernel ``which`` of ``lib`` take ``smem`` bytes of dynamic
+    shared memory on ``device``: ``lib.<setter>(which, smem)`` (a
+    ``cudaFuncSetAttribute``), called only when ``smem`` exceeds the
+    limit already set, rather than before every launch.  The limit only
+    grows: it bounds every later launch of the kernel, so lowering it
+    would refuse a larger launch that found its size already set."""
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    key = (setter, which, index)
+    if smem <= _SMEM_LIMITS.get(key, -1):
+        return
+    with torch.cuda.device(index):
+        check(getattr(lib, setter)(which, smem), setter)
+    _SMEM_LIMITS[key] = smem
+
+
 def check(err: int, name: str) -> None:
     """Raise if a launch (or its shared-memory attribute call) failed."""
     if err != 0:

@@ -20,23 +20,24 @@
 // (cudaLaunchCooperativeKernel, which refuses a grid that cannot be
 // co-resident) runs a grid of (nt, B) blocks: each block owns one M-tile
 // of one lane for all `chunk` steps, keeps the tile's gains d2 in shared
-// memory, and meets the other blocks at a barrier between steps: K5 the
-// whole grid's (grid_barrier), K6 only its lane's (lane_barrier), both on
-// counters the wrapper zeroes per launch, rather than cooperative_groups'
-// grid.sync(): in the exact kernel the latter compiled to a call that
-// held the column loop to 40 registers with spills, and tripled the step
-// time on an H100.  Every block of a lane
-// folds its tile's (max, lowest-index argmax) into one 64-bit atomicMax
-// on an orderable key (common.cuh), one key slot per step, so after the
-// barrier every block decodes the same winner with jnp.argmax's
-// lowest-index tie rule; the chunk's first winner comes from the same
-// fold over the state's d2 before the first barrier.  Cross-block data
-// (keys, the winner's columns, the window factor) is read with __ldcg,
-// from L2, never from a stale L1 line.
+// memory, and meets the other blocks of its lane at a barrier between
+// steps (lane_barrier: the lanes share nothing, so they need not wait
+// for each other), on per-lane counters the wrapper zeroes per launch,
+// rather than cooperative_groups' grid.sync(), which in the exact kernel
+// compiled to a call that held the column loop to 40 registers with
+// spills.  Every block of a lane folds its tile's (max, lowest-index
+// argmax) into one 64-bit atomicMax on an orderable key (common.cuh),
+// one key slot per step, so after the barrier every block decodes the
+// same winner with jnp.argmax's lowest-index tie rule; the chunk's
+// first winner comes from the same fold over the state's d2 before the
+// first barrier.  Cross-block data (keys, the winner's columns, the
+// window factor) is read with __ldcg, from L2, never from a stale L1
+// line.
 //
 // Exact: the winner's V column is read-only and its Cholesky rows
 // [0, t) were written before earlier barriers, while this step writes
-// only row t, so every block stages them straight from C.  Windowed: the
+// only row t, so every block stages them straight from device memory
+// (__ldcg: another block of the lane owns column j).  Windowed: the
 // owner of the winner's column rotates it in place during the step, so
 // each block also publishes its tile argmax's column (cand), and the
 // owners of the ring's members publish the (w, w) window factor C[:, win]
@@ -44,8 +45,8 @@
 // block then derives the eviction's Givens pairs from its own copy with
 // the same evict_coeffs_warp() as K2, so all blocks agree bit for bit
 // with no further barrier.  The initial gains are init_gains', and the
-// per-column updates are common.cuh's col_exact and, windowed,
-// cols_windowed, which computes col_windowed's bits for several columns
+// per-column updates are common.cuh's cols_exact and cols_windowed,
+// which compute col_exact's and col_windowed's bits for several columns
 // per thread with their loads in flight, so a stream's concatenated
 // chunks equal the resident K1/K2 slate bit for bit.  Nothing leaves the
 // card inside a chunk.
@@ -54,42 +55,18 @@
 // whole chunk, so the slice lives in shared memory: loaded once per
 // launch (cp.async, every copy in flight), rotated, repaired and
 // appended there every step, published from there, and written back to
-// C once at the end.  Its steps meet at a barrier per lane, not across
-// the grid: the lanes share nothing.  Where the tile's
-// V slice fits beside it (tiling.chunk_v_resident: one block's 227 KB,
-// and the grid still co-resident), V is loaded into shared memory once
-// per launch too, and every step of the chunk reads it from there (at
-// B = 64, C = 1000, D = 100, w = 10: two tiles of 512 per lane, one
-// block per SM); otherwise V streams from device memory every step with
-// the evict-first hint.
+// C once at the end.  In both kernels, where the tile's V slice fits
+// beside the rest (tiling.chunk_v_resident: one block's 227 KB, and the
+// grid still co-resident), V is loaded into shared memory once per
+// launch too, and every step of the chunk reads it from there (at
+// B = 64, C = 1000, D = 100: two tiles of 512 per lane, one block per
+// SM, exact with k = 50 and windowed with w = 10); otherwise V streams
+// from device memory every step with the evict-first hint.  The exact
+// kernel's Cholesky rows stay in device memory (L2 at that shape): with
+// V they would not fit.
 #include "common.cuh"
 
-// Grid-wide barrier of a co-resident grid: bar[0] counts the arrived
-// blocks, bar[1] is the generation (both zero at launch).  Thread 0 of
-// each block fences the block's writes device-wide, arrives, and the
-// last arrival resets the count and opens the next generation while the
-// others spin on it; the closing fence and block barrier order every
-// later read after the others' writes.
-__device__ __forceinline__ void grid_barrier(unsigned int* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned int* gen = bar + 1;
-    const unsigned int g = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == gridDim.x * gridDim.y - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (*gen == g) {
-      }
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// Barrier of the co-resident blocks of one lane (K6: the lanes share
+// Barrier of the co-resident blocks of one lane (the lanes share
 // nothing, so they need not wait for each other) on the lane's own
 // arrival counter (zero at launch), which only grows: the n-th barrier
 // of the launch waits until it reaches n * (the lane's block count),
@@ -157,10 +134,13 @@ __device__ __forceinline__ void tile_argmax(const float* d2, int i0, int i1,
 
 // K5: `chunk` exact steps.  V (B, D, M), C (B, R, M) row layout (row t
 // written at step t), d2 (B, M); t (B,) the lanes' step counters;
-// stopped (B,) the eps-stop latch, updated; keys (chunk+1, B) and the
-// barrier bar (2,) zeroed.
-// A lane whose counter reaches R (the state's capacity) latches stopped.
-__global__ void __launch_bounds__(DPP_THREADS)
+// stopped (B,) the eps-stop latch, updated; keys (chunk+1, B) zeroed;
+// bar (B, 2) u32, the lanes' barrier counters in column 0, zeroed.  The
+// block keeps its tile's gains in shared memory for the whole chunk and,
+// with vres, its (D, tile_m) slice of V as well; otherwise V streams
+// from device memory every step.  A lane whose counter reaches R (the
+// state's capacity) latches stopped.
+__global__ void __launch_bounds__(DPP_THREADS, 2)
 fused_chunk_exact_kernel(const float* __restrict__ V, float* __restrict__ C,
                          float* __restrict__ d2g,
                          const int* __restrict__ t_in,
@@ -168,10 +148,11 @@ fused_chunk_exact_kernel(const float* __restrict__ V, float* __restrict__ C,
                          unsigned int* bar, int* __restrict__ sel,
                          float* __restrict__ dh,
                          int B, int D, int M, int R, int chunk, int tile_m,
-                         float eps2) {
+                         int vres, float eps2) {
   extern __shared__ float sm[];
-  float* d2 = sm;                 // tile_m  the tile's gains
-  float* vj = d2 + tile_m;        // D       winner's V column
+  float* d2 = sm;                                    // tile_m  the gains
+  float* Vs = d2 + tile_m;                           // D*tile_m  with vres
+  float* vj = Vs + (vres ? (size_t)D * tile_m : 0);  // D  winner's V column
   float* cj = vj + D;             // R       winner's Cholesky column
   float* redv = cj + R;           // 32
   int* redi = (int*)(redv + 32);  // 32
@@ -179,20 +160,25 @@ fused_chunk_exact_kernel(const float* __restrict__ V, float* __restrict__ C,
   __shared__ int s_am;
 
   const int b = blockIdx.y, tid = threadIdx.x;
+  const int nt = gridDim.x;
   const int i0 = blockIdx.x * tile_m;
   const int i1 = min(i0 + tile_m, M);
+  const int n = i1 - i0;
   const float* Vb = V + (size_t)b * D * M;
   float* Cb = C + (size_t)b * R * M;
   float* d2b = d2g + (size_t)b * M;
   const bool lead = blockIdx.x == 0 && tid == 0;
   const int t0 = t_in[b];
   bool stop = stopped[b] != 0;
+  unsigned int* lbar = bar + 2 * b;  // the lane's arrival counter
 
-  for (int i = i0 + tid; i < i1; i += DPP_THREADS) d2[i - i0] = d2b[i];
+  stage_async(d2, 0, d2b + i0, 0, 1, n);
+  if (vres) stage_async(Vs, tile_m, Vb + i0, M, D, n);
+  cp_async_wait_all();
   __syncthreads();
   tile_argmax(d2, i0, i1, redv, redi, &s_mx, &s_am);
   if (tid == 0) atomicMax(&keys[b], pack_key(s_mx, s_am));
-  grid_barrier(bar);
+  lane_barrier(lbar, nt);  // the launch's first barrier
 
   for (int s = 0; s < chunk; ++s) {
     const int t = t0 + s;
@@ -207,20 +193,25 @@ fused_chunk_exact_kernel(const float* __restrict__ V, float* __restrict__ C,
     }
     if (!stop) {
       for (int d = tid; d < D; d += DPP_THREADS)
-        vj[d] = Vb[(size_t)d * M + j];
+        vj[d] = __ldcg(&Vb[(size_t)d * M + j]);
       for (int r = tid; r < t; r += DPP_THREADS)
         cj[r] = __ldcg(&Cb[(size_t)r * M + j]);
       __syncthreads();
-      for (int i = i0 + tid; i < i1; i += DPP_THREADS)
-        d2[i - i0] = col_exact(Vb, Cb, M, D, t, vj, cj, dj, i, j, d2[i - i0]);
-      __syncthreads();
-      tile_argmax(d2, i0, i1, redv, redi, &s_mx, &s_am);
+      float bv = -INFINITY;
+      int bi = INT_MAX;
+      if (vres)
+        cols_exact<2, LoadPlain>(Vs, tile_m, Cb + i0, M, d2, n, i0, D, t, vj,
+                                 cj, dj, j, bv, bi);
+      else
+        cols_exact<4, LoadStreaming>(Vb + i0, M, Cb + i0, M, d2, n, i0, D, t,
+                                     vj, cj, dj, j, bv, bi);
+      block_argmax(bv, bi, redv, redi, &s_mx, &s_am);
       if (tid == 0)
         atomicMax(&keys[(size_t)(s + 1) * B + b], pack_key(s_mx, s_am));
     }
-    grid_barrier(bar);
+    lane_barrier(lbar, (unsigned int)nt * (s + 2));
   }
-  for (int i = i0 + tid; i < i1; i += DPP_THREADS) d2b[i] = d2[i - i0];
+  for (int x = tid; x < n; x += DPP_THREADS) d2b[i0 + x] = d2[x];
   if (lead) stopped[b] = stop ? 1 : 0;
 }
 
@@ -404,14 +395,14 @@ extern "C" int fused_chunk_exact(const float* V, float* C, float* d2,
                                  unsigned long long* keys, unsigned int* bar,
                                  int* sel,
                                  float* dh, int B, int D, int M, int R,
-                                 int chunk, int tile_m, float eps2, int smem,
-                                 void* stream) {
+                                 int chunk, int tile_m, int vres, float eps2,
+                                 int smem, void* stream) {
   const void* fn = chunk_kernel(0);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&V, &C, &d2, &t, &stopped, &keys, &bar, &sel, &dh,
-                  &B, &D, &M, &R, &chunk, &tile_m, &eps2};
+                  &B, &D, &M, &R, &chunk, &tile_m, &vres, &eps2};
   dim3 grid((M + tile_m - 1) / tile_m, B);
   return (int)cudaLaunchCooperativeKernel(fn, grid, dim3(DPP_THREADS), args,
                                           (size_t)smem,

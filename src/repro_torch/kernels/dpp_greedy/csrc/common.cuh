@@ -6,10 +6,10 @@
 // __fdiv_rn, ...) so the compiler cannot contract or reorder it
 // differently in two kernels: a resident, a tiled and a chunked run of
 // the same inputs compute bit-identical gains and pick identical
-// slates.  The windowed update exists twice, one column at a time
-// (col_windowed, K2) and several columns per thread with their loads in
-// flight (cols_windowed, K4 and K6), with the same arithmetic per
-// column.
+// slates.  Each update exists twice, one column at a time (col_exact,
+// K1; col_windowed, K2) and several columns per thread with their loads
+// in flight (cols_exact, K3 and K5; cols_windowed, K4 and K6), with the
+// same arithmetic per column.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -231,12 +231,13 @@ __device__ __forceinline__ float col_windowed(
 // ---------------------------------------------------------------------------
 
 #define COLS_DU 8  // rows of V loaded ahead
-#define COLS_RB 4  // rows of the ring loaded ahead
+#define COLS_RB 4  // rows of the ring (exact: of C) loaded ahead
 #define COLS_WORKERS (DPP_THREADS - 32)  // warps 1.. take the columns
 
 // Where V comes from: device memory, read once per step, with the
-// evict-first hint so the stream does not push the ring and d2 out of
-// L2 (LoadStreaming); or shared memory (LoadPlain).
+// evict-first hint so the stream does not push the ring (exact: the
+// live rows of C) and d2 out of L2 (LoadStreaming); or shared memory
+// (LoadPlain).
 struct LoadStreaming {
   __device__ __forceinline__ float operator()(const float* p) const {
     return __ldcs(p);
@@ -349,6 +350,107 @@ __device__ __forceinline__ void cols_windowed(
       if (full) d2v[c] = __fmaf_rn(u[c], u[c], d2v[c]);
       const float e = __fdiv_rn(__fsub_rn(lj[c], dots[c]), djp);
       Rt[(size_t)pos * rs + x[c]] = e;
+      const int i = i0 + x[c];
+      const float g2 = i == j ? -INFINITY : __fmaf_rn(-e, e, d2v[c]);
+      d2t[x[c]] = g2;
+      argmax_merge(bv, bi, g2, i);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The exact step over a whole tile, several columns per thread with their
+// loads in flight (K3, K5).
+//
+// col_exact runs one column at a time: one dependent FMA chain over D
+// whose every iteration waits on its own load of V, then one over the t
+// rows of C that does the same, so a thread has about one load in
+// flight.  cols_exact computes the same bits for NC columns of a thread
+// at once: it issues the loads of COLS_DU rows of V for all of them
+// ahead of the FMAs that use them, then of COLS_RB rows of C ahead of
+// the dots chain, then the division and the gain.  Per column nothing
+// changes: one __fmaf_rn chain over d = 0..D-1 and one over
+// r = 0..t-1, both ascending, the same __fdiv_rn(__fsub_rn(lj, dots),
+// dj), the same __fmaf_rn(-e, e, d2) and -inf for the winner.  There is
+// no eviction to derive, so every warp takes columns.
+// ---------------------------------------------------------------------------
+
+// The exact step t over the n columns x = 0..n-1 of one tile, whose
+// global ids are i0 + x: V row d of column x at Vt[d * vs + x] (read
+// with VLoad), Cholesky row r at Ct[r * cs + x] (rows [0, t) read, row
+// t written), the gain at d2t[x] (updated; the winner j gets -inf).
+// vj / cj / dj are the winner's staged columns and sqrt gain.  Folds the
+// new gains into this thread's (bv, bi) argmax; no barrier inside.
+template <int NC, typename VLoad>
+__device__ __forceinline__ void cols_exact(
+    const float* __restrict__ Vt, size_t vs, float* __restrict__ Ct,
+    size_t cs, float* __restrict__ d2t, int n, int i0, int D, int t,
+    const float* vj, const float* cj, float dj, int j, float& bv, int& bi) {
+  const VLoad vld{};
+  const int span = NC * DPP_THREADS;
+  for (int g0 = 0; g0 < n; g0 += span) {
+    int x[NC];
+    bool ok[NC];
+    float d2v[NC], lj[NC], dots[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      x[c] = g0 + (int)threadIdx.x + c * DPP_THREADS;
+      ok[c] = x[c] < n;
+      d2v[c] = ok[c] ? d2t[x[c]] : 0.f;
+      lj[c] = 0.f;
+      dots[c] = 0.f;
+    }
+    if (!ok[0]) break;  // x[0] is the thread's lowest column
+    // L_j row: V^T v_j, d ascending
+    int d = 0;
+    for (; d + COLS_DU <= D; d += COLS_DU) {
+      float v[COLS_DU][NC];
+#pragma unroll
+      for (int q = 0; q < COLS_DU; ++q)
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          v[q][c] = ok[c] ? vld(Vt + (size_t)(d + q) * vs + x[c]) : 0.f;
+#pragma unroll
+      for (int q = 0; q < COLS_DU; ++q) {
+        const float a = vj[d + q];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) lj[c] = __fmaf_rn(a, v[q][c], lj[c]);
+      }
+    }
+    for (; d < D; ++d) {
+      float v[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        v[c] = ok[c] ? vld(Vt + (size_t)d * vs + x[c]) : 0.f;
+      const float a = vj[d];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) lj[c] = __fmaf_rn(a, v[c], lj[c]);
+    }
+    // <c_j, c_i> over the rows [0, t), r ascending
+    for (int r0 = 0; r0 < t; r0 += COLS_RB) {
+      float row[COLS_RB][NC];
+#pragma unroll
+      for (int q = 0; q < COLS_RB; ++q)
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          row[q][c] = (r0 + q < t && ok[c])
+                          ? Ct[(size_t)(r0 + q) * cs + x[c]]
+                          : 0.f;
+#pragma unroll
+      for (int q = 0; q < COLS_RB; ++q) {
+        if (r0 + q < t) {
+          const float a = cj[r0 + q];
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            dots[c] = __fmaf_rn(a, row[q][c], dots[c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (!ok[c]) continue;
+      const float e = __fdiv_rn(__fsub_rn(lj[c], dots[c]), dj);
+      Ct[(size_t)t * cs + x[c]] = e;
       const int i = i0 + x[c];
       const float g2 = i == j ? -INFINITY : __fmaf_rn(-e, e, d2v[c]);
       d2t[x[c]] = g2;

@@ -168,17 +168,21 @@ dpp_resident_windowed_kernel(const float* __restrict__ V,
   }
 }
 
-// Host entry points: plain C interface for ctypes.  Each returns the
-// cudaError_t of the attribute call or the launch (0 = success); the
-// caller raises on anything else.
+// Host entry points: plain C interface for ctypes.  Each returns a
+// cudaError_t (0 = success); the caller raises on anything else.
+// dpp_resident_set_smem raises the dynamic shared-memory limit of K2
+// (windowed) or K1 to smem bytes, once per size; the launches assume it.
+extern "C" int dpp_resident_set_smem(int windowed, int smem) {
+  const void* fn = windowed ? (const void*)dpp_resident_windowed_kernel
+                            : (const void*)dpp_resident_exact_kernel;
+  return (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
 extern "C" int dpp_resident_exact(const float* V, const float* d2_init,
                                   float* C, int* sel, float* dh, int B, int D,
                                   int M, int k, float eps2, int smem,
                                   void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      dpp_resident_exact_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
   dpp_resident_exact_kernel<<<B, DPP_THREADS, smem, (cudaStream_t)stream>>>(
       V, d2_init, C, sel, dh, D, M, k, eps2);
   return (int)cudaGetLastError();
@@ -188,10 +192,6 @@ extern "C" int dpp_resident_windowed(const float* V, const float* d2_init,
                                      float* C, int* sel, float* dh, int B,
                                      int D, int M, int k, int w, float eps2,
                                      int smem, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      dpp_resident_windowed_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
   dpp_resident_windowed_kernel<<<B, DPP_THREADS, smem,
                                  (cudaStream_t)stream>>>(
       V, d2_init, C, sel, dh, D, M, k, w, eps2);

@@ -27,21 +27,29 @@
 // column, the (w, w) window factor, the ring ids) crosses from one
 // launch to the next through step-parity buffers, with the kernel
 // boundary as the barrier, and every block derives the eviction's
-// Givens pairs itself with K2's evict_coeffs_warp.  Exact: each thread
-// owns strided columns of its tile, reading V and C coalesced along M.
-// Windowed: cols_windowed (common.cuh) runs five columns per thread of
-// warps 1-7 with eight rows of V (four of the ring) loaded ahead of the
-// FMAs, while warp 0 derives the eviction, and reads V with the
-// evict-first hint so the ring and d2 stay in L2 between launches.  C and d2 are updated in place (a column is only ever
-// touched by its own thread).  The ragged last tile is masked by its
-// bounds.  FP32 FMA on CUDA cores.
+// Givens pairs itself with K2's evict_coeffs_warp.  Both steps run
+// several columns per thread with their loads in flight (common.cuh):
+// K3 cols_exact, four columns per thread of all eight warps with eight
+// rows of V (four of C) loaded ahead of the FMAs; K4 cols_windowed, five
+// columns per thread of warps 1-7 with eight rows of V (four of the
+// ring) loaded ahead, while warp 0 derives the eviction.  Both read V
+// with the evict-first hint, so the live rows of C (the ring) and d2
+// stay in L2 between launches, and both ask for two co-resident blocks
+// per SM (at most 128 registers a thread), so a step's 256 blocks at
+// B = 4, M = 65,536 run in one wave on 132 SMs.  C and d2 are updated
+// in place (a column is only ever touched by its own thread).  The
+// ragged last tile is masked by its bounds.  FP32 FMA on CUDA cores.
+//
+// The host entry points launch only: the wrapper raises each kernel's
+// dynamic shared-memory limit once per size (tiled_set_smem), not per
+// launch, and works out its operands once per whole-slate call.
 #include "common.cuh"
 
 // K3: one exact step t.  keys (k+1, B) u64: row t holds this step's
 // winner, row t+1 (zeroed) receives the next one.  flags (k+1, B) i32:
 // the eps-stop latch.  The block of tile 0 writes sel/dh[b, t] and the
 // latch for t+1.  C (B, k, M), d2 (B, M) updated in place.
-__global__ void __launch_bounds__(DPP_THREADS)
+__global__ void __launch_bounds__(DPP_THREADS, 2)
 tiled_step_exact_kernel(const float* __restrict__ V, float* __restrict__ C,
                         float* __restrict__ d2,
                         unsigned long long* __restrict__ keys,
@@ -80,11 +88,8 @@ tiled_step_exact_kernel(const float* __restrict__ V, float* __restrict__ C,
     for (int d = tid; d < D; d += DPP_THREADS) vj[d] = Vb[(size_t)d * M + j];
     for (int r = tid; r < t; r += DPP_THREADS) cj[r] = Cb[(size_t)r * M + j];
     __syncthreads();
-    for (int i = i0 + tid; i < i1; i += DPP_THREADS) {
-      const float v = col_exact(Vb, Cb, M, D, t, vj, cj, dj, i, j, d2b[i]);
-      d2b[i] = v;
-      argmax_merge(bv, bi, v, i);
-    }
+    cols_exact<4, LoadStreaming>(Vb + i0, M, Cb + i0, M, d2b + i0, i1 - i0,
+                                 i0, D, t, vj, cj, dj, j, bv, bi);
   } else {
     for (int i = i0 + tid; i < i1; i += DPP_THREADS)
       argmax_merge(bv, bi, d2b[i], i);
@@ -212,15 +217,22 @@ tiled_step_windowed_kernel(const float* __restrict__ V, float* __restrict__ C,
       win_g[((size_t)pn * B + b) * w + s] = win[s];
 }
 
+// Host entry points: plain C interface for ctypes.  Each returns a
+// cudaError_t (0 = success); the caller raises on anything else.
+// tiled_set_smem raises the dynamic shared-memory limit of K4
+// (windowed) or K3 to smem bytes, once per size; the launches assume it.
+extern "C" int tiled_set_smem(int windowed, int smem) {
+  const void* fn = windowed ? (const void*)tiled_step_windowed_kernel
+                            : (const void*)tiled_step_exact_kernel;
+  return (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
 extern "C" int tiled_step_exact(const float* V, float* C, float* d2,
                                 unsigned long long* keys, int* flags,
                                 int* sel, float* dh, int B, int D, int M,
                                 int k, int t, int tile_m, float eps2, int smem,
                                 void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      tiled_step_exact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
   dim3 grid((M + tile_m - 1) / tile_m, B);
   tiled_step_exact_kernel<<<grid, DPP_THREADS, smem, (cudaStream_t)stream>>>(
       V, C, d2, keys, flags, sel, dh, B, D, M, k, t, tile_m, eps2);
@@ -233,10 +245,6 @@ extern "C" int tiled_step_windowed(const float* V, float* C, float* d2,
                                    float* wcol, int B, int D, int M, int w,
                                    int k, int t, int tile_m, float eps2,
                                    int smem, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      tiled_step_windowed_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
   dim3 grid((M + tile_m - 1) / tile_m, B);
   tiled_step_windowed_kernel<<<grid, DPP_THREADS, smem,
                                (cudaStream_t)stream>>>(

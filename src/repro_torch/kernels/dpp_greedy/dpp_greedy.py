@@ -27,6 +27,7 @@ from repro_torch.kernels.dpp_greedy.tiling import resident_smem_bytes
 _SRC = Path(__file__).resolve().parent / "csrc" / "dpp_greedy.cu"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
+    "dpp_resident_set_smem": [_I, _I],
     "dpp_resident_exact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "dpp_resident_windowed": [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P,
@@ -106,6 +107,7 @@ def dpp_greedy_resident(V, d2, k: int, eps: float):
     sel = torch.empty((B, k), dtype=torch.int32, device=V.device)
     dh = torch.empty((B, k), dtype=torch.float32, device=V.device)
     lib = cuda.library(_SRC, _SIGNATURES)
+    cuda.raise_smem(lib, "dpp_resident_set_smem", 0, smem, V.device)
     err = lib.dpp_resident_exact(
         V.data_ptr(), d2.data_ptr(), C.data_ptr(), sel.data_ptr(),
         dh.data_ptr(), B, D, M, k, eps_squared(eps), smem,
@@ -156,6 +158,7 @@ def dpp_greedy_resident_windowed(V, d2, k: int, w: int, eps: float):
     sel = torch.empty((B, k), dtype=torch.int32, device=V.device)
     dh = torch.empty((B, k), dtype=torch.float32, device=V.device)
     lib = cuda.library(_SRC, _SIGNATURES)
+    cuda.raise_smem(lib, "dpp_resident_set_smem", 1, smem, V.device)
     err = lib.dpp_resident_windowed(
         V.data_ptr(), d2.data_ptr(), C.data_ptr(), sel.data_ptr(),
         dh.data_ptr(), B, D, M, k, w, eps_squared(eps), smem,

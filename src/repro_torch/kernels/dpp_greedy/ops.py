@@ -103,10 +103,11 @@ def dpp_greedy(
 def _stream_tile(D: int, M: int, state_rows: int, windowed: bool,
                  tile_m: Optional[int], lanes: int,
                  device: torch.device) -> tuple[int, bool]:
-    """The candidate-axis tile of a fused chunk launch and, windowed,
-    whether K6 keeps V in shared memory: one whole-M tile
-    per lane while one block's shared memory holds it, else the tile
-    that keeps the cooperative grid co-resident (``TilePolicy``, bounded
+    """The candidate-axis tile of a fused chunk launch and whether K5 /
+    K6 keeps V in shared memory: the fewest V-resident tiles per lane
+    whose grid co-resides, else one whole-M tile per lane while one
+    block's shared memory holds it, else the tile that keeps the
+    cooperative grid co-resident (``TilePolicy``, bounded
     on a card by the occupancy it reports, ``chunk_capacity``; the plain
     versions on the CPU launch no grid).  A function of the shape and
     the card, memoized, so a state's init and every chunk resolve the
@@ -147,6 +148,7 @@ def dpp_greedy_stream_init(
     record_kernel_dispatch(
         "fused_chunk", D=D, M=M, state_rows=R, windowed=windowed,
         tile_m=tile, smem_bytes=chunk_smem_bytes(D, tile, R, windowed, vres),
+        v_resident=vres,
     )
     if mask is None:
         mask = torch.ones((B, M), dtype=torch.bool, device=Vb.device)
@@ -207,7 +209,8 @@ def dpp_greedy_stream_chunk(
         )
     else:
         sel, dh = fused_chunk_exact(
-            Vb, state.C, state.d2, t, state.stopped, chunk, float(eps), tile
+            Vb, state.C, state.d2, t, state.stopped, chunk, float(eps), tile,
+            vres,
         )
     new_state = type(state)(state.t + chunk, state.stopped, state.C,
                             state.d2, state.win)

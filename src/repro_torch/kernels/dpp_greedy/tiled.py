@@ -55,6 +55,7 @@ _SRC = Path(__file__).resolve().parent / "csrc" / "tiled.cu"
 _CHUNK_SRC = Path(__file__).resolve().parent / "csrc" / "chunk.cu"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
+    "tiled_set_smem": [_I, _I],
     "tiled_step_exact": [
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P,
     ],
@@ -66,8 +67,8 @@ _SIGNATURES = {
 _CHUNK_SIGNATURES = {
     "fused_chunk_capacity": [_I, _I, ctypes.POINTER(ctypes.c_int)],
     "fused_chunk_exact": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
-        _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+        _I, _P,
     ],
     "fused_chunk_windowed": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -208,26 +209,9 @@ def tiled_step_exact(V, C, d2, keys, flags, sel, dh, t: int, eps: float,
     if not _cpu_or_cuda(V):
         return tiled_step_exact_plain(V, C, d2, keys, flags, sel, dh, t, eps,
                                       tile_m)
-    B, D, M = V.shape
-    k = C.shape[1]
-    cuda.require(V, "V", torch.float32, (B, D, M))
-    cuda.require(C, "C", torch.float32, (B, k, M))
-    cuda.require(d2, "d2", torch.float32, (B, M))
-    cuda.require(keys, "keys", torch.int64, (k + 1, B))
-    cuda.require(flags, "flags", torch.int32, (k + 1, B))
-    cuda.require(sel, "sel", torch.int32, (B, k))
-    cuda.require(dh, "dh", torch.float32, (B, k))
-    if not 0 <= t < k:
-        raise ValueError(f"step t={t} outside [0, {k})")
-    lib = cuda.library(_SRC, _SIGNATURES)
-    err = lib.tiled_step_exact(
-        V.data_ptr(), C.data_ptr(), d2.data_ptr(), keys.data_ptr(),
-        flags.data_ptr(), sel.data_ptr(), dh.data_ptr(), B, D, M, k, t,
-        tile_m, eps_squared(eps), tiled_smem_bytes(D, k, windowed=False),
-        cuda.stream_ptr(V),
-    )
-    cuda.count_launch("tiled_step_exact")
-    cuda.check(err, "tiled_step_exact")
+    _check_step(t, sel)
+    step_launcher("tiled_step_exact", (V, C, d2, keys, flags, sel, dh), eps,
+                  tile_m)(t)
 
 
 # ---------------------------------------------------------------------------
@@ -312,32 +296,78 @@ def tiled_step_windowed(V, C, d2, keys, flags, sel, dh, win, cand, wcol,
     if not _cpu_or_cuda(V):
         return tiled_step_windowed_plain(V, C, d2, keys, flags, sel, dh, win,
                                          cand, wcol, t, eps, tile_m)
-    B, D, M = V.shape
-    w = C.shape[1]
+    _check_step(t, sel)
+    step_launcher("tiled_step_windowed",
+                  (V, C, d2, keys, flags, sel, dh, win, cand, wcol), eps,
+                  tile_m)(t)
+
+
+# ---------------------------------------------------------------------------
+# The per-step launcher of the whole-slate loop (K3 / K4)
+# ---------------------------------------------------------------------------
+
+
+def _check_step(t: int, sel) -> None:
     k = sel.shape[1]
-    nt = -(-M // tile_m)
+    if not 0 <= t < k:
+        raise ValueError(f"step t={t} outside [0, {k})")
+
+
+def _require_step(windowed: bool, V, C, d2, keys, flags, sel, dh,
+                  *ring, tile_m: int) -> None:
+    B, D, M = V.shape
+    k = sel.shape[1]
+    rows = C.shape[1] if windowed else k
     cuda.require(V, "V", torch.float32, (B, D, M))
-    cuda.require(C, "C", torch.float32, (B, w, M))
+    cuda.require(C, "C", torch.float32, (B, rows, M))
     cuda.require(d2, "d2", torch.float32, (B, M))
     cuda.require(keys, "keys", torch.int64, (k + 1, B))
     cuda.require(flags, "flags", torch.int32, (k + 1, B))
     cuda.require(sel, "sel", torch.int32, (B, k))
     cuda.require(dh, "dh", torch.float32, (B, k))
-    cuda.require(win, "win", torch.int32, (2, B, w))
-    cuda.require(cand, "cand", torch.float32, (2, B, nt, w))
-    cuda.require(wcol, "wcol", torch.float32, (2, B, w, w))
-    if not 0 <= t < k:
-        raise ValueError(f"step t={t} outside [0, {k})")
+    if not windowed:
+        return
+    win, cand, wcol = ring
+    nt = -(-M // tile_m)
+    cuda.require(win, "win", torch.int32, (2, B, rows))
+    cuda.require(cand, "cand", torch.float32, (2, B, nt, rows))
+    cuda.require(wcol, "wcol", torch.float32, (2, B, rows, rows))
+
+
+def step_launcher(kernel: str, operands: tuple, eps: float, tile_m: int):
+    """``step(t)``: one step of :func:`dpp_greedy_tiled`'s loop, K3
+    (``kernel="tiled_step_exact"``) or K4 (``"tiled_step_windowed"``) on
+    ``operands``, the kernel wrapper's tensor arguments before ``t``.
+
+    For CUDA tensors the operands are checked, the pointers, ``eps**2``,
+    shared-memory size and stream worked out, and the kernel's
+    shared-memory limit raised here, once, so a step is one ctypes call
+    and its launch count; for CPU tensors each step calls the kernel's
+    wrapper, which runs the plain version."""
+    V = operands[0]
+    if not _cpu_or_cuda(V):
+        wrapper = globals()[kernel]
+        return lambda t: wrapper(*operands, t, eps, tile_m)
+    windowed = kernel == "tiled_step_windowed"
+    _require_step(windowed, *operands, tile_m=tile_m)
+    B, D, M = V.shape
+    rows, k = operands[1].shape[1], operands[5].shape[1]
+    smem = tiled_smem_bytes(D, rows, windowed)
     lib = cuda.library(_SRC, _SIGNATURES)
-    err = lib.tiled_step_windowed(
-        V.data_ptr(), C.data_ptr(), d2.data_ptr(), keys.data_ptr(),
-        flags.data_ptr(), sel.data_ptr(), dh.data_ptr(), win.data_ptr(),
-        cand.data_ptr(), wcol.data_ptr(), B, D, M, w, k, t, tile_m,
-        eps_squared(eps), tiled_smem_bytes(D, w, windowed=True),
-        cuda.stream_ptr(V),
-    )
-    cuda.count_launch("tiled_step_windowed")
-    cuda.check(err, "tiled_step_windowed")
+    cuda.raise_smem(lib, "tiled_set_smem", int(windowed), smem, V.device)
+    fn = getattr(lib, kernel)
+    head = tuple(x.data_ptr() for x in operands) + (
+        (B, D, M, rows, k) if windowed else (B, D, M, k))
+    tail = (tile_m, eps_squared(eps), smem, cuda.stream_ptr(V))
+    count = cuda.count_launch
+
+    def step(t: int) -> None:
+        err = fn(*head, t, *tail)
+        count(kernel)
+        if err:
+            cuda.check(err, kernel)
+
+    return step
 
 
 # ---------------------------------------------------------------------------
@@ -444,12 +474,12 @@ def _check_cooperative(err: int, name: str, B: int, M: int,
     cuda.check(err, name)
 
 
-def _keys_and_barrier(chunk: int, B: int, device, barriers: int = 1):
+def _keys_and_barrier(chunk: int, B: int, device):
     """One zeroed allocation: the per-step argmax keys (chunk+1, B) and,
-    behind them, ``barriers`` barriers' counter and generation (K5: one
-    for the grid, K6: one per lane); returns (scratch, keys pointer,
-    barrier pointer)."""
-    scratch = torch.zeros(((chunk + 1) * B + barriers,), dtype=torch.int64,
+    behind them, one barrier counter per lane (64 bits each, the kernels
+    count in the low 32); returns (scratch, keys pointer, barrier
+    pointer)."""
+    scratch = torch.zeros(((chunk + 1) * B + B,), dtype=torch.int64,
                           device=device)
     return (scratch, scratch.data_ptr(),
             scratch[(chunk + 1) * B:].data_ptr())
@@ -465,12 +495,14 @@ def _chunk_operands(V, C, d2, t, stopped, R):
 
 
 def fused_chunk_exact(V, C, d2, t, stopped, chunk: int, eps: float,
-                      tile_m: int):
+                      tile_m: int, v_resident: bool = False):
     """K5: one cooperative launch = ``chunk`` exact greedy steps over
     ``(ceil(M / tile_m), B)`` blocks.  V (B, D, M), C (B, R, M), d2 (B, M)
     f32; t (B,) int32 step counters; stopped (B,) bool.  C, d2 and
     stopped are updated in place; returns (sel (B, chunk) int32,
-    dh (B, chunk) f32)."""
+    dh (B, chunk) f32).  Each block keeps its tile's gains in shared
+    memory for the chunk, and its slice of V too when ``v_resident``
+    (the tile policy's answer, ``TilePolicy.decide(..., chunked=True)``)."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if not _cpu_or_cuda(V):
@@ -478,7 +510,7 @@ def fused_chunk_exact(V, C, d2, t, stopped, chunk: int, eps: float,
     B, D, M = V.shape
     R = C.shape[1]
     _chunk_operands(V, C, d2, t, stopped, R)
-    smem = chunk_smem_bytes(D, tile_m, R, windowed=False)
+    smem = chunk_smem_bytes(D, tile_m, R, False, v_resident)
     lib = cuda.library(_CHUNK_SRC, _CHUNK_SIGNATURES)
     scratch, keys, bar = _keys_and_barrier(chunk, B, V.device)
     sel = torch.empty((B, chunk), dtype=torch.int32, device=V.device)
@@ -486,7 +518,7 @@ def fused_chunk_exact(V, C, d2, t, stopped, chunk: int, eps: float,
     err = lib.fused_chunk_exact(
         V.data_ptr(), C.data_ptr(), d2.data_ptr(), t.data_ptr(),
         stopped.data_ptr(), keys, bar, sel.data_ptr(), dh.data_ptr(),
-        B, D, M, R, chunk, tile_m, eps_squared(eps), smem,
+        B, D, M, R, chunk, tile_m, int(v_resident), eps_squared(eps), smem,
         cuda.stream_ptr(V),
     )
     cuda.count_launch("fused_chunk_exact")
@@ -516,7 +548,7 @@ def fused_chunk_windowed(V, C, d2, t, stopped, win, chunk: int, eps: float,
     dev = V.device
     smem = chunk_smem_bytes(D, tile_m, w, True, v_resident)
     lib = cuda.library(_CHUNK_SRC, _CHUNK_SIGNATURES)
-    scratch, keys, bar = _keys_and_barrier(chunk, B, dev, barriers=B)
+    scratch, keys, bar = _keys_and_barrier(chunk, B, dev)
     cand = torch.empty((2, B, nt, w), dtype=torch.float32, device=dev)
     wcol = torch.empty((2, B, w, w), dtype=torch.float32, device=dev)
     sel = torch.empty((B, chunk), dtype=torch.int32, device=dev)
@@ -543,9 +575,9 @@ def dpp_greedy_tiled(V, mask, k: int, window=None, eps: float = 1e-3,
 
     V (B, D, M) float32 (any M: the kernels mask the ragged last tile),
     mask (B, M) bool.  Returns (sel (B, k) int32, d_hist (B, k) f32).
-    One K3/K4 launch per step, with every buffer allocated up front: no
-    PyTorch op runs between the launches and nothing is read back to
-    the host.
+    One K3/K4 launch per step, with every buffer allocated and every
+    operand checked up front (:func:`step_launcher`): no PyTorch op runs
+    between the launches and nothing is read back to the host.
     """
     B, D, M = V.shape
     dev = V.device
@@ -561,15 +593,16 @@ def dpp_greedy_tiled(V, mask, k: int, window=None, eps: float = 1e-3,
     sel = torch.empty((B, k), dtype=torch.int32, device=dev)
     dh = torch.empty((B, k), dtype=torch.float32, device=dev)
     if w is None:
-        for t in range(k):
-            tiled_step_exact(V, C, d2, keys, flags, sel, dh, t, eps, tile_m)
-        return sel, dh
-
-    nt = -(-M // tile_m)
-    win = torch.full((2, B, w), -1, dtype=torch.int32, device=dev)
-    cand = torch.zeros((2, B, nt, w), dtype=torch.float32, device=dev)
-    wcol = torch.zeros((2, B, w, w), dtype=torch.float32, device=dev)
+        step = step_launcher("tiled_step_exact",
+                             (V, C, d2, keys, flags, sel, dh), eps, tile_m)
+    else:
+        nt = -(-M // tile_m)
+        win = torch.full((2, B, w), -1, dtype=torch.int32, device=dev)
+        cand = torch.zeros((2, B, nt, w), dtype=torch.float32, device=dev)
+        wcol = torch.zeros((2, B, w, w), dtype=torch.float32, device=dev)
+        step = step_launcher(
+            "tiled_step_windowed",
+            (V, C, d2, keys, flags, sel, dh, win, cand, wcol), eps, tile_m)
     for t in range(k):
-        tiled_step_windowed(V, C, d2, keys, flags, sel, dh, win, cand, wcol,
-                            t, eps, tile_m)
+        step(t)
     return sel, dh

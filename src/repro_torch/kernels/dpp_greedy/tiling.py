@@ -26,13 +26,13 @@ their slice of the ring) in shared memory for the whole chunk
 cooperative grid must be co-resident, so besides the 227 KB per block
 the model bounds the block count by ``capacity(smem)``, the blocks the
 card keeps co-resident at that much shared memory per block
-(``tiled.chunk_capacity``).  Windowed, it first tries to keep ``V`` in
+(``tiled.chunk_capacity``).  Both kernels first try to keep ``V`` in
 shared memory too (:func:`chunk_v_resident`): each lane split into the
-fewest tiles whose ``V``, ring, gains and staging fit one block, if that
-grid co-resides.  Otherwise, and always for the exact kernel, ``V``
-streams from device memory every step: one whole-M tile per lane while
-that fits, else tiles of at least ``DEFAULT_TILE_M`` columns, widened
-until ``B`` lanes of tiles fit.  Without a ``capacity`` (the plain
+fewest tiles whose ``V``, gains, staging and, windowed, ring fit one
+block, if that grid co-resides.  Otherwise ``V`` streams from device
+memory every step: one whole-M tile per lane while that fits, else
+tiles of at least ``DEFAULT_TILE_M`` columns, widened until ``B`` lanes
+of tiles fit.  Without a ``capacity`` (the plain
 versions on the CPU, which launch no grid) only the shared memory bounds
 the tile.
 """
@@ -111,22 +111,20 @@ def chunk_smem_bytes(D: int, tile_m: int, state_rows: int,
     window factor, the residue row, the rotation coefficients and the
     ring ids ``(w)`` each — plus the reduction scratch."""
     R = state_rows
-    if not windowed:
-        return resident_smem_bytes(D, tile_m, R, False)
-    per_col = R + (D if v_resident else 0)
-    return resident_smem_bytes(D, tile_m, R, True) + 4 * tile_m * per_col
+    per_col = (R if windowed else 0) + (D if v_resident else 0)
+    return resident_smem_bytes(D, tile_m, R, windowed) + 4 * tile_m * per_col
 
 
 def chunk_v_resident(D: int, M: int, tile_m: int, state_rows: int,
-                     lanes: int = 1,
+                     windowed: bool, lanes: int = 1,
                      capacity: Optional[Callable[[int], int]] = None) -> bool:
-    """Whether the windowed chunk kernel K6 keeps each tile's ``V`` slice
-    in shared memory for the whole chunk: exactly when that block fits
-    the 227 KB and, on a card (``capacity``), the grid of
+    """Whether the chunk kernel (K6 ``windowed``, else K5) keeps each
+    tile's ``V`` slice in shared memory for the whole chunk: exactly when
+    that block fits the 227 KB and, on a card (``capacity``), the grid of
     ``lanes * ceil(M / tile_m)`` blocks still co-resides at that size.
     ``TilePolicy.decide(..., chunked=True)`` decides by this and hands
     the answer on with the tile."""
-    smem = chunk_smem_bytes(D, tile_m, state_rows, True, v_resident=True)
+    smem = chunk_smem_bytes(D, tile_m, state_rows, windowed, v_resident=True)
     if smem > SMEM_BUDGET_BYTES:
         return False
     return capacity is None or lanes * -(-M // tile_m) <= capacity(smem)
@@ -157,8 +155,8 @@ class TilePolicy:
         """-> ("resident", None) | ("tiled", tile_m).
 
         ``chunked=True`` sizes the fused chunk kernels for ``lanes``
-        users and returns a third item, ``v_resident``: whether K6 keeps
-        each tile's ``V`` in shared memory (always False exact).
+        users and returns a third item, ``v_resident``: whether K5 / K6
+        keeps each tile's ``V`` in shared memory.
         ``("resident", None, v)`` is one whole-M tile per lane,
         ``("tiled", tile_m, v)`` splits M so that the cooperative grid of
         ``lanes * ceil(M / tile_m)`` blocks stays within
@@ -183,8 +181,8 @@ class TilePolicy:
         return "tiled", min(DEFAULT_TILE_M, round_up(M, WARP))
 
     def _decide_chunked(self, D, M, R, windowed, lanes, capacity):
-        if windowed and self.tile_m is None:
-            split = _v_resident_split(D, M, R, lanes, capacity)
+        if self.tile_m is None:
+            split = _v_resident_split(D, M, R, windowed, lanes, capacity)
             if split is not None:
                 return split
         # the most gains (and, windowed, ring) columns one block holds
@@ -207,8 +205,7 @@ class TilePolicy:
         while True:
             nt = -(-M // tile)
             cols = min(tile, M)
-            vres = windowed and chunk_v_resident(D, M, cols, R, lanes,
-                                                 capacity)
+            vres = chunk_v_resident(D, M, cols, R, windowed, lanes, capacity)
             if capacity is None:
                 break
             cap = capacity(chunk_smem_bytes(D, cols, R, windowed, vres))
@@ -231,14 +228,14 @@ class TilePolicy:
         return "tiled", tile, vres
 
 
-def _v_resident_split(D, M, R, lanes, capacity):
-    """The windowed chunk tiling with ``V`` in shared memory: each lane
-    split into the fewest tiles (a multiple of the warp, or the whole
-    lane) whose ``V``, ring, gains and staging fit one block, if that
-    grid co-resides: ``decide``'s answer with V in shared memory, else
-    None."""
-    per_col = 4 * (1 + R + D)
-    room = (SMEM_BUDGET_BYTES - chunk_smem_bytes(D, 0, R, True)) // per_col
+def _v_resident_split(D, M, R, windowed, lanes, capacity):
+    """The chunk tiling with ``V`` in shared memory: each lane split into
+    the fewest tiles (a multiple of the warp, or the whole lane) whose
+    ``V``, gains, staging and, windowed, ring fit one block, if that grid
+    co-resides: ``decide``'s answer with V in shared memory, else None."""
+    per_col = 4 * (1 + D + (R if windowed else 0))
+    room = (SMEM_BUDGET_BYTES - chunk_smem_bytes(D, 0, R, windowed)) \
+        // per_col
     if M <= room:
         tile = M
     elif room < WARP:
@@ -249,6 +246,6 @@ def _v_resident_split(D, M, R, lanes, capacity):
         while tile > room:
             nt += 1
             tile = round_up(-(-M // nt), WARP)
-    if not chunk_v_resident(D, M, tile, R, lanes, capacity):
+    if not chunk_v_resident(D, M, tile, R, windowed, lanes, capacity):
         return None
     return ("resident", None, True) if tile >= M else ("tiled", tile, True)

@@ -24,10 +24,12 @@ def record_kernel_dispatch(
     windowed: bool,
     tile_m: Optional[int] = None,
     smem_bytes: Optional[int] = None,
+    v_resident: Optional[bool] = None,
 ) -> None:
     """One ``ops.py`` execution-mode decision: which kernel path won
     (``ref`` / ``resident`` / ``tiled`` / ``fused_chunk``) and the
-    ``TilePolicy`` numbers behind it."""
+    ``TilePolicy`` numbers behind it (``v_resident``: whether a fused
+    chunk launch keeps V in shared memory)."""
     reg = _obs.registry()
     if reg is None:
         return
@@ -43,6 +45,11 @@ def record_kernel_dispatch(
             "dpp_smem_bytes_est",
             "TilePolicy shared-memory estimate of the last resident dispatch",
         ).set(smem_bytes)
+    if v_resident is not None:
+        reg.gauge(
+            "dpp_v_resident",
+            "1 if the last fused chunk dispatch keeps V in shared memory",
+        ).set(int(v_resident))
 
 
 def record_tile_resolution(source: str) -> None:

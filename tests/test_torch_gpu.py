@@ -13,7 +13,13 @@ kernels K5/K6 are also held against the whole-slate kernels on the card
 per chunk, multi-tile cooperative grids and slots at mixed progress
 included.  K4 runs each step with its state on the card; K6 keeps its
 ring (and, where it fits, V) in shared memory: both are held against
-their plain versions, and K6 against K2 and K4 bit for bit.
+their plain versions, and K6 against K2 and K4 bit for bit.  K3 and K5
+run several columns per thread with their loads in flight; K5 keeps V
+in shared memory where it fits and meets at a per-lane barrier: K3 is
+held against its plain version and K1 bit for bit (ragged M, three tile
+widths, an eps-stop, exact ties across tiles), K5 in both modes against
+its plain version and K1, K3 and each other bit for bit, and with lanes
+at different progress.
 
 K8 (``fm_interaction``) and K7 (``scored_topk``) are held against their
 plain versions on the CPU: K8 within rtol 1e-5 / atol 2e-6 * F * D
@@ -37,6 +43,7 @@ from repro_torch.core import (
 from repro_torch.kernels import cuda
 from repro_torch.kernels.dpp_greedy import dpp_greedy
 from repro_torch.kernels.dpp_greedy import tiled
+from repro_torch.kernels.dpp_greedy.dpp_greedy import init_gains
 from repro_torch.kernels.dpp_greedy.ops import _stream_tile
 from repro_torch.kernels.fm_interaction import (
     fm_interaction,
@@ -102,8 +109,8 @@ def test_reranker_on_card_matches_cpu(card, window):
     torch.testing.assert_close(got[1].cpu(), want[1], rtol=RTOL, atol=ATOL)
 
 
-def _stream(V, mask, k, window, chunk, tile_m=None):
-    spec = GreedySpec(k=k, window=window, backend="kernel", eps=1e-6,
+def _stream(V, mask, k, window, chunk, tile_m=None, eps=1e-6):
+    spec = GreedySpec(k=k, window=window, backend="kernel", eps=eps,
                       tile_m=tile_m)
     parts = list(greedy_map_chunks(spec, V=V, mask=mask, chunk_size=chunk))
     return (torch.cat([p.indices for p in parts], -1),
@@ -239,6 +246,174 @@ def test_k6_modes_match_plain_and_k2_k4_bits(card, B, D, M, w, tile_m,
     for whole in (k2, k4):
         assert torch.equal(got[0], whole[0])
         assert (got[1] - whole[1]).abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
+def test_shared_memory_limit_set_once_only_grows(card):
+    # each kernel's dynamic shared-memory limit is raised once per size,
+    # never lowered: a large K1 block, a small one, the large one again
+    sizes = (20000, 512, 20000)
+    for M in sizes:
+        V, mask = _inputs(11, B=2, D=16, M=M)
+        cuda.reset_launch_counts()
+        got = dpp_greedy(V.cuda(), 8, mask.cuda(), eps=1e-6)
+        assert cuda.launch_counts() == {"dpp_greedy_resident": 1}
+        want = dpp_greedy(V, 8, mask, eps=1e-6)
+        assert torch.equal(got[0].cpu(), want[0])
+
+
+def _k3_by_wrapper(V, mask, k, eps, tile_m):
+    """The whole-slate K3 loop through the public per-step wrapper
+    ``tiled_step_exact`` (its own checks every launch)."""
+    B, D, M = V.shape
+    ar = torch.arange(B, device=V.device)
+    d2 = init_gains(V, mask)
+    C = torch.zeros((B, k, M), dtype=torch.float32, device=V.device)
+    keys = torch.zeros((k + 1, B), dtype=torch.int64, device=V.device)
+    j0 = torch.argmax(d2, dim=1)
+    keys[0] = tiled.pack_key(d2[ar, j0], j0)
+    flags = torch.zeros((k + 1, B), dtype=torch.int32, device=V.device)
+    sel = torch.empty((B, k), dtype=torch.int32, device=V.device)
+    dh = torch.empty((B, k), dtype=torch.float32, device=V.device)
+    for t in range(k):
+        tiled.tiled_step_exact(V, C, d2, keys, flags, sel, dh, t, eps, tile_m)
+    return sel, dh
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,M,k,eps,tile_m,ties", [
+    (32, 777, 20, 1e-6, 128, False),    # ragged: 7 tiles, the last of 9
+    (32, 777, 20, 1e-6, 256, False),
+    (32, 777, 20, 1e-6, 1024, False),   # one ragged tile
+    (16, 65539, 12, 1e-6, 1024, False),  # 64 tiles and 3 columns
+    (3, 777, 10, 0.05, 128, False),     # rank 3: an eps-stop at step 3
+    (32, 777, 20, 1e-6, 128, True),     # exact ties across tiles
+    (32, 777, 20, 1e-6, 1024, True),    # and within one
+])
+def test_k3_matches_plain_and_k1_bits(card, D, M, k, eps, tile_m, ties):
+    V, mask = _inputs(8, B=2, D=D, M=M)
+    if ties:
+        # columns 600..699 copy 0..99, boosted so they lead: equal bits,
+        # equal gains at every step, and the lower index must win
+        V[:, :, :100] *= 3.0
+        V[:, :, 600:700] = V[:, :, :100]
+        mask[:, 600:700] = mask[:, :100]
+    want = tiled.dpp_greedy_tiled(V, mask, k, None, eps, tile_m)
+    cuda.reset_launch_counts()
+    got = tiled.dpp_greedy_tiled(V.cuda(), mask.cuda(), k, None, eps, tile_m)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts() == {"tiled_step_exact": k}
+    assert torch.equal(got[0].cpu(), want[0])
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=RTOL, atol=ATOL)
+    if D == 3:
+        assert bool((want[0][:, 3:] == -1).all())
+    if ties:
+        # a copy is picked only after its original, which ties it and
+        # has the lower index
+        for lane in got[0].cpu().tolist():
+            assert any(0 <= p < 100 for p in lane)
+            for q, p in enumerate(lane):
+                if 600 <= p < 700:
+                    assert p - 600 in lane[:q]
+    # the public per-step wrapper gives the same bits as the lean loop
+    by_wrapper = _k3_by_wrapper(V.cuda(), mask.cuda(), k, eps, tile_m)
+    assert torch.equal(by_wrapper[0], got[0])
+    assert torch.equal(by_wrapper[1], got[1])
+    # K1 (resident) on the same inputs where one block holds the lane,
+    # else K5 streamed: the same per-column arithmetic, the same bits
+    if M < 50000:
+        cuda.reset_launch_counts()
+        whole = dpp_greedy(V.cuda(), k, mask.cuda(), eps=eps)
+        assert cuda.launch_counts() == {"dpp_greedy_resident": 1}
+    else:
+        whole = _stream(V.cuda(), mask.cuda(), k, None, 5, tile_m, eps)
+    assert torch.equal(got[0], whole[0])
+    assert (got[1] - whole[1]).abs().max().item() == 0.0
+
+
+def _slots(spec, V, schedule, cycles, chunk, dev):
+    """Per-cycle (sel, dh) of a slot batch on ``dev``: slot b joins
+    before cycle ``schedule[b]``."""
+    S, D, M = V.shape
+    state, Vs = greedy_slots_init(spec, S, D, M, device=dev)
+    Vs.copy_(V)
+    out = []
+    for c in range(cycles):
+        for b in range(S):
+            if schedule[b] == c:
+                state = state_splice(state, greedy_slot_state(
+                    spec, V[b].to(dev)), b)
+        cuda.reset_launch_counts()
+        state, sel, dh = greedy_chunk_slots(spec, state, Vs, chunk)
+        if dev == "cuda":
+            assert cuda.launch_counts() == {"fused_chunk_exact": 1}
+        out.append((sel.cpu(), dh.cpu()))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 3, 64])
+def test_k5_modes_match_plain_and_k1_k3_bits(card, B):
+    # phase 6 and 9's shape: D = 100, C = 1000, V in shared memory over
+    # two tiles of 512 per lane; tile_m = 1024 streams it instead (one
+    # tile per lane: 1024 columns of V do not fit a block)
+    D, M, k, chunk = 100, 1000, 24, 5
+    V, mask = _inputs(7, B=B, D=D, M=M)
+    assert _stream_tile(D, M, k, False, None, B, torch.device("cuda")) \
+        == (512, True)
+    assert _stream_tile(D, M, k, False, 1024, B, torch.device("cuda")) \
+        == (1000, False)
+    want = _stream(V, mask, k, None, chunk)
+    runs = []
+    for tile_m in (None, 1024):
+        cuda.reset_launch_counts()
+        got = _stream(V.cuda(), mask.cuda(), k, None, chunk, tile_m)
+        torch.cuda.synchronize()
+        assert cuda.launch_counts() == {"fused_chunk_exact": -(-k // chunk)}
+        assert torch.equal(got[0].cpu(), want[0])
+        torch.testing.assert_close(got[1].cpu(), want[1], rtol=RTOL,
+                                   atol=ATOL)
+        runs.append(got)
+    # K1 (resident) and K3 (tiled per step) on the same inputs, and the
+    # two K5 modes against each other: the same bits
+    cuda.reset_launch_counts()
+    k1 = dpp_greedy(V.cuda(), k, mask.cuda(), eps=1e-6)
+    k3 = dpp_greedy(V.cuda(), k, mask.cuda(), eps=1e-6, tile_m=256)
+    assert cuda.launch_counts() == {"dpp_greedy_resident": 1,
+                                    "tiled_step_exact": k}
+    for whole in (runs[1], k1, k3):
+        assert torch.equal(runs[0][0], whole[0])
+        assert (runs[0][1] - whole[1]).abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
+def test_k5_lanes_at_different_progress(card):
+    # six slots of two V-resident tiles each, joining one cycle apart, one
+    # of rank 3 that eps-stops after three picks while the others run on:
+    # every lane meets only its own two blocks at each barrier
+    S, D, M, k, chunk = 6, 100, 1000, 16, 4
+    V, _ = _inputs(9, B=S, D=D, M=M)
+    rng = np.random.default_rng(10)
+    V[3] = torch.from_numpy((rng.standard_normal((D, 3)) @
+                             rng.standard_normal((3, M))).astype(np.float32))
+    spec = GreedySpec(k=k, backend="kernel", eps=0.05)
+    assert _stream_tile(D, M, k, False, None, S, torch.device("cuda")) \
+        == (512, True)
+    schedule, cycles = list(range(S)), S - 1 + -(-k // chunk)
+    got = _slots(spec, V.cuda(), schedule, cycles, chunk, "cuda")
+    want = _slots(spec, V, schedule, cycles, chunk, "cpu")
+    for (gs, gd), (ws, wd) in zip(got, want):
+        assert torch.equal(gs, ws)
+        torch.testing.assert_close(gd, wd, rtol=RTOL, atol=ATOL)
+    sel = torch.cat([x[0] for x in got], 1)
+    dh = torch.cat([x[1] for x in got], 1)
+    whole = dpp_greedy(V.cuda(), k, eps=0.05)
+    for b in range(S):
+        cols = slice(schedule[b] * chunk, schedule[b] * chunk + k)
+        assert torch.equal(sel[b, cols], whole[0][b].cpu())
+        assert (dh[b, cols] - whole[1][b].cpu()).abs().max().item() == 0.0
+    assert bool((whole[0][3, 3:] == -1).all())
+    assert bool((whole[0][:3] >= 0).all())
 
 
 @pytest.mark.gpu

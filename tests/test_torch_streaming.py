@@ -528,7 +528,7 @@ def _card_like(smem):
 
 
 @pytest.mark.parametrize("D,M,R,windowed,lanes,mode", [
-    (100, 1000, 50, False, 64, "resident"),  # default shortlist, B = 64
+    (100, 1000, 50, False, 64, "tiled"),     # V-resident: 2 tiles per lane
     (100, 1000, 10, True, 64, "tiled"),      # V-resident: 2 tiles per lane
     (100, 65536, 50, False, 4, "tiled"),     # the large pool
     (100, 65536, 10, True, 4, "tiled"),
@@ -539,8 +539,8 @@ def test_chunked_tile_model(D, M, R, windowed, lanes, mode):
                                             lanes=lanes, capacity=capacity)
         assert got == mode
         cols = M if mode == "resident" else tm
-        assert vres == (windowed and chunk_v_resident(D, M, cols, R, lanes,
-                                                      capacity))
+        assert vres == chunk_v_resident(D, M, cols, R, windowed, lanes,
+                                        capacity)
         smem = chunk_smem_bytes(D, cols, R, windowed, vres)
         assert smem <= 232448 and (mode == "resident" or tm % 32 == 0)
         if capacity is not None:
@@ -575,7 +575,7 @@ def test_windowed_chunk_tile_model_keeps_v_resident_where_it_fits(
     assert (tm or M) == tile
     assert mode == ("resident" if tile == M else "tiled")
     assert got == vres
-    assert chunk_v_resident(D, M, tile, R, lanes, _card_like) == vres
+    assert chunk_v_resident(D, M, tile, R, True, lanes, _card_like) == vres
     smem = chunk_smem_bytes(D, tile, R, True, vres)
     assert smem <= 232448
     assert lanes * -(-M // tile) <= _card_like(smem)
