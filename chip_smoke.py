@@ -3,6 +3,7 @@
 scoring into the rerank, and the fused scoring top-c.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --resident-times   # K1, K2 alone (resident_times)
 
 Builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a),
 then runs twelve phases through the port's entry points.  Phases 1-9
@@ -13,8 +14,12 @@ column-normalised Gaussian features, uniform relevance, alpha = 3,
 eps = 1e-3, inputs made with numpy from a fixed seed.
 
 1. resident exact:    B = 64 users, pool 100,000, shortlist 1000, k = 50,
-                      plus one single request;
-2. resident windowed: phase 1 with window 10, k = 200;
+                      plus one single request; K1 runs each user on a
+                      cluster of 2 CTAs with V in shared memory (checked);
+                      the single request is also timed at 1, 2, 4 and 8
+                      CTAs a cluster;
+2. resident windowed: phase 1 with window 10, k = 200; K2 on clusters of
+                      2 CTAs with V and the ring in shared memory;
 3. tiled exact:       B = 4 users, pool 1,000,000, shortlist 65,536,
                       k = 50, 10% of the pool masked as seen;
 4. tiled windowed:    phase 3 with window 10, k = 200; a TorchDispatchMode
@@ -71,9 +76,9 @@ the same inputs (d_hist rtol 3e-4 / atol 1e-5; a slate may differ only
 after a float64-certified near-tie, with every later pick float64
 greedy-valid; K8 rtol 1e-5 / atol 1e-6; K7 values within 1e-5); times the
 kernel and the plain version with CUDA events (the multi-launch kernels
-K3-K6 one event pair per launch, summed, with torch.profiler's device
-time of the same launches beside it as ``device_ms``); and checks the
-outputs.
+K3-K6 one event pair per launch, summed), with torch.profiler's device
+time of the same launches beside it as ``device_ms`` (K1-K6); and checks
+the outputs.
 Phases 3, 4 and 6-9 also print the per-step streaming floor beside the
 kernel's device time: V's bytes once per step over 3.35 TB/s and, for
 the exact kernels, the live Cholesky rows read, row t written and the
@@ -271,37 +276,49 @@ def event_ms(fn):
     return start.elapsed_time(end)
 
 
-def device_ms(fn, kernel, launches, reps=TIMING_REPS // 4):
+def kernel_base(key):
+    """A profiler key's kernel name without return type, template
+    arguments or parameters: ``void k<true>(float const*, ...)`` -> ``k``."""
+    name = key.split("(")[0].split("<")[0]
+    return name.split(" ")[-1]
+
+
+def device_ms(fn, kernel, launches, reps=TIMING_REPS // 4, cuda_name=None):
     """Device time of ``kernel``'s launches in one ``fn()`` call, summed,
     by torch.profiler (CUPTI); the median over ``reps`` profiled calls
     after one warm call.  Unlike a CUDA event pair around a launch it
-    leaves out the wrapper's host time.  A profiled call in which the
-    profiler did not see exactly ``launches`` launches of the kernel
-    (CUPTI may drop activity records) is discarded and made again, up
-    to ``4 * reps`` calls in all; None, said on a line of its own, if
-    none of them saw every launch."""
+    leaves out the wrapper's host time.  ``cuda_name`` is the CUDA
+    kernel's name (default ``kernel + "_kernel"``), matched over all its
+    template instantiations.  A profiled call in which the profiler did
+    not see exactly ``launches`` launches of the kernel (CUPTI may drop
+    activity records) is discarded and made again, up to ``4 * reps``
+    calls in all; None, said on a line of its own, if none of them saw
+    every launch."""
     from torch.profiler import ProfilerActivity, profile
 
+    cuda_name = cuda_name or kernel + "_kernel"
     fn()
     out, missed = [], []
     for _ in range(4 * reps):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        seen = sum(e.count for e in prof.key_averages()
-                   if e.key.split("(")[0] == kernel + "_kernel")
+        mine = [e for e in prof.key_averages()
+                if kernel_base(e.key) == cuda_name]
+        seen = sum(e.count for e in mine)
         if seen != launches:
             missed.append(seen)
+            others = {kernel_base(e.key) for e in prof.key_averages()
+                      if e.device_time_total > 0}
             continue
-        total = sum(e.device_time_total for e in prof.key_averages()
-                    if e.key.split("(")[0] == kernel + "_kernel")
-        out.append(total / 1e3)
+        out.append(sum(e.device_time_total for e in mine) / 1e3)
         if len(out) == reps:
             break
     if missed:
         print(f"  torch.profiler saw {missed} of {launches} {kernel} "
               f"launches in {len(missed)} profiled calls; those calls were "
-              f"discarded", flush=True)
+              f"discarded (the last one's device activity: "
+              f"{sorted(others)})", flush=True)
     return statistics.median(out) if out else None
 
 
@@ -387,7 +404,7 @@ class LaunchGapLog(TorchDispatchMode):
 
 
 def phase(name, kernel, rr, scores, feats, mask, window, expect_mode,
-          expect_launches, records, single=False, watch=False):
+          expect_launches, records, single=False, watch=False, layout=None):
     """Drive one phase end to end; return the kernel's plain-vs-kernel
     inputs so the caller can reuse them.  ``watch``: a second main-path
     call runs under a :class:`LaunchGapLog`, which must see no op between
@@ -399,7 +416,8 @@ def phase(name, kernel, rr, scores, feats, mask, window, expect_mode,
     k = cfg.slate_size
     B, M = scores.shape
     print(f"[{name}] B={B} pool={M} shortlist={cfg.shortlist} k={k} "
-          f"window={window} tile_m={cfg.tile_m}", flush=True)
+          f"window={window} tile_m={cfg.tile_m}"
+          + ("" if layout is None else f": {layout}"), flush=True)
     req = RerankRequest(scores=scores, feats=feats, mask=mask)
     t0 = time.perf_counter()
     out, counts, modes = drive(rr, req)
@@ -511,6 +529,45 @@ def bound_of(nbytes, flops):
     return 1e3 * max(t_bytes, t_flops), by, nbytes, flops
 
 
+# The resident kernels' CUDA names (the other kernels' are their
+# wrappers' names + "_kernel").
+RESIDENT_CUDA = {"dpp_greedy_resident": "dpp_resident_exact_kernel",
+                 "dpp_greedy_resident_windowed":
+                     "dpp_resident_windowed_kernel"}
+
+
+def cluster_line(D_, M, R, windowed, lanes, s=None):
+    """The resident kernels' cluster layout of ``lanes`` users on this
+    card, as the wrappers get it (``dpp_greedy.cluster_plan``; ``s``
+    forces the CTAs a user): (the plan, one line of text)."""
+    from repro_torch.kernels.dpp_greedy.dpp_greedy import (
+        cluster_capacity,
+        cluster_plan,
+    )
+    from repro_torch.kernels.dpp_greedy.tiling import cluster_smem_bytes
+
+    dev = torch.device("cuda")
+    plan = cluster_plan(D_, M, R, windowed, lanes, dev, s)
+    smem = cluster_smem_bytes(D_, M, R, windowed, *plan)
+    return plan, layout_text(plan, M, windowed, smem, cluster_capacity(
+        windowed, plan.s, smem, plan.v_resident, plan.state_resident, dev))
+
+
+def layout_text(plan, M, windowed, smem, cap):
+    """One line for a resident cluster layout of ``smem`` bytes a CTA, of
+    which the card holds ``cap`` at once."""
+    from repro_torch.kernels.dpp_greedy.tiling import cluster_tile
+
+    state = "ring" if windowed else "Cholesky rows"
+    mode = ("V in shared memory" if plan.v_resident else "V streamed") + (
+        f", {state} in {'shared' if plan.state_resident else 'device'} "
+        f"memory")
+    return (f"clusters of {plan.s} CTAs a user, slices of "
+            f"{cluster_tile(M, plan.s)} candidates, {mode}, {smem} B of "
+            f"shared memory a CTA; the card holds {cap} such clusters at "
+            f"once")
+
+
 def run_resident(records, rng):
     from repro_torch.kernels.dpp_greedy.dpp_greedy import (
         dpp_greedy_resident,
@@ -530,11 +587,18 @@ def run_resident(records, rng):
         ("phase 2 resident windowed", "dpp_greedy_resident_windowed", 200,
          10),
     ):
+        windowed = window is not None
+        plan, line = cluster_line(D, C, window or k, windowed, B)
+        check(plan == (2, True, windowed),
+              f"{name}: expected clusters of 2 CTAs with V"
+              f"{' and the ring' if windowed else ''} in shared memory"
+              f"{'' if windowed else ', the Cholesky rows in device memory'}"
+              f": {line}")
         rr = Reranker(DPPRerankConfig(slate_size=k, window=window, **base),
                       device="cuda")
         out, V, m_top, top_i = phase(
             name, kernel, rr, scores, feats, None, window, "resident", 1,
-            records, single=window is None)
+            records, single=window is None, layout=line)
         d2 = init_gains(V, torch.ones(V.shape[0], V.shape[2], dtype=torch.bool,
                                       device=V.device))
         if window is None:
@@ -554,13 +618,71 @@ def run_resident(records, rng):
             f"{name}: direct kernel call differs from the main path")
         _, err = compare(name, V, None, got, want, window, EPS)
         ms = time_events(lambda: event_ms(kfn), TIMING_REPS)
+        dev = device_ms(kfn, kernel, 1, cuda_name=RESIDENT_CUDA[kernel])
         plain_ms = time_events(lambda: event_ms(pfn), PLAIN_REPS)
         records[kernel]["calls_launches"] = 1
+        host = ("" if dev is None else
+                f"; the wrapper's host time {(ms - dev) * 1e3:.1f} us "
+                f"(event less device time)")
         kernel_record(records, kernel, ms, plain_ms,
                       bound(B, D, C, k, window, (got[0] >= 0).sum(1)), err,
-                      "one launch, CUDA events")
+                      "one launch, CUDA events" + host, device=dev)
+        if window is None:
+            results["single request"] = single_request_sweep(
+                V[:1], d2[:1], k, got)
         results[window] = (V, got, out)
     return scores, feats, results
+
+
+def single_request_sweep(V, d2, k, batch):
+    """One user's K1 slate (phase 1's lane 0) at 1, 2, 4 and 8 CTAs a
+    cluster, each with its Cholesky rows in shared memory where they fit
+    beside the rest and in device memory: each must equal the batch's
+    lane 0 bit for bit; event and device time of one launch at each (the
+    measurement behind the policy's layout for a single request).
+    Returns the policy's (cluster size, event ms, device ms)."""
+    from repro_torch.kernels.dpp_greedy.dpp_greedy import (
+        cluster_capacity,
+        dpp_greedy_resident,
+    )
+    from repro_torch.kernels.dpp_greedy.tiling import (
+        SMEM_BUDGET_BYTES,
+        cluster_smem_bytes,
+    )
+
+    M = V.shape[2]
+    plan, line = cluster_line(D, M, k, False, 1)
+    check(plan == (4, True, True), f"single request: expected clusters of 4 "
+                                   f"CTAs with V and the Cholesky rows in "
+                                   f"shared memory: {line}")
+    print(f"  single request, policy: {line}", flush=True)
+    times = {}
+    for s in (1, 2, 4, 8):
+        forced, _ = cluster_line(D, M, k, False, 1, s)
+        for layout in (forced._replace(state_resident=False),
+                       forced._replace(state_resident=True)):
+            smem = cluster_smem_bytes(D, M, k, False, *layout)
+            if smem > SMEM_BUDGET_BYTES:
+                continue
+            fn = lambda: dpp_greedy_resident(V, d2, k, EPS,  # noqa: E731
+                                             plan=layout)
+            got = fn()
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], batch[0][:1])
+                  and torch.equal(got[1], batch[1][:1]),
+                  f"single request in {layout} differs from the batch")
+            ms = time_events(lambda: event_ms(fn), TIMING_REPS)
+            dev = device_ms(fn, "dpp_greedy_resident", 1,
+                            cuda_name=RESIDENT_CUDA["dpp_greedy_resident"])
+            cap = cluster_capacity(False, s, smem, layout.v_resident,
+                                   layout.state_resident, V.device)
+            print(f"  single request, "
+                  f"{layout_text(layout, M, False, smem, cap)}: "
+                  f"{ms:.4f} ms (CUDA events, median of {TIMING_REPS}), "
+                  f"device time by torch.profiler {ms_text(dev)}; equals "
+                  f"lane 0 of the batch bit for bit", flush=True)
+            times[layout] = (ms, dev)
+    return (plan.s, *times[plan])
 
 
 def run_tiled(records, rng):
@@ -867,22 +989,18 @@ def run_stream(records, resident, scores, feats):
     V = resident[None][0][:1]
     chunk_check(name, "fused_chunk_exact", V, None, k, None, chunk, False,
                 records)
-    # where a single lane's time goes: the same slate as one K1 launch and
-    # as one K5 launch (chunk = k), beside the seven chunk launches above
-    from repro_torch.kernels.dpp_greedy.dpp_greedy import (
-        dpp_greedy_resident,
-        init_gains,
-    )
-
-    d2 = init_gains(V, torch.ones(V.shape[0], V.shape[2], dtype=torch.bool,
-                                  device=V.device))
-    k1 = time_events(lambda: event_ms(
-        lambda: dpp_greedy_resident(V, d2, k, EPS)), TIMING_REPS)
+    # where a single lane's time goes: the same slate as one K5 launch
+    # (chunk = k) beside the seven chunk launches above and beside one K1
+    # launch, phase 1's single request at the policy's cluster size
+    k5_fn = lambda: stream_slate(V, None, k, None, k)  # noqa: E731
     one = time_events(lambda: with_chunk_kernel(
-        "fused_chunk_exact", lambda: stream_slate(V, None, k, None, k),
-        timed=True)[1], TIMING_REPS)
-    print(f"  one lane, whole slate: K1 {k1:.4f} ms (one launch), K5 "
-          f"{one:.4f} ms (one launch, chunk {k})", flush=True)
+        "fused_chunk_exact", k5_fn, timed=True)[1], TIMING_REPS)
+    k5_dev = device_ms(k5_fn, "fused_chunk_exact", 1)
+    s, k1, k1_dev = resident["single request"]
+    print(f"  one lane, whole slate: K1 {k1:.4f} ms (one launch, device "
+          f"{ms_text(k1_dev)}: phase 1's single request at {s} CTAs a "
+          f"cluster), K5 {one:.4f} ms (one launch, chunk {k}; device "
+          f"{ms_text(k5_dev)})", flush=True)
 
 
 def chunk_tiles(M, R, windowed, lanes, device):
@@ -1158,7 +1276,8 @@ def run_recsys_serve(records):
     rep = report("deepfm", scores, slates, feats, walls[0], walls[1])
     print(f"  main path: first batch {walls[0] * 1e3:.1f} ms, steady "
           f"{walls[1] * 1e3:.1f} ms host wall; launches per call {counts}; "
-          f"{n} items selected", flush=True)
+          f"{n} items selected; K1: "
+          f"{cluster_line(cfg.embed_dim, C, k, False, B)[1]}", flush=True)
     print("  report " + json.dumps(rep), flush=True)
 
     # where a steady call's device time goes, stage by stage
@@ -1224,7 +1343,8 @@ def run_retrieval(records, model, cfg):
     rep = report("deepfm", scores, slates, feats, walls[0], walls[0])
     print(f"  main path: {walls[0] * 1e3:.1f} ms host wall; launches "
           f"{counts}; {n} of {k} slots selected (the features have rank "
-          f"{cfg.embed_dim}: past it the gains fall under eps)", flush=True)
+          f"{cfg.embed_dim}: past it the gains fall under eps); K1: "
+          f"{cluster_line(cfg.embed_dim, C, k, False, B)[1]}", flush=True)
     print("  report " + json.dumps(rep), flush=True)
 
 
@@ -1388,6 +1508,65 @@ def run_scored_topk(records, pool):
     print(f"  no id past M; values max abs err {err:.3g}", flush=True)
 
 
+def resident_times():
+    """``--resident-times``: K1 and K2 alone, one launch each at phases 1
+    and 2's kernel shapes (the same seeded shortlists: B = 64, C = 1000,
+    D = 100; k = 50 exact, k = 200 at w = 10) and K1 at the recsys
+    reranks' shapes (D = 10 unit-norm Gaussian features: B = 512, C =
+    200, k = 10 as phase 10; B = 1, C = 1000, k = 50 as phase 11): CUDA
+    event time (median of TIMING_REPS), device time by torch.profiler and
+    the wrapper's host time, their difference.  Whatever ``repro_torch``
+    sits beside the script is timed, so a copy of this script run from
+    another tree's root times that tree's kernels the same way."""
+    from repro_torch.kernels.dpp_greedy.dpp_greedy import (
+        dpp_greedy_resident,
+        dpp_greedy_resident_windowed,
+        init_gains,
+    )
+    from repro_torch.serving import DPPRerankConfig
+    from repro_torch.serving.reranker import _shortlist_kernel
+
+    def shortlist(rng, B, M, C, width):
+        scores = rng.uniform(size=(B, M)).astype(np.float32)
+        feats = rng.standard_normal(size=(M, width), dtype=np.float32)
+        feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+        V, _, _ = _shortlist_kernel(
+            torch.from_numpy(scores).to("cuda"),
+            torch.from_numpy(feats).to("cuda"),
+            DPPRerankConfig(shortlist=C, alpha=ALPHA, eps=EPS), None)
+        return V, init_gains(V, torch.ones(V.shape[0], V.shape[2],
+                                           dtype=torch.bool, device="cuda"))
+
+    V, d2 = shortlist(np.random.default_rng(SEED), 64, 100_000, 1000, D)
+    V10, d10 = shortlist(np.random.default_rng(SEED + 10), 512, 2000, 200,
+                         10)
+    V11, d11 = shortlist(np.random.default_rng(SEED + 11), 1, 100_000, 1000,
+                         10)
+    out = {}
+    for label, kernel, fn in (
+        ("phase 1", "dpp_greedy_resident",
+         lambda: dpp_greedy_resident(V, d2, 50, EPS)),
+        ("phase 1 single request", "dpp_greedy_resident",
+         lambda: dpp_greedy_resident(V[:1], d2[:1], 50, EPS)),
+        ("phase 2", "dpp_greedy_resident_windowed",
+         lambda: dpp_greedy_resident_windowed(V, d2, 200, 10, EPS)),
+        ("phase 10 shape", "dpp_greedy_resident",
+         lambda: dpp_greedy_resident(V10, d10, 10, EPS)),
+        ("phase 11 shape", "dpp_greedy_resident",
+         lambda: dpp_greedy_resident(V11, d11, 50, EPS)),
+    ):
+        ms = time_events(lambda: event_ms(fn), TIMING_REPS)
+        dev = device_ms(fn, kernel, 1, cuda_name=RESIDENT_CUDA[kernel])
+        host = None if dev is None else (ms - dev) * 1e3
+        out[label] = {"kernel": kernel, "ms": ms, "device_ms": dev,
+                      "host_us": host}
+        print(f"  {label}, {kernel}: {ms:.4f} ms (CUDA events), device "
+              f"{ms_text(dev)}, host "
+              + ("not measured" if host is None else f"{host:.1f} us"),
+              flush=True)
+    print("resident_times " + json.dumps(out), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1419,6 +1598,9 @@ def main() -> int:
                     or "Compiling entry function" in line):
                 print(f"  ptxas {log.stem[:12]}: {line.strip()}")
 
+    if sys.argv[1:] == ["--resident-times"]:
+        resident_times()
+        return 0
     rng = np.random.default_rng(SEED)
     records = {}
     t0 = time.perf_counter()

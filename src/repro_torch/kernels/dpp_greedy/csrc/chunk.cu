@@ -46,9 +46,8 @@
 // the same evict_coeffs_warp() as K2, so all blocks agree bit for bit
 // with no further barrier.  The initial gains are init_gains', and the
 // per-column updates are common.cuh's cols_exact and cols_windowed,
-// which compute col_exact's and col_windowed's bits for several columns
-// per thread with their loads in flight, so a stream's concatenated
-// chunks equal the resident K1/K2 slate bit for bit.  Nothing leaves the
+// which the resident K1/K2 run too, so a stream's concatenated chunks
+// equal the resident K1/K2 slate bit for bit.  Nothing leaves the
 // card inside a chunk.
 //
 // Windowed, the block alone owns its tile's slice of the ring for the
@@ -85,38 +84,6 @@ __device__ __forceinline__ void lane_barrier(unsigned int* ctr,
                    : "=r"(v) : "l"(ctr) : "memory");
   }
   __syncthreads();
-}
-
-// Copy rows [0, rows) x columns [0, n) from device memory (row stride
-// gs) to shared memory (row stride ss) with cp.async: every copy of the
-// thread is in flight at once, none through registers; 16 bytes a copy
-// where both sides' rows start 16-byte aligned, else 4.  The caller
-// waits with cp_async_wait_all() and a __syncthreads.
-__device__ __forceinline__ void stage_async(float* dst, size_t ss,
-                                            const float* src, size_t gs,
-                                            int rows, int n) {
-  const bool wide = ((uintptr_t)src & 15) == 0 && (gs & 3) == 0 &&
-                    (__cvta_generic_to_shared(dst) & 15) == 0 &&
-                    (ss & 3) == 0;
-  const int n4 = wide ? n / 4 : 0;
-  for (int r = 0; r < rows; ++r) {
-    float* d = dst + (size_t)r * ss;
-    const float* g = src + (size_t)r * gs;
-    for (int q = threadIdx.x; q < n4; q += DPP_THREADS) {
-      const unsigned int a = (unsigned int)__cvta_generic_to_shared(d + 4 * q);
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
-                   "l"(g + 4 * q));
-    }
-    for (int x = 4 * n4 + threadIdx.x; x < n; x += DPP_THREADS) {
-      const unsigned int a = (unsigned int)__cvta_generic_to_shared(d + x);
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a),
-                   "l"(g + x));
-    }
-  }
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
 }
 
 // Fold the tile's gains (shared d2, columns [i0, i1)) into this block's

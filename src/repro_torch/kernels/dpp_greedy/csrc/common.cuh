@@ -1,15 +1,13 @@
 // Device helpers shared by the resident (dpp_greedy.cu), tiled
 // (tiled.cu) and fused-chunk (chunk.cu) greedy DPP kernels.
 //
-// The per-column update of one greedy step is written here and used by
-// every kernel family, with explicitly rounded intrinsics (__fmaf_rn,
+// The per-column update of one greedy step is written here once and used
+// by every kernel family, with explicitly rounded intrinsics (__fmaf_rn,
 // __fdiv_rn, ...) so the compiler cannot contract or reorder it
 // differently in two kernels: a resident, a tiled and a chunked run of
 // the same inputs compute bit-identical gains and pick identical
-// slates.  Each update exists twice, one column at a time (col_exact,
-// K1; col_windowed, K2) and several columns per thread with their loads
-// in flight (cols_exact, K3 and K5; cols_windowed, K4 and K6), with the
-// same arithmetic per column.
+// slates.  cols_exact (K1, K3, K5) and cols_windowed (K2, K4, K6) run
+// several columns per thread with their loads in flight.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -82,8 +80,8 @@ __device__ __forceinline__ void givens(float c, float s, float row, float u,
 // repro.core.windowed computes: at iteration r it reads row r+1 before
 // any rotation wrote it, and the same givens() runs on the same
 // operands.  Not full: no eviction, cjp = cj over the live rows.  uw (w)
-// is scratch.  Shared by the resident (K2) and fused-chunk (K6) kernels
-// so both derive identical bits.
+// is scratch.  Used for w > 32 by the resident (K2), tiled (K4) and
+// fused-chunk (K6) kernels, so all derive identical bits.
 __device__ __forceinline__ void evict_coeffs_warp(
     int lane, int w, bool full, int live, const float* Cw, const float* cj,
     float dj2, float* uw, float* cs, float* sn, float* cjp, float* d2j) {
@@ -123,7 +121,7 @@ __device__ __forceinline__ void evict_coeffs_warp(
 // lane s holds uw[s], and iteration r takes uw[r + 1] from its lane by
 // a shuffle instead of a shared-memory round trip and two __syncwarp.
 // The same operations on the same operands in the same order, so the
-// same bits (K4, K6; K2 keeps evict_coeffs_warp).  uw is not touched.
+// same bits (K2, K4, K6 for w <= 32).  uw is not touched.
 __device__ __forceinline__ void evict_coeffs_warp_reg(
     int lane, int w, bool full, int live, const float* Cw, const float* cj,
     float dj2, float* cs, float* sn, float* cjp, float* d2j) {
@@ -155,73 +153,21 @@ __device__ __forceinline__ void evict_coeffs_warp_reg(
   }
 }
 
-// Exact step, column i: e = (V[:,j]^T V[:,i] - C[:t,j]^T C[:t,i]) / d_j,
-// C[t,i] = e, returns the updated gain (-inf for the winner j).  Rows
-// >= t of C are zero in Algorithm 1, so the dot stops at t.
-__device__ __forceinline__ float col_exact(const float* __restrict__ Vb,
-                                           float* __restrict__ Cb, int M,
-                                           int D, int t,
-                                           const float* vj, const float* cj,
-                                           float dj, int i, int j,
-                                           float d2v) {
-  float lj = 0.f;
-  for (int d = 0; d < D; ++d)
-    lj = __fmaf_rn(vj[d], Vb[(size_t)d * M + i], lj);
-  float dots = 0.f;
-  for (int r = 0; r < t; ++r)
-    dots = __fmaf_rn(cj[r], Cb[(size_t)r * M + i], dots);
-  const float e = __fdiv_rn(__fsub_rn(lj, dots), dj);
-  Cb[(size_t)t * M + i] = e;
-  return i == j ? -INFINITY : __fmaf_rn(-e, e, d2v);
-}
-
-// Windowed step, column i: when the ring is full, rotate the column by
-// the w-1 precomputed Givens pairs (cs, sn) in place (row r <- row r+1)
-// and repair its gain by the residue u^2; then append the winner's row
-// e at ring row pos against the post-eviction rows [0, pos).
-__device__ __forceinline__ float col_windowed(
-    const float* __restrict__ Vb, float* __restrict__ Cb, int M, int D, int w,
-    bool full, int pos, const float* cs, const float* sn, const float* vj,
-    const float* cjp, float djp, int i, int j, float d2v) {
-  if (full) {
-    float u = Cb[i];
-    for (int r = 0; r < w - 1; ++r) {
-      float nr;
-      givens(cs[r], sn[r], Cb[(size_t)(r + 1) * M + i], u, nr, u);
-      Cb[(size_t)r * M + i] = nr;
-    }
-    Cb[(size_t)(w - 1) * M + i] = 0.f;
-    d2v = __fmaf_rn(u, u, d2v);
-  }
-  float lj = 0.f;
-  for (int d = 0; d < D; ++d)
-    lj = __fmaf_rn(vj[d], Vb[(size_t)d * M + i], lj);
-  float dots = 0.f;
-  for (int r = 0; r < pos; ++r)
-    dots = __fmaf_rn(cjp[r], Cb[(size_t)r * M + i], dots);
-  const float e = __fdiv_rn(__fsub_rn(lj, dots), djp);
-  Cb[(size_t)pos * M + i] = e;
-  return i == j ? -INFINITY : __fmaf_rn(-e, e, d2v);
-}
-
 // ---------------------------------------------------------------------------
 // The windowed step over a whole tile, several columns per thread with
-// their loads in flight (K4, K6).
+// their loads in flight (K2, K4, K6).
 //
-// col_windowed above runs one column at a time: one dependent FMA chain
-// over D whose every iteration waits on its own load of V, then w - 1
-// rotations that each read and write a ring row.  So a thread has about
-// one load in flight, far below what device memory needs to stream.
-// cols_windowed computes the same bits for NC columns of a thread at
-// once, issuing the loads of COLS_DU rows of V (COLS_RB rows of the
-// ring) for all of them before the arithmetic that uses them.  Per
-// column nothing changes: the same givens() for r = 0..w-2 in order, the
-// d2 repair by u^2, one __fmaf_rn chain over d = 0..D-1 and one over the
-// post-eviction rows [0, pos), then the same __fdiv_rn.  The dots chain
-// runs while the rotations produce the rows it reads (when the ring is
-// full, pos = w - 1 is the number of rotated rows), and col_windowed's
-// zeroing of row w - 1 is left out because the append then writes that
-// row.
+// Per column: when the ring is full, rotate the column by the w-1
+// Givens pairs (cs, sn) of the step's eviction (row r <- row r+1,
+// givens() for r = 0..w-2 in order) and repair its gain by the residue
+// u^2; then append the winner's row e = (V[:,j]^T V[:,i] - cjp^T c_i) /
+// djp at ring row pos (one __fmaf_rn chain over d = 0..D-1, one over the
+// post-eviction rows [0, pos), one __fdiv_rn).  A thread takes NC
+// columns at once and issues the loads of COLS_DU rows of V (COLS_RB
+// rows of the ring) for all of them before the arithmetic that uses
+// them, so it keeps many loads in flight.  The dots chain runs while
+// the rotations produce the rows it reads (when the ring is full,
+// pos = w - 1 is the number of rotated rows).
 //
 // Warp 0 takes no columns: it derives the step's eviction (the Givens
 // pairs, cjp and d2j, evict_coeffs_warp) inside ready(), while the other
@@ -254,8 +200,9 @@ struct LoadPlain {
 // row r at Rt[r * rs + x] (updated in place), the gain at d2t[x]
 // (updated; the winner j gets -inf).  Folds the new gains into this
 // thread's (bv, bi) argmax.  Every thread of the block calls it; ready()
-// is called once by every thread (see above) and returns djp; cs / sn /
-// cjp (as in col_windowed) are read only after it.
+// is called once by every thread (see above) and returns djp, the
+// winner's repaired sqrt gain; cs / sn (the Givens pairs) and cjp (the
+// winner's post-eviction column) are read only after it.
 template <int NC, typename VLoad, typename Ready>
 __device__ __forceinline__ void cols_windowed(
     const float* __restrict__ Vt, size_t vs, float* __restrict__ Rt,
@@ -360,26 +307,24 @@ __device__ __forceinline__ void cols_windowed(
 
 // ---------------------------------------------------------------------------
 // The exact step over a whole tile, several columns per thread with their
-// loads in flight (K3, K5).
+// loads in flight (K1, K3, K5).
 //
-// col_exact runs one column at a time: one dependent FMA chain over D
-// whose every iteration waits on its own load of V, then one over the t
-// rows of C that does the same, so a thread has about one load in
-// flight.  cols_exact computes the same bits for NC columns of a thread
-// at once: it issues the loads of COLS_DU rows of V for all of them
-// ahead of the FMAs that use them, then of COLS_RB rows of C ahead of
-// the dots chain, then the division and the gain.  Per column nothing
-// changes: one __fmaf_rn chain over d = 0..D-1 and one over
-// r = 0..t-1, both ascending, the same __fdiv_rn(__fsub_rn(lj, dots),
-// dj), the same __fmaf_rn(-e, e, d2) and -inf for the winner.  There is
-// no eviction to derive, so every warp takes columns.
+// Per column i: e = (V[:,j]^T V[:,i] - C[:t,j]^T C[:t,i]) / d_j (one
+// __fmaf_rn chain over d = 0..D-1 and one over r = 0..t-1, both
+// ascending; rows >= t of C are zero in Algorithm 1, so the dot stops
+// at t), C[t,i] = e, and the gain __fmaf_rn(-e, e, d2), -inf for the
+// winner j.  A thread takes NC columns at once: it issues the loads of
+// COLS_DU rows of V for all of them ahead of the FMAs that use them,
+// then of COLS_RB rows of C ahead of the dots chain.  There is no
+// eviction to derive, so every warp takes columns.
 // ---------------------------------------------------------------------------
 
 // The exact step t over the n columns x = 0..n-1 of one tile, whose
 // global ids are i0 + x: V row d of column x at Vt[d * vs + x] (read
 // with VLoad), Cholesky row r at Ct[r * cs + x] (rows [0, t) read, row
 // t written), the gain at d2t[x] (updated; the winner j gets -inf).
-// vj / cj / dj are the winner's staged columns and sqrt gain.  Folds the
+// vj / cj / dj are the winner's staged columns and sqrt gain (cj with
+// the t rows of C at column j).  Folds the
 // new gains into this thread's (bv, bi) argmax; no barrier inside.
 template <int NC, typename VLoad>
 __device__ __forceinline__ void cols_exact(
@@ -475,4 +420,98 @@ __device__ __forceinline__ void unpack_key(unsigned long long key, float& v,
   const unsigned int u = (ord & 0x80000000u) ? (ord & 0x7FFFFFFFu) : ~ord;
   v = __uint_as_float(u);
   i = (int)(0xFFFFFFFFu - (unsigned int)(key & 0xFFFFFFFFull));
+}
+
+// Copy rows [0, rows) x columns [0, n) from device memory (row stride
+// gs) to shared memory (row stride ss) with cp.async: every copy of the
+// thread is in flight at once, none through registers; 16 bytes a copy
+// where both sides' rows start 16-byte aligned, else 4.  The caller
+// waits with cp_async_wait_all() and a __syncthreads.
+__device__ __forceinline__ void stage_async(float* dst, size_t ss,
+                                            const float* src, size_t gs,
+                                            int rows, int n) {
+  const bool wide = ((uintptr_t)src & 15) == 0 && (gs & 3) == 0 &&
+                    (__cvta_generic_to_shared(dst) & 15) == 0 &&
+                    (ss & 3) == 0;
+  const int n4 = wide ? n / 4 : 0;
+  for (int r = 0; r < rows; ++r) {
+    float* d = dst + (size_t)r * ss;
+    const float* g = src + (size_t)r * gs;
+    for (int q = threadIdx.x; q < n4; q += DPP_THREADS) {
+      const unsigned int a = (unsigned int)__cvta_generic_to_shared(d + 4 * q);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+                   "l"(g + 4 * q));
+    }
+    for (int x = 4 * n4 + threadIdx.x; x < n; x += DPP_THREADS) {
+      const unsigned int a = (unsigned int)__cvta_generic_to_shared(d + x);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a),
+                   "l"(g + x));
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// ---------------------------------------------------------------------------
+// Thread-block clusters (K1, K2): the CTAs of one cluster run on
+// neighbouring SMs, read each other's shared memory (DSMEM) and meet at
+// a hardware barrier.
+// ---------------------------------------------------------------------------
+
+// This CTA's rank in its cluster, and the cluster's CTA count.
+__device__ __forceinline__ unsigned int cluster_rank() {
+  unsigned int r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned int cluster_ctas() {
+  unsigned int n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return n;
+}
+
+// Barrier of every thread of every CTA of the cluster.  The arrive has
+// release and the wait acquire semantics at cluster scope, so every
+// write a thread of the cluster made before it (to its own shared
+// memory, or to device memory) is visible to every thread of the
+// cluster after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The generic address of the shared-memory object at p (an address in
+// this CTA's shared memory) in the shared memory of CTA `rank` of the
+// cluster; an ordinary load through it reads that CTA's copy (DSMEM).
+template <typename T>
+__device__ __forceinline__ T* cluster_peer(T* p, unsigned int rank) {
+  T* out;
+  asm("mapa.u64 %0, %1, %2;" : "=l"(out) : "l"(p), "r"(rank));
+  return out;
+}
+
+// The argmax of the whole cluster, with jnp.argmax's lowest-index tie
+// rule.  Thread 0 stores this CTA's block argmax (v, i) as a pack_key
+// into slot[p] of its own shared memory (two slots, p the step parity);
+// one cluster barrier; then every thread reads slot[p] of each of the n
+// CTAs through DSMEM and decodes the largest key, so every thread of
+// every CTA gets the same (*ov, *oi).  Every thread must call it.  The
+// parity slots make one barrier a step enough: a CTA that runs ahead
+// writes slot[p ^ 1] next, and writes slot[p] again only after the next
+// barrier, which no CTA passes before every CTA has read slot[p].
+__device__ __forceinline__ void cluster_argmax(unsigned long long* slot,
+                                               int p, unsigned int n,
+                                               float v, int i, float& ov,
+                                               int& oi) {
+  if (threadIdx.x == 0) slot[p] = pack_key(v, i);
+  cluster_sync();
+  unsigned long long best = 0;
+  for (unsigned int r = 0; r < n; ++r) {
+    const unsigned long long key = *cluster_peer(slot + p, r);
+    best = key > best ? key : best;
+  }
+  unpack_key(best, ov, oi);
 }

@@ -1,11 +1,14 @@
 """Resident whole-slate greedy DPP MAP kernels (K1 exact, K2 windowed).
 
 CUDA counterparts of ``repro/kernels/dpp_greedy/dpp_greedy.py``'s
-``_kernel`` and ``_kernel_windowed`` (``csrc/dpp_greedy.cu``): one thread
-block per user runs the whole k-step greedy loop in one launch for the
-whole batch, with the user's gains ``d2`` in shared memory and ``V`` and
-the Cholesky rows ``C`` (row ``t`` written at step ``t``) in device
-memory.  ``TilePolicy`` (``tiling.py``) decides when they fit.
+``_kernel`` and ``_kernel_windowed`` (``csrc/dpp_greedy.cu``): one launch
+runs the whole k-step greedy loop for the whole batch, each user on one
+thread-block cluster of ``s`` CTAs that hold its gains ``d2`` and, where
+it fits, its ``V`` (and, windowed, its ring) in shared memory, slice by
+slice, and exchange the step's argmax through DSMEM.  ``TilePolicy``
+(``tiling.py``) decides when the resident kernels run,
+``tiling.resident_cluster`` how they lay a user out (:func:`cluster_plan`
+asks it once per shape and card).
 
 Each kernel has its plain PyTorch version here, written step by step like
 the Pallas body.  A wrapper runs the plain version for CPU tensors (the
@@ -14,7 +17,9 @@ tests) and launches its kernel for CUDA tensors, or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -22,17 +27,80 @@ import torch
 from repro_torch.core.greedy_chol import NEG_INF, _lowrank_rows
 from repro_torch.core.windowed import greedy_step_windowed
 from repro_torch.kernels import cuda
-from repro_torch.kernels.dpp_greedy.tiling import resident_smem_bytes
+from repro_torch.kernels.dpp_greedy.tiling import (
+    ClusterPlan,
+    cluster_smem_bytes,
+    cluster_tile,
+    resident_cluster,
+)
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "dpp_greedy.cu"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "dpp_resident_set_smem": [_I, _I],
-    "dpp_resident_exact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "dpp_resident_capacity": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+    "dpp_resident_exact": [
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+    ],
     "dpp_resident_windowed": [
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P,
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
     ],
 }
+# Cluster sizes a card test may force (16 needs the non-portable cluster
+# attribute, which the kernels do not set, so a card refuses it).
+_FORCEABLE = (1, 2, 4, 8, 16)
+
+
+def _which(windowed: bool, v_resident: bool, state_resident: bool) -> int:
+    """The kernel instantiation: ``2 * windowed + v_resident``, plus 4
+    for K1 with its Cholesky rows in shared memory."""
+    return (2 * int(windowed) + int(v_resident)
+            + (4 if state_resident and not windowed else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def _capacity(which: int, s: int, smem: int, index: int) -> int:
+    lib = cuda.library(_SRC, _SIGNATURES)
+    cuda.raise_smem(lib, "dpp_resident_set_smem", which, smem,
+                    torch.device("cuda", index))
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = lib.dpp_resident_capacity(which, s, smem, ctypes.byref(n))
+    # an error of the query (a cluster size the card refuses) places none
+    return n.value if err == 0 else 0
+
+
+def cluster_capacity(windowed: bool, s: int, smem: int, v_resident: bool,
+                     state_resident: bool, device) -> int:
+    """Clusters of ``s`` CTAs of K2 (``windowed``) or K1, in the
+    instantiation for ``v_resident`` / ``state_resident``, at ``smem``
+    bytes of shared memory a CTA that ``device`` holds at once
+    (``cudaOccupancyMaxActiveClusters``; 0: it cannot place one), queried
+    once per card, kernel and size."""
+    device = torch.device(device)
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    return _capacity(_which(windowed, v_resident, state_resident), int(s),
+                     int(smem), index)
+
+
+@functools.lru_cache(maxsize=256)
+def cluster_plan(D: int, M: int, state_rows: int, windowed: bool,
+                 lanes: int, device: torch.device,
+                 cluster: Optional[int] = None) -> ClusterPlan:
+    """``tiling.resident_cluster``'s layout of ``lanes`` users on
+    ``device``'s card (bounded by :func:`cluster_capacity`; on the CPU,
+    where the plain versions run, by the shared memory alone), memoized
+    per shape and card.  ``cluster`` forces the CTAs a user (card tests
+    only)."""
+    if cluster is not None and cluster not in _FORCEABLE:
+        raise ValueError(f"cluster must be one of {_FORCEABLE}, got "
+                         f"{cluster!r}")
+    capacity = (functools.partial(cluster_capacity, windowed,
+                                  device=device)
+                if device.type == "cuda" else None)
+    return resident_cluster(D, M, state_rows, windowed, lanes, capacity,
+                            s=cluster)
 
 
 def eps_squared(eps: float) -> float:
@@ -95,27 +163,61 @@ def dpp_greedy_resident_plain(V, d2, k: int, eps: float):
     return sel, dh
 
 
-def dpp_greedy_resident(V, d2, k: int, eps: float):
-    """K1: one launch for the whole batch.  V (B, D, M) f32, d2 (B, M)
-    f32 initial gains -> (sel (B, k) int32, d_hist (B, k) f32)."""
-    if not _cpu_or_cuda(V):
-        return dpp_greedy_resident_plain(V, d2, k, eps)
+def _launch(windowed, V, d2, k, w, eps, plan, cluster):
+    """One K1 (K2 ``windowed``) cluster launch for the whole batch; the
+    layout is ``plan`` (``ops.py`` passes the policy's), else the
+    policy's for this shape (:func:`cluster_plan`, ``cluster`` forcing
+    the CTAs a user)."""
     _check_inputs(V, d2)
     B, D, M = V.shape
-    smem = resident_smem_bytes(D, M, k, windowed=False)
-    C = torch.empty((B, k, M), dtype=torch.float32, device=V.device)
-    sel = torch.empty((B, k), dtype=torch.int32, device=V.device)
-    dh = torch.empty((B, k), dtype=torch.float32, device=V.device)
+    R = w if windowed else k
+    if plan is None:
+        plan = cluster_plan(D, M, R, windowed, B, V.device, cluster)
+    s, vres, sres = plan
+    smem = cluster_smem_bytes(D, M, R, windowed, s, vres, sres)
+    which = _which(windowed, vres, sres)
+    name = ("dpp_greedy_resident_windowed" if windowed
+            else "dpp_greedy_resident")
     lib = cuda.library(_SRC, _SIGNATURES)
-    cuda.raise_smem(lib, "dpp_resident_set_smem", 0, smem, V.device)
-    err = lib.dpp_resident_exact(
-        V.data_ptr(), d2.data_ptr(), C.data_ptr(), sel.data_ptr(),
-        dh.data_ptr(), B, D, M, k, eps_squared(eps), smem,
-        cuda.stream_ptr(V),
-    )
-    cuda.count_launch("dpp_greedy_resident")
-    cuda.check(err, "dpp_greedy_resident")
+    cuda.raise_smem(lib, "dpp_resident_set_smem", which, smem, V.device)
+    dev = V.device
+    sel = torch.empty((B, k), dtype=torch.int32, device=dev)
+    dh = torch.empty((B, k), dtype=torch.float32, device=dev)
+    # the state (K2's ring, K1's Cholesky rows) in device memory unless
+    # the CTAs keep it
+    C = None if sres else torch.empty((B, R, M), dtype=torch.float32,
+                                      device=dev)
+    args = (V.data_ptr(), d2.data_ptr(), None if C is None else C.data_ptr(),
+            sel.data_ptr(), dh.data_ptr(), B, D, M, k)
+    tile = cluster_tile(M, s)
+    if windowed:
+        err = lib.dpp_resident_windowed(
+            *args, w, s, tile, int(vres), int(sres), eps_squared(eps), smem,
+            cuda.stream_ptr(V))
+    else:
+        err = lib.dpp_resident_exact(
+            *args, s, tile, int(vres), int(sres), eps_squared(eps), smem,
+            cuda.stream_ptr(V))
+    cuda.count_launch(name)
+    if err != 0:
+        raise RuntimeError(
+            f"CUDA kernel {name} failed to launch: cudaError_t {err} (B={B}, "
+            f"D={D}, M={M}, k={k}, w={w}: clusters of {s} CTAs, {smem} B of "
+            f"shared memory a CTA, V resident {vres})"
+        )
     return sel, dh
+
+
+def dpp_greedy_resident(V, d2, k: int, eps: float,
+                        plan: Optional[ClusterPlan] = None,
+                        cluster: Optional[int] = None):
+    """K1: one launch for the whole batch.  V (B, D, M) f32, d2 (B, M)
+    f32 initial gains -> (sel (B, k) int32, d_hist (B, k) f32).  ``plan``
+    is the policy's cluster layout (``ops.py`` passes it); ``cluster``
+    forces the CTAs a user (card tests)."""
+    if not _cpu_or_cuda(V):
+        return dpp_greedy_resident_plain(V, d2, k, eps)
+    return _launch(False, V, d2, k, None, eps, plan, cluster)
 
 
 # ---------------------------------------------------------------------------
@@ -147,35 +249,25 @@ def dpp_greedy_resident_windowed_plain(V, d2, k: int, w: int, eps: float):
     return sel, dh
 
 
-def dpp_greedy_resident_windowed(V, d2, k: int, w: int, eps: float):
-    """K2: one launch for the whole batch, window ``w < k``."""
+def dpp_greedy_resident_windowed(V, d2, k: int, w: int, eps: float,
+                                 plan: Optional[ClusterPlan] = None,
+                                 cluster: Optional[int] = None):
+    """K2: one launch for the whole batch, window ``w < k``; ``plan`` and
+    ``cluster`` as for :func:`dpp_greedy_resident`."""
     if not _cpu_or_cuda(V):
         return dpp_greedy_resident_windowed_plain(V, d2, k, w, eps)
-    _check_inputs(V, d2)
-    B, D, M = V.shape
-    smem = resident_smem_bytes(D, M, w, windowed=True)
-    C = torch.empty((B, w, M), dtype=torch.float32, device=V.device)
-    sel = torch.empty((B, k), dtype=torch.int32, device=V.device)
-    dh = torch.empty((B, k), dtype=torch.float32, device=V.device)
-    lib = cuda.library(_SRC, _SIGNATURES)
-    cuda.raise_smem(lib, "dpp_resident_set_smem", 1, smem, V.device)
-    err = lib.dpp_resident_windowed(
-        V.data_ptr(), d2.data_ptr(), C.data_ptr(), sel.data_ptr(),
-        dh.data_ptr(), B, D, M, k, w, eps_squared(eps), smem,
-        cuda.stream_ptr(V),
-    )
-    cuda.count_launch("dpp_greedy_resident_windowed")
-    cuda.check(err, "dpp_greedy_resident_windowed")
-    return sel, dh
+    return _launch(True, V, d2, k, w, eps, plan, cluster)
 
 
-def dpp_greedy_kernel(V, mask, k: int, window=None, eps: float = 1e-3):
+def dpp_greedy_kernel(V, mask, k: int, window=None, eps: float = 1e-3,
+                      plan: Optional[ClusterPlan] = None):
     """Batched resident greedy DPP MAP.
 
     V (B, D, M) float32, mask (B, M) bool.  ``window < k`` runs K2, else
-    K1.  Returns (sel (B, k) int32, d_hist (B, k) float32).
+    K1, laid out by ``plan`` (the policy's when None).  Returns (sel (B,
+    k) int32, d_hist (B, k) float32).
     """
     d2 = init_gains(V, mask)
     if window is not None and window < k:
-        return dpp_greedy_resident_windowed(V, d2, k, window, eps)
-    return dpp_greedy_resident(V, d2, k, eps)
+        return dpp_greedy_resident_windowed(V, d2, k, window, eps, plan)
+    return dpp_greedy_resident(V, d2, k, eps, plan)

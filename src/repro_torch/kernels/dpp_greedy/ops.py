@@ -3,8 +3,10 @@
 Kernel-first dispatch (``TilePolicy``): while one user's gains and the
 winner's staged columns fit a thread block's shared memory, the resident
 whole-slate kernels in ``dpp_greedy.py`` run (the entire greedy loop in
-one launch); past the budget, or with an explicit ``tile_m``, the tiled
-per-step kernels in ``tiled.py`` run (one launch per greedy step).  The
+one launch, each user on a thread-block cluster laid out by
+``tiling.resident_cluster``); past the budget, or with an explicit
+``tile_m``, the tiled per-step kernels in ``tiled.py`` run (one launch
+per greedy step).  The
 plain reference is reachable only through ``force_ref=True``.
 
 The ``dpp_greedy_stream_*`` functions run resumable streaming states
@@ -24,6 +26,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.dpp_greedy.dpp_greedy import (
+    cluster_plan,
     dpp_greedy_kernel,
     init_gains,
 )
@@ -37,7 +40,7 @@ from repro_torch.kernels.dpp_greedy.tiled import (
 from repro_torch.kernels.dpp_greedy.tiling import (
     TilePolicy,
     chunk_smem_bytes,
-    resident_smem_bytes,
+    cluster_smem_bytes,
     tiled_smem_bytes,
 )
 from repro_torch.obs.dispatch import (
@@ -81,16 +84,20 @@ def dpp_greedy(
 
     record_tile_resolution("explicit" if tile_m is not None else "model")
     mode, tm = policy.decide(D, M, state_rows, windowed)
+    if mode == "resident":
+        # the cluster layout: decided once per shape and card, passed on
+        plan = cluster_plan(D, M, state_rows, windowed, B, V.device)
+        record_kernel_dispatch(
+            mode, D=D, M=M, state_rows=state_rows, windowed=windowed,
+            smem_bytes=cluster_smem_bytes(D, M, state_rows, windowed, *plan),
+            v_resident=plan.v_resident,
+        )
+        return dpp_greedy_kernel(V, mask, k, window=window, eps=eps,
+                                 plan=plan)
     record_kernel_dispatch(
         mode, D=D, M=M, state_rows=state_rows, windowed=windowed, tile_m=tm,
-        smem_bytes=(
-            resident_smem_bytes(D, M, state_rows, windowed)
-            if mode == "resident" else tiled_smem_bytes(D, state_rows,
-                                                        windowed)
-        ),
+        smem_bytes=tiled_smem_bytes(D, state_rows, windowed),
     )
-    if mode == "resident":
-        return dpp_greedy_kernel(V, mask, k, window=window, eps=eps)
     return dpp_greedy_tiled(V, mask, k, window=window, eps=eps, tile_m=tm)
 
 

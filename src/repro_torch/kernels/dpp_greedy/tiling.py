@@ -4,12 +4,15 @@ model.
 Same contract as ``repro.kernels.dpp_greedy.tiling.TilePolicy``:
 ``decide(D, M, state_rows, windowed)`` returns ``("resident", None)`` or
 ``("tiled", tile_m)``.  What is counted differs.  The TPU model counts
-VMEM; here the resident kernels (``dpp_greedy.py``) keep one user's
-marginal gains ``d2 (M,)``, the winner's staged columns and, windowed,
-the ``(w, w)`` window factor in one thread block's shared memory, while
-``V`` and the Cholesky state stay in device memory (L2-resident at the
-default shortlist).  So the resident limit is the 227 KB a block may
-use, and it bounds ``M``, not ``D * M``.
+VMEM; here the resident kernels (``dpp_greedy.py``) are chosen exactly
+while one user's marginal gains ``d2 (M,)``, the winner's staged columns
+and, windowed, the ``(w, w)`` window factor fit one thread block's
+227 KB of shared memory (:func:`resident_smem_bytes`).  So the resident
+limit bounds ``M``, not ``D * M``.  How the resident kernels then lay a
+user out is :func:`resident_cluster`'s answer: a thread-block cluster
+of ``s`` CTAs, each holding a slice of ``M / s`` candidates, with ``V``
+and the greedy state (K1's Cholesky rows, K2's ring) in the cluster's
+shared memory where they fit (:func:`cluster_smem_bytes`).
 
 Past the budget, or whenever an explicit ``tile_m`` is given, the tiled
 per-step kernels (``tiled.py``) run: one launch per greedy step over
@@ -39,7 +42,7 @@ the tile.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 # Shared memory one H100 thread block may use (227 KB, dynamic only
 # past 48 KB; cudaFuncAttributeMaxDynamicSharedMemorySize is raised).
@@ -87,6 +90,119 @@ def resident_smem_bytes(D: int, M: int, state_rows: int,
     R = state_rows
     per_state = R * R + 6 * R if windowed else R
     return 4 * (M + D + per_state + _RED_FLOATS)
+
+
+# Portable thread-block cluster sizes (CTAs a user) of the resident
+# kernels, fewest first.
+CLUSTER_SIZES = (1, 2, 4, 8)
+# Floats of a resident CTA's header: two u64 argmax keys, the warps'
+# reduction scratch (2 x 8), the block argmax, the repaired gain, a pad
+# (``CLUSTER_HDR`` in csrc/dpp_greedy.cu).
+_CLUSTER_HDR = 24
+
+
+class ClusterPlan(NamedTuple):
+    """How the resident kernels lay out one user: ``s`` CTAs a cluster,
+    each a slice of :func:`cluster_tile` candidates; whether each CTA
+    keeps its ``(D, tile)`` slice of ``V`` in shared memory
+    (``v_resident``, else V streams from device memory every step) and
+    its slice of the greedy state, K2's ``(w, tile)`` ring or K1's
+    ``(k, tile)`` Cholesky rows (``state_resident``, else the state
+    lives in device memory)."""
+
+    s: int
+    v_resident: bool
+    state_resident: bool
+
+
+def cluster_tile(M: int, s: int) -> int:
+    """Candidates of one CTA's slice in a cluster of ``s``: ``ceil(M /
+    s)`` rounded up to 4 floats, so every slice starts 16-byte aligned."""
+    return round_up(-(-M // s), 4)
+
+
+def cluster_smem_bytes(D: int, M: int, state_rows: int, windowed: bool,
+                       s: int, v_resident: bool,
+                       state_resident: bool = False) -> int:
+    """Dynamic shared memory of one resident CTA in a cluster of ``s``,
+    in the layout ``csrc/dpp_greedy.cu`` carves it: the header, the
+    slice's gains ``d2 (tile)``, with ``state_resident`` the state slice
+    ``(R, tile)`` (K2's ring, K1's Cholesky rows), with ``v_resident``
+    the ``V`` slice ``(D, tile)``, the winner's ``V`` column ``(D)``;
+    exact: its Cholesky column ``(k)``; windowed: its pre/post-eviction
+    columns, the ``(w, w)`` window factor, the residue row, the rotation
+    coefficients and the ring ids ``(w)`` each, and with ``s > 1`` the
+    step-parity exchange buffers: the candidate's ring column ``(2, w)``
+    and the window-factor entries ``(2, w, w)``."""
+    R = state_rows
+    tile = cluster_tile(M, s)
+    floats = (_CLUSTER_HDR + tile + D + (D * tile if v_resident else 0)
+              + (R * tile if state_resident else 0))
+    if windowed:
+        floats += R * R + 6 * R
+        if s > 1:
+            floats += 2 * R + 2 * R * R
+    else:
+        floats += R
+    return 4 * floats
+
+
+def resident_cluster(D: int, M: int, state_rows: int, windowed: bool,
+                     lanes: int = 1,
+                     capacity: Optional[Callable[[int, int, bool, bool],
+                                                 int]] = None,
+                     s: Optional[int] = None) -> ClusterPlan:
+    """The resident kernels' layout of each of ``lanes`` users (K2
+    ``windowed``, else K1), for a shape ``TilePolicy.decide`` calls
+    resident.
+
+    ``s`` is the fewest CTAs a user (of :data:`CLUSTER_SIZES`) whose
+    ``V`` slice, gains, staging and, windowed, ring slice fit one CTA's
+    227 KB.  K1 keeps its Cholesky rows there too where they fit at that
+    many CTAs, or at more while all ``lanes`` clusters still run at once
+    (``capacity`` known).  If 8 CTAs cannot hold ``V``, it streams over 8
+    slices, with the state resident where it fits.  On a card,
+    ``capacity(s, smem, v_resident, state_resident)`` is the number of
+    such clusters it holds at once (``cudaOccupancyMaxActiveClusters``); a layout it
+    cannot place (0) is not taken.  An explicit ``s`` (the card tests)
+    forces the cluster size and decides only the residencies.  Raises
+    ``ValueError`` when no layout fits and can be placed."""
+    sizes = CLUSTER_SIZES if s is None else (s,)
+
+    def room(s_, vres, sres):
+        """How many such clusters run at once (None: no capacity known);
+        0 when the layout does not fit or cannot be placed."""
+        smem = cluster_smem_bytes(D, M, state_rows, windowed, s_, vres, sres)
+        if smem > SMEM_BUDGET_BYTES:
+            return 0
+        return (None if capacity is None
+                else capacity(s_, smem, vres, sres))
+
+    def fits(s_, vres, sres):
+        return room(s_, vres, sres) != 0
+
+    fewest = next((s_ for s_ in sizes if fits(s_, True, windowed)), None)
+    if fewest is not None:
+        if not windowed:
+            for s_ in sizes:
+                if s_ < fewest:
+                    continue
+                n = room(s_, True, True)
+                if n != 0 and (s_ == fewest or (n is not None
+                                                and lanes <= n)):
+                    return ClusterPlan(s_, True, True)
+        return ClusterPlan(fewest, True, windowed)
+    for s_ in (sizes if s is not None else sizes[::-1]):
+        for sres in (True, False):
+            if fits(s_, False, sres):
+                return ClusterPlan(s_, False, sres)
+    least = cluster_smem_bytes(D, M, state_rows, windowed, sizes[-1], False)
+    raise ValueError(
+        f"no resident cluster layout fits or can be placed for D={D}, "
+        f"M={M}, {state_rows} state rows, windowed={windowed}, cluster "
+        f"sizes {list(sizes)} (at {sizes[-1]} CTAs, {least} B of shared "
+        f"memory a CTA against {SMEM_BUDGET_BYTES} B)"
+    )
 
 
 def tiled_smem_bytes(D: int, state_rows: int, windowed: bool) -> int:

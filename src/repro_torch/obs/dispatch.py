@@ -28,8 +28,9 @@ def record_kernel_dispatch(
 ) -> None:
     """One ``ops.py`` execution-mode decision: which kernel path won
     (``ref`` / ``resident`` / ``tiled`` / ``fused_chunk``) and the
-    ``TilePolicy`` numbers behind it (``v_resident``: whether a fused
-    chunk launch keeps V in shared memory)."""
+    ``TilePolicy`` numbers behind it (``smem_bytes``: a block's, or a
+    resident cluster CTA's, shared memory; ``v_resident``: whether a
+    resident or fused chunk launch keeps V in shared memory)."""
     reg = _obs.registry()
     if reg is None:
         return
@@ -43,12 +44,14 @@ def record_kernel_dispatch(
     if smem_bytes is not None:
         reg.gauge(
             "dpp_smem_bytes_est",
-            "TilePolicy shared-memory estimate of the last resident dispatch",
+            "TilePolicy shared memory a block (a resident cluster's CTA) of "
+            "the last dispatch uses",
         ).set(smem_bytes)
     if v_resident is not None:
         reg.gauge(
             "dpp_v_resident",
-            "1 if the last fused chunk dispatch keeps V in shared memory",
+            "1 if the last resident or fused chunk dispatch keeps V in "
+            "shared memory",
         ).set(int(v_resident))
 
 

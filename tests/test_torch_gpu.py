@@ -19,7 +19,13 @@ in shared memory where it fits and meets at a per-lane barrier: K3 is
 held against its plain version and K1 bit for bit (ragged M, three tile
 widths, an eps-stop, exact ties across tiles), K5 in both modes against
 its plain version and K1, K3 and each other bit for bit, and with lanes
-at different progress.
+at different progress.  K1 and K2 run each user on a thread-block
+cluster: forced to 1, 2, 4 and 8 CTAs a user, V in shared memory or
+streamed, the state (K1's Cholesky rows, K2's ring) in shared or device
+memory, they are held against their plain versions
+and bit for bit against K3/K5 (K1) and K4/K6 (K2), so against each
+other at every cluster size; a cluster size the card cannot place is
+refused before any launch.
 
 K8 (``fm_interaction``) and K7 (``scored_topk``) are held against their
 plain versions on the CPU: K8 within rtol 1e-5 / atol 2e-6 * F * D
@@ -43,7 +49,14 @@ from repro_torch.core import (
 from repro_torch.kernels import cuda
 from repro_torch.kernels.dpp_greedy import dpp_greedy
 from repro_torch.kernels.dpp_greedy import tiled
-from repro_torch.kernels.dpp_greedy.dpp_greedy import init_gains
+from repro_torch.kernels.dpp_greedy.dpp_greedy import (
+    cluster_plan,
+    dpp_greedy_resident,
+    dpp_greedy_resident_plain,
+    dpp_greedy_resident_windowed,
+    dpp_greedy_resident_windowed_plain,
+    init_gains,
+)
 from repro_torch.kernels.dpp_greedy.ops import _stream_tile
 from repro_torch.kernels.fm_interaction import (
     fm_interaction,
@@ -329,6 +342,141 @@ def test_k3_matches_plain_and_k1_bits(card, D, M, k, eps, tile_m, ties):
         whole = _stream(V.cuda(), mask.cuda(), k, None, 5, tile_m, eps)
     assert torch.equal(got[0], whole[0])
     assert (got[1] - whole[1]).abs().max().item() == 0.0
+
+
+def _cluster_inputs(B, D, M, seed, ties, masked):
+    V, mask = _inputs(seed, B=B, D=D, M=M)
+    if not masked:
+        mask[:] = True
+    if ties:
+        # columns 600..699 copy 0..99, boosted so they lead: equal bits and
+        # equal gains in CTAs of different ranks; the lower index must win
+        V[:, :, :100] *= 3.0
+        V[:, :, 600:700] = V[:, :, :100]
+        mask[:, 600:700] = mask[:, :100]
+    return V.cuda(), mask.cuda()
+
+
+# (B, D, M, k, eps, ties, masked, the policy's (V, Cholesky rows)
+# residency at 1, 2, 4 and 8 CTAs a user)
+_K1_CASES = {
+    "single-phase1": (1, 100, 1000, 50, 1e-6, False, False, "01 10 11 11"),
+    "ragged-mask": (3, 32, 777, 20, 1e-6, False, True, "11 11 11 11"),
+    "batch64": (64, 100, 1000, 24, 1e-6, False, False, "01 10 11 11"),
+    "waves200": (200, 16, 512, 12, 1e-6, False, True, "11 11 11 11"),
+    "v-streamed": (2, 100, 20000, 12, 1e-6, False, False, "00 00 00 01"),
+    "eps-stop": (2, 3, 777, 10, 0.05, False, True, "11 11 11 11"),
+    "ties": (2, 32, 777, 20, 1e-6, True, True, "11 11 11 11"),
+}
+
+
+def _layouts(plan):
+    """The policy's layout and, where it keeps the state (K1's Cholesky
+    rows, K2's ring) in shared memory, the same with the state in device
+    memory."""
+    return [plan] + ([plan._replace(state_resident=False)]
+                     if plan.state_resident else [])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", list(_K1_CASES))
+def test_k1_clusters_match_plain_and_k3_k5_bits(card, case, s):
+    B, D, M, k, eps, ties, masked, modes = _K1_CASES[case]
+    V, mask = _cluster_inputs(B, D, M, 12, ties, masked)
+    plan = cluster_plan(D, M, k, False, B, V.device, s)
+    mode = modes.split()[[1, 2, 4, 8].index(s)]
+    assert plan == (s, mode[0] == "1", mode[1] == "1")
+    d2 = init_gains(V, mask)
+    want = dpp_greedy_resident_plain(V, d2, k, eps)
+    # K3 (tiled per step) and K5 (fused chunks): the same per-column
+    # arithmetic and argmax rule, so the same bits at every cluster size
+    k3 = tiled.dpp_greedy_tiled(V, mask, k, None, eps, 128)
+    k5 = _stream(V, mask, k, None, 5, None, eps)
+    for layout in _layouts(plan):
+        cuda.reset_launch_counts()
+        got = dpp_greedy_resident(V, d2, k, eps, plan=layout)
+        torch.cuda.synchronize()
+        assert cuda.launch_counts() == {"dpp_greedy_resident": 1}
+        assert torch.equal(got[0], want[0])
+        torch.testing.assert_close(got[1], want[1], rtol=RTOL, atol=ATOL)
+        if eps == 0.05:
+            assert bool((got[0][:, 3:] == -1).all())
+            assert bool((got[1][:, 3:] == 0).all())
+        if ties:
+            for lane in got[0].cpu().tolist():
+                assert any(0 <= p < 100 for p in lane)
+                for q, p in enumerate(lane):
+                    if 600 <= p < 700:
+                        assert p - 600 in lane[:q]
+        for whole in (k3, k5):
+            assert torch.equal(got[0], whole[0])
+            assert (got[1] - whole[1]).abs().max().item() == 0.0
+
+
+# (B, D, M, w, k, eps, ties, masked, the fewest CTAs at which V and the
+# ring are resident, the fewest at which the ring is with V streamed)
+_K2_CASES = {
+    "single-phase2": (1, 100, 1000, 10, 40, 1e-6, False, False, 2, 1),
+    "ragged-mask": (3, 32, 777, 4, 14, 1e-6, False, True, 1, 1),
+    "batch64": (64, 100, 1000, 10, 32, 1e-6, False, False, 2, 1),
+    "waves200": (200, 16, 512, 4, 14, 1e-6, False, True, 1, 1),
+    "v-streamed": (2, 100, 20000, 10, 24, 1e-6, False, False, None, 4),
+    "w40": (2, 64, 512, 40, 122, 1e-6, False, True, 1, 1),
+    "eps-stop": (2, 3, 777, 4, 10, 0.05, False, True, 1, 1),
+    "ties": (2, 32, 777, 4, 20, 1e-6, True, True, 1, 1),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", list(_K2_CASES))
+def test_k2_clusters_match_plain_and_k4_k6_bits(card, case, s):
+    B, D, M, w, k, eps, ties, masked, vres_from, ring_from = _K2_CASES[case]
+    V, mask = _cluster_inputs(B, D, M, 13, ties, masked)
+    plan = cluster_plan(D, M, w, True, B, V.device, s)
+    assert plan.s == s
+    assert plan.v_resident == (vres_from is not None and s >= vres_from)
+    assert plan.state_resident == (s >= ring_from)
+    d2 = init_gains(V, mask)
+    want = dpp_greedy_resident_windowed_plain(V, d2, k, w, eps)
+    # K4 (tiled per step) and K6 (fused chunks): the same bits
+    k4 = tiled.dpp_greedy_tiled(V, mask, k, w, eps, 128)
+    k6 = _stream(V, mask, k, w, 5, None, eps)
+    for layout in _layouts(plan):
+        cuda.reset_launch_counts()
+        got = dpp_greedy_resident_windowed(V, d2, k, w, eps, plan=layout)
+        torch.cuda.synchronize()
+        assert cuda.launch_counts() == {"dpp_greedy_resident_windowed": 1}
+        assert torch.equal(got[0], want[0])
+        torch.testing.assert_close(got[1], want[1], rtol=RTOL, atol=ATOL)
+        if eps == 0.05:
+            assert bool((got[0][:, 3:] == -1).all())
+        if ties:
+            assert bool((got[0][:, 0] < 100).all())
+        for whole in (k4, k6):
+            assert torch.equal(got[0], whole[0])
+            assert (got[1] - whole[1]).abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 4])
+def test_resident_cluster_the_card_cannot_place_raises(card, window):
+    # 16 CTAs a cluster need the non-portable cluster attribute, which the
+    # kernels do not set: the card places none, and the call raises before
+    # any launch instead of running at another cluster size
+    V, mask = _inputs(14, B=2, D=16, M=512)
+    V, mask = V.cuda(), mask.cuda()
+    d2 = init_gains(V, mask)
+    cuda.reset_launch_counts()
+    with pytest.raises(ValueError, match="no resident cluster layout"):
+        plan = cluster_plan(16, 512, 8 if window is None else window,
+                            window is not None, 2, V.device, 16)
+        if window is None:
+            dpp_greedy_resident(V, d2, 8, 1e-6, plan=plan)
+        else:
+            dpp_greedy_resident_windowed(V, d2, 8, window, 1e-6, plan=plan)
+    assert cuda.launch_counts() == {}
 
 
 def _slots(spec, V, schedule, cycles, chunk, dev):
