@@ -5,6 +5,9 @@ scoring into the rerank, and the fused scoring top-c.
     python3 chip_smoke.py
     python3 chip_smoke.py --resident-times   # K1, K2 alone (resident_times)
 
+(Phase 12 runs ``chip_smoke.py --topk-device-times STATE`` as a child
+process for K7's profiler times: ``topk_device_times``.)
+
 Builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a),
 then runs twelve phases through the port's entry points.  Phases 1-9
 (``repro_torch.serving.Reranker(..., use_kernel=True).rerank`` and
@@ -66,8 +69,11 @@ seeded ``torch.Generator``), and ``repro_torch.kernels.scored_topk``:
 12. scored_topk:      exact ties (small integers, M = 100,000, D = 16,
                       c = 1000) index for index; timed (phase 3's pool,
                       M = 10^6, D = 100, c = 1000) against the plain
-                      version and ``torch.topk(emb @ q, c)``; ragged
-                      (M = 10^6 + 3, D = 10, c = 128).
+                      version and ``torch.topk(emb @ q, c)``, one launch
+                      with no op after it, blocks mode beside it; the
+                      same pool with its scores ascending with the row
+                      index; ragged (M = 10^6 + 3, D = 10, c = 128); each
+                      with K7's launch plan printed.
 
 Each phase resets the kernels' launch counters right before the main-path
 call, reads them right after, and checks them and the mode recorded in
@@ -77,7 +83,7 @@ after a float64-certified near-tie, with every later pick float64
 greedy-valid; K8 rtol 1e-5 / atol 1e-6; K7 values within 1e-5); times the
 kernel and the plain version with CUDA events (the multi-launch kernels
 K3-K6 one event pair per launch, summed), with torch.profiler's device
-time of the same launches beside it as ``device_ms`` (K1-K6); and checks
+time of the same launches beside it as ``device_ms`` (K1-K7); and checks
 the outputs.
 Phases 3, 4 and 6-9 also print the per-step streaming floor beside the
 kernel's device time: V's bytes once per step over 3.35 TB/s and, for
@@ -1412,13 +1418,120 @@ def topk_check(name, vals, idx, rvals, ridx, s64):
     return err, len(diff)
 
 
-def run_scored_topk(records, pool):
+def topk_plan(emb, c, seg, label):
+    """Print and return K7's launch plan for ``emb`` in segments of
+    ``seg`` rows."""
+    from repro_torch.kernels.scored_topk.scored_topk import plan_for
+
+    p = plan_for(emb, c, seg)
+    print(f"  {label} launch plan: {p.grid} CTAs = {p.segs} segments x "
+          f"{p.ctas_per_seg}, tiles of {p.tile_rows} rows, ring of "
+          f"{p.stages} stages, at most {p.key_slots} rows a CTA, keys "
+          f"{'on chip' if p.keys_on_chip else 'in device memory'}, "
+          f"{p.gather} gather slots a segment, {p.smem_bytes} B shared "
+          f"memory a CTA, {p.scratch_bytes} B scratch", flush=True)
+    return p
+
+
+def topk_no_op_after(name, fn):
+    """The global mode is one launch and nothing after it: no aten op
+    once K7's launch is counted (a TorchDispatchMode), and no sort."""
+    from repro_torch.kernels import cuda
+
+    log = LaunchGapLog("scored_topk")
+    cuda.reset_launch_counts()
+    with log:
+        fn()
+    after = [op for op, n in log.ops if n >= 1]
+    check(not after, f"{name}: aten ops after the K7 launch: {after[:5]}")
+    check(not any("sort" in op for op, _ in log.ops),
+          f"{name}: a sort among the call's ops")
+    print(f"  one launch: the call's ops end at K7's launch ({len(log.ops)} "
+          f"ops before it, none a sort)", flush=True)
+
+
+def topk_pool(state):
+    """Phase 3's pool (M = 10^6, D = 100 unit-norm rows) and phase 12's
+    query, drawn again from the numpy generator ``state`` run_tiled drew
+    them from."""
+    rng = np.random.default_rng()
+    rng.bit_generator.state = state
+    _, pool, _ = make_inputs(rng, 4, 1_000_000, seen_frac=0.1)
+    q = torch.from_numpy(np.random.default_rng(SEED + 12).standard_normal(
+        pool.shape[1], dtype=np.float32)).to("cuda")
+    return pool, q
+
+
+def topk_device_times(state_json):
+    """``--topk-device-times STATE``: K7's torch.profiler device time at
+    phase 12's timed shape, in a process of its own: once a process has
+    profiled a thread-block-cluster launch (K1, phases 1-2) torch.profiler
+    no longer sees K7's launches there (an H100 probe: 6 of 6 seen before,
+    0 of 6 after).  Global mode, blocks mode and the ascending order of
+    the same pool; the device activity and ops of one profiled global
+    call; the pool's sum, so the caller can check the inputs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.scored_topk import (
+        scored_topk,
+        scored_topk_blocks,
+    )
+
+    pool, q = topk_pool(json.loads(state_json))
+    c = 1000
+    scored_topk(pool, q, c=c)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        scored_topk(pool, q, c=c)
+        torch.cuda.synchronize()
+    out = {"pool_sum": pool.double().sum().item(),
+           "activity": [kernel_base(e.name) for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA],
+           "sorts": [e.name for e in prof.events() if "sort" in e.name]}
+    out["global"] = device_ms(lambda: scored_topk(pool, q, c=c),
+                              "scored_topk", 1)
+    out["blocks"] = device_ms(lambda: scored_topk_blocks(pool, q, c),
+                              "scored_topk", 1)
+    asc = pool[torch.argsort(pool.double() @ q.double())].contiguous()
+    out["ascending"] = device_ms(lambda: scored_topk(asc, q, c=c),
+                                 "scored_topk", 1)
+    print("topk_device_times " + json.dumps(out), flush=True)
+
+
+def topk_child(name, state, pool):
+    """Run :func:`topk_device_times` in a child process on the same
+    inputs (checked by the pool's sum) and check its device activity:
+    one K7 kernel, no sort."""
+    res = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--topk-device-times",
+         json.dumps(state)],
+        capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in res.stdout.splitlines()
+             if ln.startswith("topk_device_times ")]
+    check(res.returncode == 0 and lines,
+          f"{name}: the device-time process failed: {res.stderr[-2000:]}")
+    out = json.loads(lines[-1].split(" ", 1)[1])
+    check(out["pool_sum"] == pool.double().sum().item(),
+          f"{name}: the device-time process drew another pool")
+    check(out["activity"] == ["scored_topk_kernel"] and not out["sorts"],
+          f"{name}: one profiled call's device activity {out['activity']}, "
+          f"sorts {out['sorts']}; expected one K7 kernel and no sort")
+    print(f"  a fresh process on the same pool: one profiled call's device "
+          f"activity is {out['activity']}, no sort among its ops; device "
+          f"time global {ms_text(out['global'])}, blocks "
+          f"{ms_text(out['blocks'])}, ascending {ms_text(out['ascending'])}",
+          flush=True)
+    return out
+
+
+def run_scored_topk(records, pool, pool_state):
     from repro_torch.kernels.scored_topk import (
         scored_topk,
         scored_topk_blocks,
         scored_topk_blocks_plain,
         scored_topk_ref,
     )
+    from repro_torch.kernels.scored_topk.scored_topk import block_rows
 
     def main_path(name, emb, q, c):
         out, counts, _, wall = drive_chunks(
@@ -1444,6 +1557,8 @@ def run_scored_topk(records, pool):
     e = torch.randint(-3, 4, (M, Dt), generator=g, device="cuda").float()
     q = torch.randint(-3, 4, (Dt,), generator=g, device="cuda").float()
     print(f"[{name}] M={M} D={Dt} c={c}, small-integer data", flush=True)
+    topk_plan(e, c, M, "global mode")
+    topk_plan(e, c, block_rows(M, c, 8192), "blocks mode")
     vals, idx = main_path(name, e, q, c)
     rvals, ridx = scored_topk_ref(e, q, c)
     check(torch.equal(idx, ridx) and torch.equal(vals, rvals),
@@ -1462,6 +1577,8 @@ def run_scored_topk(records, pool):
         Dt, dtype=np.float32)).to("cuda")
     print(f"[{name}] phase 3's pool M={M} D={Dt}, c={c}, block_m 8192",
           flush=True)
+    topk_plan(pool, c, M, "global mode")
+    topk_plan(pool, c, block_rows(M, c, 8192), "blocks mode")
     vals, idx = main_path(name, pool, q, c)
     rvals, ridx = scored_topk_ref(pool, q, c)
     s64 = pool.double() @ q.double()
@@ -1477,6 +1594,9 @@ def run_scored_topk(records, pool):
     print(f"  values max abs err {err:.3g} (tolerance {TK_TOL}); the index "
           f"sets equal; {moved} positions swapped at float64-certified "
           f"near-ties", flush=True)
+    topk_no_op_after(name, lambda: scored_topk(pool, q, c=c))
+    times = topk_child(name, pool_state, pool)
+    dev, blocks_dev = times["global"], times["blocks"]
     ms = time_events(lambda: event_ms(lambda: scored_topk(pool, q, c=c)),
                      TIMING_REPS)
     blocks_ms = time_events(
@@ -1485,20 +1605,41 @@ def run_scored_topk(records, pool):
         lambda: event_ms(lambda: scored_topk_ref(pool, q, c)), PLAIN_REPS)
     lib_ms = time_events(
         lambda: event_ms(lambda: torch.topk(pool @ q, c)), TIMING_REPS)
-    print(f"  the block kernel alone: {blocks_ms:.4f} ms; the rest of the "
-          f"call is the final top-{c} over {bv.numel()} survivors",
-          flush=True)
+    print(f"  blocks mode (scored_topk_blocks, {bv.shape[0]} segments of "
+          f"8192 rows): {blocks_ms:.4f} ms by CUDA events, device "
+          f"{ms_text(blocks_dev)}", flush=True)
     records["scored_topk"]["calls_launches"] = 1
-    kernel_record(records, "scored_topk", ms, plain_ms,
-                  bound_of(4 * M * Dt + 4 * Dt + 8 * c, 2 * M * Dt), err,
-                  "one launch + the final top-c, CUDA events", lib_ms,
-                  "library call torch.topk(emb @ q, c)")
+    b = bound_of(4 * M * Dt + 4 * Dt + 8 * c, 2 * M * Dt)
+    kernel_record(records, "scored_topk", ms, plain_ms, b, err,
+                  "one launch, CUDA events", lib_ms,
+                  "library call torch.topk(emb @ q, c)", device=dev)
+
+    name = "phase 12 scored_topk ascending"
+    asc = pool[torch.argsort(s64)].contiguous()  # scores ascend with the row
+    print(f"[{name}] phase 3's pool permuted so that the scores ascend with "
+          f"the row index, c={c}", flush=True)
+    vals, idx = main_path(name, asc, q, c)
+    rvals, ridx = scored_topk_ref(asc, q, c)
+    a64 = asc.double() @ q.double()
+    e_a, moved = topk_check(name, vals, idx, rvals, ridx, a64)
+    check(set(idx.tolist()) == set(ridx.tolist()),
+          f"{name}: index sets differ from the plain version")
+    asc_ms = time_events(lambda: event_ms(lambda: scored_topk(asc, q, c=c)),
+                         TIMING_REPS)
+    asc_dev = times["ascending"]
+    records["scored_topk"]["max_abs_err"] = max(
+        records["scored_topk"]["max_abs_err"], e_a)
+    print(f"  index sets equal, values max abs err {e_a:.3g}; "
+          f"{asc_ms:.4f} ms by CUDA events, device {ms_text(asc_dev)} "
+          f"(random order: {ms:.4f} / {ms_text(dev)})", flush=True)
+    del asc
 
     name = "phase 12 scored_topk ragged"
     M, Dt, c = 1_000_003, 10, 128
     e = torch.randn((M, Dt), generator=g, device="cuda")
     q = torch.randn((Dt,), generator=g, device="cuda")
     print(f"[{name}] M={M} D={Dt} c={c}", flush=True)
+    topk_plan(e, c, M, "global mode")
     vals, idx = main_path(name, e, q, c)
     rvals, ridx = scored_topk_ref(e, q, c)
     err, _ = topk_check(name, vals, idx, rvals, ridx, e.double() @ q.double())
@@ -1601,6 +1742,9 @@ def main() -> int:
     if sys.argv[1:] == ["--resident-times"]:
         resident_times()
         return 0
+    if sys.argv[1:2] == ["--topk-device-times"]:
+        topk_device_times(sys.argv[2])
+        return 0
     rng = np.random.default_rng(SEED)
     records = {}
     t0 = time.perf_counter()
@@ -1608,6 +1752,7 @@ def main() -> int:
     records["tiled_step_exact"] = {"launches": 0}
     records["tiled_step_exact"]["launches"] += run_forced_tile(
         resident[None][2], resident[None][0], scores, feats)
+    pool_state = rng.bit_generator.state  # phase 3 draws its pool from here
     tiled, pool = run_tiled(records, rng)
     run_stream(records, resident, scores, feats)
     del scores, feats
@@ -1622,7 +1767,7 @@ def main() -> int:
     recsys_reference_check(model, cfg, user, cand, scores, slates, feats,
                            rr_cfg)
     del model
-    run_scored_topk(records, pool)
+    run_scored_topk(records, pool, pool_state)
     print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = []

@@ -55,6 +55,7 @@ from repro_torch.core.greedy_chol import (
     lane_steps,
 )
 from repro_torch.core.windowed import greedy_step_windowed
+from repro_torch.device import resolve_device
 from repro_torch.obs.dispatch import record_chunk
 
 
@@ -427,17 +428,20 @@ def slot_pad_v(spec, V, state):
 
 
 def greedy_slots_init(spec, slots: int, D: int, M: int,
-                      dtype=torch.float32, device="cpu"):
+                      dtype=torch.float32, device=None):
     """Parked S-slot batch state + its zeroed V operand.
 
     Returns ``(state, V_slots)``: every slot is parked (``stopped``,
     ``d2`` -inf, ``t`` 0) and ``V_slots`` is zeros ``(S, D, M)``.  Admit
     requests with :func:`state_splice`, free slots with
     :func:`state_evict`.  ``dtype`` is the resident element type; it
-    must match the lanes that will be spliced in.
+    must match the lanes that will be spliced in.  ``device`` defaults
+    to the card (``repro_torch.device.resolve_device``); pass ``"cpu"``
+    for the plain path.
     """
     if slots < 1:
         raise ValueError(f"slots must be >= 1, got {slots}")
+    device = resolve_device(device)
     Vz = torch.zeros((D, M), dtype=dtype, device=device)
     single = greedy_slot_state(
         spec, Vz, mask=torch.zeros((M,), dtype=torch.bool, device=device)

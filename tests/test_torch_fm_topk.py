@@ -38,10 +38,7 @@ from repro_torch.kernels.scored_topk import (
     scored_topk_blocks,
     scored_topk_ref,
 )
-from repro_torch.kernels.scored_topk.scored_topk import (
-    block_rows,
-    select_smem_bytes,
-)
+from repro_torch.kernels.scored_topk.scored_topk import block_rows
 
 FM_RTOL, FM_ATOL = 1e-5, 1e-3
 TK_RTOL, TK_ATOL = 1e-5, 1e-5
@@ -172,13 +169,6 @@ def test_scored_topk_force_ref_and_c_above_m():
     (3000, 1000, 8192, 3072), (50, 200, 64, 256)])
 def test_block_rows_as_repro_sizes_them(M, c, block_m, want):
     assert block_rows(M, c, block_m) == want
-
-
-def test_select_smem_bytes():
-    assert select_smem_bytes(8192, 1000, 100) == (1024,
-                                                  8 * (8192 + 1024) + 400)
-    assert select_smem_bytes(128, 128, 16) == (128, 8 * 256 + 64)
-    assert select_smem_bytes(256, 1, 4) == (1, 8 * 257 + 16)
 
 
 def test_scored_topk_wrapper_refuses_odd_devices_and_shapes():

@@ -31,12 +31,18 @@ K8 (``fm_interaction``) and K7 (``scored_topk``) are held against their
 plain versions on the CPU: K8 within rtol 1e-5 / atol 2e-6 * F * D
 (float32 sums of F * D unit-normal terms in another order, whose
 cancellation leaves an absolute error that grows with F * D), K7 index
-for index on small-integer data (exact float32 dot products, many ties),
-and within rtol / atol 1e-5 with equal index sets on Gaussian data.
+for index on data whose float32 scores are exact in any order (small
+integers with many ties, scores ascending or descending with the row,
+all equal), in blocks and global mode, its keys on chip or forced to
+device memory, and within rtol / atol 1e-5 with equal index sets on
+Gaussian data; its global mode is one launch with no op after it.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core import (
     GreedySpec,
@@ -67,6 +73,7 @@ from repro_torch.kernels.scored_topk import (
     scored_topk_blocks,
     scored_topk_blocks_plain,
     scored_topk_ref,
+    scored_topk_segments,
 )
 from repro_torch.serving import DPPRerankConfig, Reranker, RerankRequest
 
@@ -593,20 +600,50 @@ def test_fm_interaction_kernel_refuses_grad(card):
     assert cuda.launch_counts() == {}
 
 
+def _topk_data(kind, M, D, seed):
+    """(emb, q) float32 on the CPU whose float32 scores are exact in any
+    summation order and in bf16: small integers ("ints"), the row index
+    ("ascending", "descending": scores i or -i; in bf16 they tie in runs
+    past 256) or all equal."""
+    rng = np.random.default_rng(seed)
+    e = rng.integers(-3, 4, size=(M, D)).astype(np.float32)
+    q = rng.integers(-3, 4, size=(D,)).astype(np.float32)
+    if kind in ("ascending", "descending"):
+        q[:] = 0.0
+        q[0] = 1.0
+        e[:, 0] = np.arange(M) * (1.0 if kind == "ascending" else -1.0)
+    elif kind == "equal":
+        e[:], q[:] = 1.0, 1.0
+    return torch.from_numpy(e), torch.from_numpy(q)
+
+
+@pytest.fixture(params=["chip", "device"], ids=["keys-on-chip",
+                                                "keys-in-device-memory"])
+def keys_at(request, monkeypatch):
+    """Run K7 with the plan's keys on chip, or forced to device memory."""
+    if request.param == "device":
+        mod = importlib.import_module(
+            "repro_torch.kernels.scored_topk.scored_topk")
+        monkeypatch.setattr(mod, "KEYS_SMEM_BYTES", 0)
+    return request.param
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("M,D,c,block_m", [
     (1000, 16, 8, 256), (4097, 16, 128, 1024), (130, 64, 128, 128),
-    (1024, 8, 256, 256), (100_003, 10, 128, 8192), (3000, 100, 1000, 8192)])
+    (1024, 8, 256, 256), (100_003, 10, 128, 8192), (3000, 100, 1000, 8192),
+    (3000, 16, 1, 8192), (1000, 16, 1000, 8192), (20, 100, 20, 8192)])
+@pytest.mark.parametrize("kind", ["ints", "ascending", "descending",
+                                  "equal"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_scored_topk_kernel_matches_plain_exact(card, M, D, c, block_m,
-                                                dtype):
-    """Small integers (exact in bf16 and in every float32 summation
-    order): the block survivors and the global top-c equal the plain
-    versions index for index, ragged edges and c = block rows included."""
-    rng = np.random.default_rng(M + c)
-    e = torch.from_numpy(rng.integers(-3, 4, size=(M, D)).astype(np.float32))
-    q = torch.from_numpy(rng.integers(-3, 4, size=(D,)).astype(np.float32))
+def test_scored_topk_kernel_matches_plain_exact(card, keys_at, M, D, c,
+                                                block_m, kind, dtype):
+    """Exact scores (:func:`_topk_data`): the block survivors and the
+    global top-c equal the plain versions index for index, ragged edges,
+    c = 1, c = M, M below one ring tile, ties across CTAs and the keys on
+    chip or in device memory included."""
+    e, q = _topk_data(kind, M, D, M + c)
     e, q = e.to(dtype), q.to(dtype)
     ge, gq = e.cuda(), q.cuda()
     bv, bi = scored_topk_blocks(ge, gq, c, block_m)
@@ -619,26 +656,76 @@ def test_scored_topk_kernel_matches_plain_exact(card, M, D, c, block_m,
     assert cuda.launch_counts() == {"scored_topk": 1}
     rv, ri = scored_topk_ref(e, q, c)
     assert torch.equal(idx.cpu(), ri) and torch.equal(vals.cpu(), rv)
+    sv, si = scored_topk_segments(ge, gq, c, M)
+    assert torch.equal(si[0].cpu(), ri) and torch.equal(sv[0].cpu(), rv)
     assert bool((idx < M).all())
 
 
 @pytest.mark.gpu
-def test_scored_topk_kernel_gaussian(card):
+@pytest.mark.parametrize("order", ["random", "ascending"])
+def test_scored_topk_kernel_gaussian(card, order):
     rng = np.random.default_rng(11)
     e = torch.from_numpy(rng.normal(size=(50_000, 64)).astype(np.float32))
     q = torch.from_numpy(rng.normal(size=(64,)).astype(np.float32))
+    if order == "ascending":  # scores ascend with the row index
+        e = e[torch.argsort(e @ q)].contiguous()
     vals, idx = scored_topk(e.cuda(), q.cuda(), c=200, block_m=4096)
     rv, ri = scored_topk_ref(e, q, 200)
     torch.testing.assert_close(vals.cpu(), rv, rtol=1e-5, atol=1e-5)
     assert set(idx.cpu().tolist()) == set(ri.tolist())
+    bv, bi = scored_topk_blocks(e.cuda(), q.cuda(), 200, 4096)
+    pv, pi = scored_topk_blocks_plain(e, q, 200, 4096)
+    torch.testing.assert_close(bv.cpu(), pv, rtol=1e-5, atol=1e-5)
+    for r in range(pi.shape[0]):
+        assert set(bi[r].cpu().tolist()) == set(pi[r].tolist())
+
+
+class _OpsAfterLaunch(TorchDispatchMode):
+    """Each aten op dispatched, with K7's launch count at that moment."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append((str(func),
+                         cuda.launch_counts().get("scored_topk", 0)))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,c", [(200_000, 1000), (4096, 16)])
+def test_scored_topk_global_is_one_launch_with_nothing_after(card, M, c):
+    e = torch.randn(M, 32, device="cuda")
+    q = torch.randn(32, device="cuda")
+    scored_topk(e, q, c=c)  # builds, plans and sizes once
+    cuda.reset_launch_counts()
+    with _OpsAfterLaunch() as log:
+        vals, idx = scored_topk(e, q, c=c)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts() == {"scored_topk": 1}
+    after = [op for op, n in log.ops if n >= 1]
+    assert not after, f"aten ops after the launch: {after}"
+    assert vals.shape == (c,) and idx.shape == (c,)
 
 
 @pytest.mark.gpu
 def test_scored_topk_kernel_refuses_oversized_blocks(card):
+    """The kernel's shared memory follows from c (the final sort of Q
+    keys) and D, no longer from block_m: an oversize c is refused before
+    any launch, a block_m of any size runs."""
     e, q = torch.zeros(40_000, 8, device="cuda"), torch.zeros(8, device="cuda")
     cuda.reset_launch_counts()
-    with pytest.raises(ValueError, match="shared"):
-        scored_topk_blocks(e, q, 16, 32768)
+    with pytest.raises(ValueError, match="shared memory"):
+        scored_topk_blocks(e, q, 20_000)
+    with pytest.raises(ValueError, match="shared memory"):
+        scored_topk(e, q, c=20_000)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         scored_topk_blocks(e.half(), q.half(), 16)
     assert cuda.launch_counts() == {}
+    vals, idx = scored_topk_blocks(e, q, 16, 32768)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts() == {"scored_topk": 1}
+    first = torch.arange(16, dtype=torch.int32)
+    assert idx.shape == (2, 16) and torch.equal(idx.cpu(), torch.stack(
+        [first, first + 32768]))

@@ -212,7 +212,9 @@ def _slot_run(lib, spec, V, mask, chunk, schedule, cycles, to):
     """Drive a slot batch: ``schedule[c]`` lists (op, slot, lane) events
     applied before cycle c's chunk.  Returns the per-cycle (sel, dh)."""
     S, D, M = 3, V.shape[1], V.shape[2]
-    state, Vs = lib.greedy_slots_init(spec, S, D, M)
+    # the port's entry points default to the card: ask for the CPU
+    on = {"device": "cpu"} if lib is tc else {}
+    state, Vs = lib.greedy_slots_init(spec, S, D, M, **on)
     out = []
     for c in range(cycles):
         for op, slot, lane in schedule.get(c, ()):
@@ -264,13 +266,22 @@ def test_chunk_slots_heterogeneous_progress(backend, window):
 
 def test_slot_dtype_threads_through():
     spec = _tspec("torch", 6, 3)
-    state, Vs = tc.greedy_slots_init(spec, 2, 4, 16, dtype=torch.float64)
+    state, Vs = tc.greedy_slots_init(spec, 2, 4, 16, dtype=torch.float64,
+                                     device="cpu")
     assert state.C.dtype == torch.float64 and Vs.dtype == torch.float64
     V = torch.from_numpy(_inputs(7, D=4, M=16)[0]).double()
     single = tc.greedy_slot_state(spec, V, dtype=torch.float64)
     state = tc.state_splice(state, single, 1)
     assert torch.equal(state.d2[1], single.d2)
     assert bool(state.stopped[0]) and not bool(state.stopped[1])
+
+
+def test_slots_init_defaults_to_the_card(monkeypatch):
+    """Without ``device=`` the slot batch goes to the card: with no card
+    visible that is ``resolve_device``'s error, never a silent CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cuda' requested"):
+        tc.greedy_slots_init(_tspec("torch", 6, 3), 2, 4, 16)
 
 
 # ---------------------------------------------------------------------------
