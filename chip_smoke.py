@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the DPP rerank, DeepFM
-scoring into the rerank, and the fused scoring top-c.
+scoring into the rerank, the fused scoring top-c, and the paper's
+experiments.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --resident-times   # K1, K2 alone (resident_times)
@@ -9,7 +10,7 @@ scoring into the rerank, and the fused scoring top-c.
 process for K7's profiler times: ``topk_device_times``.)
 
 Builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a),
-then runs twelve phases through the port's entry points.  Phases 1-9
+then runs thirteen phases through the port's entry points.  Phases 1-9
 (``repro_torch.serving.Reranker(..., use_kernel=True).rerank`` and
 ``.stream``, ``repro_torch.core.greedy_map_chunks`` and
 ``greedy_chunk_slots``) run at the paper's §5.1 setup: D = 100
@@ -74,6 +75,28 @@ seeded ``torch.Generator``), and ``repro_torch.kernels.scored_topk``:
                       same pool with its scores ascending with the row
                       index; ragged (M = 10^6 + 3, D = 10, c = 128); each
                       with K7's launch plan printed.
+
+Phase 13 runs the paper's experiments, ``repro_torch.figures``, on the
+card through each figure's ``main`` (its CSV printed):
+
+13. paper experiments: fig1 at the paper's N = 5..50 (M = 1000, D = 100):
+                      the card's float64 batched-slogdet naive greedy,
+                      the torch core and K1 at every N, the numpy float64
+                      naive greedy to N = 20; every slate equals the
+                      float64 naive slate up to a certified near-tie, and
+                      the speedups are printed; fig2 at N = 5..50: MMR and
+                      greedy-avg equal the same calls on the CPU, K1 the
+                      torch core up to a certified near-tie; fig3 in fast
+                      mode: every user's slate equals the port's CPU
+                      slate, a Div-DPP slate up to a certified near-tie;
+                      fig4 and fig6 at their --smoke sizes: gate-sweep
+                      parity with a past-the-gate cell on K4 (one launch
+                      a step), the N-sweep's per-step cost printed; one
+                      K6 launch a chunk, the streamed slate equal to the
+                      whole slate, the first chunk before the whole
+                      slate; the quickstart on K1.  Each figure's K1, K2,
+                      K4 and K6 launches are counted and printed, and
+                      added to the kernels' record.
 
 Each phase resets the kernels' launch counters right before the main-path
 call, reads them right after, and checks them and the mode recorded in
@@ -208,39 +231,71 @@ def certify(name, V, mask, sel, ref, window, eps):
     A lane may differ only from a float64 near-tie on, and every pick of
     ``sel`` from there on must be float64 greedy-valid.  Returns the lanes
     that diverge."""
-    eps2 = float(np.float32(eps) * np.float32(eps))
     a, r = sel.cpu().numpy(), ref.cpu().numpy()
     lanes = [b for b in range(a.shape[0]) if (a[b] != r[b]).any()]
     for b in lanes:
-        p = int(np.nonzero(a[b] != r[b])[0][0])
         V64 = V[b].double()
         diag = (V64 * V64).sum(0)
         m = (torch.ones(V.shape[2], dtype=torch.bool, device=V.device)
              if mask is None else mask[b])
-        pre = torch.as_tensor(a[b, :p], dtype=torch.long, device=V.device)
-        g = _gains64(V64, diag, m, pre, window)
-        gmax = g.max().item()
-        x, y = int(a[b, p]), int(r[b, p])
-        if x < 0 or y < 0:  # one stopped: the best gain sits at eps^2
-            tie = _close(gmax, eps2)
-        else:
-            tie = _close(g[x].item(), g[y].item())
-        check(tie, f"{name}: lane {b} diverges at step {p} ({x} vs {y}) "
-                   f"without a float64 near-tie")
-        for q in range(p, a.shape[1]):
-            x = int(a[b, q])
-            pre = torch.as_tensor(a[b, :q], dtype=torch.long, device=V.device)
-            g = _gains64(V64, diag, m, pre, window)
-            gmax = g.max().item()
-            if x < 0:
-                check(gmax <= eps2 or _close(gmax, eps2),
-                      f"{name}: lane {b} stops at step {q} with gain {gmax}")
-                check((a[b, q:] < 0).all(), f"{name}: lane {b} resumes")
-                break
-            check(_close(g[x].item(), gmax) or g[x].item() >= gmax,
-                  f"{name}: lane {b} step {q} picks {x} (gain "
-                  f"{g[x].item()}) below the float64 best {gmax}")
+
+        def gains(prefix):
+            pre = torch.as_tensor(prefix, dtype=torch.long, device=V.device)
+            return _gains64(V64, diag, m, pre, window)
+
+        certify_lane(f"{name}: lane {b}", gains, a[b], r[b], eps)
     return lanes
+
+
+def certify_lane(name, gains, a, r, eps):
+    """One differing slate ``a`` against ``r`` (local ids, -1 after a
+    stop), ``gains(prefix)`` the float64 gains given a prefix of picks:
+    the slates must part at a float64 near-tie, and every later pick of
+    ``a`` must be float64 greedy-valid.  Returns where they part: (step,
+    a's pick, r's pick, and their float64 gains there)."""
+    eps2 = float(np.float32(eps) * np.float32(eps))
+    p = int(np.nonzero(a != r)[0][0])
+    g = gains(a[:p])
+    gmax = g.max().item()
+    x, y = int(a[p]), int(r[p])
+    if x < 0 or y < 0:  # one stopped: the best gain sits at eps^2
+        tie = _close(gmax, eps2)
+    else:
+        tie = _close(g[x].item(), g[y].item())
+    check(tie, f"{name} diverges at step {p} ({x} vs {y}) without a "
+               f"float64 near-tie")
+    where = (p, x, y, g[x].item() if x >= 0 else None,
+             g[y].item() if y >= 0 else None)
+    for q in range(p, a.shape[0]):
+        x = int(a[q])
+        g = gains(a[:q])
+        gmax = g.max().item()
+        if x < 0:
+            check(gmax <= eps2 or _close(gmax, eps2),
+                  f"{name} stops at step {q} with gain {gmax}")
+            check((a[q:] < 0).all(), f"{name} resumes")
+            break
+        check(_close(g[x].item(), gmax) or g[x].item() >= gmax,
+              f"{name} step {q} picks {x} (gain {g[x].item()}) below the "
+              f"float64 best {gmax}")
+    return where
+
+
+def dense_gains(L64):
+    """``gains(prefix)`` for :func:`certify_lane` on an explicit float64
+    kernel ``L64`` (M, M): ``L_ii - L_iP L_PP^-1 L_Pi``, picks at -inf."""
+    diag = torch.diagonal(L64).clone()
+
+    def gains(prefix):
+        g = diag.clone()
+        if len(prefix):
+            P = torch.as_tensor(prefix, dtype=torch.long, device=L64.device)
+            LPi = L64[P]
+            g = diag - (LPi * torch.linalg.solve(L64[P][:, P], LPi)).sum(0)
+            g[P] = float("-inf")
+        return g
+
+    return gains
 
 
 def compare(name, V, mask, got, want, window, eps):
@@ -1649,6 +1704,337 @@ def run_scored_topk(records, pool, pool_state):
     print(f"  no id past M; values max abs err {err:.3g}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the paper's experiments (repro_torch.figures) on the card
+# ---------------------------------------------------------------------------
+
+
+def figure_run(name, fn):
+    """One figure's ``main`` on the card, with the launch counters reset
+    right before and read right after: (its result, the counts)."""
+    from repro_torch.kernels import cuda
+
+    print(f"  -- {name}", flush=True)
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    print(f"  {name}: {time.perf_counter() - t0:.1f} s host wall, launches "
+          f"{counts}", flush=True)
+    return out, counts
+
+
+def fig1_check(name, rows, V, numpy_Ns):
+    """Every fast slate (the torch core, K1) and the card's float64
+    slogdet slate against the float64 naive slate (numpy where it ran,
+    else the card's float64 slogdet), index for index up to a certified
+    near-tie; prints the speedups."""
+    differ = []
+    for row in rows:
+        N, sl = row["N"], row["slates"]
+        check((row["t_naive"] is not None) == (N in numpy_Ns),
+              f"{name}: numpy naive greedy ran at N={N}: {row['t_naive']}")
+        ref_name = "naive" if "naive" in sl else "naive_slogdet"
+        ref = torch.as_tensor(sl[ref_name])[None]
+        for path in ("naive_slogdet", "divdpp", "divdpp_kernel"):
+            if path == ref_name:
+                continue
+            got = torch.as_tensor(sl[path])[None]
+            check(tuple(got.shape) == (1, N) and bool((got >= 0).all()),
+                  f"{name} N={N}: {path} slate {got}")
+            if certify(f"{name} N={N} {path} vs {ref_name}", V[None], None,
+                       got, ref, None, 1e-6):
+                differ.append((N, path))
+        speed = [f"{path} {row[t] * 1e3:.4f} ms" for path, t in (
+            ("numpy naive", "t_naive"), ("card slogdet naive", "t_slogdet"),
+            ("torch core", "t_core"), ("K1", "t_kernel"))
+            if row[t] is not None]
+        sp = [f"{fast} {row[slow] / row[t]:.1f}x over {label}"
+              for fast, t in (("torch core", "t_core"), ("K1", "t_kernel"))
+              for label, slow in (("numpy", "t_naive"),
+                                  ("slogdet", "t_slogdet"))
+              if row[slow] is not None]
+        print(f"  fig1 N={N}: {', '.join(speed)}; {'; '.join(sp)}; "
+              f"reference {ref_name}", flush=True)
+    print(f"  {name}: {len(rows)} N, every fast slate equals the float64 "
+          f"naive slate index for index"
+          + (f" except {differ}, certified float64 near-ties" if differ
+             else ""), flush=True)
+    return differ
+
+
+def fig3_check(name, card, cpu):
+    """The card's Figure-3 rows against the port's CPU rows, user by
+    user: MMR, greedy-avg and random slates equal; a Div-DPP slate may
+    part from the CPU's only at a float64-certified near-tie; the rows of
+    equal slates equal."""
+    from repro_torch.core import build_kernel_dense
+    from repro_torch.figures import fig3_tradeoff as f3
+
+    differ = {}
+    for data, (rows, det) in card.items():
+        c_rows, c_det = cpu[data]
+        check([r[0] for r in rows] == [r[0] for r in c_rows]
+              and np.array_equal(det["users"], c_det["users"]),
+              f"{name} {data}: rows or users differ from the CPU run")
+        for (algo, rec, div), (_, c_rec, c_div) in zip(rows, c_rows):
+            got, want = det["slates"][algo], c_det["slates"][algo]
+            users = [i for i in range(got.shape[0])
+                     if not np.array_equal(got[i], want[i])]
+            if not users:
+                check(rec == c_rec and div == c_div,
+                      f"{name} {data} {algo}: equal slates, other rows")
+                continue
+            check(algo.startswith("divdpp_a"),
+                  f"{name} {data} {algo}: {len(users)} users' slates differ "
+                  f"from the CPU's")
+            alpha = float(algo[len("divdpp_a"):])
+            for i in users:
+                cand, rel = det["cands"][int(det["users"][i])]
+                L64 = build_kernel_dense(
+                    torch.as_tensor(f3.normalize(rel)).double(),
+                    torch.as_tensor(det["S"][np.ix_(cand, cand)]).double(),
+                    alpha=alpha)
+                a, r = (np.where(s >= 0, np.searchsorted(cand, s), -1)
+                        for s in (got[i], want[i]))
+                u = int(det["users"][i])
+                p, x, y, gx, gy = certify_lane(
+                    f"{name} {data} {algo} user {u}", dense_gains(L64), a,
+                    r, f3.DPP_EPS)
+                print(f"  {data} {algo} user {u} ({cand.size} candidates, "
+                      f"N = {got.shape[1]}): the card's slate parts from "
+                      f"the CPU's at step {p}, local {x} vs {y}, float64 "
+                      f"gains {gx!r} vs {gy!r}", flush=True)
+            differ[(data, algo)] = len(users)
+            print(f"  {data} {algo}: {len(users)} users' slates part from "
+                  f"the CPU's at certified float64 near-ties; card recall "
+                  f"{rec:.4f} avg {div['avg']:.4f}, CPU recall {c_rec:.4f} "
+                  f"avg {c_div['avg']:.4f}", flush=True)
+    print(f"  {name}: every card row equals the port's CPU row"
+          + (f" but {differ} (certified users)" if differ else ""),
+          flush=True)
+    return differ
+
+
+def float64_stop(V, slate, window, eps):
+    """The first step at which the float64 greedy on V (D, M), given
+    ``slate``'s picks before it, has no gain above eps^2, where it would
+    stop; ``len(slate)`` if it never would."""
+    eps2 = float(np.float32(eps) * np.float32(eps))
+    V64 = V.double()
+    diag = (V64 * V64).sum(0)
+    mask = torch.ones(V.shape[1], dtype=torch.bool, device=V.device)
+    for p in range(len(slate)):
+        pre = torch.as_tensor(slate[:p], dtype=torch.long, device=V.device)
+        if _gains64(V64, diag, mask, pre, window).max().item() <= eps2:
+            return p
+    return len(slate)
+
+
+def fig4_check(name, rows, grows):
+    """Figure 4 on the card: every N-sweep slate (K2 windowed, K1 exact,
+    K1 at N = w) against the torch core's on the same V, up to a
+    certified near-tie, and ``win_step_vs_N`` printed; the gate sweep has
+    a past-the-gate cell that ran K4 once a step.  (The figure itself
+    raises on a gate cell's parity.)"""
+    from repro_torch.core import GreedySpec, greedy_map
+    from repro_torch.figures import fig4_windowed as f4
+
+    M, D, _ = f4.FAST_SWEEP
+    V = f4.setup(M, D, device="cuda")
+    differ, past_rank = [], []
+    for N, w, _, _, sl in rows:
+        for path, window in (("windowed", w), ("exact", None)):
+            core = greedy_map(GreedySpec(k=N, window=window, eps=f4.EPS,
+                                         backend="torch"), V=V)
+            got, want = torch.as_tensor(sl[path]), core.indices.cpu()
+            n = int((got >= 0).sum())
+            check(tuple(got.shape) == (N,) and bool((got[n:] == -1).all())
+                  and got[:n].unique().numel() == n
+                  and bool(((got[:n] >= 0) & (got[:n] < M)).all()),
+                  f"{name} N={N}: {path} slate {got}")
+            stop = N
+            if not torch.equal(got.long(), want.long()):
+                stop = float64_stop(V, want.numpy(), window, f4.EPS)
+            if stop < N:
+                # past the float64 stop every gain is rounding noise, so
+                # the float32 picks there have no reference to agree with
+                past_rank.append((N, path, stop))
+                print(f"  fig4 N={N} {path}: the float64 greedy stops at "
+                      f"step {stop} (no gain above eps^2 = {f4.EPS ** 2:g}); "
+                      f"the float32 slates of K1 and the torch core go on "
+                      f"on noise (the torch core's d^2 there "
+                      f"{core.d_hist[stop].item():.4g}) and part at step "
+                      f"{int(np.nonzero((got != want).numpy())[0][0])}",
+                      flush=True)
+            if certify(f"{name} N={N} {path} kernel vs torch core", V[None],
+                       None, got[None, :stop], want[None, :stop], window,
+                       f4.EPS):
+                differ.append((N, path))
+    base = rows[0][2] / rows[0][0]
+    print("  fig4 win_step_vs_N8: " + ", ".join(
+        f"N={N} {t / N / base:.2f}x ({t / N * 1e6:.2f} us a step; exact "
+        f"{te / N * 1e6:.2f})" for N, _, t, te, _ in rows), flush=True)
+    print(f"  {name}: every N-sweep kernel slate equals the torch core's"
+          + (f" up to the float64 stop in {past_rank}" if past_rank else "")
+          + (f" but {differ}, certified float64 near-ties" if differ
+             else ""), flush=True)
+    past = [g for g in grows if g["past_gate"]]
+    check(past and all(g["mode"] == "tiled" and g["launches"] == {
+        "tiled_step_windowed": g["k"]} for g in past),
+        f"{name}: no past-the-gate cell ran K4 once a step: {past}")
+    for g in grows:
+        print(f"  fig4 gate M={g['M']} D={g['D']} w={g['w']}: past_gate="
+              f"{g['past_gate']} mode={g['mode']} tile_m={g['tile_m']} "
+              f"launches {g['launches']} parity={g['parity']}; kernel "
+              f"{g['t_kernel'] * 1e3:.4f} ms, torch core "
+              f"{g['t_torch'] * 1e3:.4f} ms", flush=True)
+
+
+def fig6_check(name, rows):
+    """Figure 6 on the card: the kernel row's whole (K4) and streamed (K6)
+    slates against the torch row's slate for the same request, up to a
+    certified near-tie.  (The figure itself raises on stream != whole,
+    on a first chunk no earlier than the whole slate and on a K6 count
+    other than one a chunk.)"""
+    from repro_torch.figures import fig6_streaming as f6
+    from repro_torch.serving import DPPRerankConfig
+    from repro_torch.serving.reranker import _shortlist_kernel
+
+    torch_row, kernel_row = rows
+    M, D, N, w = (kernel_row[k] for k in ("M", "D", "N", "w"))
+    scores, feats = f6.setup(M, D, device="cuda")
+    V, _, top_i = _shortlist_kernel(scores[None], feats, DPPRerankConfig(
+        slate_size=N, shortlist=M, alpha=f6.ALPHA, eps=f6.EPS, window=w),
+        None)
+    local = torch.empty(M, dtype=torch.long)
+    local[top_i[0].cpu()] = torch.arange(M)
+
+    def to_local(s):
+        s = torch.as_tensor(s, dtype=torch.long)
+        return torch.where(s >= 0, local[s.clamp_min(0)], -1)[None]
+
+    want = to_local(torch_row["slate"])
+    for path, label in (("slate", "whole (K4)"), ("streamed", "streamed (K6)")):
+        lanes = certify(f"{name} kernel row {label} vs torch row", V, None,
+                        to_local(kernel_row[path]), want, w, f6.EPS)
+        print(f"  fig6 kernel row's {label} slate "
+              + ("parts from the torch row's at a certified float64 "
+                 "near-tie" if lanes else "equals the torch row's"),
+              flush=True)
+    for row in rows:
+        print(f"  fig6 {row['name']}: first chunk "
+              f"{row['t_first'] * 1e3:.4f} ms, whole slate "
+              f"{row['t_whole'] * 1e3:.4f} ms "
+              f"({row['t_first'] / row['t_whole']:.2f}x), whole stream "
+              f"{row['t_total'] * 1e3:.4f} ms, K6 launches a chunk "
+              f"{row['fused_calls_per_chunk']}", flush=True)
+
+
+def run_paper_experiments(records):
+    """Phase 13: Figures 1, 2, 3, 4 and 6 of ``repro_torch.figures`` and
+    the quickstart on the card, each through its ``main`` (the figure's
+    CSV is printed), checked here against float64 or the CPU."""
+    from repro_torch.core import (
+        GreedySpec,
+        greedy_avg_select,
+        greedy_map,
+        mmr_select,
+        scaled_features,
+    )
+    from repro_torch.examples import quickstart
+    from repro_torch.figures.common import paper_setup
+    from repro_torch.figures import (
+        fig1_speedup as f1,
+        fig2_reference as f2,
+        fig3_tradeoff as f3,
+        fig4_windowed as f4,
+        fig6_streaming as f6,
+    )
+
+    name = "phase 13 paper experiments"
+    print(f"[{name}] fig1 (N = 5..50, numpy naive to N = 20), fig2 "
+          f"(N = 5..50), fig3, fig4 and fig6 at their --smoke sizes, the "
+          f"quickstart", flush=True)
+    t0 = time.perf_counter()
+    total = {}
+
+    def count(fig, counts, expect):
+        check(set(counts) == set(expect) and all(counts.values()),
+              f"{name} {fig}: launches {counts}, expected each of "
+              f"{sorted(expect)}")
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    rows, counts = figure_run("fig1", lambda: f1.main(
+        fast_mode=False, device="cuda", numpy_Ns=f1.FAST_NS))
+    count("fig1", counts, {"dpp_greedy_resident"})
+    _, V, _ = f1.setup(device="cuda")
+    fig1_check(f"{name} fig1", rows, V, f1.FAST_NS)
+
+    rows, counts = figure_run("fig2", lambda: f2.main(
+        fast_mode=False, device="cuda"))
+    count("fig2", counts, {"dpp_greedy_resident"})
+    r, S, _, V = paper_setup(device="cuda")
+    rc, Sc = r.cpu(), S.cpu()
+    for row in rows:
+        N, sl, t = row["N"], row["slates"], row["times"]
+        for path, fn in (("mmr", mmr_select), ("greedy", greedy_avg_select)):
+            check(np.array_equal(sl[path], fn(rc, Sc, N, f2.THETA).numpy()),
+                  f"{name} fig2 N={N}: {path} on the card differs from the "
+                  f"CPU")
+        certify(f"{name} fig2 N={N} K1 vs torch core", V[None], None,
+                torch.as_tensor(sl["divdpp_kernel"])[None],
+                torch.as_tensor(sl["divdpp"])[None], None, 1e-6)
+        print(f"  fig2 N={N}: MMR {t['mmr'] * 1e3:.4f} ms, greedy-avg "
+              f"{t['greedy'] * 1e3:.4f} ms, Div-DPP torch core "
+              f"{t['divdpp'] * 1e3:.4f} ms ({t['divdpp'] / t['mmr']:.2f}x "
+              f"MMR), K1 {t['divdpp_kernel'] * 1e3:.4f} ms "
+              f"({t['divdpp_kernel'] / t['mmr']:.2f}x MMR); MMR and "
+              f"greedy-avg equal the CPU's slates", flush=True)
+
+    card, counts = figure_run("fig3", lambda: f3.main(
+        fast_mode=True, device="cuda"))
+    check(counts == {}, f"{name} fig3: launches {counts}, expected none "
+                        f"(the dense torch core)")
+    fig3_check(f"{name} fig3", card, f3.run(fast_mode=True, device="cpu"))
+
+    (rows, grows), counts = figure_run("fig4", lambda: f4.main(
+        fast_mode=True, device="cuda"))
+    count("fig4", counts, {"dpp_greedy_resident",
+                           "dpp_greedy_resident_windowed",
+                           "tiled_step_windowed"})
+    fig4_check(f"{name} fig4", rows, grows)
+
+    rows, counts = figure_run("fig6", lambda: f6.main(
+        fast_mode=True, device="cuda"))
+    count("fig6", counts, {"tiled_step_windowed", "fused_chunk_windowed"})
+    fig6_check(f"{name} fig6", rows)
+
+    slates, counts = figure_run("quickstart", lambda: quickstart.main("cuda"))
+    count("quickstart", counts, {"dpp_greedy_resident"})
+    check(counts["dpp_greedy_resident"] == len(quickstart.ALPHAS),
+          f"{name} quickstart: {counts}")
+    relevance, feats = quickstart.setup("cuda")
+    for alpha, sel in slates.items():
+        V = scaled_features(feats, relevance, alpha)
+        want = greedy_map(GreedySpec(k=quickstart.N, backend="torch"),
+                          V=V).indices
+        lanes = certify(f"{name} quickstart alpha={alpha} K1 vs torch core",
+                        V[None], None, torch.as_tensor(sel)[None],
+                        want[None], None, 1e-6)
+        print(f"  quickstart alpha={alpha}: K1's slate "
+              + ("parts from the torch core's at a certified float64 "
+                 "near-tie" if lanes else "equals the torch core's"),
+              flush=True)
+
+    for k, n in total.items():
+        records.setdefault(k, {"launches": 0})["launches"] += n
+    print(f"  {name}: launches {total}; {time.perf_counter() - t0:.1f} s "
+          f"host wall", flush=True)
+
+
 def resident_times():
     """``--resident-times``: K1 and K2 alone, one launch each at phases 1
     and 2's kernel shapes (the same seeded shortlists: B = 64, C = 1000,
@@ -1717,15 +2103,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.figures.common import device_name
     from repro_torch.kernels import cuda
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+    smi = device_name(torch.device("cuda", 0))
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-          f"cuda {torch.version.cuda}", flush=True)
+          f"cuda {torch.version.cuda}, numpy {np.__version__}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
@@ -1768,6 +2151,7 @@ def main() -> int:
                            rr_cfg)
     del model
     run_scored_topk(records, pool, pool_state)
+    run_paper_experiments(records)
     print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = []

@@ -6,11 +6,13 @@ Also the resumable streaming layer (``streaming.py``: ``GreedyState``,
 init/step/chunk, the slot substrate and the session delta updates) and
 its generator ``greedy_map_chunks``.
 
-And the numpy evaluation side: the slate metrics (``metrics.py``) and
-the Top-N and random baselines (``baselines.py``).
+And the evaluation side of the paper's §5: the naive determinant
+greedy (``greedy_naive.py``: the float64 numpy oracle and the batched
+``slogdet`` Figure-1 baseline), the reference diversifiers
+(``baselines.py``: MMR, greedy-avg, Top-N, random) and the slate metrics
+(``metrics.py``).
 
-Not ported yet (ROADMAP queue 1): the naive determinant oracle and the
-MMR and greedy-avg baselines (item 2), the sharded backend (item 9).
+Not ported yet (ROADMAP queue 1): the sharded backend (item 9).
 """
 from repro_torch.core.kernel_matrix import (
     build_kernel_dense,
@@ -41,7 +43,13 @@ from repro_torch.core.dispatch import (
     greedy_map,
     greedy_map_chunks,
 )
-from repro_torch.core.baselines import random_top_select, top_n_select
+from repro_torch.core.greedy_naive import greedy_map_naive
+from repro_torch.core.baselines import (
+    greedy_avg_select,
+    mmr_select,
+    random_top_select,
+    top_n_select,
+)
 from repro_torch.core.metrics import (
     log_det_objective,
     mean_slate_diversity,
@@ -65,6 +73,9 @@ from repro_torch.core.streaming import (
 )
 
 __all__ = [
+    "greedy_avg_select",
+    "greedy_map_naive",
+    "mmr_select",
     "log_det_objective",
     "mean_slate_diversity",
     "mean_slate_diversity_rows",

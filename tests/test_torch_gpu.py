@@ -36,6 +36,12 @@ integers with many ties, scores ascending or descending with the row,
 all equal), in blocks and global mode, its keys on chip or forced to
 device memory, and within rtol / atol 1e-5 with equal index sets on
 Gaussian data; its global mode is one launch with no op after it.
+
+The paper's experiments: the card's float64 batched-slogdet naive greedy
+selects the numpy float64 oracle's slate index for index; MMR and
+greedy-avg on the card equal their CPU runs index for index (eager
+float32 elementwise ops round alike); Figure 6's stream is one K6 launch
+a chunk.
 """
 import importlib
 
@@ -46,12 +52,17 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core import (
     GreedySpec,
+    greedy_avg_select,
     greedy_chunk_slots,
+    greedy_map_naive,
     greedy_map_chunks,
     greedy_slot_state,
     greedy_slots_init,
+    mmr_select,
     state_splice,
 )
+from repro_torch.core.greedy_naive import greedy_map_naive_vmapped
+from repro_torch.figures import fig6_streaming
 from repro_torch.kernels import cuda
 from repro_torch.kernels.dpp_greedy import dpp_greedy
 from repro_torch.kernels.dpp_greedy import tiled
@@ -729,3 +740,57 @@ def test_scored_topk_kernel_refuses_oversized_blocks(card):
     first = torch.arange(16, dtype=torch.int32)
     assert idx.shape == (2, 16) and torch.equal(idx.cpu(), torch.stack(
         [first, first + 32768]))
+
+
+# ---------------------------------------------------------------------------
+# The paper's experiments on the card: the naive determinant greedy, the
+# reference diversifiers and the streaming figure
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+def test_naive_slogdet_on_card_matches_numpy_float64(card, seed):
+    """The card's batched-slogdet naive greedy in float64 selects the
+    numpy float64 determinant greedy's slate index for index (small,
+    well-separated inputs)."""
+    rng = np.random.default_rng(seed)
+    F = rng.standard_normal((40, 300))
+    F /= np.linalg.norm(F, axis=0, keepdims=True)
+    r = rng.uniform(0.5, 1.5, size=300)
+    L = (r[:, None] * (F.T @ F)) * r[None, :]
+    want, _ = greedy_map_naive(L, 15)
+    got = greedy_map_naive_vmapped(torch.from_numpy(L).cuda(), 15)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("theta", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("fn", [mmr_select, greedy_avg_select])
+def test_selectors_on_card_match_cpu(card, fn, theta, masked):
+    """MMR and greedy-avg are eager float32 elementwise ops, rounded the
+    same on the card and the CPU: the slates are equal index for index,
+    the tail past a mask with fewer than k items (index 0) included."""
+    rng = np.random.default_rng(3)
+    r = torch.from_numpy(rng.uniform(size=400).astype(np.float32))
+    F = rng.standard_normal((16, 400)).astype(np.float32)
+    F /= np.linalg.norm(F, axis=0, keepdims=True)
+    S = torch.from_numpy(F.T @ F)
+    mask = None
+    if masked:
+        mask = torch.zeros(400, dtype=torch.bool)
+        mask[torch.from_numpy(rng.choice(400, 12, replace=False))] = True
+    want = fn(r, S, 20, theta, mask)
+    got = fn(r.cuda(), S.cuda(), 20, theta,
+             None if mask is None else mask.cuda())
+    assert got.is_cuda
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_fig6_stream_is_one_k6_launch_per_chunk(card):
+    rows = fig6_streaming.run(2048, 32, 64, 8, 8, trials=1, device="cuda")
+    kernel = {r["name"]: r for r in rows}["kernel"]
+    assert kernel["fused_calls_per_chunk"] == 1.0
+    assert all(r["parity"] == "ok" for r in rows)
