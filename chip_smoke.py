@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the DPP rerank, DeepFM
-scoring into the rerank, the fused scoring top-c, and the paper's
-experiments.
+scoring into the rerank, the fused scoring top-c, the paper's
+experiments, and the continuous-batching router.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --resident-times   # K1, K2 alone (resident_times)
@@ -10,7 +10,7 @@ experiments.
 process for K7's profiler times: ``topk_device_times``.)
 
 Builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a),
-then runs thirteen phases through the port's entry points.  Phases 1-9
+then runs fourteen phases through the port's entry points.  Phases 1-9
 (``repro_torch.serving.Reranker(..., use_kernel=True).rerank`` and
 ``.stream``, ``repro_torch.core.greedy_map_chunks`` and
 ``greedy_chunk_slots``) run at the paper's §5.1 setup: D = 100
@@ -97,6 +97,35 @@ card through each figure's ``main`` (its CSV printed):
                       slate; the quickstart on K1.  Each figure's K1, K2,
                       K4 and K6 launches are counted and printed, and
                       added to the kernels' record.
+
+Phase 14 runs the continuous-batching router, ``Reranker.submit`` /
+``RerankRouter`` (``repro_torch.serving.router``), on the card:
+
+14. router:           (a) exact, phase 1's draw (D = 100, alpha = 3,
+                      eps = 1e-3): 192 single requests over a catalog of
+                      100,000 items, pools of 500..100,000 (some narrower
+                      than the 1000-column bucket), k in [25, 50], a 10%
+                      seen mask every third, four with a lapsed deadline;
+                      64 slots of capacity 50, chunk 8 (K5); the first 64
+                      in a burst, then 8 a pump; (b) the same windowed,
+                      w = 10, capacity 200, k in [100, 200], chunk 16
+                      (K6); every slate must equal its per-request rerank
+                      (K1 / K2) index for index and d_hist bit for bit or
+                      part at a certified float64 near-tie, and the plain
+                      chunk version's router slates; one launch a pump
+                      with active lanes (``router_chunks_launched_total``),
+                      the lifecycle counts the inputs force, no kernel
+                      build or load and one slot-state allocation; the
+                      pump's host wall by span, TTFC, fill, peak
+                      concurrency, the share of pumps whose next chunk was
+                      still running when the last was delivered, and
+                      K5 / K6 device time a launch are printed; (c)
+                      ``launch.serve_router`` on phase 10's DeepFM model:
+                      64 requests x 2000 candidates, shortlist 200, slate
+                      10, 16 slots, chunk 4, every slate (the warm set's
+                      too) against K1, ``rebuilds_after_warmup`` 0; (d)
+                      Figure 7 (``repro_torch.figures.fig7_serving``) at
+                      its --smoke size through its ``main`` and its gates.
 
 Each phase resets the kernels' launch counters right before the main-path
 call, reads them right after, and checks them and the mode recorded in
@@ -2035,6 +2064,315 @@ def run_paper_experiments(records):
           f"host wall", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the continuous-batching router (K5 / K6, K8) on the card
+# ---------------------------------------------------------------------------
+
+PUMP_SPANS = ("sync", "evict", "admit", "launch", "materialize")
+
+
+def router_requests(rng, catalog, n, k_lo, k_hi, lapsed):
+    """``n`` single requests over the first M rows of ``catalog`` (M, D)
+    on the card: M log-uniform in [500, 100,000] (some narrower than the
+    1000-column bucket), uniform scores, k in [k_lo, k_hi], a 10% seen
+    mask every third request, an already-lapsed deadline (1e-9 s) on the
+    requests ``lapsed``."""
+    from repro_torch.serving import RerankRequest
+
+    reqs = []
+    for i in range(n):
+        M = int(np.exp(rng.uniform(np.log(500), np.log(100_000))))
+        scores = rng.uniform(size=M).astype(np.float32)
+        mask = rng.uniform(size=M) >= 0.1 if i % 3 == 2 else None
+        reqs.append(RerankRequest(
+            scores=torch.from_numpy(scores).to("cuda"), feats=catalog[:M],
+            mask=None if mask is None else torch.from_numpy(mask).to("cuda"),
+            slate_size=int(rng.integers(k_lo, k_hi + 1)),
+            deadline=1e-9 if i in lapsed else None, rid=i))
+    return reqs
+
+
+def drive_router(rr, reqs, burst, per_pump):
+    """The router's main path: ``burst`` requests submitted at once, then
+    ``per_pump`` more before each pump, then pumps to the end.  Returns
+    (handles, peak slot occupancy, [chunk N+1 still running when chunk N
+    was delivered, for each pump that delivered one and launched the
+    next])."""
+    router = rr.router
+    handles = [rr.submit(r) for r in reqs[:burst]]
+    pending, peak, overlap, launched = list(reqs[burst:]), 0, [], 0
+    while pending or not all(h.done for h in handles):
+        for r in pending[:per_pump]:
+            handles.append(rr.submit(r))
+        del pending[:per_pump]
+        router.pump()
+        running = router.chunk_running  # read first: the card runs on
+        st = router.stats
+        if st.chunks_launched > launched > 0:
+            overlap.append(running)
+        launched = st.chunks_launched
+        peak = max(peak, st.slot_occupancy)
+    return handles, peak, overlap
+
+
+def router_run(fn):
+    """One router main-path run ``fn()`` with the launch counters, the
+    dispatch telemetry and a fresh observability session (metrics, spans,
+    rebuilds) set right before and read right after: (fn's result, the
+    launches, the kernel modes, the spans, the rebuild counters, host
+    wall)."""
+    from repro_torch import obs
+    from repro_torch.kernels import cuda
+    from repro_torch.obs.dispatch import REBUILD_COUNTERS
+
+    obs.disable()
+    obs.enable(obs.ObsConfig(enabled=True))
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = cuda.launch_counts()
+    reg = obs.registry()
+    modes = reg.counter("dpp_kernel_dispatch_total")._snapshot()
+    rebuilds = {name: reg.counter(name).total() for name in REBUILD_COUNTERS}
+    spans = obs.tracer().finished()
+    obs.disable()
+    return out, counts, modes, spans, rebuilds, wall
+
+
+def to_local(top_i, ids):
+    """Global candidate ids (numpy, -1 after a stop) -> positions in the
+    shortlist ``top_i`` (C,) on the card."""
+    inv = {int(x): i for i, x in enumerate(top_i.tolist())}
+    return torch.tensor([[inv[int(x)] if x >= 0 else -1 for x in ids]],
+                        device="cuda")
+
+
+def hold_slate(name, rr, req, got, want, window, bitwise):
+    """One router slate ``got`` against ``want`` ((ids, d_hist) numpy,
+    global ids): equal ids, or parting at a float64-certified near-tie
+    (``certify`` on the request's shortlist kernel); d_hist over the
+    agreeing prefix bit for bit (``bitwise``) or within rtol/atol.
+    Returns (diverged, max abs d_hist difference)."""
+    from repro_torch.serving.reranker import _shortlist_kernel
+
+    (gi, gd), (ei, ed) = got, want
+    p = len(gi) if np.array_equal(gi, ei) else int(np.nonzero(gi != ei)[0][0])
+    if p < len(gi):
+        cfg = rr.router._cfg_for(req)
+        mask = None if req.mask is None else req.mask[None]
+        V, m, top_i = _shortlist_kernel(req.scores[None], req.feats, cfg,
+                                        mask)
+        certify(name, V, m, to_local(top_i[0], gi), to_local(top_i[0], ei),
+                window, EPS)
+        print(f"  {name}: parts at step {p} ({gi[p]} vs {ei[p]}) at a "
+              f"certified float64 near-tie", flush=True)
+    err = float(np.abs(gd[:p] - ed[:p]).max()) if p else 0.0
+    if bitwise:
+        check(err == 0.0, f"{name}: d_hist differs by {err} where the ids "
+                          f"agree")
+    else:
+        check(np.allclose(gd[:p], ed[:p], rtol=RTOL, atol=ATOL),
+              f"{name}: d_hist beyond rtol {RTOL} / atol {ATOL} ({err})")
+    return p < len(gi), err
+
+
+def pump_split(spans):
+    """Mean host microseconds a pump, of ``router.pump`` and each child
+    span, from the tracer's spans."""
+    pumps = [s["dur_us"] for s in spans if s["name"] == "router.pump"]
+    parts = {p: sum(s["dur_us"] for s in spans
+                    if s["name"] == f"router.pump.{p}") / len(pumps)
+             for p in PUMP_SPANS}
+    return statistics.fmean(pumps), parts, len(pumps)
+
+
+def run_router_phase(records, rng, catalog, part, window, cap, k_lo, k_hi,
+                     chunk):
+    """Phase 14 (a) exact or (b) windowed: 192 requests through
+    ``Reranker.submit`` on 64 slots, held against the per-request
+    ``rerank`` (K1 / K2) and against the router on the plain chunk
+    version; counters, lifecycle and rebuilds checked; K5 / K6 device
+    time a launch."""
+    from repro_torch.serving import DPPRerankConfig, Reranker, RouterConfig
+
+    n, slots, burst, per_pump, bucket = 192, 64, 64, 8, 1000
+    lapsed = set(int(x) for x in rng.choice(n, size=4, replace=False))
+    kernel = "fused_chunk_exact" if window is None else "fused_chunk_windowed"
+    name = f"phase 14({part}) router {'exact' if window is None else 'windowed'}"
+    reqs = router_requests(rng, catalog, n, k_lo, k_hi, lapsed)
+    cfg = DPPRerankConfig(slate_size=cap, shortlist=bucket, alpha=ALPHA,
+                          eps=EPS, window=window, use_kernel=True)
+    rcfg = RouterConfig(slots=slots, chunk_size=chunk, max_queue=n,
+                        max_candidates=bucket)
+    line = chunk_tiles(bucket, window or cap, window is not None, slots,
+                       catalog.device)[0]
+    widths = [min(r.num_candidates, bucket) for r in reqs]
+    print(f"[{name}] {n} requests (pools {min(r.num_candidates for r in reqs)}"
+          f"..{max(r.num_candidates for r in reqs)}, "
+          f"{sum(w < bucket for w in widths)} narrower than the bucket; k in "
+          f"[{k_lo}, {k_hi}]; a seen mask every third; deadlines lapsed: "
+          f"{sorted(lapsed)}), {slots} slots, capacity {cap}, bucket "
+          f"{bucket}, chunk {chunk}, window {window}; the first {burst} in a "
+          f"burst, then {per_pump} a pump: {line}", flush=True)
+
+    def main():
+        rr = Reranker(cfg, router_config=rcfg, device="cuda")
+        return rr, drive_router(rr, reqs, burst, per_pump)
+
+    (rr, (handles, peak, overlap)), counts, modes, spans, rebuilds, wall = \
+        router_run(main)
+    st = rr.router.stats
+    launches = st.chunks_launched
+    busy = sum(1 for s in spans if s["name"] == "router.pump.launch"
+               and s["attrs"]["lanes"] > 0)
+    check(counts == {kernel: launches} and busy == launches,
+          f"{name}: launches {counts}, router_chunks_launched_total "
+          f"{launches}, pumps with active lanes {busy}")
+    check(modes == {f"mode=fused_chunk,windowed={window is not None}":
+                    st.admitted + 1},
+          f"{name}: dispatch telemetry {modes}, expected one fused_chunk "
+          f"state a request and the slot batch's")
+    check(rebuilds == {"kernel_builds_total": 0,
+                       "kernel_module_loads_total": 0,
+                       "slot_state_allocs_total": 1},
+          f"{name}: rebuilds {rebuilds}: expected no build or load and the "
+          f"router's one slot-state allocation")
+    records.setdefault(kernel, {"launches": 0})["launches"] += launches
+
+    # every slate against the per-request rerank (K1 / K2) on the card
+    ref = [tuple(x.cpu().numpy() for x in rr.rerank(r)) for r in reqs]
+    stops = sum(1 for i, (ei, _) in enumerate(ref)
+                if i not in lapsed and (ei < 0).any())
+    want = dict(submitted=n, admitted=n - len(lapsed),
+                completed=n - len(lapsed), timed_out=len(lapsed),
+                eps_stopped=stops, rejected=0)
+    got = {key: getattr(st, key) for key in want}
+    check(got == want, f"{name}: lifecycle {got}, the inputs force {want}")
+    diverged = 0
+    for i, (h, r) in enumerate(zip(handles, reqs)):
+        if i in lapsed:
+            check(h.timed_out and len(h.slate()[0]) == 0,
+                  f"{name}: request {i} (lapsed) was served")
+            continue
+        check(h.done and not h.timed_out, f"{name}: request {i} not served")
+        diverged += hold_slate(f"{name} request {i}", rr, r, h.slate(),
+                               ref[i], window, True)[0]
+    print(f"  main path: {wall * 1e3:.1f} ms host wall, launches {counts} "
+          f"(one a pump with active lanes), lifecycle {got}; rebuilds "
+          f"{rebuilds}; {n - len(lapsed) - diverged} of {n - len(lapsed)} "
+          f"slates equal the per-request rerank ({'K1' if window is None else 'K2'}) "
+          f"index for index, d_hist bit for bit, the rest certified",
+          flush=True)
+
+    # the kernel run's slates against the same router on the plain version
+    (_, (plain, _, _)), _ = with_chunk_kernel(kernel, main, plain=True)
+    torch.cuda.synchronize()
+    err = 0.0
+    for i, (h, p) in enumerate(zip(handles, plain)):
+        if i not in lapsed:
+            err = max(err, hold_slate(f"{name} K{5 if window is None else 6}"
+                                      f" vs plain, request {i}", rr, reqs[i],
+                                      h.slate(), p.slate(), window,
+                                      False)[1])
+    rec = records[kernel]
+    rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+    print(f"  {kernel} vs plain at the router's shapes: every slate equal "
+          f"or certified, d_hist max abs err {err:.3g}", flush=True)
+
+    mean, parts, npump = pump_split(spans)
+    ttfc = np.array([h.ttfc for h in handles if h.ttfc is not None])
+    print(f"  host wall a pump: {mean:.1f} us over {npump} pumps ("
+          + ", ".join(f"{p} {parts[p]:.1f}" for p in PUMP_SPANS)
+          + " us); TTFC mean {:.3f} ms, p99 {:.3f} ms; fill ratio {:.3f}; "
+          "peak concurrency {}; chunk N+1 still running when chunk N was "
+          "delivered in {} of {} pumps ({:.2f})".format(
+              ttfc.mean() * 1e3, np.percentile(ttfc, 99) * 1e3,
+              st.fill_ratio, peak, sum(overlap), len(overlap),
+              sum(overlap) / max(len(overlap), 1)), flush=True)
+    dev = device_ms(lambda: main(), kernel, launches, reps=3)
+    print(f"  {kernel} device time by torch.profiler: {ms_text(dev)} for "
+          f"{launches} launches"
+          + ("" if dev is None else f", {dev / launches:.4f} ms a launch"),
+          flush=True)
+
+
+def run_router_serve(records, model):
+    """Phase 14 (c): ``launch.serve_router`` at DeepFM's published width
+    on phase 10's model: 64 requests x 2000 candidates, shortlist 200,
+    slate 10, 16 slots, chunk 4; every slate (the warm set's too) against
+    the per-request ``rerank`` (K1)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve_router
+
+    name = "phase 14(c) serve_router"
+    cfg = get_arch("deepfm").config
+    # router_run's observability session is the one the launcher's
+    # rebuild count reads (its --metrics-out would install the same)
+    args = serve_router.parser().parse_args([
+        "--no-reduced", "--requests", "64", "--candidates", "2000",
+        "--shortlist", "200", "--slate", "10", "--slots", "16", "--chunk",
+        "4", "--qps", "1000", "--parity-sample", "64", "--use-kernel",
+    ])
+    print(f"[{name}] deepfm (published width), {args.requests} requests x "
+          f"{args.candidates} candidates, shortlist {args.shortlist}, slate "
+          f"{args.slate} (k in [{args.slate // 2}, {args.slate}]), "
+          f"{args.slots} slots, chunk {args.chunk}, {args.qps:g} requests/s "
+          f"offered", flush=True)
+    dev = torch.device("cuda")
+    (out, rr, pairs), counts, _, _, _, wall = router_run(
+        lambda: serve_router.serve(model, cfg, args, dev))
+    st = rr.router.stats
+    check(counts.get("fused_chunk_exact") == st.chunks_launched
+          and counts.get("fm_interaction") == 1,
+          f"{name}: launches {counts}, router_chunks_launched_total "
+          f"{st.chunks_launched}")
+    check(out.get("rebuilds_after_warmup") == 0,
+          f"{name}: rebuilds_after_warmup {out.get('rebuilds_after_warmup')}")
+    check(out["completed"] == args.requests and out["timed_out"] == 0,
+          f"{name}: {out}")
+    check(len(pairs) == args.requests + args.slots,
+          f"{name}: {len(pairs)} slates held")
+    diverged = sum(hold_slate(f"{name} request {req.rid}", rr, req,
+                              h.slate(), (ei, ed), None, True)[0]
+                   for req, h, ei, ed in pairs)
+    for kernel in ("fused_chunk_exact", "fm_interaction"):
+        records.setdefault(kernel, {"launches": 0})["launches"] += \
+            counts[kernel]
+    print(f"  main path: {wall * 1e3:.1f} ms host wall (scoring, warm set, "
+          f"open loop, parity reranks); launches {counts} (the "
+          f"{counts.get('dpp_greedy_resident', 0)} K1 launches are the "
+          f"parity reranks); {len(pairs) - diverged} of {len(pairs)} slates "
+          f"equal the per-request rerank index for index, d_hist bit for "
+          f"bit, the rest certified", flush=True)
+    print("  serve_router " + json.dumps(out), flush=True)
+
+
+def run_router(records, rng, model):
+    """Phase 14: the router on the card: (a) exact, (b) windowed, (c)
+    ``serve_router`` on DeepFM, (d) Figure 7 at its --smoke size."""
+    from repro_torch.figures import fig7_serving
+
+    catalog = torch.from_numpy(
+        rng.standard_normal(size=(100_000, D), dtype=np.float32)).to("cuda")
+    catalog /= catalog.norm(dim=1, keepdim=True)
+    run_router_phase(records, rng, catalog, "a", None, 50, 25, 50, 8)
+    run_router_phase(records, rng, catalog, "b", 10, 200, 100, 200, 16)
+    del catalog
+    run_router_serve(records, model)
+    print("[phase 14(d) fig7] Figure 7 at its --smoke size, through its "
+          "main and its gates", flush=True)
+    _, counts = figure_run("fig7", lambda: fig7_serving.main(
+        fast_mode=True, device="cuda"))
+    check(set(counts) == {"fused_chunk_exact", "dpp_greedy_resident"},
+          f"phase 14(d) fig7: launches {counts}")
+    records["fused_chunk_exact"]["launches"] += counts["fused_chunk_exact"]
+    print(f"  fig7: launches {counts} (K5 the router and the serial "
+          f"streams, every slate held by the figure; K1 its reference "
+          f"reranks)", flush=True)
+
+
 def resident_times():
     """``--resident-times``: K1 and K2 alone, one launch each at phases 1
     and 2's kernel shapes (the same seeded shortlists: B = 64, C = 1000,
@@ -2149,9 +2487,10 @@ def main() -> int:
     run_retrieval(records, model, cfg)
     recsys_reference_check(model, cfg, user, cand, scores, slates, feats,
                            rr_cfg)
-    del model
     run_scored_topk(records, pool, pool_state)
     run_paper_experiments(records)
+    run_router(records, rng, model.to("cuda"))
+    del model
     print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = []

@@ -68,6 +68,7 @@ from repro_torch.core.streaming import (
     greedy_state_rescore,
     greedy_step,
     slot_pad_v,
+    slot_state_widen,
     state_evict,
     state_splice,
 )
@@ -98,6 +99,7 @@ __all__ = [
     "greedy_state_rescore",
     "greedy_step",
     "slot_pad_v",
+    "slot_state_widen",
     "state_evict",
     "state_splice",
     "dpp_greedy_windowed",

@@ -56,7 +56,7 @@ from repro_torch.core.greedy_chol import (
 )
 from repro_torch.core.windowed import greedy_step_windowed
 from repro_torch.device import resolve_device
-from repro_torch.obs.dispatch import record_chunk
+from repro_torch.obs.dispatch import record_chunk, record_slot_state_alloc
 
 
 class GreedyState(NamedTuple):
@@ -415,6 +415,30 @@ def greedy_slot_state(spec, V, mask=None, dtype=None) -> GreedyState:
     return _init_torch(spec.k, spec.window, None, V, mask)
 
 
+def slot_state_widen(spec, state: GreedyState, M: int) -> GreedyState:
+    """A fresh single-request slot state (``greedy_slot_state`` on the
+    request's own ``V (D, m)``) widened to ``M >= m`` candidate columns:
+    the new columns parked (gains at -inf, Cholesky columns zero), the
+    request's own columns untouched.  Its gains are then bit for bit
+    those a whole-slate call on the unpadded ``V`` starts from (the
+    gains reduction on the card may round differently at another
+    width)."""
+    pad = M - state.d2.shape[-1]
+    if pad < 0:
+        raise ValueError(
+            f"cannot widen a state of {state.d2.shape[-1]} columns to {M}"
+        )
+    if pad == 0:
+        return state
+    # the torch exact state keeps columns C (M, k), every other C (R, M)
+    torch_exact = spec.backend != "kernel" and state.win.shape[-1] == 0
+    C = torch.nn.functional.pad(
+        state.C, (0, 0, 0, pad) if torch_exact else (0, pad)
+    )
+    d2 = torch.cat([state.d2, state.d2.new_full((pad,), NEG_INF)])
+    return state._replace(C=C, d2=d2)
+
+
 def slot_pad_v(spec, V, state):
     """``V`` in the slot executor's geometry.  The port pads nothing (the
     kernels mask their own ragged edge), so this is the identity, kept
@@ -442,6 +466,7 @@ def greedy_slots_init(spec, slots: int, D: int, M: int,
     if slots < 1:
         raise ValueError(f"slots must be >= 1, got {slots}")
     device = resolve_device(device)
+    record_slot_state_alloc(slots=slots, M=M)
     Vz = torch.zeros((D, M), dtype=dtype, device=device)
     single = greedy_slot_state(
         spec, Vz, mask=torch.zeros((M,), dtype=torch.bool, device=device)

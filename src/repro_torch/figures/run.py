@@ -1,6 +1,6 @@
-"""Run the port's five paper figures, print their CSV and write one
+"""Run the port's figures, print their CSV and write one
 ``BENCH_<fig>.json`` artifact each; the counterpart of ``repro``'s
-``benchmarks/run.py`` for Figures 1-4 and 6.
+``benchmarks/run.py`` for Figures 1-4, 6 and 7.
 
   python -m repro_torch.figures.run [--smoke | --full] [--device cuda|cpu] [--out-dir DIR]
 
@@ -37,6 +37,7 @@ from repro_torch.figures import (
     fig3_tradeoff,
     fig4_windowed,
     fig6_streaming,
+    fig7_serving,
 )
 from repro_torch.figures.common import arg_parser, device_name
 
@@ -53,6 +54,8 @@ FIGURES = (
      "flat in N)", fig4_windowed.main),
     ("fig6", "Figure 6: streaming slate emission, time-to-first-chunk vs "
      "whole", fig6_streaming.main),
+    ("fig7", "Figure 7: continuous-batching serving, router vs serial "
+     "streaming and an open-loop sweep", fig7_serving.main),
 )
 
 

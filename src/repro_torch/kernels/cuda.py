@@ -10,6 +10,9 @@ runs at import time.
 
 Every kernel wrapper calls :func:`count_launch` right where it launches
 its kernel, so a run can show which kernels its main path went through.
+Each build and each library load is also counted in the observability
+registry (``obs.dispatch.record_kernel_build`` / ``record_module_load``)
+while a session is installed.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 import torch
+
+from repro_torch.obs.dispatch import record_kernel_build, record_module_load
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -88,6 +93,7 @@ def build(sources: Iterable[Path]) -> Dict[Path, Path]:
             failed.append(f"{src}:\n{log}")
             continue
         os.replace(tmp, lib)
+        record_kernel_build(src.name)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return out
@@ -113,6 +119,7 @@ def library(src: Path, signatures: dict) -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _LIBS[src] = lib
+        record_module_load(src.name)
     return lib
 
 

@@ -1,18 +1,98 @@
-"""Dispatch telemetry: which greedy path actually ran.
+"""Dispatch and rebuild telemetry: which greedy path actually ran, and
+what the port re-specialised.
 
-Small helpers the greedy dispatch layers call to count the kernel
-execution mode ``kernels/dpp_greedy/ops.py`` picked (resident / tiled,
-and the ``TilePolicy`` tile and shared-memory numbers behind it), the
-backend ``greedy_map`` routed to, the resumable chunk launches of the
-streaming layer, and the launched work in greedy steps and per-step
-marginal evaluations.  All helpers no-op (one global read)
-when observability is disabled and consume only shapes and config.
+Two halves:
+
+* **Rebuild monitoring** — the counterpart of ``repro``'s
+  ``CompileMonitor``.  Where JAX re-specialises by compiling a new
+  program for a new shape, the port re-specialises in three ways, each
+  counted here: an ``nvcc`` build of a kernel source
+  (``kernel_builds_total``), a load of a built kernel library
+  (``kernel_module_loads_total``, both from
+  ``repro_torch.kernels.cuda``) and an allocation of a slot-batched
+  greedy state (``slot_state_allocs_total``, from
+  ``core.streaming.greedy_slots_init``: the router's device geometry).
+  :class:`RebuildMonitor` brackets a warmup with ``mark()`` /
+  ``since_mark()``: "the router never rebuilds after warmup" is
+  ``since_mark() == 0`` (``launch.serve_router``'s
+  ``rebuilds_after_warmup``).
+* **Dispatch recording** — small helpers the greedy dispatch layers call
+  to count the kernel execution mode ``kernels/dpp_greedy/ops.py``
+  picked (resident / tiled, and the ``TilePolicy`` tile and
+  shared-memory numbers behind it), the backend ``greedy_map`` routed
+  to, the resumable chunk launches of the streaming layer, and the
+  launched work in greedy steps and per-step marginal evaluations.
+
+All helpers no-op (one global read) when observability is disabled and
+consume only shapes and config.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import repro_torch.obs as _obs
+
+REBUILD_COUNTERS = (
+    "kernel_builds_total",
+    "kernel_module_loads_total",
+    "slot_state_allocs_total",
+)
+
+
+def record_kernel_build(source: str) -> None:
+    """One ``nvcc`` build of the kernel source ``source``."""
+    reg = _obs.registry()
+    if reg is None:
+        return
+    reg.counter(
+        "kernel_builds_total", "kernel sources compiled by nvcc"
+    ).inc(source=source)
+
+
+def record_module_load(source: str) -> None:
+    """One load of the built library of ``source`` into the process."""
+    reg = _obs.registry()
+    if reg is None:
+        return
+    reg.counter(
+        "kernel_module_loads_total", "built kernel libraries loaded"
+    ).inc(source=source)
+
+
+def record_slot_state_alloc(*, slots: int, M: int) -> None:
+    """One slot-batched greedy state of ``slots`` lanes over ``M``
+    candidate columns allocated (``greedy_slots_init``)."""
+    reg = _obs.registry()
+    if reg is None:
+        return
+    reg.counter(
+        "slot_state_allocs_total",
+        "slot-batched greedy states allocated (the router's device geometry)",
+    ).inc(slots=slots, M=M)
+
+
+class RebuildMonitor:
+    """Kernel builds, module loads and slot-state allocations in one
+    registry, bracketed around a warmup (``repro``'s ``CompileMonitor``
+    counts jit cache misses the same way)."""
+
+    def __init__(self, registry):
+        self.registry = registry
+        self._mark = 0.0
+
+    def rebuilds(self) -> float:
+        """Builds + loads + slot-state allocations so far."""
+        return sum(self.registry.counter(name).total()
+                   for name in REBUILD_COUNTERS)
+
+    def mark(self) -> None:
+        """Remember the current count (call when warmup is done)."""
+        self._mark = self.rebuilds()
+
+    def since_mark(self) -> float:
+        """Rebuilds since :meth:`mark`: 0 proves a serving loop ran on
+        the kernels and the device state it had already built."""
+        return self.rebuilds() - self._mark
 
 
 def record_kernel_dispatch(

@@ -12,9 +12,11 @@ tensors) onto the session's device and dispatches by request shape:
                         out through the shortlist and the greedy kernels.
 
 ``stream`` emits one request's slate in chunks as it is selected (one
-K5/K6 launch per chunk with ``use_kernel``).  ``session`` and ``submit``
-are not ported yet (ROADMAP queue 1 items 8 and 7) and raise
-``NotImplementedError``.
+K5/K6 launch per chunk with ``use_kernel``).  ``submit`` hands a single
+request to the session's continuous-batching router
+(``repro_torch.serving.router``: one K5/K6 launch per cycle for every
+live request) and returns a ``SlateHandle``.  ``session`` is not ported
+yet (ROADMAP queue 1 item 8) and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -48,8 +50,10 @@ class RerankRequest:
     ``feats`` is ``(M, D)`` — shared across a batch — or per-user
     ``(B, M, D)``.  ``slate_size`` / ``shortlist`` default to the session
     config's values; ``mask`` (``(M,)`` or ``(B, M)``) marks selectable
-    candidates; ``deadline`` is a latency budget in seconds (honoured by
-    the router, not ported yet); ``rid`` is an opaque caller tag.
+    candidates; ``deadline`` is a latency budget in seconds, honoured by
+    the router (timeout eviction returns the partial slate with
+    ``timed_out=True``); ``rid`` is an opaque caller tag echoed back on
+    router handles.
 
     Validates at construction.
     """
@@ -136,16 +140,20 @@ class Reranker:
 
     ``device`` defaults to the card; a CUDA device without one raises
     here, at construction.  Request arrays (numpy or tensors) are moved
-    onto it by ``rerank``.
+    onto it by ``rerank``, ``stream`` and the router.
+    ``router_config`` shapes the router behind ``submit``.
     """
 
-    def __init__(self, cfg: DPPRerankConfig, device="cuda"):
+    def __init__(self, cfg: DPPRerankConfig, router_config=None,
+                 device="cuda"):
         if not isinstance(cfg, DPPRerankConfig):
             raise TypeError(
                 f"Reranker takes a DPPRerankConfig, got {type(cfg).__name__}"
             )
         self.cfg = cfg
         self.device = resolve_device(device)
+        self._router_config = router_config
+        self._router = None
         if cfg.obs is not None:  # enabled=False configs are a no-op
             obs.enable(cfg.obs)
 
@@ -262,11 +270,27 @@ class Reranker:
             "ported yet (ROADMAP queue 1 item 8)"
         )
 
+    @property
+    def router(self):
+        """The session's continuous-batching router on the session's
+        device (created lazily on first use; see
+        ``repro_torch.serving.router``)."""
+        if self._router is None:
+            from repro_torch.serving.router import RerankRouter, RouterConfig
+
+            self._router = RerankRouter(
+                self.cfg, self._router_config or RouterConfig(),
+                device=self.device,
+            )
+        return self._router
+
     def submit(self, req: RerankRequest, **kwargs):
-        raise NotImplementedError(
-            "Reranker.submit (the continuous-batching router) is not "
-            "ported yet (ROADMAP queue 1 item 7)"
-        )
+        """Submit one request to the session's continuous-batching
+        router; returns a ``SlateHandle`` immediately.  The request
+        joins the shared micro-batch at the next free slot: call
+        ``handle.result()`` (or pump the router) to drive it."""
+        req = self._as_request(req, kwargs)
+        return self.router.submit(req)
 
 
 def _rerank_impl(scores, feats, cfg, mask):

@@ -42,6 +42,13 @@ selects the numpy float64 oracle's slate index for index; MMR and
 greedy-avg on the card equal their CPU runs index for index (eager
 float32 elementwise ops round alike); Figure 6's stream is one K6 launch
 a chunk.
+
+The continuous-batching router: heterogeneous requests (pools narrower
+and wider than the bucket, masks) on K5 and K6 equal their per-request
+rerank, one launch a pump; the ``stopped`` flags a pump decides on are
+chunk N's, copied to pinned memory before chunk N+1, the evictions and
+the admissions update the state's flags in place; and ``slots`` past
+the card's co-residency are refused, naming the largest that fits.
 """
 import importlib
 
@@ -794,3 +801,113 @@ def test_fig6_stream_is_one_k6_launch_per_chunk(card):
     kernel = {r["name"]: r for r in rows}["kernel"]
     assert kernel["fused_calls_per_chunk"] == 1.0
     assert all(r["parity"] == "ok" for r in rows)
+
+
+# ---------------------------------------------------------------------------
+# The continuous-batching router on K5 / K6
+# ---------------------------------------------------------------------------
+
+
+def _router_requests(seed, n, D, bucket):
+    """Heterogeneous single requests: pools narrower and wider than the
+    bucket, every third with a seen mask."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n):
+        M = int(rng.integers(bucket // 2, 3 * bucket))
+        feats = rng.standard_normal((M, D)).astype(np.float32)
+        feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+        mask = rng.uniform(size=M) > 0.1 if i % 3 == 2 else None
+        reqs.append(RerankRequest(
+            scores=rng.uniform(size=M).astype(np.float32), feats=feats,
+            mask=mask, slate_size=int(rng.integers(4, 13)), rid=i))
+    return reqs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 4])
+def test_router_on_card_matches_per_request_rerank(card, window):
+    from repro_torch.serving import RouterConfig
+
+    cap, chunk, slots, bucket = 12, 4, 4, 256
+    cfg = DPPRerankConfig(use_kernel=True, shortlist=bucket, slate_size=cap,
+                          alpha=3.0, window=window, eps=1e-6)
+    rr = Reranker(cfg, router_config=RouterConfig(
+        slots=slots, chunk_size=chunk, max_candidates=bucket), device="cuda")
+    reqs = _router_requests(7, 10, 32, bucket)
+    want = [tuple(x.cpu() for x in rr.rerank(r)) for r in reqs]
+    cuda.reset_launch_counts()
+    handles = [rr.submit(r) for r in reqs]
+    rr.router.drain()
+    kernel = "fused_chunk_exact" if window is None else \
+        "fused_chunk_windowed"
+    assert cuda.launch_counts() == {kernel: rr.router.stats.chunks_launched}
+    for h, (ei, ed) in zip(handles, want):
+        gi, gd = h.result()
+        assert torch.equal(torch.from_numpy(gi), ei)
+        torch.testing.assert_close(torch.from_numpy(gd), ed, rtol=RTOL,
+                                   atol=ATOL)
+    assert rr.router.stats.completed == len(reqs)
+
+
+@pytest.mark.gpu
+def test_router_delivers_stopped_flags_from_before_the_next_chunk(card):
+    """The pinned copy of chunk N's ``stopped`` is what chunk N left,
+    though chunk N+1, the evictions and the admissions update the
+    state's flags in place before it is read."""
+    from repro_torch.serving import RouterConfig
+
+    rng = np.random.default_rng(11)
+    cfg = DPPRerankConfig(use_kernel=True, shortlist=64, slate_size=16,
+                          alpha=3.0, eps=0.05)
+    rr = Reranker(cfg, router_config=RouterConfig(
+        slots=3, chunk_size=2, max_candidates=64), device="cuda")
+    for i in range(9):  # ranks 1..9: lanes stop at different chunks
+        f = rng.standard_normal((64, 12)).astype(np.float32)
+        f[:, 1 + i:] = 0.0
+        f /= np.linalg.norm(f, axis=1, keepdims=True)
+        rr.submit(RerankRequest(scores=rng.uniform(size=64).astype(
+            np.float32), feats=f))
+    r, changed = rr.router, 0
+    r.pump()
+    while r._inflight is not None:
+        launched = r._inflight
+        torch.cuda.synchronize()
+        left = r._state.stopped.cpu().clone()  # what chunk N left
+        r.pump()  # evict, admit, launch chunk N+1
+        torch.cuda.synchronize()
+        assert torch.equal(launched.stopped, left)
+        changed += int(not torch.equal(r._state.stopped.cpu(), left))
+    assert changed > 0  # the state's own flags did move under the copy
+    assert r.stats.completed == 9 and r.stats.eps_stopped > 0
+
+
+@pytest.mark.gpu
+def test_router_refuses_slots_past_the_card_co_residency(card):
+    from repro_torch.serving import RouterConfig
+    from repro_torch.serving.router import check_slots
+    from repro_torch.kernels.dpp_greedy.tiled import chunk_capacity
+
+    D, bucket, k = 100, 1000, 50
+    cfg = DPPRerankConfig(use_kernel=True, shortlist=bucket, slate_size=k,
+                          alpha=3.0)
+    rng = np.random.default_rng(2)
+    feats = rng.standard_normal((2000, D)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    req = RerankRequest(scores=rng.uniform(size=2000).astype(np.float32),
+                        feats=feats)
+    rr = Reranker(cfg, router_config=RouterConfig(
+        slots=4096, chunk_size=8, max_candidates=bucket), device="cuda")
+    with pytest.raises(ValueError, match="largest slots that fits is") as e:
+        rr.submit(req)
+    largest = int(str(e.value).rsplit(" ", 1)[1])
+    assert 1 <= largest < 4096 and not rr.router._queue
+    capacity = lambda smem: chunk_capacity(False, smem, "cuda")  # noqa: E731
+    with pytest.raises(ValueError):
+        check_slots(largest + 1, D, bucket, k, False, None, capacity)
+    ok = Reranker(cfg, router_config=RouterConfig(
+        slots=largest, chunk_size=8, max_candidates=bucket), device="cuda")
+    cuda.reset_launch_counts()
+    ids, _ = ok.submit(req).result()
+    assert cuda.launch_counts()["fused_chunk_exact"] >= 1
+    assert torch.equal(torch.from_numpy(ids), ok.rerank(req)[0].cpu())

@@ -177,10 +177,17 @@ def test_config_validation(kw, err):
 
 @pytest.mark.parametrize("verb", ["session", "submit"])
 def test_unported_verbs_raise(verb):
+    """``session`` still raises, naming its ROADMAP item; ``submit`` is
+    ported (the router) and now serves the request's rerank slate."""
     rr = ts.Reranker(ts.DPPRerankConfig(), device="cpu")
     scores, feats, _ = _data(8, M=20)
+    req = ts.RerankRequest(scores=scores, feats=feats)
+    if verb == "submit":
+        ids, _ = rr.submit(req).result()
+        assert np.array_equal(ids, rr.rerank(req)[0].numpy())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(rr, verb)(ts.RerankRequest(scores=scores, feats=feats))
+        getattr(rr, verb)(req)
 
 
 def test_reranker_type_errors():
