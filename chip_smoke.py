@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the DPP rerank, DeepFM
 scoring into the rerank, the fused scoring top-c, the paper's
-experiments, and the continuous-batching router.
+experiments, the continuous-batching router and session-aware
+incremental rerank.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --resident-times   # K1, K2 alone (resident_times)
@@ -10,7 +11,7 @@ experiments, and the continuous-batching router.
 process for K7's profiler times: ``topk_device_times``.)
 
 Builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a),
-then runs fourteen phases through the port's entry points.  Phases 1-9
+then runs fifteen phases through the port's entry points.  Phases 1-9
 (``repro_torch.serving.Reranker(..., use_kernel=True).rerank`` and
 ``.stream``, ``repro_torch.core.greedy_map_chunks`` and
 ``greedy_chunk_slots``) run at the paper's §5.1 setup: D = 100
@@ -126,6 +127,36 @@ Phase 14 runs the continuous-batching router, ``Reranker.submit`` /
                       too) against K1, ``rebuilds_after_warmup`` 0; (d)
                       Figure 7 (``repro_torch.figures.fig7_serving``) at
                       its --smoke size through its ``main`` and its gates.
+
+Phase 15 runs session-aware incremental rerank, ``Reranker.session`` /
+``RerankSession`` (``repro_torch.serving.session``), on K6 at phase 1's
+setup (a 100,000-item catalog, shortlist 1000, D = 100, alpha = 3,
+eps = 1e-3), window 10, chunk 8, capacity 2000 (888,045 B of device
+state a session):
+
+15. sessions:         (a) 32 sessions scroll 4 chunks each, round robin:
+                      each session's 32 items equal its K2 rerank index
+                      for index and d_hist bit for bit, and K6 is held
+                      against its plain version on the same sessions;
+                      K6's device time a session launch; (b) extend(128)
+                      and rescore(64) interleaved with scrolls on them,
+                      every post-delta chunk against the float64
+                      conditional greedy over the host mirrors (parting
+                      only at a certified near-tie), and a rank-2 session
+                      (eps 0.05) that stops, launches nothing while
+                      stopped and is revived by an extend; (c) the 32
+                      requests under budget_bytes = 8 MiB (9 resident)
+                      against a store that never evicts: every chunk
+                      equal to the control's, the control's against K2
+                      and float64, resident bytes within the budget plus
+                      one session, the session metrics printed; (d)
+                      Figure 10 (``repro_torch.figures.fig10_session``) at
+                      its --smoke size through its ``main`` and its
+                      parity and latency gates; (e) ``examples/
+                      serve_recsys.py``'s ``session_demo`` against the
+                      same demo on the CPU.  One K6 launch a live
+                      ``next_chunk``, none for a stopped session; each
+                      verb's host wall from its span.
 
 Each phase resets the kernels' launch counters right before the main-path
 call, reads them right after, and checks them and the mode recorded in
@@ -2230,10 +2261,9 @@ def run_router_phase(records, rng, catalog, part, window, cap, k_lo, k_hi,
     check(counts == {kernel: launches} and busy == launches,
           f"{name}: launches {counts}, router_chunks_launched_total "
           f"{launches}, pumps with active lanes {busy}")
-    check(modes == {f"mode=fused_chunk,windowed={window is not None}":
-                    st.admitted + 1},
-          f"{name}: dispatch telemetry {modes}, expected one fused_chunk "
-          f"state a request and the slot batch's")
+    check(modes == {f"mode=fused_chunk,windowed={window is not None}": 1},
+          f"{name}: dispatch telemetry {modes}, expected the slot batch's "
+          f"one fused_chunk decision (admission writes a lane in place)")
     check(rebuilds == {"kernel_builds_total": 0,
                        "kernel_module_loads_total": 0,
                        "slot_state_allocs_total": 1},
@@ -2373,6 +2403,467 @@ def run_router(records, rng, model):
           f"reranks)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: session-aware incremental rerank (K6) on the card
+# ---------------------------------------------------------------------------
+
+SESSION_VERBS = ("resume", "extend", "rescore", "rebuild", "evict")
+K6 = "fused_chunk_windowed"
+K2 = "dpp_greedy_resident_windowed"
+SESSION_CAP, SESSION_CHUNK, SESSION_W = 2000, 8, 10
+
+
+def session_run(fn):
+    """One session main-path run ``fn()`` with the launch counters and a
+    fresh observability session set right before and read right after:
+    (fn's result, the launches, the metrics snapshot, the spans, host
+    wall)."""
+    from repro_torch import obs
+    from repro_torch.kernels import cuda
+
+    obs.disable()
+    obs.enable(obs.ObsConfig(enabled=True))
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = cuda.launch_counts()
+    snap = obs.registry().snapshot()
+    spans = obs.tracer().finished()
+    obs.disable()
+    return out, counts, snap, spans, wall
+
+
+def plain_launchers(fn):
+    """``fn()`` with every chunk launcher built in it (a session's,
+    ``kernels.dpp_greedy.ops.chunk_launcher``) running its kernel's plain
+    version on the same operands instead of the kernel."""
+    from repro_torch.kernels.dpp_greedy import ops
+    from repro_torch.kernels.dpp_greedy import tiled as tm
+
+    def plain(V, C, d2, t, stopped, win, chunk, eps, tile_m, vres=False):
+        if win is None:
+            return lambda: tm.fused_chunk_exact_plain(V, C, d2, t, stopped,
+                                                      chunk, eps)
+        return lambda: tm.fused_chunk_windowed_plain(V, C, d2, t, stopped,
+                                                     win, chunk, eps)
+
+    real = ops.chunk_launcher
+    ops.chunk_launcher = plain
+    try:
+        return fn()
+    finally:
+        ops.chunk_launcher = real
+
+
+def session_gains64(sess, before, dead):
+    """``gains(prefix)`` for :func:`certify_lane` over a session's host
+    mirrors: the float64 windowed gains of every pool column given the
+    history ``before`` a chunk plus ``prefix`` (pool columns), the
+    columns ``dead`` before the chunk at -inf."""
+    V64 = torch.as_tensor(sess._Vh, dtype=torch.float64, device="cuda")
+    diag = (V64 * V64).sum(0)
+    live = torch.as_tensor(~dead, device="cuda")
+
+    def gains(prefix):
+        pre = torch.as_tensor(list(before) + [int(x) for x in prefix],
+                              dtype=torch.long, device="cuda")
+        return _gains64(V64, diag, live, pre, sess.w)
+
+    return gains
+
+
+def hold_session_chunk(name, sess, n, eps):
+    """One ``next_chunk(n)`` of ``sess`` held against the float64
+    from-scratch conditional greedy over its host mirrors as they stood
+    before it: the same pool columns, or parting at a certified float64
+    near-tie; gains within rtol/atol where they agree.  Returns (the
+    chunk's (ids, gains), diverged, max abs gain error)."""
+    before, dead = list(sess._shown), sess._dead.copy()
+    ids, got = sess.next_chunk(n)
+    cols = sess._shown[len(before):]
+    gains = session_gains64(sess, before, dead)
+    eps2 = float(np.float32(eps) * np.float32(eps))
+    want, wv = [], []
+    for _ in range(n):
+        g = gains(want)
+        j = int(g.argmax())
+        if not g[j].item() > eps2:
+            break
+        want.append(j)
+        wv.append(float(np.sqrt(g[j].item())))
+    a = np.array(cols + [-1] * (n - len(cols)))
+    r = np.array(want + [-1] * (n - len(want)))
+    p = len(cols)
+    if not np.array_equal(a, r):
+        where = certify_lane(name, gains, a, r, eps)
+        p = where[0]
+        print(f"  {name}: parts from the float64 greedy at step {p} ({where[1]}"
+              f" vs {where[2]}; float64 gains {where[3]} / {where[4]}), a "
+              f"certified near-tie", flush=True)
+    err = float(np.abs(got[:p] - np.array(wv[:p])).max()) if p else 0.0
+    check(np.allclose(got[:p], wv[:p], rtol=RTOL, atol=ATOL),
+          f"{name}: gains beyond rtol {RTOL} / atol {ATOL} of the float64 "
+          f"greedy ({err})")
+    return (ids, got), p < len(cols), err
+
+
+def verb_split(spans):
+    """Mean host microseconds and count of each session verb's span, and
+    of an extend's or a rescore's by how its delta ran on the card (its
+    ``solve``: a graph's replay, the graph's capture on the width's first
+    delta, or eager below a full ring)."""
+    out = {}
+    for v in SESSION_VERBS:
+        mine = [s for s in spans if s["name"] == f"serving.session.{v}"]
+        d = [s["dur_us"] for s in mine]
+        out[v] = (statistics.fmean(d) if d else None, len(d))
+        for how in sorted({s["attrs"].get("solve") for s in mine} - {None}):
+            d = [s["dur_us"] for s in mine if s["attrs"]["solve"] == how]
+            out[f"{v} {how}"] = (statistics.fmean(d), len(d))
+    return out
+
+
+def verb_text(split):
+    return ", ".join(f"{v} {'-' if us is None else f'{us:.1f} us'} (x{n})"
+                     for v, (us, n) in split.items())
+
+
+def delta_payload(rng, dm):
+    """``dm`` fresh candidates as a server receives them, on the host:
+    uniform scores (dm,) and unit-norm Gaussian features (dm, D)."""
+    f = rng.standard_normal(size=(dm, D), dtype=np.float32)
+    f /= np.linalg.norm(f, axis=1, keepdims=True)
+    return rng.uniform(size=dm).astype(np.float32), f
+
+
+def rescore_payload(rng, sess, n):
+    """``n`` global ids of ``sess`` (an eighth of them already shown, the
+    rest live) and new uniform scores for them."""
+    shown = sess.shown
+    live = sess._gid[~sess._dead]
+    k = max(1, n // 8)
+    ids = np.concatenate([rng.choice(shown, size=k, replace=False),
+                          rng.choice(live, size=n - k, replace=False)])
+    return ids, rng.uniform(size=n).astype(np.float32)
+
+
+def session_cfg(**kw):
+    """Phase 15's rerank config: phase 1's setup (shortlist 1000,
+    alpha 3, eps 1e-3) at w = 10 on the kernels; a session's slate is
+    its first 4 chunks, so its K2 rerank is 32 long."""
+    from repro_torch.serving import DPPRerankConfig
+
+    base = dict(slate_size=4 * SESSION_CHUNK, shortlist=1000, alpha=ALPHA,
+                eps=EPS, window=SESSION_W, use_kernel=True)
+    base.update(kw)
+    return DPPRerankConfig(**base)
+
+
+def warm_sessions(reqs):
+    """Every session verb once on a throwaway store (a 1-byte budget:
+    each touch evicts and rebuilds), so the first calls of cuSOLVER's
+    Cholesky, cuBLAS's triangular solve and the K6 module are out of the
+    timed verbs."""
+    from repro_torch.serving import Reranker, SessionConfig
+
+    rng = np.random.default_rng(SEED + 15)
+    rr = Reranker(session_cfg(), session_config=SessionConfig(
+        capacity=SESSION_CAP, budget_bytes=1), device="cuda")
+    a, b = rr.session(reqs[0]), rr.session(reqs[1])
+    for s in (a, b, a):
+        s.next_chunk(SESSION_CHUNK)
+    b.extend(*delta_payload(rng, 128))
+    a.rescore(*rescore_payload(rng, a, 64))
+    b.next_chunk(SESSION_CHUNK)
+    torch.cuda.synchronize()
+
+
+def run_session_resume(records, reqs, smi):
+    """Phase 15(a): 32 sessions scroll 4 chunks each, round robin, no
+    delta; each session's 32 items against its request's K2 rerank index
+    for index and d_hist bit for bit; K6 against its plain version."""
+    from repro_torch.serving import Reranker, SessionConfig
+
+    name = "phase 15(a) session resume"
+    n = len(reqs)
+    rr = Reranker(session_cfg(), session_config=SessionConfig(
+        capacity=SESSION_CAP), device="cuda")
+    want = [tuple(x.cpu().numpy() for x in rr.rerank(r)) for r in reqs]
+    line = chunk_tiles(SESSION_CAP, SESSION_W, True, 1, torch.device(
+        "cuda"))[0]
+    print(f"[{name}] {n} sessions (pool 100,000, shortlist 1000, capacity "
+          f"{SESSION_CAP}, w = {SESSION_W}), 4 chunks of {SESSION_CHUNK} "
+          f"each, round robin; K6 a chunk: {line}; on {smi}", flush=True)
+
+    def main(rr):
+        sess = [rr.session(r) for r in reqs]
+        out = [[] for _ in reqs]
+        for _ in range(4):
+            for i, s in enumerate(sess):
+                out[i].append(s.next_chunk(SESSION_CHUNK))
+        return sess, [tuple(np.concatenate(x) for x in zip(*o))
+                      for o in out]
+
+    (sess, out), counts, _, spans, wall = session_run(lambda: main(rr))
+    count_chunks(records, name, counts, K6, 4 * n)
+    for i, ((gi, gd), (ei, ed)) in enumerate(zip(out, want)):
+        check(np.array_equal(gi, ei.astype(np.int64)),
+              f"{name}: session {i} differs from its K2 rerank: {gi} vs {ei}")
+        err = float(np.abs(gd - ed).max())
+        check(err == 0.0, f"{name}: session {i} d_hist differs from K2's "
+                          f"by {err}")
+    nbytes = sess[0]._resident_bytes
+    print(f"  main path: {wall * 1e3:.1f} ms host wall, launches {counts} "
+          f"(one a chunk); all {n} sessions' {4 * SESSION_CHUNK} items equal "
+          f"their K2 rerank index for index, d_hist bit for bit; "
+          f"{nbytes} B of device state a session; verbs: "
+          f"{verb_text(verb_split(spans))}", flush=True)
+
+    # the same sessions on K6's plain version
+    _, plain = plain_launchers(lambda: main(Reranker(
+        session_cfg(), session_config=SessionConfig(
+            capacity=SESSION_CAP), device="cuda")))
+    torch.cuda.synchronize()
+    err = 0.0
+    for i, ((gi, gd), (pi, pd)) in enumerate(zip(out, plain)):
+        check(np.array_equal(gi, pi), f"{name}: session {i} on K6 differs "
+                                      f"from the plain version")
+        check(np.allclose(gd, pd, rtol=RTOL, atol=ATOL),
+              f"{name}: session {i} gains beyond rtol/atol of the plain "
+              f"version")
+        err = max(err, float(np.abs(gd - pd).max()))
+    rec = records[K6]
+    rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+    print(f"  {K6} vs plain at the sessions' shape: every chunk equal, "
+          f"gains max abs err {err:.3g}", flush=True)
+
+    probe = rr.session(reqs[0], sid="probe")
+    dev = device_ms(lambda: probe.next_chunk(SESSION_CHUNK), K6, 1)
+    rr.sessions.close("probe")
+    print(f"  {K6} device time by torch.profiler, one session launch "
+          f"({SESSION_CHUNK} steps, M = {SESSION_CAP}): {ms_text(dev)}; on "
+          f"{smi}", flush=True)
+    return rr, sess, want
+
+
+def run_session_deltas(records, rr, sess, rng, catalog, smi):
+    """Phase 15(b): extend (128 fresh candidates) and rescore (64 ids)
+    interleaved with scrolls on (a)'s sessions, every chunk after a delta
+    held against the float64 conditional greedy; an eps-stopped rank-2
+    session revived by an extend."""
+    from repro_torch.serving import Reranker, RerankRequest, SessionConfig
+
+    name = "phase 15(b) session deltas"
+    n = len(sess)
+    print(f"[{name}] on (a)'s {n} sessions: extend(128), scroll, rescore(64"
+          f"), scroll, extend(128), scroll; every post-delta chunk against "
+          f"the float64 conditional greedy over the host mirrors; a rank-2 "
+          f"session (eps 0.05) stops, answers empty, an extend revives it; "
+          f"on {smi}", flush=True)
+    ext = [[delta_payload(rng, 128) for _ in sess] for _ in range(2)]
+    # a pool in a 2-D subspace of the catalog's features: the third
+    # conditioned gain is float32 noise, under eps = 0.05 by far
+    basis = torch.linalg.qr(torch.randn(D, 2, generator=torch.Generator(
+        "cuda").manual_seed(SEED), device="cuda"))[0]
+    f2 = catalog[:5000] @ basis @ basis.T
+    f2 = f2 / f2.norm(dim=1, keepdim=True)
+    rank2 = RerankRequest(scores=torch.from_numpy(rng.uniform(
+        size=5000).astype(np.float32)).to("cuda"), feats=f2)
+    rr2 = Reranker(session_cfg(eps=0.05), session_config=SessionConfig(
+        capacity=SESSION_CAP), device="cuda")
+    revive = delta_payload(rng, 128)
+    held = {"diverged": 0, "err": 0.0, "chunks": 0}
+
+    def hold(label, s, eps=EPS):
+        (ids, _), div, err = hold_session_chunk(f"{name} {label}", s,
+                                                SESSION_CHUNK, eps)
+        held["diverged"] += div
+        held["err"] = max(held["err"], err)
+        held["chunks"] += 1
+        return len(ids)
+
+    def main():
+        for i, s in enumerate(sess):
+            s.extend(*ext[0][i])
+            hold(f"session {i} after extend", s)
+            s.rescore(*rescore_payload(rng, s, 64))
+            hold(f"session {i} after rescore", s)
+            s.extend(*ext[1][i])
+            hold(f"session {i} after a second extend", s)
+        s2 = rr2.session(rank2)
+        first = hold("rank-2 session", s2, eps=0.05)
+        stopped = hold("rank-2 session, stopped", s2, eps=0.05)
+        s2.extend(*revive)
+        hold("rank-2 session revived", s2, eps=0.05)
+        return first, stopped
+
+    (first, stopped), counts, snap, spans, wall = session_run(main)
+    check(first < SESSION_CHUNK and stopped == 0,
+          f"{name}: the rank-2 session gave {first} then {stopped} items, "
+          f"expected an eps-stop then nothing")
+    expect = 3 * n + 2  # the stopped session's empty chunk launches nothing
+    count_chunks(records, name, counts, K6, expect)
+    deltas = snap["counters"].get("session_deltas_total", {})
+    check(deltas == {"op=extend": 2 * n + 1, "op=rescore": n},
+          f"{name}: session_deltas_total {deltas}")
+    print(f"  main path: {wall * 1e3:.1f} ms host wall (the float64 "
+          f"references included), launches {counts}; {held['chunks']} "
+          f"chunks equal the float64 conditional greedy, "
+          f"{held['diverged']} parting at a certified near-tie, gains max "
+          f"abs err {held['err']:.3g}; the rank-2 session stopped after "
+          f"{first} items, gave {stopped} with no launch, and the extend "
+          f"revived it; session_deltas_total {deltas}; verbs: "
+          f"{verb_text(verb_split(spans))}; on {smi}", flush=True)
+
+
+def run_session_evict(records, reqs, want, rng, smi):
+    """Phase 15(c): the 32 requests under an 8 MiB budget (about 9
+    resident): 3 round-robin scrolls, an extend round, a rescore round,
+    each chunk against a control store that never evicts; the control's
+    own chunks against (a)'s K2 reranks ``want`` (the scrolls) and the
+    float64 conditional greedy (after the deltas)."""
+    from repro_torch.serving import Reranker, SessionConfig
+
+    name = "phase 15(c) session eviction"
+    budget = 8 << 20
+    n = len(reqs)
+    print(f"[{name}] {n} sessions under budget_bytes = {budget}, against "
+          f"the same {n} in a store that never evicts: 3 scrolls round "
+          f"robin, extend(128) + scroll, rescore(64) + scroll; on {smi}",
+          flush=True)
+    ext = [delta_payload(rng, 128) for _ in reqs]
+
+    def main():
+        rr = Reranker(session_cfg(), session_config=SessionConfig(
+            capacity=SESSION_CAP, budget_bytes=budget), device="cuda")
+        ctl_rr = Reranker(session_cfg(), session_config=SessionConfig(
+            capacity=SESSION_CAP), device="cuda")
+        ev = [rr.session(r) for r in reqs]
+        ctl = [ctl_rr.session(r) for r in reqs]
+        one = max(s._resident_bytes for s in ev)
+        err, peak, rebuilt, diverged = 0.0, 0, 0, 0
+        c = SESSION_CHUNK
+        for step in range(5):
+            for i in range(n):
+                if step == 3:
+                    ctl[i].extend(*ext[i])
+                    ev[i].extend(*ext[i])
+                elif step == 4:
+                    payload = rescore_payload(rng, ctl[i], 64)
+                    ctl[i].rescore(*payload)
+                    ev[i].rescore(*payload)
+                rebuilt += not ev[i].resident
+                if step < 3:
+                    ic, dc = ctl[i].next_chunk(c)
+                    wi, wd = want[i]
+                    check(np.array_equal(ic, wi[step * c:(step + 1) * c])
+                          and np.array_equal(dc, wd[step * c:(step + 1) * c]),
+                          f"{name}: control session {i} step {step} differs "
+                          f"from its K2 rerank")
+                else:
+                    (ic, dc), div, _ = hold_session_chunk(
+                        f"{name} control session {i} step {step}", ctl[i],
+                        c, EPS)
+                    diverged += div
+                ie, de = ev[i].next_chunk(c)
+                check(np.array_equal(ie, ic),
+                      f"{name}: step {step} session {i}: {ie} vs the "
+                      f"never-evicted control's {ic}")
+                e = float(np.abs(de - dc).max())
+                check(e <= 1e-5, f"{name}: step {step} session {i}: gains "
+                                 f"{e} from the control's")
+                err = max(err, e)
+                held = rr.sessions.resident_bytes()
+                peak = max(peak, held)
+                check(held <= budget + one,
+                      f"{name}: {held} resident bytes over the budget plus "
+                      f"one session")
+        return rr, err, peak, rebuilt, one, diverged
+
+    (rr, err, peak, rebuilt, one, diverged), counts, snap, spans, wall = \
+        session_run(main)
+    count_chunks(records, name, counts, K6, 2 * 5 * n)
+    ev_total = sum(snap["counters"].get("session_evictions_total",
+                                        {}).values())
+    check(ev_total > 0 and rebuilt > 0,
+          f"{name}: {ev_total} evictions, {rebuilt} touches of an evicted "
+          f"session")
+    resident = rr.sessions._resident_count()
+    print(f"  main path: {wall * 1e3:.1f} ms host wall, launches {counts} "
+          f"(both stores); the control's scrolls equal (a)'s K2 reranks bit "
+          f"for bit, its post-delta chunks the float64 conditional greedy "
+          f"({diverged} parting at a certified near-tie); {rebuilt} touches "
+          f"of an evicted session, every chunk equal to the control's index "
+          f"for index, gains max abs diff {err:.3g}; resident at the end "
+          f"{resident} sessions, "
+          f"{rr.sessions.resident_bytes()} B, peak {peak} B (budget "
+          f"{budget} + one session {one}); session_evictions_total "
+          f"{ev_total:g}, session_deltas_total "
+          f"{snap['counters'].get('session_deltas_total')}, "
+          f"session_resident_bytes "
+          f"{snap['gauges'].get('session_resident_bytes')}, "
+          f"session_resident_count "
+          f"{snap['gauges'].get('session_resident_count')}", flush=True)
+    split = verb_split(spans)
+    print(f"  host wall a verb (spans, warm): {verb_text(split)}; on {smi}",
+          flush=True)
+
+
+def run_sessions(records, rng):
+    """Phase 15: sessions on the card: (a) resume, (b) deltas, (c)
+    eviction, (d) Figure 10 at its --smoke size, (e) serve_recsys's
+    session demo."""
+    from repro_torch.examples import serve_recsys
+    from repro_torch.figures import fig10_session
+    from repro_torch.figures.common import device_name
+    from repro_torch.serving import RerankRequest
+
+    smi = device_name(torch.device("cuda", 0))
+    t0 = time.perf_counter()
+    catalog = torch.from_numpy(
+        rng.standard_normal(size=(100_000, D), dtype=np.float32)).to("cuda")
+    catalog /= catalog.norm(dim=1, keepdim=True)
+    reqs = [RerankRequest(scores=torch.from_numpy(rng.uniform(
+        size=100_000).astype(np.float32)).to("cuda"), feats=catalog)
+        for _ in range(32)]
+    warm_sessions(reqs)
+    rr, sess, want = run_session_resume(records, reqs, smi)
+    run_session_deltas(records, rr, sess, rng, catalog, smi)
+    del rr, sess
+    run_session_evict(records, reqs, want, rng, smi)
+    del reqs, catalog
+
+    print("[phase 15(d) fig10] Figure 10 at its --smoke size, through its "
+          "main and its gates (parity, and the delta event faster than the "
+          "full re-rerank)", flush=True)
+    _, counts = figure_run("fig10", lambda: fig10_session.main(
+        fast_mode=True, device="cuda"))
+    check(counts == {K6: 9, K2: 3},
+          f"phase 15(d) fig10: launches {counts}")
+    for kernel, c in counts.items():
+        records.setdefault(kernel, {"launches": 0})["launches"] += c
+    print(f"  fig10: launches {counts} (K6 the kernel row's 6 scrolls and 3 "
+          f"delta events, K2 its warm and 2 timed full re-reranks; the "
+          f"figure holds every chunk and every re-rerank slate against "
+          f"float64); on {smi}", flush=True)
+
+    print("[phase 15(e) session_demo] examples/serve_recsys.py's "
+          "session_demo on the card, against the same demo on the CPU "
+          "(K6's plain version)", flush=True)
+    got, counts = figure_run("session_demo",
+                             lambda: serve_recsys.session_demo("cuda"))
+    count_chunks(records, "phase 15(e)", counts, K6, 3)
+    want = serve_recsys.session_demo("cpu")
+    check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+          f"phase 15(e): the card's scrolls {got} differ from the CPU's "
+          f"{want}")
+    print(f"  session_demo: launches {counts}, its 3 scrolls equal the "
+          f"CPU's index for index; phase 15 took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def resident_times():
     """``--resident-times``: K1 and K2 alone, one launch each at phases 1
     and 2's kernel shapes (the same seeded shortlists: B = 64, C = 1000,
@@ -2491,6 +2982,7 @@ def main() -> int:
     run_paper_experiments(records)
     run_router(records, rng, model.to("cuda"))
     del model
+    run_sessions(records, rng)
     print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = []

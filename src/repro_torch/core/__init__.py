@@ -36,6 +36,9 @@ from repro_torch.core.windowed import (
     dpp_greedy_windowed_batch,
     dpp_greedy_windowed_lowrank,
     dpp_greedy_windowed_lowrank_batch,
+    dpp_greedy_windowed_rebuild,
+    window_solve,
+    windowed_state_rebuild,
 )
 from repro_torch.core.dispatch import (
     GreedySpec,
@@ -60,6 +63,7 @@ from repro_torch.core.metrics import (
 from repro_torch.core.streaming import (
     GreedyState,
     greedy_chunk,
+    greedy_chunk_launcher,
     greedy_chunk_slots,
     greedy_init,
     greedy_slot_state,
@@ -69,6 +73,7 @@ from repro_torch.core.streaming import (
     greedy_step,
     slot_pad_v,
     slot_state_widen,
+    state_admit,
     state_evict,
     state_splice,
 )
@@ -89,6 +94,7 @@ __all__ = [
     "GreedySpecError",
     "GreedyState",
     "greedy_chunk",
+    "greedy_chunk_launcher",
     "greedy_chunk_slots",
     "greedy_init",
     "greedy_map",
@@ -100,12 +106,16 @@ __all__ = [
     "greedy_step",
     "slot_pad_v",
     "slot_state_widen",
+    "state_admit",
     "state_evict",
     "state_splice",
     "dpp_greedy_windowed",
     "dpp_greedy_windowed_batch",
     "dpp_greedy_windowed_lowrank",
     "dpp_greedy_windowed_lowrank_batch",
+    "dpp_greedy_windowed_rebuild",
+    "window_solve",
+    "windowed_state_rebuild",
     "build_kernel_dense",
     "build_kernel_dense_raw",
     "map_relevance",

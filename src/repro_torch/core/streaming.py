@@ -54,7 +54,7 @@ from repro_torch.core.greedy_chol import (
     greedy_step_exact,
     lane_steps,
 )
-from repro_torch.core.windowed import greedy_step_windowed
+from repro_torch.core.windowed import greedy_step_windowed, window_solve
 from repro_torch.device import resolve_device
 from repro_torch.obs.dispatch import record_chunk, record_slot_state_alloc
 
@@ -224,6 +224,54 @@ def greedy_chunk(
     return _chunk_single(kern, L is not None, state, chunk, float(spec.eps))
 
 
+def greedy_chunk_launcher(spec, state: GreedyState, *, V,
+                          chunk_size: Optional[int] = None):
+    """``launch()`` -> ``(sel, d_hist)``: :func:`greedy_chunk` on the
+    low-rank ``V`` for a caller that owns ``state`` and runs many chunks
+    of one size on it, as a session does: each call advances ``state``
+    in place, its step counter too, so the caller keeps the state object
+    and its tensors.  On the kernel backend a call is one K5/K6 launch
+    with the operands checked and the scratch allocated once
+    (``dpp_greedy_stream_launcher``), and ``sel`` / ``d_hist`` are the
+    launcher's own ``(B, chunk)`` tensors, overwritten by the next call;
+    on the torch backend a call runs :func:`greedy_chunk` and copies the
+    new state into the old one's tensors.  ``V (S, D, M)`` with a
+    slot-batched state (:func:`greedy_slots_init`) advances every slot,
+    as :func:`greedy_chunk_slots` does; the continuous-batching router
+    runs its cycles so."""
+    _check_kernel_args(spec, None, V)
+    chunk = resolve_chunk(spec, chunk_size)
+    backend = "kernel" if spec.backend == "kernel" else "torch"
+    B, M = (V.shape[0] if V.ndim == 3 else 1), V.shape[-1]
+    if backend == "kernel":
+        from repro_torch.kernels.dpp_greedy import dpp_greedy_stream_launcher
+
+        run = dpp_greedy_stream_launcher(V, state, chunk, eps=spec.eps,
+                                         tile_m=spec.tile_m)
+
+        def launch():
+            record_chunk(backend, B=B, chunk=chunk, M=M)
+            out = run()
+            state.t.add_(chunk)
+            return out
+
+        return launch
+
+    def launch():
+        record_chunk(backend, B=B, chunk=chunk, M=M)
+        if V.ndim == 3:
+            new, sel, dh = _chunk_body(_lowrank_rows(V), state, chunk,
+                                       float(spec.eps))
+        else:
+            new, sel, dh = _chunk_single(V, False, state, chunk,
+                                         float(spec.eps))
+        for old, x in zip(state, new):
+            old.copy_(x)
+        return sel, dh
+
+    return launch
+
+
 def greedy_step(spec, state: GreedyState, *, L=None, V=None):
     """One greedy step: ``(next_state, idx, d)`` with scalar ``idx``/``d``
     (-1 / 0 once eps-stopped).  Sugar for a chunk of one."""
@@ -259,14 +307,13 @@ def _delta_cols(V, C, d2, win, start: int, V_blk, mask_blk,
     valid = win >= 0
 
     # the window's lower-triangular Cholesky factor, read off C itself;
-    # empty ring slots become identity rows so the solve is a no-op there
+    # empty ring slots become identity rows (and zero window columns) so
+    # the solve is a no-op there
     eye = torch.eye(w, dtype=dtype, device=C.device)
-    Vw = torch.where(valid[:, None], C[:, ids].T, eye)
-    # b[r] = L_{win[r], blk} from the (unchanged) window columns of V
-    b = torch.where(valid[:, None], V[:, ids].T @ V_blk, 0.0)
-    c = torch.linalg.solve_triangular(Vw, b.to(dtype), upper=False)
-    diag_blk = (V_blk * V_blk).sum(0)
-    d2_blk = torch.where(mask_blk, diag_blk - (c * c).sum(0), NEG_INF)
+    F = torch.where(valid[:, None], C[:, ids].T, eye)
+    Vwin = torch.where(valid[None, :], V[:, ids], 0.0)
+    c, d2_blk = window_solve(F, Vwin, V_blk)
+    d2_blk = torch.where(mask_blk, d2_blk, NEG_INF)
 
     sl = slice(start, start + dm)
     if keep_dead:
@@ -312,8 +359,9 @@ def _state_delta(spec, state, V, start, V_new, mask_new, keep_dead, op):
         if state.C.ndim != 3 or state.C.shape[0] != 1:
             raise ValueError(
                 f"{op} takes a single-request kernel stream state "
-                f"(leading batch axis 1); slot-batched delta updates come "
-                f"with the router (ROADMAP queue 1 item 7)"
+                f"(leading batch axis 1): a session runs one state, and no "
+                f"ROADMAP queue 1 item adds delta updates to the router's "
+                f"slot-batched states"
             )
         V2, C2, d22 = _delta_cols(
             V[0] if V.ndim == 3 else V, state.C[0], state.d2[0],
@@ -488,6 +536,35 @@ def state_splice(state: GreedyState, single: GreedyState,
     is cast to the batch leaf's dtype.  Returns ``state``."""
     for b, s in zip(state, single):
         b[slot] = s.to(b.dtype)
+    return state
+
+
+def state_admit(spec, state: GreedyState, slot: int, V,
+                mask=None) -> GreedyState:
+    """Admit one request into the parked ``slot`` of a slot-batched
+    state, in place: its step counter rewound, its stop flag cleared and
+    the gains of its own ``V (D, m)`` (mask ``(m,)`` or None) written
+    over the slot's first ``m`` columns.  Nothing else is written: a
+    parked slot (:func:`greedy_slots_init`, :func:`state_evict`) already
+    holds zero Cholesky rows, ring ids -1 and gains -inf, and no chunk
+    changes a stopped lane's rows.  The slot then holds the bits
+    ``state_splice(state, slot_state_widen(spec, greedy_slot_state(spec,
+    V, mask), M), slot)`` would write, the gains computed at the
+    request's own width as a whole-slate call computes them, at three
+    writes instead of a state's worth of ops.  Returns ``state``."""
+    m = V.shape[-1]
+    if spec.backend == "kernel":
+        # init_gains' reduction on (1, D, m) float32: K1's first gains
+        V = V.to(torch.float32).contiguous()[None]
+        d2 = (V * V).sum(1)[0]
+    else:
+        V = V.to(state.d2.dtype)
+        d2 = (V * V).sum(0)
+    if mask is not None:
+        d2 = torch.where(mask.to(torch.bool), d2, NEG_INF)
+    state.t.select(0, slot).zero_()
+    state.stopped.select(0, slot).zero_()
+    state.d2.select(0, slot)[:m].copy_(d2)
     return state
 
 

@@ -13,6 +13,15 @@ for the derivation.
 
 ``d_hist`` stores the marginal at selection time, before the eviction
 (``dj``, not the post-eviction ``djp`` the append divides by).
+
+Also the conditioning side: :func:`window_solve` solves candidate
+columns against a window factor, the one block solve behind a session's
+delta updates (``core.streaming.greedy_state_extend`` / ``_rescore`` and
+``serving.session``) and :func:`windowed_state_rebuild`, which
+recomputes a ring state from the pool, the last ``w`` shown ids and the
+dead set (the session layer's eviction repair);
+:func:`dpp_greedy_windowed_rebuild` is the rebuild-every-step oracle on
+a dense kernel.
 """
 from __future__ import annotations
 
@@ -170,3 +179,107 @@ def dpp_greedy_windowed_lowrank(
     return _unbatch(
         dpp_greedy_windowed_lowrank_batch(V[None], k, window, eps, m)
     )
+
+
+def window_solve(F: torch.Tensor, Vwin: torch.Tensor, X: torch.Tensor,
+                 c: Optional[torch.Tensor] = None):
+    """Condition pool columns ``X (D, n)`` on a window: returns their
+    ring rows ``c = F^{-1} Vwin^T X`` ``(f, n)`` and gains ``d2 = |X|^2 -
+    |c|^2`` ``(n,)``.
+
+    ``Vwin (D, f)`` holds the window's pool columns, oldest first, and
+    ``F (f, f)`` the lower-triangular Cholesky factor of their Gram
+    (only its lower triangle is read: a ring state's ``C[:, win]^T`` is
+    one).  An empty ring slot is a zero column of ``Vwin`` with an
+    identity row and column of ``F``, and gives a zero row of ``c``.
+    ``c``, when given, receives the ring rows in place.  O(f D n + f^2
+    n): the cost of a session's delta is that of its columns alone."""
+    d2 = (X * X).sum(0)
+    if F.shape[0] == 0:  # an empty window conditions nothing
+        return X.new_zeros((0, X.shape[1])), d2
+    b = (Vwin.T @ X).to(F.dtype)
+    c = torch.linalg.solve_triangular(F, b, upper=False, out=c)
+    return c, d2 - (c * c).sum(0)
+
+
+def windowed_state_rebuild(V: torch.Tensor, shown: torch.Tensor,
+                           dead: torch.Tensor):
+    """Rebuild the incremental ring state ``(C (w, M), d2 (M,))`` from
+    history alone.
+
+    A windowed state is a pure function of the pool ``V (D, M)``, the
+    last ``w`` shown pool columns (``shown (w,)`` integer ids, oldest
+    first, -1-padded at the tail) and the dead set (``dead (M,)`` bool:
+    every ever-shown or masked-out column, padding included).  The
+    window's Gram is positive definite without jitter (every pick
+    cleared the eps gate, so the incremental factor's diagonal is at
+    least eps) and its Cholesky factor is unique, so this lands on the
+    ``C`` rows the incremental path reached, up to rounding (~1 ulp).
+
+    ``torch.linalg.cholesky_ex`` skips the ``info`` check (and the host
+    sync it costs on a card) that ``cholesky`` makes: the Gram is
+    positive definite by construction.  Every column is then solved
+    against the factor by :func:`window_solve`.  This is the session
+    layer's eviction repair (``repro_torch.serving.session``).
+    """
+    w = shown.shape[0]
+    ids = shown.clamp_min(0).to(torch.int64)
+    valid = shown >= 0
+    Vwin = torch.where(valid[None, :], V[:, ids], 0.0)  # (D, w)
+    eye = torch.eye(w, dtype=V.dtype, device=V.device)
+    vm = valid[:, None] & valid[None, :]
+    F, _ = torch.linalg.cholesky_ex(torch.where(vm, Vwin.T @ Vwin, eye))
+    C, d2 = window_solve(F, Vwin, V)
+    return C, torch.where(dead, NEG_INF, d2)
+
+
+def dpp_greedy_windowed_rebuild(
+    L: torch.Tensor, k: int, window: int = 10, eps: float = 1e-6,
+    mask: Optional[torch.Tensor] = None,
+) -> GreedyResult:
+    """Reference sliding-window greedy on a dense (M, M) kernel: rebuild
+    and re-solve the window every step.
+
+    O(w^2 M) per step (against the incremental path's O(w M));
+    independently derived, kept as the oracle the fast paths are tested
+    against.  Empty ring slots get an identity row and column so the
+    factor stays defined; the factor is of ``L_W + 1e-6 I``, as
+    ``repro``'s.
+    """
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    M = L.shape[0]
+    w = min(window, k)
+    dtype, dev = L.dtype, L.device
+    eps2 = torch.tensor(eps, dtype=dtype, device=dev) ** 2
+    if mask is None:
+        mask = torch.ones((M,), dtype=torch.bool, device=dev)
+    diag = torch.diagonal(L)
+    eye = torch.eye(w, dtype=dtype, device=dev)
+    sel = torch.full((k,), -1, dtype=torch.int32, device=dev)
+    d_hist = torch.zeros((k,), dtype=dtype, device=dev)
+    win = torch.full((w,), -1, dtype=torch.int64, device=dev)
+    avail = torch.where(mask.to(device=dev, dtype=torch.bool), 0.0,
+                        NEG_INF).to(dtype)
+    stopped = torch.zeros((), dtype=torch.bool, device=dev)
+    for t in range(k):
+        ids = win.clamp_min(0)
+        valid = win >= 0
+        vm = valid[:, None] & valid[None, :]
+        Lw = torch.where(vm, L[ids][:, ids], eye)
+        F, _ = torch.linalg.cholesky_ex(Lw + 1e-6 * eye)
+        Lwi = torch.where(valid[:, None], L[ids], 0.0)  # (w, M)
+        C = torch.linalg.solve_triangular(F, Lwi, upper=False)
+        d2 = diag - (C * C).sum(0) + avail  # -inf for taken / masked
+        j = torch.argmax(d2)
+        dj2 = d2[j]
+        stopped = stopped | (dj2 <= eps2)
+        dj = torch.sqrt(torch.maximum(dj2, eps2))
+        sel[t] = torch.where(stopped, -1, j).to(torch.int32)
+        d_hist[t] = torch.where(stopped, 0.0, dj)
+        win_next, avail_next = win.clone(), avail.clone()
+        win_next[t % w] = j
+        avail_next[j] = NEG_INF
+        win = torch.where(stopped, win, win_next)
+        avail = torch.where(stopped, avail, avail_next)
+    return GreedyResult(sel, (sel >= 0).sum().to(torch.int32), d_hist)

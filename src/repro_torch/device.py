@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -26,3 +27,11 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {str(dev)!r}: use cpu or cuda")
     return dev
+
+
+def to_device(x, device, dtype=None) -> torch.Tensor:
+    """A request array (numpy, a sequence or a tensor on any device) as a
+    tensor on ``device``, cast to ``dtype`` when given."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(x), device=device, dtype=dtype)

@@ -1,6 +1,6 @@
 """Run the port's figures, print their CSV and write one
 ``BENCH_<fig>.json`` artifact each; the counterpart of ``repro``'s
-``benchmarks/run.py`` for Figures 1-4, 6 and 7.
+``benchmarks/run.py`` for Figures 1-4, 6, 7 and 10.
 
   python -m repro_torch.figures.run [--smoke | --full] [--device cuda|cpu] [--out-dir DIR]
 
@@ -38,6 +38,7 @@ from repro_torch.figures import (
     fig4_windowed,
     fig6_streaming,
     fig7_serving,
+    fig10_session,
 )
 from repro_torch.figures.common import arg_parser, device_name
 
@@ -56,6 +57,8 @@ FIGURES = (
      "whole", fig6_streaming.main),
     ("fig7", "Figure 7: continuous-batching serving, router vs serial "
      "streaming and an open-loop sweep", fig7_serving.main),
+    ("fig10", "Figure 10: session delta-resume vs a full re-rerank",
+     fig10_session.main),
 )
 
 

@@ -110,9 +110,9 @@ def library(src: Path, signatures: dict) -> ctypes.CDLL:
     """The loaded library of ``src`` (built on first use), with
     ``argtypes`` set from ``signatures`` ({function: [ctypes types]}) and
     ``restype`` int (a ``cudaError_t``) for each."""
-    src = Path(src)
-    lib = _LIBS.get(src)
+    lib = _LIBS.get(src)  # callers pass their module's Path: no parse
     if lib is None:
+        src = Path(src)
         lib = ctypes.CDLL(str(build([src])[src]))
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)
@@ -153,8 +153,9 @@ def check(err: int, name: str) -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    """PyTorch's current stream on ``t``'s device, as a C pointer."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on ``t``'s device, as a C pointer (read
+    without building a ``torch.cuda.Stream``: this runs every launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def require(t: torch.Tensor, name: str, dtype, shape) -> None:

@@ -12,7 +12,8 @@ plain reference is reachable only through ``force_ref=True``.
 The ``dpp_greedy_stream_*`` functions run resumable streaming states
 (``repro_torch.core.streaming``) through the fused chunk kernels K5/K6
 in ``tiled.py``: one cooperative launch per chunk, its tile sized by
-``TilePolicy.decide(..., chunked=True)``.
+``TilePolicy.decide(..., chunked=True)``; ``dpp_greedy_stream_launcher``
+prepares such a launch once for a caller that repeats it on one state.
 
 On CPU tensors every mode runs its kernels' plain PyTorch versions; on
 CUDA tensors it launches the kernels or raises.  Inputs are upcast to
@@ -33,6 +34,7 @@ from repro_torch.kernels.dpp_greedy.dpp_greedy import (
 from repro_torch.kernels.dpp_greedy.ref import dpp_greedy_ref
 from repro_torch.kernels.dpp_greedy.tiled import (
     chunk_capacity,
+    chunk_launcher,
     dpp_greedy_tiled,
     fused_chunk_exact,
     fused_chunk_windowed,
@@ -178,6 +180,45 @@ def dpp_greedy_stream_pad(V: torch.Tensor, state) -> torch.Tensor:
     return V.to(torch.float32).contiguous()
 
 
+def _stream_operands(V, state):
+    """``V`` as (B, D, M) contiguous float32, checked against ``state``;
+    returns (V, windowed, the state rows R)."""
+    Vb = (V[None] if V.ndim == 2 else V).to(torch.float32).contiguous()
+    M = Vb.shape[-1]
+    if state.d2.shape[-1] != M:
+        raise ValueError(
+            f"state was built for {state.d2.shape[-1]} candidates, but V "
+            f"carries M={M} — pass the V the state was initialized with"
+        )
+    return Vb, state.win.shape[-1] > 0, state.C.shape[1]
+
+
+def dpp_greedy_stream_launcher(V: torch.Tensor, state, chunk: int, *,
+                               eps: float = 1e-3,
+                               tile_m: Optional[int] = None):
+    """``launch()``: :func:`dpp_greedy_stream_chunk`'s K5/K6 launch on
+    this state and ``V``, prepared once (``tiled.chunk_launcher``) for a
+    caller that repeats it, as a session does its scrolls.  Each call
+    launches ``chunk`` steps and returns ``(sel, dh)`` ``(B, chunk)``,
+    the launcher's own tensors, overwritten by the next call.  The
+    state's tensors are updated in place and must stay where they are;
+    ``state.t`` is read where it lies, so the caller advances it in
+    place, and it must already be ``(B,)`` int32 or a 0-d int32 with
+    ``B == 1``."""
+    Vb, windowed, R = _stream_operands(V, state)
+    B, D, M = Vb.shape
+    t = state.t.to(torch.int32).expand(B).contiguous()
+    if t.data_ptr() != state.t.data_ptr():
+        raise ValueError(
+            "a stream launcher reads the state's step counter in place: "
+            "it must be int32, per lane or shared by a single lane"
+        )
+    tile, vres = _stream_tile(D, M, R, windowed, tile_m, B, Vb.device)
+    return chunk_launcher(Vb, state.C, state.d2, t, state.stopped,
+                          state.win if windowed else None, chunk,
+                          float(eps), tile, vres)
+
+
 def dpp_greedy_stream_chunk(
     V: torch.Tensor,
     state,
@@ -198,15 +239,8 @@ def dpp_greedy_stream_chunk(
     heterogeneous progress); the kernels take it per lane either way.
     """
     single = V.ndim == 2
-    Vb = (V[None] if single else V).to(torch.float32).contiguous()
+    Vb, windowed, R = _stream_operands(V, state)
     B, D, M = Vb.shape
-    windowed = state.win.shape[-1] > 0
-    R = state.C.shape[1]
-    if state.d2.shape[-1] != M:
-        raise ValueError(
-            f"state was built for {state.d2.shape[-1]} candidates, but V "
-            f"carries M={M} — pass the V the state was initialized with"
-        )
     tile, vres = _stream_tile(D, M, R, windowed, tile_m, B, Vb.device)
     t = state.t.to(torch.int32).expand(B).contiguous()
     if windowed:

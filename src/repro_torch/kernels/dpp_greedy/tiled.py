@@ -23,7 +23,8 @@ The fused chunk kernels K5/K6 (``csrc/chunk.cu``, counterparts of
 ``_chunk_pass_full`` / ``_chunk_pass_windowed`` with their winner fold
 ``_reduce_argmax_and_cols``) advance a resumable streaming state
 (``repro_torch.core.streaming``) by ``chunk`` steps in one cooperative
-launch: :func:`fused_chunk_exact`, :func:`fused_chunk_windowed`.
+launch: :func:`fused_chunk_exact`, :func:`fused_chunk_windowed` (each a
+:func:`chunk_launcher` built and called once).
 
 Each kernel has its plain PyTorch version here; a wrapper runs it for
 CPU tensors and launches the kernel for CUDA tensors, or raises.  State
@@ -474,17 +475,6 @@ def _check_cooperative(err: int, name: str, B: int, M: int,
     cuda.check(err, name)
 
 
-def _keys_and_barrier(chunk: int, B: int, device):
-    """One zeroed allocation: the per-step argmax keys (chunk+1, B) and,
-    behind them, one barrier counter per lane (64 bits each, the kernels
-    count in the low 32); returns (scratch, keys pointer, barrier
-    pointer)."""
-    scratch = torch.zeros(((chunk + 1) * B + B,), dtype=torch.int64,
-                          device=device)
-    return (scratch, scratch.data_ptr(),
-            scratch[(chunk + 1) * B:].data_ptr())
-
-
 def _chunk_operands(V, C, d2, t, stopped, R):
     B, D, M = V.shape
     cuda.require(V, "V", torch.float32, (B, D, M))
@@ -492,6 +482,67 @@ def _chunk_operands(V, C, d2, t, stopped, R):
     cuda.require(d2, "d2", torch.float32, (B, M))
     cuda.require(t, "t", torch.int32, (B,))
     cuda.require(stopped, "stopped", torch.bool, (B,))
+
+
+def chunk_launcher(V, C, d2, t, stopped, win, chunk: int, eps: float,
+                   tile_m: int, v_resident: bool = False):
+    """``launch()``: one K5 (``win`` None) or K6 launch of ``chunk`` steps
+    on these operands, returning ``(sel, dh)`` (B, chunk) — the same two
+    tensors every call, overwritten, so read them before the next.  The
+    operands are checked, the scratch allocated and the launch arguments
+    packed here, once (:func:`step_launcher` prepares K3/K4 so), and a
+    launch is one zeroing of the argmax keys and lane barriers and one
+    ctypes call, on the stream current at the launch.  Each launch
+    updates C, d2, stopped (and win) in place; ``t`` is read, never
+    advanced.  For CPU tensors each launch runs the kernel's plain
+    version."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    windowed = win is not None
+    if not _cpu_or_cuda(V):
+        if windowed:
+            return lambda: fused_chunk_windowed_plain(V, C, d2, t, stopped,
+                                                      win, chunk, eps)
+        return lambda: fused_chunk_exact_plain(V, C, d2, t, stopped, chunk,
+                                               eps)
+    B, D, M = V.shape
+    R = C.shape[1]
+    _chunk_operands(V, C, d2, t, stopped, R)
+    dev = V.device
+    # the per-step argmax keys (chunk+1, B) and, behind them, one barrier
+    # counter per lane (64 bits each, the kernels count in the low 32)
+    scratch = torch.empty(((chunk + 1) * B + B,), dtype=torch.int64,
+                          device=dev)
+    sel = torch.empty((B, chunk), dtype=torch.int32, device=dev)
+    dh = torch.empty((B, chunk), dtype=torch.float32, device=dev)
+    ptrs = [V, C, d2, t, stopped]
+    if windowed:
+        cuda.require(win, "win", torch.int32, (B, R))
+        nt = -(-M // tile_m)
+        ptrs += [win, scratch, scratch[(chunk + 1) * B:],
+                 torch.empty((2, B, nt, R), dtype=torch.float32, device=dev),
+                 torch.empty((2, B, R, R), dtype=torch.float32, device=dev)]
+        name = "fused_chunk_windowed"
+    else:
+        ptrs += [scratch, scratch[(chunk + 1) * B:]]
+        name = "fused_chunk_exact"
+    ptrs += [sel, dh]
+    smem = chunk_smem_bytes(D, tile_m, R, windowed, v_resident)
+    fn = getattr(cuda.library(_CHUNK_SRC, _CHUNK_SIGNATURES), name)
+    args = tuple(x.data_ptr() for x in ptrs) + (
+        B, D, M, R, chunk, tile_m, int(v_resident), eps_squared(eps), smem)
+    count, stream = cuda.count_launch, cuda.stream_ptr
+
+    def launch(_operands=ptrs):  # the pointers' tensors live with it
+        scratch.zero_()
+        # the stream current at this launch, as the zeroing's and the
+        # caller's copies: a launcher outlives a stream switch
+        err = fn(*args, stream(V))
+        count(name)
+        _check_cooperative(err, name, B, M, tile_m)
+        return sel, dh
+
+    return launch
 
 
 def fused_chunk_exact(V, C, d2, t, stopped, chunk: int, eps: float,
@@ -503,27 +554,8 @@ def fused_chunk_exact(V, C, d2, t, stopped, chunk: int, eps: float,
     dh (B, chunk) f32).  Each block keeps its tile's gains in shared
     memory for the chunk, and its slice of V too when ``v_resident``
     (the tile policy's answer, ``TilePolicy.decide(..., chunked=True)``)."""
-    if chunk < 1:
-        raise ValueError(f"chunk must be >= 1, got {chunk}")
-    if not _cpu_or_cuda(V):
-        return fused_chunk_exact_plain(V, C, d2, t, stopped, chunk, eps)
-    B, D, M = V.shape
-    R = C.shape[1]
-    _chunk_operands(V, C, d2, t, stopped, R)
-    smem = chunk_smem_bytes(D, tile_m, R, False, v_resident)
-    lib = cuda.library(_CHUNK_SRC, _CHUNK_SIGNATURES)
-    scratch, keys, bar = _keys_and_barrier(chunk, B, V.device)
-    sel = torch.empty((B, chunk), dtype=torch.int32, device=V.device)
-    dh = torch.empty((B, chunk), dtype=torch.float32, device=V.device)
-    err = lib.fused_chunk_exact(
-        V.data_ptr(), C.data_ptr(), d2.data_ptr(), t.data_ptr(),
-        stopped.data_ptr(), keys, bar, sel.data_ptr(), dh.data_ptr(),
-        B, D, M, R, chunk, tile_m, int(v_resident), eps_squared(eps), smem,
-        cuda.stream_ptr(V),
-    )
-    cuda.count_launch("fused_chunk_exact")
-    _check_cooperative(err, "fused_chunk_exact", B, M, tile_m)
-    return sel, dh
+    return chunk_launcher(V, C, d2, t, stopped, None, chunk, eps, tile_m,
+                          v_resident)()
 
 
 def fused_chunk_windowed(V, C, d2, t, stopped, win, chunk: int, eps: float,
@@ -535,33 +567,8 @@ def fused_chunk_windowed(V, C, d2, t, stopped, win, chunk: int, eps: float,
     its slice of the ring in shared memory for the chunk, and its slice
     of V too when ``v_resident`` (the tile policy's answer,
     ``TilePolicy.decide(..., chunked=True)``)."""
-    if chunk < 1:
-        raise ValueError(f"chunk must be >= 1, got {chunk}")
-    if not _cpu_or_cuda(V):
-        return fused_chunk_windowed_plain(V, C, d2, t, stopped, win, chunk,
-                                          eps)
-    B, D, M = V.shape
-    w = C.shape[1]
-    _chunk_operands(V, C, d2, t, stopped, w)
-    cuda.require(win, "win", torch.int32, (B, w))
-    nt = -(-M // tile_m)
-    dev = V.device
-    smem = chunk_smem_bytes(D, tile_m, w, True, v_resident)
-    lib = cuda.library(_CHUNK_SRC, _CHUNK_SIGNATURES)
-    scratch, keys, bar = _keys_and_barrier(chunk, B, dev)
-    cand = torch.empty((2, B, nt, w), dtype=torch.float32, device=dev)
-    wcol = torch.empty((2, B, w, w), dtype=torch.float32, device=dev)
-    sel = torch.empty((B, chunk), dtype=torch.int32, device=dev)
-    dh = torch.empty((B, chunk), dtype=torch.float32, device=dev)
-    err = lib.fused_chunk_windowed(
-        V.data_ptr(), C.data_ptr(), d2.data_ptr(), t.data_ptr(),
-        stopped.data_ptr(), win.data_ptr(), keys, bar, cand.data_ptr(),
-        wcol.data_ptr(), sel.data_ptr(), dh.data_ptr(), B, D, M, w, chunk,
-        tile_m, int(v_resident), eps_squared(eps), smem, cuda.stream_ptr(V),
-    )
-    cuda.count_launch("fused_chunk_windowed")
-    _check_cooperative(err, "fused_chunk_windowed", B, M, tile_m)
-    return sel, dh
+    return chunk_launcher(V, C, d2, t, stopped, win, chunk, eps, tile_m,
+                          v_resident)()
 
 
 # ---------------------------------------------------------------------------

@@ -20,8 +20,10 @@ Two halves:
   to count the kernel execution mode ``kernels/dpp_greedy/ops.py``
   picked (resident / tiled, and the ``TilePolicy`` tile and
   shared-memory numbers behind it), the backend ``greedy_map`` routed
-  to, the resumable chunk launches of the streaming layer, and the
-  launched work in greedy steps and per-step marginal evaluations.
+  to, the resumable chunk launches of the streaming layer, the
+  launched work in greedy steps and per-step marginal evaluations, and
+  the session layer's delta updates, evictions and device footprint
+  (``repro_torch.serving.session``).
 
 All helpers no-op (one global read) when observability is disabled and
 consume only shapes and config.
@@ -183,3 +185,53 @@ def _count_steps(reg, backend: str, steps: int, evals: int) -> None:
         "marginal_evals_total", "candidate marginals evaluated: every "
         "launched step updates and argmaxes M candidate gains"
     ).inc(evals, backend=backend)
+
+
+def record_session_delta(op: str, *, w: int, dm: int) -> None:
+    """One session delta update (``extend`` / ``rescore`` / ``rebuild``):
+    ``dm`` candidate columns re-solved against a ``w``-row window —
+    O(w * dm) device work where a from-scratch rerank would pay
+    O(k * M)."""
+    reg = _obs.registry()
+    if reg is None:
+        return
+    reg.counter(
+        "session_deltas_total", "session delta updates by op"
+    ).inc(op=op)
+    reg.counter(
+        "session_delta_cols_total",
+        "candidate columns re-solved by session delta updates",
+    ).inc(dm, op=op)
+
+
+def record_session_evict(resident_bytes: int, *, evicted: int = 1) -> None:
+    """``evicted`` sessions dropped to the LRU byte budget;
+    ``resident_bytes`` is the store's device footprint *after* the
+    eviction (also exported on every resume via
+    :func:`record_session_resident`)."""
+    reg = _obs.registry()
+    if reg is None:
+        return
+    reg.counter(
+        "session_evictions_total",
+        "session states dropped by the LRU byte budget",
+    ).inc(evicted)
+    reg.gauge(
+        "session_resident_bytes",
+        "device bytes held by resident session states",
+    ).set(resident_bytes)
+
+
+def record_session_resident(resident_bytes: int, *, sessions: int) -> None:
+    """Current store footprint: ``sessions`` resident states holding
+    ``resident_bytes`` on device."""
+    reg = _obs.registry()
+    if reg is None:
+        return
+    reg.gauge(
+        "session_resident_bytes",
+        "device bytes held by resident session states",
+    ).set(resident_bytes)
+    reg.gauge(
+        "session_resident_count", "resident session states"
+    ).set(sessions)

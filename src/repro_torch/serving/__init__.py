@@ -1,7 +1,8 @@
-"""DPP rerank serving: ``Reranker(cfg, router_config=..., device=...)`` +
-``RerankRequest`` (``repro_torch.serving.api``) and, for continuous
-batching, ``RerankRouter`` (``repro_torch.serving.router``).  Sessions of
-``repro``'s serving layer are not ported yet (ROADMAP queue 1 item 8).
+"""DPP rerank serving: ``Reranker(cfg, router_config=...,
+session_config=..., device=...)`` + ``RerankRequest``
+(``repro_torch.serving.api``); for continuous batching ``RerankRouter``
+(``repro_torch.serving.router``); for stateful feeds ``SessionStore`` and
+``RerankSession`` (``repro_torch.serving.session``).
 """
 from repro_torch.obs import ObsConfig
 from repro_torch.serving.api import Reranker, RerankRequest
@@ -13,15 +14,23 @@ from repro_torch.serving.router import (
     RouterStats,
     SlateHandle,
 )
+from repro_torch.serving.session import (
+    RerankSession,
+    SessionConfig,
+    SessionStore,
+)
 
 __all__ = [
     "DPPRerankConfig",
     "ObsConfig",
     "Reranker",
     "RerankRequest",
+    "RerankSession",
     "RerankRouter",
     "RouterConfig",
     "RouterQueueFull",
     "RouterStats",
+    "SessionConfig",
+    "SessionStore",
     "SlateHandle",
 ]

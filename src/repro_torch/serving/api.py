@@ -15,8 +15,10 @@ tensors) onto the session's device and dispatches by request shape:
 K5/K6 launch per chunk with ``use_kernel``).  ``submit`` hands a single
 request to the session's continuous-batching router
 (``repro_torch.serving.router``: one K5/K6 launch per cycle for every
-live request) and returns a ``SlateHandle``.  ``session`` is not ported
-yet (ROADMAP queue 1 item 8) and raises ``NotImplementedError``.
+live request) and returns a ``SlateHandle``.  ``session`` opens a
+stateful feed over one request (``repro_torch.serving.session``: one K6
+launch per ``next_chunk``, O(w * dM) ``extend`` / ``rescore`` delta
+updates, LRU eviction and rebuild from host mirrors).
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from repro_torch.core.streaming import (
     resolve_chunk,
     slot_pad_v,
 )
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
 from repro_torch.serving.reranker import DPPRerankConfig, _shortlist_kernel
 
 
@@ -140,12 +142,13 @@ class Reranker:
 
     ``device`` defaults to the card; a CUDA device without one raises
     here, at construction.  Request arrays (numpy or tensors) are moved
-    onto it by ``rerank``, ``stream`` and the router.
-    ``router_config`` shapes the router behind ``submit``.
+    onto it by ``rerank``, ``stream``, the router and the sessions.
+    ``router_config`` shapes the router behind ``submit``,
+    ``session_config`` the session store behind ``session``.
     """
 
     def __init__(self, cfg: DPPRerankConfig, router_config=None,
-                 device="cuda"):
+                 session_config=None, device="cuda"):
         if not isinstance(cfg, DPPRerankConfig):
             raise TypeError(
                 f"Reranker takes a DPPRerankConfig, got {type(cfg).__name__}"
@@ -154,6 +157,8 @@ class Reranker:
         self.device = resolve_device(device)
         self._router_config = router_config
         self._router = None
+        self._session_config = session_config
+        self._sessions = None
         if cfg.obs is not None:  # enabled=False configs are a no-op
             obs.enable(cfg.obs)
 
@@ -181,9 +186,7 @@ class Reranker:
         )
 
     def _tensor(self, x, dtype=None) -> torch.Tensor:
-        if isinstance(x, torch.Tensor):
-            return x.to(device=self.device, dtype=dtype)
-        return torch.as_tensor(np.asarray(x), device=self.device, dtype=dtype)
+        return to_device(x, self.device, dtype)
 
     def rerank(self, req: RerankRequest, **kwargs):
         """Whole-slate rerank: ``(indices int32, d_hist)``, shapes ``(N,)``
@@ -264,11 +267,40 @@ class Reranker:
 
         return emit()
 
+    @property
+    def sessions(self):
+        """The session store on the session's device (created lazily on
+        first use; see ``repro_torch.serving.session``): per-user
+        windowed greedy states kept resident between scroll events under
+        an LRU byte budget."""
+        if self._sessions is None:
+            from repro_torch.serving.session import (
+                SessionConfig,
+                SessionStore,
+            )
+
+            self._sessions = SessionStore(
+                self.cfg, self._session_config or SessionConfig(),
+                self.device,
+            )
+        return self._sessions
+
     def session(self, req: RerankRequest, sid=None, **kwargs):
-        raise NotImplementedError(
-            "Reranker.session (session-aware incremental rerank) is not "
-            "ported yet (ROADMAP queue 1 item 8)"
-        )
+        """Open a ``RerankSession`` over one request's shortlist:
+        ``next_chunk(n)`` emits the next ``n`` items conditioned on
+        everything the session has already shown (never replaying
+        selected steps), ``extend`` / ``rescore`` delta-update the
+        candidate pool in O(w * dM), and the store evicts cold sessions
+        to ``session_config.budget_bytes`` (rebuilt on the next touch).
+        ``sid`` names the session (auto-assigned when None); calling
+        again with an existing ``sid`` resumes that session and ignores
+        ``req``.  Requires a windowed config (``cfg.window <
+        slate_size``); single requests only.
+        """
+        req = self._as_request(req, kwargs)
+        if sid is not None and sid in self.sessions:
+            return self.sessions.get(sid)
+        return self.sessions.create(req, sid=sid, cfg=self._cfg_for(req))
 
     @property
     def router(self):

@@ -9,21 +9,22 @@ at once, not idle until its neighbours finish.  This router serves that
 shape the way LLM servers batch token generation continuously:
 
 * a fixed micro-batch of ``slots`` lanes advances ``chunk_size`` greedy
-  steps per cycle through **one** batched chunk call
-  (``repro_torch.core.streaming.greedy_chunk_slots``: one K5 or K6
-  launch on the kernel backend); the per-slot step counter ``t (S,)``
-  lets every lane sit at its own depth;
+  steps per cycle through **one** batched chunk call (a
+  ``repro_torch.core.streaming.greedy_chunk_launcher`` over the slot
+  batch, built with it: one K5 or K6 launch on the kernel backend, its
+  operands checked once); the per-slot step counter ``t (S,)`` lets
+  every lane sit at its own depth;
 * requests are padded into a common bucket: the candidate axis to
-  ``max_candidates`` columns (each lane's state is built at its request's
-  own width and widened with the padding's gains at -inf, which argmax
-  can never pick, so slates are index for index, and on the card bit for
+  ``max_candidates`` columns (each lane's gains are computed at its
+  request's own width and the padding's stay at -inf, which argmax can
+  never pick, so slates are index for index, and on the card bit for
   bit, those of a per-request ``rerank``) and the slot Cholesky capacity
   to ``max_slate`` rows;
   per-request k, mask and progress live in data and host-side loop
   bounds, so admission never changes the device geometry;
 * completed, eps-stopped and deadline-expired lanes are evicted
   (``state_evict``) and refilled from a bounded FIFO admission queue
-  (``state_splice``) between cycles;
+  (``state_admit``, in place) between cycles;
 * the pump is **double-buffered on CUDA stream order**: right after a
   chunk is launched, non-blocking copies of its ``sel``, ``d_hist`` and
   ``stopped`` into pinned host buffers (two sets, allocated once per
@@ -79,15 +80,12 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.streaming import (
-    greedy_chunk_slots,
-    greedy_slot_state,
+    greedy_chunk_launcher,
     greedy_slots_init,
-    slot_pad_v,
-    slot_state_widen,
+    state_admit,
     state_evict,
-    state_splice,
 )
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels.dpp_greedy.tiled import chunk_capacity
 from repro_torch.kernels.dpp_greedy.tiling import TilePolicy
 from repro_torch.obs import MetricsRegistry, ObsConfig
@@ -370,6 +368,7 @@ class RerankRouter:
         self._free: List[int] = list(range(self.rcfg.slots))
         self._state = None  # slot-batched GreedyState (lazy)
         self._V = None  # (S, D, M) stacked kernel operand (lazy)
+        self._run = None  # the cycle's chunk launcher, built with them
         self._D: Optional[int] = None  # session feature dim (first submit)
         self._dtype: Optional[torch.dtype] = None  # resident slot dtype
         self._host = None  # two sets of pinned (sel, dh, stopped) buffers
@@ -515,30 +514,20 @@ class RerankRouter:
         return dataclasses.replace(self.cfg, shortlist=c)
 
     def _tensor(self, x, dtype=None) -> torch.Tensor:
-        if isinstance(x, torch.Tensor):
-            return x.to(device=self.device, dtype=dtype)
-        return torch.as_tensor(np.asarray(x), device=self.device, dtype=dtype)
+        return to_device(x, self.device, dtype)
 
     def _prep(self, live: _Live):
-        """Admission prep: shortlist, bucket padding, the single-request
-        slot state.  Returns ``(single_state, V_lane)``."""
+        """Admission prep: the shortlist.  Returns ``(V (D, m), mask (m,)
+        or None)`` at the request's own width."""
         req, cfg = live.req, self._cfg_for(live.req)
         mask = (None if req.mask is None
                 else self._tensor(req.mask, torch.bool)[None])
         V, m, top_i = _shortlist_kernel(
             self._tensor(req.scores)[None], self._tensor(req.feats), cfg, mask
         )
-        V = V[0]
         # the host keeps the id map: delivery never touches the card
         live.top_i = top_i[0].cpu().numpy()
-        # the state at the request's own width, then widened to the
-        # bucket with the padding parked (never selectable): its gains
-        # are the bits a per-request rerank starts from
-        single = greedy_slot_state(self.spec, V, mask=None if m is None
-                                   else m[0], dtype=self._dtype)
-        single = slot_state_widen(self.spec, single, self.bucket)
-        V = torch.nn.functional.pad(V, (0, self.bucket - V.shape[-1]))
-        return single, slot_pad_v(self.spec, V.to(self._dtype), single)
+        return V[0], None if m is None else m[0]
 
     def _admit(self, now: float):
         """FIFO admission into free slots; expired queued requests are
@@ -554,10 +543,16 @@ class RerankRouter:
                     self.spec, self.rcfg.slots, self._D, self.bucket,
                     dtype=self._dtype, device=self.device,
                 )
+                self._run = greedy_chunk_launcher(
+                    self.spec, self._state, V=self._V, chunk_size=self.chunk
+                )
             slot = self._free.pop()
-            single, V_lane = self._prep(live)
-            self._state = state_splice(self._state, single, slot)
-            self._V[slot] = V_lane
+            V, mask = self._prep(live)
+            # a parked slot is zero past the request's width (V) and
+            # parked there (never selectable): the lane's gains are the
+            # bits a per-request rerank starts from
+            state_admit(self.spec, self._state, slot, V, mask)
+            self._V[slot, :, : V.shape[-1]] = V
             self._active[slot] = live
             self._count("admitted")
 
@@ -599,15 +594,13 @@ class RerankRouter:
         self._reg.counter("router_lane_steps_total").inc(
             self.rcfg.slots * self.chunk, router=rid, lanes="all"
         )
-        self._state, sel, dh = greedy_chunk_slots(
-            self.spec, self._state, self._V, self.chunk
-        )
+        sel, dh = self._run()  # the state advances in place
         inflight = self._copy_out(sel, dh)
         self._launches += 1
         return inflight
 
     def _evict(self, slot: int):
-        self._state = state_evict(self._state, slot)
+        state_evict(self._state, slot)
         self._V[slot] = 0.0
         del self._active[slot]
         self._free.append(slot)

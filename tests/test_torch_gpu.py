@@ -49,6 +49,14 @@ rerank, one launch a pump; the ``stopped`` flags a pump decides on are
 chunk N's, copied to pinned memory before chunk N+1, the evictions and
 the admissions update the state's flags in place; and ``slots`` past
 the card's co-residency are refused, naming the largest that fits.
+
+Sessions: every ``next_chunk`` of a live session is one K6 launch and a
+stopped session's none; a session's first chunks equal the card's K2
+rerank bit for bit, and every chunk (after ``extend`` and ``rescore``
+too) equals the same session on K6's plain version; an evicted session
+rebuilds on the card and keeps matching a control that was never
+evicted; a session's launcher launches on the stream current at each
+call, not the one it was built on.
 """
 import importlib
 
@@ -911,3 +919,134 @@ def test_router_refuses_slots_past_the_card_co_residency(card):
     ids, _ = ok.submit(req).result()
     assert cuda.launch_counts()["fused_chunk_exact"] >= 1
     assert torch.equal(torch.from_numpy(ids), ok.rerank(req)[0].cpu())
+
+
+def _session_feed(seed=3, M=600, D=16):
+    from repro_torch.serving import RerankRequest
+
+    rng = np.random.default_rng(seed)
+    feats = rng.standard_normal((M, D)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    return RerankRequest(scores=rng.uniform(size=M).astype(np.float32),
+                         feats=feats)
+
+
+def _session_verbs(rr, req):
+    """Three scrolls, then twice an extend, a scroll, a rescore and a
+    scroll (on the card the first delta of a width captures its graph,
+    the second replays it): the chunks (ids, gains), numpy."""
+    rng = np.random.default_rng(9)
+    sess = rr.session(req)
+    out = [sess.next_chunk(4) for _ in range(3)]
+    for lo in (100, 140):
+        f = rng.standard_normal((40, req.feats.shape[1])).astype(np.float32)
+        f /= np.linalg.norm(f, axis=1, keepdims=True)
+        sess.extend(rng.uniform(size=40).astype(np.float32), f)
+        out.append(sess.next_chunk(4))
+        ids = np.concatenate([sess.shown[:2], sess._gid[lo:lo + 30]])
+        sess.rescore(ids, rng.uniform(size=ids.size).astype(np.float32))
+        out.append(sess.next_chunk(4))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [3, 5])
+def test_session_on_card_matches_plain_and_rerank(card, window):
+    from repro_torch.serving import SessionConfig
+
+    cfg = DPPRerankConfig(use_kernel=True, shortlist=300, slate_size=12,
+                          alpha=3.0, window=window, eps=1e-6)
+    scfg = SessionConfig(capacity=400)
+    gpu = Reranker(cfg, session_config=scfg, device="cuda")
+    req = _session_feed()
+    ei, ed = (x.cpu().numpy() for x in gpu.rerank(req))
+    cuda.reset_launch_counts()
+    got = _session_verbs(gpu, req)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts() == {"fused_chunk_windowed": 7}
+    # both widths' deltas went through their CUDA graphs
+    (sess,) = gpu.sessions._sessions.values()
+    assert 64 in sess._stages
+    assert all(st.graph is not None for st in sess._stages.values())
+    # the first 12 items are the K2 slate, d_hist bit for bit
+    np.testing.assert_array_equal(np.concatenate([g[0] for g in got[:3]]),
+                                  ei)
+    np.testing.assert_array_equal(np.concatenate([g[1] for g in got[:3]]),
+                                  ed)
+    want = _session_verbs(Reranker(cfg, session_config=scfg, device="cpu"),
+                          req)
+    for (gi, gd), (wi, wd) in zip(got, want):
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_allclose(gd, wd, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_session_eviction_on_card_matches_control(card):
+    from repro_torch.serving import SessionConfig
+
+    cfg = DPPRerankConfig(use_kernel=True, shortlist=300, slate_size=12,
+                          alpha=3.0, window=4, eps=1e-6)
+    rr = Reranker(cfg, session_config=SessionConfig(budget_bytes=1),
+                  device="cuda")
+    ctl = Reranker(cfg, device="cuda")
+    req, other = _session_feed(4), _session_feed(5)
+    a, c = rr.session(req, sid="a"), ctl.session(req)
+    for step in range(4):
+        rr.session(other, sid=f"b{step}").next_chunk(2)  # evicts a
+        assert not a.resident
+        ia, da = a.next_chunk(4)
+        ic, dc = c.next_chunk(4)
+        np.testing.assert_array_equal(ia, ic)
+        np.testing.assert_allclose(da, dc, rtol=1e-5, atol=1e-5)
+        assert a._state.C.is_cuda and a._state.win.dtype == torch.int32
+
+
+@pytest.mark.gpu
+def test_stopped_session_launches_nothing(card):
+    from repro_torch.serving import RerankRequest
+
+    rng = np.random.default_rng(13)
+    basis = np.linalg.qr(rng.normal(size=(8, 2)))[0]
+    f = (rng.normal(size=(64, 2)) @ basis.T).astype(np.float32)
+    f /= np.linalg.norm(f, axis=1, keepdims=True)
+    req = RerankRequest(scores=rng.uniform(size=64).astype(np.float32),
+                        feats=f)
+    rr = Reranker(DPPRerankConfig(use_kernel=True, shortlist=64,
+                                  slate_size=12, alpha=3.0, window=4,
+                                  eps=0.05), device="cuda")
+    sess = rr.session(req)
+    cuda.reset_launch_counts()
+    assert len(sess.next_chunk(4)[0]) == 2  # eps-stops inside the chunk
+    assert sess.next_chunk(4)[0].size == 0
+    torch.cuda.synchronize()
+    assert cuda.launch_counts() == {"fused_chunk_windowed": 1}
+
+
+@pytest.mark.gpu
+def test_session_launches_on_the_current_stream(card):
+    """A session's chunk launcher is built on the default stream and then
+    called on a side stream that is busy: the K6 launch queues behind
+    the side stream's extend, so the chunk sees the new candidates, as a
+    control session on the default stream does."""
+    cfg = DPPRerankConfig(use_kernel=True, shortlist=300, slate_size=12,
+                          alpha=3.0, window=4, eps=1e-6)
+    req = _session_feed(6)
+    rng = np.random.default_rng(21)
+    f = rng.standard_normal((40, req.feats.shape[1])).astype(np.float32)
+    f /= np.linalg.norm(f, axis=1, keepdims=True)
+    # relevance 3^4 and up against the pool's 3^1 at most: picked first
+    scores = rng.uniform(4.0, 5.0, size=40).astype(np.float32)
+    ctl = Reranker(cfg, device="cuda").session(req)
+    sess = Reranker(cfg, device="cuda").session(req)
+    for s in (ctl, sess):
+        s.next_chunk(4)  # builds the launcher on the default stream
+    ctl.extend(scores, f)
+    wi, wd = ctl.next_chunk(4)
+    assert np.any(wi >= req.num_candidates)  # the extend is seen
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)  # the side stream busy first
+        sess.extend(scores, f)
+        gi, gd = sess.next_chunk(4)
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_allclose(gd, wd, rtol=RTOL, atol=ATOL)

@@ -177,17 +177,22 @@ def test_config_validation(kw, err):
 
 @pytest.mark.parametrize("verb", ["session", "submit"])
 def test_unported_verbs_raise(verb):
-    """``session`` still raises, naming its ROADMAP item; ``submit`` is
-    ported (the router) and now serves the request's rerank slate."""
-    rr = ts.Reranker(ts.DPPRerankConfig(), device="cpu")
+    """Both verbs are ported now and serve the request's rerank slate:
+    ``submit`` (the router) the whole slate, ``session`` (under a
+    windowed config) chunks that concatenate to a prefix of it."""
     scores, feats, _ = _data(8, M=20)
     req = ts.RerankRequest(scores=scores, feats=feats)
     if verb == "submit":
+        rr = ts.Reranker(ts.DPPRerankConfig(), device="cpu")
         ids, _ = rr.submit(req).result()
         assert np.array_equal(ids, rr.rerank(req)[0].numpy())
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(rr, verb)(req)
+    rr = ts.Reranker(ts.DPPRerankConfig(slate_size=10, window=3),
+                     device="cpu")
+    sess = rr.session(req)
+    ids = np.concatenate([sess.next_chunk(n)[0] for n in (4, 3)])
+    assert ids.size == 7
+    assert np.array_equal(ids, rr.rerank(req)[0].numpy()[:7])
 
 
 def test_reranker_type_errors():

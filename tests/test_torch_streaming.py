@@ -276,6 +276,57 @@ def test_slot_dtype_threads_through():
     assert bool(state.stopped[0]) and not bool(state.stopped[1])
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("window", [None, 3])
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_state_admit_equals_the_spliced_widened_state(backend, window,
+                                                      masked):
+    """In-place admission (the router's) into a parked slot, fresh, or
+    evicted after chunks ran, or never used while its neighbours' chunks
+    advanced every step counter, leaves the slot batch bit for bit as a
+    fresh state at the request's own width, widened and spliced, does;
+    and a slot-batched ``greedy_chunk_launcher`` runs the cycles as
+    ``greedy_chunk_slots`` does."""
+    D, M, widths, k, chunk = 8, 40, (29, 40, 33), 6, 2
+    spec = _tspec(backend, k, window)
+    V, mask = _inputs(8, D=D, M=M, B=3, masked=masked)
+    reqs = [(torch.from_numpy(V[i, :, :m]).contiguous(),
+             torch.from_numpy(mask[i, :m]) if masked else None)
+            for i, m in enumerate(widths)]
+    a, Va = tc.greedy_slots_init(spec, 3, D, M, device="cpu")
+    b, Vb = tc.greedy_slots_init(spec, 3, D, M, device="cpu")
+    run = tc.greedy_chunk_launcher(spec, a, V=Va, chunk_size=chunk)
+
+    def admit(slot, i):
+        Vi, mi = reqs[i]
+        tc.state_admit(spec, a, slot, Vi, mi)
+        Va[slot, :, : Vi.shape[-1]] = Vi
+        single = tc.slot_state_widen(spec, tc.greedy_slot_state(
+            spec, Vi, mask=mi), M)
+        tc.state_splice(b, single, slot)
+        Vb[slot] = torch.nn.functional.pad(Vi, (0, M - Vi.shape[-1]))
+
+    def cycle():
+        nonlocal b
+        sel_a, dh_a = (x.clone() for x in run())
+        b, sel_b, dh_b = tc.greedy_chunk_slots(spec, b, Vb, chunk)
+        assert torch.equal(sel_a, sel_b) and torch.equal(dh_a, dh_b)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+        return sel_a
+
+    admit(0, 0)
+    assert (cycle()[0] >= 0).all()
+    cycle()
+    for st in (a, b):
+        tc.state_evict(st, 0)
+    Va[0] = Vb[0] = 0.0
+    admit(0, 1)
+    admit(2, 2)  # parked since init; its counter advanced with the rest
+    for _ in range(3):
+        cycle()
+
+
 def test_slots_init_defaults_to_the_card(monkeypatch):
     """Without ``device=`` the slot batch goes to the card: with no card
     visible that is ``resolve_device``'s error, never a silent CPU."""
