@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the DPP rerank, DeepFM
 scoring into the rerank, the fused scoring top-c, the paper's
-experiments, the continuous-batching router and session-aware
-incremental rerank.
+experiments, the continuous-batching router, session-aware incremental
+rerank and the candidate-sharded rerank.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --resident-times   # K1, K2 alone (resident_times)
@@ -11,7 +11,7 @@ incremental rerank.
 process for K7's profiler times: ``topk_device_times``.)
 
 Builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a),
-then runs fifteen phases through the port's entry points.  Phases 1-9
+then runs sixteen phases through the port's entry points.  Phases 1-9
 (``repro_torch.serving.Reranker(..., use_kernel=True).rerank`` and
 ``.stream``, ``repro_torch.core.greedy_map_chunks`` and
 ``greedy_chunk_slots``) run at the paper's §5.1 setup: D = 100
@@ -158,16 +158,45 @@ state a session):
                       ``next_chunk``, none for a stopped session; each
                       verb's host wall from its span.
 
+Phase 16 runs the candidate-sharded whole-slate rerank,
+``Reranker(DPPRerankConfig(mesh=...)).rerank``
+(``repro_torch.serving.sharded_rerank``, ``repro_torch.core.sharded``)
+in ranks of a ``torch.distributed`` group that ``python -m
+repro_torch.launch.serve_sharded`` starts as child processes, last, after
+phase 15's wall-clock gates:
+
+16. sharded rerank:   (c) first, in this process on a one-rank gloo
+                      group: each shard-local update entry of K3/K4
+                      (``tiled_update_exact`` / ``_windowed``) against its
+                      plain version, a whole slate on phase 3's shortlist
+                      (B = 4, C = 65,536, k = 50; w = 10, k = 200) as the
+                      shard from global id 3 C on, timed as K3/K4 are;
+                      (a) one NCCL rank on phase 3/4's request (pool
+                      10^6, a 10% seen mask, V 1.6 GB on the rank): slates
+                      against phase 3/4's K3/K4 rerank; (b) phase 1's
+                      first 8 users (pool 100,000, C = 1000) under 1 NCCL
+                      rank and 2 and 4 gloo ranks sharing the card, the
+                      three runs at once: every rank's slate equal to the
+                      others' and to the one-rank run's, which is held
+                      against phase 1/2's K1/K2 rerank.  Each rank runs
+                      k update launches a call and nothing else; each
+                      run's host wall by rank and its collectives' share
+                      (a third call that synchronises around each
+                      collective) are printed.  A child that fails or
+                      passes its time limit fails the phase with its
+                      stderr tail.
+
 Each phase resets the kernels' launch counters right before the main-path
-call, reads them right after, and checks them and the mode recorded in
-dispatch telemetry; holds the kernel against its plain PyTorch version on
-the same inputs (d_hist rtol 3e-4 / atol 1e-5; a slate may differ only
+call (phase 16's ranks in their own processes), reads them right after,
+and checks them and the mode recorded in dispatch telemetry; holds the
+kernel against its plain PyTorch version on the same inputs (d_hist
+rtol 3e-4 / atol 1e-5; a slate may differ only
 after a float64-certified near-tie, with every later pick float64
 greedy-valid; K8 rtol 1e-5 / atol 1e-6; K7 values within 1e-5); times the
 kernel and the plain version with CUDA events (the multi-launch kernels
-K3-K6 one event pair per launch, summed), with torch.profiler's device
-time of the same launches beside it as ``device_ms`` (K1-K7); and checks
-the outputs.
+K3-K6 and the update entries one event pair per launch, summed), with
+torch.profiler's device time of the same launches beside it as
+``device_ms`` (K1-K7, the update entries); and checks the outputs.
 Phases 3, 4 and 6-9 also print the per-step streaming floor beside the
 kernel's device time: V's bytes once per step over 3.35 TB/s and, for
 the exact kernels, the live Cholesky rows read, row t written and the
@@ -183,9 +212,12 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -214,6 +246,12 @@ KERNELS = {
     "tiled_step_windowed": dict(
         source="src/repro_torch/kernels/dpp_greedy/csrc/tiled.cu",
         replaces="src/repro/kernels/dpp_greedy/tiled.py:160"),
+    "tiled_update_exact": dict(
+        source="src/repro_torch/kernels/dpp_greedy/csrc/tiled.cu",
+        replaces="src/repro/kernels/dpp_greedy/tiled.py:307"),
+    "tiled_update_windowed": dict(
+        source="src/repro_torch/kernels/dpp_greedy/csrc/tiled.cu",
+        replaces="src/repro/kernels/dpp_greedy/tiled.py:327"),
     "fused_chunk_exact": dict(
         source="src/repro_torch/kernels/dpp_greedy/csrc/chunk.cu",
         replaces="src/repro/kernels/dpp_greedy/tiled.py:398"),
@@ -591,7 +629,7 @@ def phase(name, kernel, rr, scores, feats, mask, window, expect_mode,
 def kernel_record(records, kernel, ms, plain_ms, bnd, err, note,
                   library_ms=None,
                   library="no library call computes a greedy DPP slate",
-                  device=None):
+                  device=None, reps=TIMING_REPS):
     """Put one kernel's numbers into the JSON record and print them.
     ``ms`` is CUDA event time for every kernel; ``device``, where it was
     measured, the same launches' device time by torch.profiler, kept
@@ -604,7 +642,7 @@ def kernel_record(records, kernel, ms, plain_ms, bnd, err, note,
     lib = "null" if library_ms is None else f"{library_ms:.4f} ms"
     if device is not None:
         note += f"; device time by torch.profiler {device:.4f} ms"
-    print(f"  {kernel}: {ms:.4f} ms/call (median of {TIMING_REPS}, {note}), "
+    print(f"  {kernel}: {ms:.4f} ms/call (median of {reps}, {note}), "
           f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {by} "
           f"({nbytes} B, {flops} FP32 FLOP), launches/call "
           f"{rec['calls_launches']}, {library} (library_ms {lib})",
@@ -689,7 +727,7 @@ def layout_text(plan, M, windowed, smem, cap):
             f"once")
 
 
-def run_resident(records, rng):
+def run_resident(records, rng, refs):
     from repro_torch.kernels.dpp_greedy.dpp_greedy import (
         dpp_greedy_resident,
         dpp_greedy_resident_plain,
@@ -752,6 +790,12 @@ def run_resident(records, rng):
             results["single request"] = single_request_sweep(
                 V[:1], d2[:1], k, got)
         results[window] = (V, got, out)
+        b = SHARDED_B_USERS
+        refs.setdefault("b", {"V": V[:b], "m_top": None, "top_i": top_i[:b],
+                              "out": {}})["out"][window] = (out[0][:b],
+                                                            out[1][:b])
+    refs["b"]["npz"] = save_request(refs["work"] / "phase16b.npz",
+                                    scores[:SHARDED_B_USERS], feats, None)
     return scores, feats, results
 
 
@@ -806,7 +850,7 @@ def single_request_sweep(V, d2, k, batch):
     return (plan.s, *times[plan])
 
 
-def run_tiled(records, rng):
+def run_tiled(records, rng, refs):
     from repro_torch.kernels.dpp_greedy import tiled as tm
     from repro_torch.kernels.dpp_greedy.tiling import TilePolicy
     from repro_torch.serving import DPPRerankConfig, Reranker
@@ -851,6 +895,12 @@ def run_tiled(records, rng):
               f"CUDA events: {span:.4f} ms{busy}", flush=True)
         stream_floor(B, C, k, dev, exact=window is None)
         results[window] = (V, m_top, got)
+        refs.setdefault("a", {"V": V, "m_top": m_top, "top_i": top_i,
+                              "out": {}, "direct": {}})
+        refs["a"]["out"][window] = out
+        refs["a"]["direct"][window] = got
+    refs["a"]["npz"] = save_request(refs["work"] / "phase16a.npz", scores,
+                                    feats, mask)
     return results, feats
 
 
@@ -2864,6 +2914,284 @@ def run_sessions(records, rng):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the candidate-sharded rerank (torch.distributed ranks)
+# ---------------------------------------------------------------------------
+
+SHARDED_B_USERS = 8  # phase 16(b): phase 1's first users
+SHARDED_A_BACKEND = "nccl"  # phase 16(a): one NCCL rank on the card
+SHARDED_TIMEOUT_S = 300
+
+
+def save_request(path, scores, feats, mask):
+    """Write a request's arrays for ``launch.serve_sharded --inputs``."""
+    arrays = {"scores": scores.cpu().numpy(), "feats": feats.cpu().numpy()}
+    if mask is not None:
+        arrays["mask"] = mask.cpu().numpy()
+    np.savez(path, **arrays)
+    return path
+
+
+def start_child(name, npz, P, backend, shortlist):
+    """Start ``python -m repro_torch.launch.serve_sharded`` with P ranks
+    on ``npz``'s request, exact k = 50 and windowed w = 10, k = 200, as a
+    child process; :func:`finish_child` collects it."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve_sharded",
+           "--devices", str(P), "--backend", backend, "--device", "cuda",
+           "--inputs", str(npz), "--window", "0", "10", "--slate", "50",
+           "200", "--shortlist", str(shortlist), "--alpha", str(ALPHA),
+           "--eps", str(EPS), "--timeout", str(SHARDED_TIMEOUT_S)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=ROOT, stdin=subprocess.DEVNULL)
+    return name, P, backend, proc, time.perf_counter()
+
+
+def finish_child(child):
+    """Wait for a :func:`start_child` process under its time limit and
+    return its JSON record.  A child that fails or passes its limit
+    fails the phase with its stderr tail (it is killed first)."""
+    name, P, backend, proc, t0 = child
+    try:
+        out, err = proc.communicate(timeout=SHARDED_TIMEOUT_S + 60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        print(f"[{name}] serve_sharded passed its time limit; stderr "
+              f"tail:\n{err[-3000:]}", file=sys.stderr, flush=True)
+        raise SmokeFailure(f"{name}: serve_sharded timed out") from None
+    if proc.returncode != 0 or not out.strip():
+        print(f"[{name}] serve_sharded exited with {proc.returncode}; "
+              f"stderr tail:\n{err[-3000:]}", file=sys.stderr, flush=True)
+        raise SmokeFailure(f"{name}: serve_sharded failed")
+    print(f"  {name}: {P} rank(s) under {backend}, the child process took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def hold_sharded(name, got, want, ref, window):
+    """A sharded slate ``got`` ((ids, d_hist) lists, global ids) against
+    the single-device rerank's ``want`` (card tensors) on the same users:
+    each lane equal, or parting at a float64-certified near-tie
+    (``certify`` on the single-device shortlist ``ref``); d_hist over the
+    agreeing prefix within rtol/atol.  Returns (diverging lanes, max abs
+    d_hist difference)."""
+    gi = torch.tensor(got[0], dtype=torch.int64)
+    gd = torch.tensor(got[1], dtype=torch.float32)
+    wi, wd = want[0].cpu().to(torch.int64), want[1].cpu()
+    check(gi.shape == wi.shape, f"{name}: slate shape {tuple(gi.shape)} vs "
+                                f"{tuple(wi.shape)}")
+    lanes, err = [], 0.0
+    for b in range(gi.shape[0]):
+        same = torch.equal(gi[b], wi[b])
+        p = gi.shape[1] if same else int(torch.nonzero(gi[b] != wi[b])[0])
+        if not same:
+            top = ref["top_i"][b]
+            m = None if ref["m_top"] is None else ref["m_top"][b:b + 1]
+            certify(f"{name}: lane {b}", ref["V"][b:b + 1], m,
+                    to_local(top, gi[b].numpy()),
+                    to_local(top, wi[b].numpy()), window, EPS)
+            lanes.append(b)
+        if p:
+            e = (gd[b, :p] - wd[b, :p]).abs().max().item()
+            err = max(err, e)
+            check(torch.allclose(gd[b, :p], wd[b, :p], rtol=RTOL, atol=ATOL),
+                  f"{name}: lane {b} d_hist beyond rtol {RTOL} / atol {ATOL} "
+                  f"({e})")
+    bits = ", ids and d_hist bit for bit" if (
+        not lanes and torch.equal(gd, wd)) else ""
+    print(f"  {name}: {len(lanes)} of {gi.shape[0]} lanes part (each at a "
+          f"certified float64 near-tie); d_hist max abs diff {err:.3g}{bits}",
+          flush=True)
+    return lanes, err
+
+
+def sharded_runs(name, rec, records):
+    """Check one serve_sharded record's runs: every rank launched k update
+    entries in its main-path call and nothing else; print each rank's
+    host wall and its collectives' share; add the launches to the
+    kernels' record."""
+    for run, k in zip(rec["runs"], (50, 200)):
+        kernel = ("tiled_update_exact" if run["window"] is None
+                  else "tiled_update_windowed")
+        check(run["ranks_agree"] and len(run["ranks"]) == rec["devices"],
+              f"{name}: the ranks' slates disagree")
+        parts = []
+        for r in run["ranks"]:
+            check(r["launches"] == {kernel: k},
+                  f"{name}: rank {r['rank']} launched {r['launches']}, "
+                  f"expected {{{kernel!r}: {k}}} (one update a step, no "
+                  f"K3/K4)")
+            records.setdefault(kernel, {"launches": 0})["launches"] += k
+            parts.append(
+                f"rank {r['rank']} {r['steady_call_s'] * 1e3:.1f} ms, "
+                f"collectives {r['collective_s'] * 1e3:.1f} of "
+                f"{r['timed_call_s'] * 1e3:.1f} ms "
+                f"({r['collective_s'] / r['timed_call_s']:.1%}, "
+                f"{r['collectives']} collectives)")
+        print(f"  {name}, window {run['window']}, k={k}: host wall by rank "
+              f"(the steady call; collectives timed in a third call that "
+              f"synchronises around each): " + "; ".join(parts)
+              + f"; {kernel} x {k} a rank", flush=True)
+
+
+@contextlib.contextmanager
+def patched_updates(tm, plain=False, wrap=None):
+    """Within the block, the sharded loop's update step runs the plain
+    update entry (``plain``) instead of the kernel's launch, and is
+    wrapped as ``wrap(step)`` when given."""
+    real = tm.update_launcher
+
+    def launcher(operands, base, keys, tile):
+        if not plain:
+            step = real(operands, base, keys, tile)
+        elif len(operands) == 11:
+            def step(t, pos=None):
+                tm.tiled_update_windowed_plain(*operands, base, pos, keys, t,
+                                               tile)
+        else:
+            def step(t, pos=None):
+                tm.tiled_update_exact_plain(*operands, base, keys, t, tile)
+        return step if wrap is None else wrap(step)
+
+    tm.update_launcher = launcher
+    try:
+        yield
+    finally:
+        tm.update_launcher = real
+
+
+def run_update_entries(records, ref, work):
+    """16(c): each update entry against its plain version, a whole slate
+    on phase 3's shortlist (B = 4, D = 100, C = 65,536) as the shard of
+    global ids from ``base = 3 C`` on, through ``core.sharded.greedy_local``
+    on a one-rank gloo group in this process; timed as K3/K4 are (one
+    CUDA event pair a launch, summed; device time by torch.profiler)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.sharded import greedy_local
+    from repro_torch.distributed import init_group, make_mesh
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.dpp_greedy import tiled as tm
+
+    V, m_top = ref["V"], ref["m_top"]
+    B, _, C = V.shape
+    base = 3 * C
+    init_group("gloo", 0, 1, work / "rendezvous16c", timeout_s=300)
+    try:
+        mesh = make_mesh(device="cuda")
+        for kernel, k, w in (("tiled_update_exact", 50, None),
+                             ("tiled_update_windowed", 200, 10)):
+            name = f"phase 16(c) {kernel}"
+            print(f"[{name}] phase 3's shortlist B={B} C={C} k={k} "
+                  f"window={w}, base {base}", flush=True)
+
+            def run(plain=False, wrap=None):
+                with patched_updates(tm, plain, wrap):
+                    sel, dh = greedy_local(V, m_top, k, mesh=mesh, base=base,
+                                           window=w, eps=EPS)
+                return torch.where(sel >= 0, sel - base, -1), dh
+
+            cuda.reset_launch_counts()
+            got = run()
+            torch.cuda.synchronize()
+            check(cuda.launch_counts() == {kernel: k},
+                  f"{name}: launches {cuda.launch_counts()}")
+            want = run(plain=True)
+            torch.cuda.synchronize()
+            _, err = compare(name, V, m_top, got, want, w, EPS)
+            direct = ref["direct"][w]
+            lanes = certify(f"{name} vs phase {3 if w is None else 4}", V,
+                            m_top, got[0], direct[0], w, EPS)
+            print(f"  {name}: against phase {3 if w is None else 4}'s direct "
+                  f"{'K3' if w is None else 'K4'} slate {len(lanes)} of {B} "
+                  f"lanes part (certified); d_hist max abs diff "
+                  f"{(got[1] - direct[1]).abs().max().item():.3g}",
+                  flush=True)
+
+            def summed(plain):
+                def one():
+                    acc = []
+                    run(plain, lambda step: lambda *a: acc.append(
+                        event_ms(lambda: step(*a))))
+                    return sum(acc)
+                return one
+
+            reps = TIMING_REPS // 4  # a call stages each step through host
+            ms = time_events(summed(False), reps)
+            plain_ms = time_events(summed(True), PLAIN_REPS)
+            dev = device_ms(run, kernel, k, reps=1)
+            records.setdefault(kernel, {"launches": 0})["calls_launches"] = k
+            kernel_record(records, kernel, ms, plain_ms,
+                          bound(B, D, C, k, w, (got[0] >= 0).sum(1)), err,
+                          f"sum of {k} launches, CUDA events per launch",
+                          device=dev, reps=reps)
+            stream_floor(B, C, k, dev, exact=w is None)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_sharded(records, refs):
+    """Phase 16: the candidate-sharded rerank, ``Reranker(DPPRerankConfig(
+    mesh=...)).rerank`` in ranks started by ``launch.serve_sharded``."""
+    t0 = time.perf_counter()
+    run_update_entries(records, refs["a"], refs["work"])
+    print(f"  phase 16(c) took {time.perf_counter() - t0:.1f} s", flush=True)
+    a = refs["a"]
+    name = f"phase 16(a) one rank, {SHARDED_A_BACKEND}"
+    print(f"[{name}] phase 3's request: B=4 pool 1,000,000 shortlist "
+          f"65,536 D=100, a 10% seen mask; exact k=50, windowed w=10 "
+          f"k=200", flush=True)
+    rec = finish_child(start_child(name, a["npz"], 1, SHARDED_A_BACKEND,
+                                   65536))
+    sharded_runs(name, rec, records)
+    for run in rec["runs"]:
+        w = run["window"]
+        hold_sharded(f"{name} window {w} vs phase {3 if w is None else 4} "
+                     f"({'K3' if w is None else 'K4'})",
+                     (run["indices"], run["d_hist"]), a["out"][w], a, w)
+    print(f"  phase 16(c) and (a) took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    b = refs["b"]
+    print(f"[phase 16(b)] phase 1's first {SHARDED_B_USERS} users: pool "
+          f"100,000 shortlist 1000 D=100; exact k=50, windowed w=10 k=200; "
+          f"1 rank under {SHARDED_A_BACKEND}, 2 and 4 under gloo, the three "
+          f"runs at once on the one card", flush=True)
+    children = [start_child(f"phase 16(b) {P} rank(s), {backend}", b["npz"],
+                            P, backend, 1000)
+                for P, backend in ((1, SHARDED_A_BACKEND), (2, "gloo"),
+                                   (4, "gloo"))]
+    first = None
+    for child in children:
+        name = child[0]
+        rec = finish_child(child)
+        sharded_runs(name, rec, records)
+        if first is None:
+            first = rec
+            for run in rec["runs"]:
+                w = run["window"]
+                hold_sharded(f"{name} window {w} vs phase "
+                             f"{1 if w is None else 2} "
+                             f"({'K1' if w is None else 'K2'})",
+                             (run["indices"], run["d_hist"]), b["out"][w],
+                             b, w)
+            continue
+        for run, run1 in zip(rec["runs"], first["runs"]):
+            check(run["indices"] == run1["indices"],
+                  f"{name}: window {run['window']}: the slate differs from "
+                  f"the one-rank run's")
+            got, want = (torch.tensor(r["d_hist"]) for r in (run, run1))
+            err = (got - want).abs().max().item()
+            check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+                  f"{name}: window {run['window']}: d_hist {err} from the "
+                  f"one-rank run's")
+            print(f"  {name}, window {run['window']}: every rank's slate "
+                  f"equals the one-rank run's index for index; d_hist max "
+                  f"abs diff {err:.3g}", flush=True)
+    print(f"  phase 16 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def resident_times():
     """``--resident-times``: K1 and K2 alone, one launch each at phases 1
     and 2's kernel shapes (the same seeded shortlists: B = 64, C = 1000,
@@ -2923,6 +3251,38 @@ def resident_times():
     print("resident_times " + json.dumps(out), flush=True)
 
 
+def run_phases(records, rng, refs):
+    """Phases 1-16 in order, each adding to ``records``; ``refs`` carries
+    phase 16's requests and references (its ``work`` directory holds the
+    requests' files)."""
+    t0 = time.perf_counter()
+    scores, feats, resident = run_resident(records, rng, refs)
+    records["tiled_step_exact"] = {"launches": 0}
+    records["tiled_step_exact"]["launches"] += run_forced_tile(
+        resident[None][2], resident[None][0], scores, feats)
+    pool_state = rng.bit_generator.state  # phase 3 draws its pool from here
+    tiled, pool = run_tiled(records, rng, refs)
+    run_stream(records, resident, scores, feats)
+    del scores, feats
+    run_chunks_windowed(records, resident)
+    run_chunks_large(records, tiled)
+    run_slots(records, resident)
+    small_reference_check(rng)
+    del resident, tiled
+    model, cfg, user, cand, scores, slates, feats, rr_cfg = run_recsys_serve(
+        records)
+    run_retrieval(records, model, cfg)
+    recsys_reference_check(model, cfg, user, cand, scores, slates, feats,
+                           rr_cfg)
+    run_scored_topk(records, pool, pool_state)
+    run_paper_experiments(records)
+    run_router(records, rng, model.to("cuda"))
+    del model
+    run_sessions(records, rng)
+    run_sharded(records, refs)
+    print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2959,31 +3319,11 @@ def main() -> int:
         return 0
     rng = np.random.default_rng(SEED)
     records = {}
-    t0 = time.perf_counter()
-    scores, feats, resident = run_resident(records, rng)
-    records["tiled_step_exact"] = {"launches": 0}
-    records["tiled_step_exact"]["launches"] += run_forced_tile(
-        resident[None][2], resident[None][0], scores, feats)
-    pool_state = rng.bit_generator.state  # phase 3 draws its pool from here
-    tiled, pool = run_tiled(records, rng)
-    run_stream(records, resident, scores, feats)
-    del scores, feats
-    run_chunks_windowed(records, resident)
-    run_chunks_large(records, tiled)
-    run_slots(records, resident)
-    small_reference_check(rng)
-    del resident, tiled
-    model, cfg, user, cand, scores, slates, feats, rr_cfg = run_recsys_serve(
-        records)
-    run_retrieval(records, model, cfg)
-    recsys_reference_check(model, cfg, user, cand, scores, slates, feats,
-                           rr_cfg)
-    run_scored_topk(records, pool, pool_state)
-    run_paper_experiments(records)
-    run_router(records, rng, model.to("cuda"))
-    del model
-    run_sessions(records, rng)
-    print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
+    refs = {"work": Path(tempfile.mkdtemp(prefix="chip_smoke_"))}
+    try:
+        run_phases(records, rng, refs)
+    finally:
+        shutil.rmtree(refs["work"], ignore_errors=True)
 
     kernels = []
     for name in KERNELS:

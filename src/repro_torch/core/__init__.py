@@ -12,7 +12,9 @@ greedy (``greedy_naive.py``: the float64 numpy oracle and the batched
 (``baselines.py``: MMR, greedy-avg, Top-N, random) and the slate metrics
 (``metrics.py``).
 
-Not ported yet (ROADMAP queue 1): the sharded backend (item 9).
+And the candidate-sharded whole-slate greedy over ``torch.distributed``
+(``sharded.py``: ``dpp_greedy_sharded``, ``sharded_topk``).  Not ported
+yet (ROADMAP queue 1): the sharded stream (item 9b).
 """
 from repro_torch.core.kernel_matrix import (
     build_kernel_dense,
@@ -47,6 +49,7 @@ from repro_torch.core.dispatch import (
     greedy_map_chunks,
 )
 from repro_torch.core.greedy_naive import greedy_map_naive
+from repro_torch.core.sharded import dpp_greedy_sharded, sharded_topk
 from repro_torch.core.baselines import (
     greedy_avg_select,
     mmr_select,
@@ -109,6 +112,8 @@ __all__ = [
     "state_admit",
     "state_evict",
     "state_splice",
+    "dpp_greedy_sharded",
+    "sharded_topk",
     "dpp_greedy_windowed",
     "dpp_greedy_windowed_batch",
     "dpp_greedy_windowed_lowrank",

@@ -14,12 +14,16 @@ Dispatch rules:
 * ``spec.backend`` — "torch" runs the plain PyTorch core; "kernel"
   routes low-rank inputs through ``repro_torch.kernels.dpp_greedy``
   (CUDA kernels on CUDA tensors, their plain versions on CPU tensors;
-  dense inputs are rejected — the kernels never materialize L); "auto"
-  is "torch";
+  dense inputs are rejected — the kernels never materialize L);
+  "sharded" shards the candidate axis over ``spec.mesh``
+  (``repro_torch.core.sharded``: every rank of the mesh's process group
+  calls ``greedy_map`` with the same arguments; low-rank only); "auto"
+  is "sharded" when a mesh is set, else "torch";
 * ``spec.tile_m`` — candidate-axis tile for the kernels; it forces the
   tiled per-step kernels (by default ``TilePolicy`` keeps the resident
   kernels while they fit shared memory and tiles past that), and sets
-  the tile of the fused chunk kernels;
+  the tile of the fused chunk kernels; on the sharded backend, the tile
+  of the shard-local update entries;
 * ``spec.chunk_size`` — greedy steps per resumable chunk.  On the kernel
   backend ``greedy_map`` then runs the slate as fused chunk kernels (one
   K5/K6 launch per chunk) and returns the identical slate.  The torch
@@ -31,8 +35,9 @@ Dispatch rules:
 per-chunk ``GreedyResult``s whose concatenation is the whole-slate
 ``greedy_map`` result (see ``repro_torch.core.streaming``).
 
-Not ported yet, and raising ``NotImplementedError``: the sharded backend
-and ``mesh=`` (ROADMAP queue 1 item 9), ``tile_m="auto"`` (item 10).
+Not ported yet, and raising ``NotImplementedError``: chunked execution
+on the sharded backend (the sharded stream, ROADMAP queue 1 item 9b),
+``tile_m="auto"`` (item 10).
 
 ``GreedySpec`` validates itself at construction — a bad config raises
 ``GreedySpecError`` (a ``ValueError``) at spec-build time.
@@ -55,7 +60,7 @@ from repro_torch.core.windowed import (
 )
 from repro_torch.obs.dispatch import record_greedy_map
 
-_BACKENDS = ("auto", "torch", "kernel")
+_BACKENDS = ("auto", "torch", "kernel", "sharded")
 
 
 class GreedySpecError(ValueError):
@@ -64,29 +69,41 @@ class GreedySpecError(ValueError):
 
 @dataclasses.dataclass(frozen=True)
 class GreedySpec:
-    """How to run greedy MAP: slate size, window, backend, tolerance."""
+    """How to run greedy MAP: slate size, window, backend, mesh,
+    tolerance."""
 
     k: int
     window: Optional[int] = None  # None = exact Algorithm 1
-    backend: str = "auto"  # "auto" | "torch" | "kernel"
+    backend: str = "auto"  # "auto" | "torch" | "kernel" | "sharded"
     eps: float = 1e-6
-    mesh: Optional[object] = None  # sharded backend: not ported yet
+    mesh: Optional[object] = None  # CandidateMesh of the sharded backend
+    axis_name: str = "data"  # the mesh axis carrying the candidate shards
     tile_m: Optional[int] = None  # kernel candidate-axis tile (forces tiled)
-    chunk_size: Optional[int] = None  # chunked execution: not ported yet
+    chunk_size: Optional[int] = None  # greedy steps per resumable chunk
 
     def __post_init__(self):
         if self.k <= 0:
             raise GreedySpecError(f"k must be >= 1, got {self.k}")
         if self.window is not None and self.window < 1:
             raise GreedySpecError(f"window must be >= 1, got {self.window}")
-        if self.backend == "sharded" or self.mesh is not None:
-            raise NotImplementedError(
-                "the sharded backend (mesh=) is not ported yet "
-                "(ROADMAP queue 1 item 9)"
-            )
         if self.backend not in _BACKENDS:
             raise GreedySpecError(
                 f"unknown backend {self.backend!r}; expected one of {_BACKENDS}"
+            )
+        if self.backend == "sharded" and self.mesh is None:
+            raise GreedySpecError(
+                "backend='sharded' needs mesh= (and axis_name=)"
+            )
+        if self.mesh is not None and self.backend not in ("auto", "sharded"):
+            raise GreedySpecError(
+                f"mesh= only applies to the sharded backend (backend="
+                f"'sharded' or 'auto'), not {self.backend!r} — a mesh with "
+                f"a single-device backend would be silently ignored"
+            )
+        if self.sharded() and self.chunk_size is not None:
+            raise NotImplementedError(
+                "chunked execution on the sharded backend (the sharded "
+                "stream) is not ported yet (ROADMAP queue 1 item 9b)"
             )
         if self.chunk_size is not None:
             if self.chunk_size < 1:
@@ -108,15 +125,20 @@ class GreedySpec:
                 validate_tile_m(self.tile_m)
             except ValueError as e:
                 raise GreedySpecError(str(e)) from None
-            if self.backend != "kernel":
+            if self.backend != "kernel" and not self.sharded():
                 raise GreedySpecError(
                     "tile_m= only applies to the CUDA kernels "
-                    "(backend='kernel') — on the torch backend it would be "
-                    "silently ignored"
+                    "(backend='kernel', or 'sharded'/'auto' with a mesh) — "
+                    "on the torch backend it would be silently ignored"
                 )
 
     def windowed(self) -> bool:
         return self.window is not None and self.window < self.k
+
+    def sharded(self) -> bool:
+        return self.backend == "sharded" or (
+            self.backend == "auto" and self.mesh is not None
+        )
 
 
 def greedy_map(
@@ -141,6 +163,11 @@ def greedy_map(
             "backend='kernel' needs the low-rank V — the kernels never "
             "materialize the dense L"
         )
+    if spec.sharded() and L is not None:
+        raise ValueError(
+            "backend='sharded' needs the low-rank V — a dense L cannot be "
+            "candidate-sharded"
+        )
     kern = L if L is not None else V
     batched = kern.ndim == 3
     if not batched:
@@ -151,12 +178,20 @@ def greedy_map(
             kern.shape[0], kern.shape[-1]
         )
 
-    backend = "kernel" if spec.backend == "kernel" else "torch"
+    backend = ("sharded" if spec.sharded()
+               else "kernel" if spec.backend == "kernel" else "torch")
     chunked = spec.chunk_size is not None
     record_greedy_map(backend, B=kern.shape[0], k=spec.k, M=kern.shape[-1],
                       chunked=chunked)
 
-    if chunked:
+    if backend == "sharded":
+        from repro_torch.core.sharded import dpp_greedy_sharded
+
+        res = dpp_greedy_sharded(
+            kern, spec.k, mesh=spec.mesh, axis_name=spec.axis_name,
+            window=spec.window, eps=spec.eps, mask=mask, tile_m=spec.tile_m,
+        )
+    elif chunked:
         # fused chunk kernels, chunk by chunk: the identical slate
         chunks = list(greedy_map_chunks(spec, V=kern, mask=mask))
         sel = torch.cat([c.indices for c in chunks], dim=-1)

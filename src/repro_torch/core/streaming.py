@@ -79,7 +79,16 @@ class GreedyState(NamedTuple):
     win: torch.Tensor
 
 
+def _refuse_sharded(spec) -> None:
+    if spec.sharded():
+        raise NotImplementedError(
+            "resumable chunks on the sharded backend (the sharded stream) "
+            "are not ported yet (ROADMAP queue 1 item 9b)"
+        )
+
+
 def _check_kernel_args(spec, L, V):
+    _refuse_sharded(spec)
     if (L is None) == (V is None):
         raise ValueError("pass exactly one of L= (dense) or V= (low-rank)")
     if L is not None and spec.backend == "kernel":
@@ -92,6 +101,7 @@ def _check_kernel_args(spec, L, V):
 def resolve_chunk(spec, chunk_size: Optional[int]) -> int:
     """The effective chunk size: the explicit argument wins, else
     ``spec.chunk_size``; one of them must be set and positive."""
+    _refuse_sharded(spec)
     c = chunk_size if chunk_size is not None else spec.chunk_size
     if c is None:
         raise ValueError(

@@ -217,15 +217,156 @@ tiled_step_windowed_kernel(const float* __restrict__ V, float* __restrict__ C,
       win_g[((size_t)pn * B + b) * w + s] = win[s];
 }
 
+// ---------------------------------------------------------------------------
+// The shard-local update entries of K3 / K4 (the candidate-sharded path).
+//
+// Replace src/repro/kernels/dpp_greedy/tiled.py::tiled_update_exact and
+// ::tiled_update_windowed, which run _pass_full / _pass_windowed through
+// _sweep on one column shard of a candidate-sharded greedy step
+// (repro.core.sharded).  There the step's winner comes from outside:
+// the cross-shard argmax picks it and the shard that owns it broadcasts
+// its columns, so a shard that does not own it never holds them.  These
+// entries therefore take the winner's global id j and its columns (V[:,j]
+// and its Cholesky column; windowed, its post-eviction column, the
+// repaired sqrt gain and the eviction's Givens pairs, derived on every
+// rank from the replicated window factor) as arguments, stage them in
+// shared memory, and run K3's / K4's per-column code (cols_exact /
+// cols_windowed) over the shard's tile with column ids offset by the
+// shard's base, so only the owner (base <= j < base + M) masks its
+// column to -inf.  Each block folds its tile's (max, lowest global
+// index) into the shard's key keys[t + 1, b] with one atomicMax; the
+// caller exchanges the shards' keys.  The same bound and design notes as
+// K3 / K4 above (one read of the shard's V and live state, one write of
+// row t or the ring a step, device-memory bandwidth bound); warp 0 of
+// the windowed entry takes no columns, as in K4, but has no eviction
+// to derive.  Two kernels of their own, so K3 / K4 stay as they are.
+// ---------------------------------------------------------------------------
+
+// Exact update on a shard: V (B, D, M), C (B, k, M) (row t written),
+// d2 (B, M) updated in place; vj (B, D), cj (B, k) (rows [0, t) read),
+// dj (B,), stopped (B,) bool, j (B,) global winner ids; keys (k+1, B)
+// u64, row t + 1 zeroed before the launch.
+__global__ void __launch_bounds__(DPP_THREADS, 2)
+tiled_update_exact_kernel(const float* __restrict__ V, float* __restrict__ C,
+                          float* __restrict__ d2,
+                          const float* __restrict__ vj_g,
+                          const float* __restrict__ cj_g,
+                          const float* __restrict__ dj_g,
+                          const unsigned char* __restrict__ stopped,
+                          const int* __restrict__ j_g,
+                          unsigned long long* __restrict__ keys, int B, int D,
+                          int M, int k, int t, int base, int tile_m) {
+  extern __shared__ float sm[];
+  float* vj = sm;                 // D
+  float* cj = vj + D;             // k
+  float* redv = cj + k;           // 32
+  int* redi = (int*)(redv + 32);  // 32
+  __shared__ float s_mx;
+  __shared__ int s_am;
+
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const int i0 = blockIdx.x * tile_m;
+  const int i1 = min(i0 + tile_m, M);
+  const float* Vb = V + (size_t)b * D * M;
+  float* Cb = C + (size_t)b * k * M;
+  float* d2b = d2 + (size_t)b * M;
+  const bool stop = stopped[b] != 0;
+  const int j = j_g[b];
+
+  float bv = -INFINITY;
+  int bi = INT_MAX;
+  if (!stop) {
+    for (int d = tid; d < D; d += DPP_THREADS) vj[d] = vj_g[(size_t)b * D + d];
+    for (int r = tid; r < t; r += DPP_THREADS) cj[r] = cj_g[(size_t)b * k + r];
+    __syncthreads();
+    cols_exact<4, LoadStreaming>(Vb + i0, M, Cb + i0, M, d2b + i0, i1 - i0,
+                                 base + i0, D, t, vj, cj, dj_g[b], j, bv, bi);
+  } else {
+    for (int i = i0 + tid; i < i1; i += DPP_THREADS)
+      argmax_merge(bv, bi, d2b[i], base + i);
+  }
+  block_argmax(bv, bi, redv, redi, &s_mx, &s_am);
+  if (tid == 0)
+    atomicMax(&keys[(size_t)(t + 1) * B + b], pack_key(s_mx, s_am));
+}
+
+// Windowed update on a shard: evict with the given Givens pairs
+// cs / sn (B, w-1) where full[b], then append e against the
+// post-eviction ring at row pos.  C (B, w, M) ring, d2 (B, M) updated in
+// place; vj (B, D), cjp (B, w) the winner's post-eviction column, djp
+// (B,) its repaired sqrt gain; stopped, full (B,) bool; j (B,) global
+// winner ids; keys as the exact entry.
+__global__ void __launch_bounds__(DPP_THREADS, 2)
+tiled_update_windowed_kernel(const float* __restrict__ V,
+                             float* __restrict__ C, float* __restrict__ d2,
+                             const float* __restrict__ vj_g,
+                             const float* __restrict__ cjp_g,
+                             const float* __restrict__ djp_g,
+                             const unsigned char* __restrict__ stopped,
+                             const unsigned char* __restrict__ full_g,
+                             const float* __restrict__ cs_g,
+                             const float* __restrict__ sn_g,
+                             const int* __restrict__ j_g,
+                             unsigned long long* __restrict__ keys, int B,
+                             int D, int M, int w, int t, int base, int pos,
+                             int tile_m) {
+  extern __shared__ float sm[];
+  float* vj = sm;                  // D
+  float* cjp = vj + D;             // w
+  float* cs = cjp + w;             // w (w-1 used)
+  float* sn = cs + w;              // w (w-1 used)
+  float* redv = sn + w;            // 32
+  int* redi = (int*)(redv + 32);   // 32
+  __shared__ float s_mx;
+  __shared__ int s_am;
+
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const int i0 = blockIdx.x * tile_m;
+  const int i1 = min(i0 + tile_m, M);
+  const float* Vb = V + (size_t)b * D * M;
+  float* Cb = C + (size_t)b * w * M;
+  float* d2b = d2 + (size_t)b * M;
+  const bool stop = stopped[b] != 0;
+  const bool full = full_g[b] != 0;
+  const int j = j_g[b];
+
+  float bv = -INFINITY;
+  int bi = INT_MAX;
+  if (!stop) {
+    for (int d = tid; d < D; d += DPP_THREADS) vj[d] = vj_g[(size_t)b * D + d];
+    for (int r = tid; r < w; r += DPP_THREADS) cjp[r] = cjp_g[(size_t)b * w + r];
+    for (int r = tid; r < w - 1; r += DPP_THREADS) {
+      cs[r] = cs_g[(size_t)b * (w - 1) + r];
+      sn[r] = sn_g[(size_t)b * (w - 1) + r];
+    }
+    __syncthreads();
+    const float djp = djp_g[b];
+    auto ready = [&]() { return djp; };
+    cols_windowed<5, LoadStreaming>(Vb + i0, M, Cb + i0, M, d2b + i0,
+                                    i1 - i0, base + i0, D, w, full, pos, cs,
+                                    sn, vj, cjp, ready, j, bv, bi);
+  } else {
+    for (int i = i0 + tid; i < i1; i += DPP_THREADS)
+      argmax_merge(bv, bi, d2b[i], base + i);
+  }
+  block_argmax(bv, bi, redv, redi, &s_mx, &s_am);
+  if (tid == 0)
+    atomicMax(&keys[(size_t)(t + 1) * B + b], pack_key(s_mx, s_am));
+}
+
 // Host entry points: plain C interface for ctypes.  Each returns a
 // cudaError_t (0 = success); the caller raises on anything else.
-// tiled_set_smem raises the dynamic shared-memory limit of K4
-// (windowed) or K3 to smem bytes, once per size; the launches assume it.
-extern "C" int tiled_set_smem(int windowed, int smem) {
-  const void* fn = windowed ? (const void*)tiled_step_windowed_kernel
-                            : (const void*)tiled_step_exact_kernel;
+// tiled_set_smem raises the dynamic shared-memory limit of one kernel
+// (0: K3, 1: K4, 2: the exact update entry, 3: the windowed one) to
+// smem bytes, once per size; the launches assume it.
+extern "C" int tiled_set_smem(int which, int smem) {
+  const void* fns[] = {(const void*)tiled_step_exact_kernel,
+                       (const void*)tiled_step_windowed_kernel,
+                       (const void*)tiled_update_exact_kernel,
+                       (const void*)tiled_update_windowed_kernel};
+  if (which < 0 || which > 3) return (int)cudaErrorInvalidValue;
   return (int)cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fns[which], cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 extern "C" int tiled_step_exact(const float* V, float* C, float* d2,
@@ -250,5 +391,33 @@ extern "C" int tiled_step_windowed(const float* V, float* C, float* d2,
                                (cudaStream_t)stream>>>(
       V, C, d2, keys, flags, sel, dh, win, cand, wcol, B, D, M, w, k, t,
       tile_m, eps2);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tiled_update_exact(const float* V, float* C, float* d2,
+                                  const float* vj, const float* cj,
+                                  const float* dj,
+                                  const unsigned char* stopped, const int* j,
+                                  unsigned long long* keys, int B, int D,
+                                  int M, int k, int t, int base, int tile_m,
+                                  int smem, void* stream) {
+  dim3 grid((M + tile_m - 1) / tile_m, B);
+  tiled_update_exact_kernel<<<grid, DPP_THREADS, smem,
+                              (cudaStream_t)stream>>>(
+      V, C, d2, vj, cj, dj, stopped, j, keys, B, D, M, k, t, base, tile_m);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tiled_update_windowed(
+    const float* V, float* C, float* d2, const float* vj, const float* cjp,
+    const float* djp, const unsigned char* stopped, const unsigned char* full,
+    const float* cs, const float* sn, const int* j, unsigned long long* keys,
+    int B, int D, int M, int w, int t, int base, int pos, int tile_m,
+    int smem, void* stream) {
+  dim3 grid((M + tile_m - 1) / tile_m, B);
+  tiled_update_windowed_kernel<<<grid, DPP_THREADS, smem,
+                                 (cudaStream_t)stream>>>(
+      V, C, d2, vj, cjp, djp, stopped, full, cs, sn, j, keys, B, D, M, w, t,
+      base, pos, tile_m);
   return (int)cudaGetLastError();
 }

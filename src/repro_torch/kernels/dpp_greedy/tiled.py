@@ -26,6 +26,14 @@ The fused chunk kernels K5/K6 (``csrc/chunk.cu``, counterparts of
 launch: :func:`fused_chunk_exact`, :func:`fused_chunk_windowed` (each a
 :func:`chunk_launcher` built and called once).
 
+The shard-local update entries of K3/K4 (:func:`tiled_update_exact`,
+:func:`tiled_update_windowed`, counterparts of ``repro``'s functions of
+the same names) run one step's local update on a column shard of the
+candidate-sharded path (``repro_torch.core.sharded``): the winner and
+its columns come from outside, after the cross-shard argmax and the
+owner's broadcast, and each block folds its tile's argmax into the
+shard's key; :func:`update_launcher` prepares them once a call.
+
 Each kernel has its plain PyTorch version here; a wrapper runs it for
 CPU tensors and launches the kernel for CUDA tensors, or raises.  State
 (``C``, ``d2``, keys; for the chunk kernels also ``stopped`` and the
@@ -50,6 +58,7 @@ from repro_torch.kernels.dpp_greedy.dpp_greedy import (
 from repro_torch.kernels.dpp_greedy.tiling import (
     chunk_smem_bytes,
     tiled_smem_bytes,
+    update_smem_bytes,
 )
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "tiled.cu"
@@ -64,7 +73,18 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
         _F, _I, _P,
     ],
+    "tiled_update_exact": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        _P,
+    ],
+    "tiled_update_windowed": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        _I, _I, _I, _I, _P,
+    ],
 }
+# tiled_set_smem's kernel index of each entry (csrc/tiled.cu)
+_SMEM_WHICH = {"tiled_step_exact": 0, "tiled_step_windowed": 1,
+               "tiled_update_exact": 2, "tiled_update_windowed": 3}
 _CHUNK_SIGNATURES = {
     "fused_chunk_capacity": [_I, _I, ctypes.POINTER(ctypes.c_int)],
     "fused_chunk_exact": [
@@ -355,7 +375,8 @@ def step_launcher(kernel: str, operands: tuple, eps: float, tile_m: int):
     rows, k = operands[1].shape[1], operands[5].shape[1]
     smem = tiled_smem_bytes(D, rows, windowed)
     lib = cuda.library(_SRC, _SIGNATURES)
-    cuda.raise_smem(lib, "tiled_set_smem", int(windowed), smem, V.device)
+    cuda.raise_smem(lib, "tiled_set_smem", _SMEM_WHICH[kernel], smem,
+                    V.device)
     fn = getattr(lib, kernel)
     head = tuple(x.data_ptr() for x in operands) + (
         (B, D, M, rows, k) if windowed else (B, D, M, k))
@@ -364,6 +385,174 @@ def step_launcher(kernel: str, operands: tuple, eps: float, tile_m: int):
 
     def step(t: int) -> None:
         err = fn(*head, t, *tail)
+        count(kernel)
+        if err:
+            cuda.check(err, kernel)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# The shard-local update entries of K3 / K4 (repro_torch.core.sharded)
+# ---------------------------------------------------------------------------
+
+
+def _pack_shard_argmax(d2, base: int, tile_m: int, keys, t: int) -> None:
+    mx, am = _tile_argmax(d2, tile_m)
+    keys[t + 1] = pack_key(mx, am + base)
+
+
+def tiled_update_exact_plain(Vl, C, d2, vj, cj, dj, stopped, j, base: int,
+                             keys, t: int, tile_m: int) -> None:
+    """Plain version of the exact update entry, same operands, updated in
+    place: on the column shard ``Vl`` whose first column is global id
+    ``base``, append Cholesky row ``t`` for the winner ``j`` (global ids)
+    from its broadcast columns ``vj`` / ``cj`` and sqrt gain ``dj``,
+    update ``d2`` (the owner masks ``j`` to -inf), leave stopped users as
+    they are, and pack the shard's (max, lowest global index) into
+    ``keys[t + 1]``."""
+    M = Vl.shape[2]
+    lj = torch.bmm(vj[:, None, :], Vl)[:, 0]
+    dots = torch.bmm(cj[:, None, :t], C[:, :t])[:, 0]
+    e = (lj - dots) / dj[:, None]
+    live = ~stopped[:, None]
+    C[:, t] = torch.where(live, e, C[:, t])
+    gid = torch.arange(M, device=Vl.device) + base
+    d2_next = torch.where(gid == j.to(torch.int64)[:, None], NEG_INF,
+                          d2 - e * e)
+    d2.copy_(torch.where(live, d2_next, d2))
+    _pack_shard_argmax(d2, base, tile_m, keys, t)
+
+
+def tiled_update_exact(Vl, C, d2, vj, cj, dj, stopped, j, base: int, keys,
+                       t: int, tile_m: int) -> None:
+    """The exact update entry: one launch = the local update of greedy
+    step ``t`` on a column shard, over ``(ceil(Mloc / tile_m), B)``
+    blocks.  The counterpart of ``repro``'s ``tiled_update_exact``, with
+    a leading user axis: Vl (B, D, Mloc), C (B, k, Mloc), d2 (B, Mloc)
+    f32; the winner's columns vj (B, D), cj (B, k) (rows < t read),
+    dj (B,) f32; stopped (B,) bool; j (B,) int32 global winner ids;
+    ``base`` the shard's first global id; keys (k+1, B) int64, row
+    ``t + 1`` zero.  C, d2 and keys are updated in place."""
+    if not _cpu_or_cuda(Vl):
+        return tiled_update_exact_plain(Vl, C, d2, vj, cj, dj, stopped, j,
+                                        base, keys, t, tile_m)
+    update_launcher((Vl, C, d2, vj, cj, dj, stopped, j), base, keys,
+                    tile_m)(t)
+
+
+def tiled_update_windowed_plain(Vl, C, d2, vj, cjp, djp, stopped, full, cos,
+                                sin, j, base: int, pos: int, keys, t: int,
+                                tile_m: int) -> None:
+    """Plain version of the windowed update entry, same operands, updated
+    in place: where ``full``, evict the ring's oldest row with the Givens
+    pairs ``(cos, sin)`` (from :func:`eviction_coeffs`; the residue
+    repairs d2), then append the winner ``j``'s row against the
+    post-eviction ring at row ``pos`` from its broadcast ``vj``, its
+    post-eviction column ``cjp`` and repaired sqrt gain ``djp``; stopped
+    users stay as they are; pack the shard's argmax into ``keys[t+1]``
+    as the exact entry does."""
+    B, w, M = C.shape
+    fc = full[:, None]
+    u = torch.where(fc, C[:, 0], 0.0)
+    rows = []
+    for r in range(w - 1):
+        row = torch.where(fc, C[:, r + 1], C[:, r])
+        rows.append(cos[:, r:r + 1] * row + sin[:, r:r + 1] * u)
+        u = cos[:, r:r + 1] * u - sin[:, r:r + 1] * row
+    rows.append(torch.where(fc, 0.0, C[:, w - 1]))
+    Cpost = torch.stack(rows, 1)
+    d2e = torch.where(fc, d2 + u * u, d2)
+    lj = torch.bmm(vj[:, None, :], Vl)[:, 0]
+    dots = torch.bmm(cjp[:, None, :pos], Cpost[:, :pos])[:, 0]
+    e = (lj - dots) / djp[:, None]
+    Cpost[:, pos] = e
+    live = ~stopped
+    C.copy_(torch.where(live[:, None, None], Cpost, C))
+    gid = torch.arange(M, device=Vl.device) + base
+    d2_next = torch.where(gid == j.to(torch.int64)[:, None], NEG_INF,
+                          d2e - e * e)
+    d2.copy_(torch.where(live[:, None], d2_next, d2))
+    _pack_shard_argmax(d2, base, tile_m, keys, t)
+
+
+def tiled_update_windowed(Vl, C, d2, vj, cjp, djp, stopped, full, cos, sin,
+                          j, base: int, pos: int, keys, t: int,
+                          tile_m: int) -> None:
+    """The windowed update entry: one launch = the local evict + append of
+    greedy step ``t`` on a column shard.  The counterpart of ``repro``'s
+    ``tiled_update_windowed``, with a leading user axis: C (B, w, Mloc)
+    ring; cjp (B, w) the winner's post-eviction column, djp (B,) its
+    repaired sqrt gain; full (B,) bool (evict this step); cos, sin
+    (B, w - 1) the Givens pairs; ``pos`` the ring row receiving the
+    append; the rest as :func:`tiled_update_exact`."""
+    if not _cpu_or_cuda(Vl):
+        return tiled_update_windowed_plain(Vl, C, d2, vj, cjp, djp, stopped,
+                                           full, cos, sin, j, base, pos,
+                                           keys, t, tile_m)
+    update_launcher((Vl, C, d2, vj, cjp, djp, stopped, full, cos, sin, j),
+                    base, keys, tile_m)(t, pos)
+
+
+def _require_update(operands, keys) -> None:
+    windowed = len(operands) == 11
+    Vl, C, d2, vj, cj, dj, stopped = operands[:7]
+    B, D, M = Vl.shape
+    rows = C.shape[1]
+    cuda.require(Vl, "Vl", torch.float32, (B, D, M))
+    cuda.require(C, "C", torch.float32, (B, rows, M))
+    cuda.require(d2, "d2", torch.float32, (B, M))
+    cuda.require(vj, "vj", torch.float32, (B, D))
+    cuda.require(cj, "cjp" if windowed else "cj", torch.float32, (B, rows))
+    cuda.require(dj, "djp" if windowed else "dj", torch.float32, (B,))
+    cuda.require(stopped, "stopped", torch.bool, (B,))
+    cuda.require(operands[-1], "j", torch.int32, (B,))
+    cuda.require(keys, "keys", torch.int64, (keys.shape[0], B))
+    if windowed:
+        full, cos, sin = operands[7:10]
+        cuda.require(full, "full", torch.bool, (B,))
+        cuda.require(cos, "cos", torch.float32, (B, rows - 1))
+        cuda.require(sin, "sin", torch.float32, (B, rows - 1))
+
+
+def update_launcher(operands: tuple, base: int, keys, tile_m: int):
+    """``step(t, pos=None)``: the update entry of one greedy step on a
+    column shard, exact (``operands = (Vl, C, d2, vj, cj, dj, stopped,
+    j)``) or windowed (``(Vl, C, d2, vj, cjp, djp, stopped, full, cos,
+    sin, j)``, ``pos`` the append row), writing ``keys[t + 1]``.
+
+    The caller refills the winner's buffers in place before each step,
+    so for CUDA tensors the operands are checked, the pointers, the
+    shared-memory size and stream worked out and the kernel's
+    shared-memory limit raised here, once (as :func:`step_launcher`
+    does for K3 / K4): a step is one ctypes call and its launch count.
+    For CPU tensors each step runs the entry's plain version."""
+    windowed = len(operands) == 11
+    kernel = "tiled_update_windowed" if windowed else "tiled_update_exact"
+    Vl = operands[0]
+    if not _cpu_or_cuda(Vl):
+        if windowed:
+            return lambda t, pos: tiled_update_windowed_plain(
+                *operands, base, pos, keys, t, tile_m)
+        return lambda t, pos=None: tiled_update_exact_plain(
+            *operands, base, keys, t, tile_m)
+    _require_update(operands, keys)
+    B, D, M = Vl.shape
+    rows = operands[1].shape[1]
+    smem = update_smem_bytes(D, rows, windowed)
+    lib = cuda.library(_SRC, _SIGNATURES)
+    cuda.raise_smem(lib, "tiled_set_smem", _SMEM_WHICH[kernel], smem,
+                    Vl.device)
+    fn = getattr(lib, kernel)
+    head = tuple(x.data_ptr() for x in operands + (keys,)) + (B, D, M, rows)
+    last = keys.shape[0] - 1
+    count = cuda.count_launch
+
+    def step(t: int, pos=None) -> None:
+        if not 0 <= t < last:
+            raise ValueError(f"step t={t} outside [0, {last})")
+        mid = (t, base, pos) if windowed else (t, base)
+        err = fn(*head, *mid, tile_m, smem, cuda.stream_ptr(Vl))
         count(kernel)
         if err:
             cuda.check(err, kernel)

@@ -215,6 +215,16 @@ def tiled_smem_bytes(D: int, state_rows: int, windowed: bool) -> int:
     return resident_smem_bytes(D, 0, state_rows, windowed)
 
 
+def update_smem_bytes(D: int, state_rows: int, windowed: bool) -> int:
+    """Dynamic shared memory of one block of the shard-local update
+    entries (``csrc/tiled.cu``): the winner's ``V`` column ``(D)``;
+    exact: its Cholesky column ``(R)``; windowed: its post-eviction
+    column and the rotation coefficients ``(w)`` each; plus reduction
+    scratch.  Independent of ``tile_m``."""
+    R = state_rows
+    return 4 * (D + (3 * R if windowed else R) + _RED_FLOATS)
+
+
 def chunk_smem_bytes(D: int, tile_m: int, state_rows: int,
                      windowed: bool, v_resident: bool = False) -> int:
     """Dynamic shared memory of one fused-chunk block, in the layout

@@ -9,7 +9,10 @@ tensors) onto the session's device and dispatches by request shape:
 
 * ``scores (M,)``    -> one slate;
 * ``scores (B, M)``  -> the user batch, with the batch dimension written
-                        out through the shortlist and the greedy kernels.
+                        out through the shortlist and the greedy kernels;
+* ``cfg.mesh`` set    -> either shape on the candidate-sharded path
+                        (``repro_torch.serving.sharded_rerank``), called
+                        by every rank of the mesh's group.
 
 ``stream`` emits one request's slate in chunks as it is selected (one
 K5/K6 launch per chunk with ``use_kernel``).  ``submit`` hands a single
@@ -18,7 +21,9 @@ request to the session's continuous-batching router
 live request) and returns a ``SlateHandle``.  ``session`` opens a
 stateful feed over one request (``repro_torch.serving.session``: one K6
 launch per ``next_chunk``, O(w * dM) ``extend`` / ``rescore`` delta
-updates, LRU eviction and rebuild from host mirrors).
+updates, LRU eviction and rebuild from host mirrors).  ``stream``,
+``submit`` and ``session`` on a mesh are ROADMAP item 9b and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -155,6 +160,13 @@ class Reranker:
             )
         self.cfg = cfg
         self.device = resolve_device(device)
+        if cfg.mesh is not None and not _same_device(cfg.mesh.device,
+                                                     self.device):
+            raise ValueError(
+                f"cfg.mesh keeps its shards on {cfg.mesh.device}, but the "
+                f"session serves on {self.device}: pass device="
+                f"{str(cfg.mesh.device)!r}"
+            )
         self._router_config = router_config
         self._router = None
         self._session_config = session_config
@@ -191,7 +203,8 @@ class Reranker:
     def rerank(self, req: RerankRequest, **kwargs):
         """Whole-slate rerank: ``(indices int32, d_hist)``, shapes ``(N,)``
         single / ``(B, N)`` batched, global ids into the request's M (-1
-        after an eps-stop)."""
+        after an eps-stop).  With ``cfg.mesh`` every rank of the mesh's
+        group calls it with the same request and gets the same slate."""
         req = self._as_request(req, kwargs)
         cfg = self._cfg_for(req)
         scores = self._tensor(req.scores)
@@ -201,6 +214,8 @@ class Reranker:
             "serving.rerank", M=req.num_candidates, k=cfg.slate_size,
             batched=req.batched,
         ):
+            if cfg.mesh is not None:
+                return _sharded_rerank_impl(scores, feats, cfg, mask)
             if req.batched:
                 return _rerank_batch_impl(scores, feats, cfg, mask)
             return _rerank_impl(scores, feats, cfg, mask)
@@ -323,6 +338,31 @@ class Reranker:
         ``handle.result()`` (or pump the router) to drive it."""
         req = self._as_request(req, kwargs)
         return self.router.submit(req)
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == (
+        cur if b.index is None else b.index)
+
+
+def _sharded_rerank_impl(scores, feats, cfg, mask):
+    """``repro``'s ``_sharded_rerank_impl``: one request or a user batch
+    on ``cfg.mesh``."""
+    from repro_torch.serving.sharded_rerank import sharded_rerank
+
+    single = scores.ndim == 1
+    if single:
+        scores = scores[None]
+        mask = None if mask is None else mask[None]
+    if mask is not None:
+        mask = mask.expand(scores.shape)
+    sel, dh = sharded_rerank(scores, feats, cfg, mask)
+    return (sel[0], dh[0]) if single else (sel, dh)
 
 
 def _rerank_impl(scores, feats, cfg, mask):

@@ -11,6 +11,12 @@ paper's fast greedy MAP through ``repro_torch.core.greedy_map``.
   (resident while one user's gains fit a block's shared memory, tiled
   past that; ``tile_m=`` pins the tiled kernels); the default runs the
   plain PyTorch core.
+* ``mesh=`` (a ``repro_torch.distributed.CandidateMesh``, with
+  ``axis_name=``) shards the candidate axis over the ranks of a process
+  group and delegates to ``repro_torch.serving.sharded_rerank``: a
+  sharded top-C shortlist mask, then the candidate-sharded greedy MAP
+  (``repro_torch.core.sharded``), whose local update is the shard-local
+  update entry of K3/K4 on a CUDA mesh; ``tile_m=`` sets its tile.
 * ``window=w`` enforces diversity only against the last ``w`` picks.
 * ``mask=`` (on the request) excludes candidates before the shortlist
   and inside greedy selection.
@@ -36,9 +42,10 @@ class DPPRerankConfig:
     ``slate_size`` / ``shortlist`` are session defaults that a
     ``RerankRequest`` may override.  ``chunk_size`` is the default chunk
     of ``Reranker.stream`` (and, with ``use_kernel``, runs the whole
-    slate as fused chunk kernels).  ``mesh=`` (the sharded backend,
-    ROADMAP queue 1 item 9) and ``tile_m="auto"`` (item 10) are not
-    ported yet and raise ``NotImplementedError``.
+    slate as fused chunk kernels).  ``mesh=`` and ``use_kernel`` are
+    mutually exclusive backends; ``mesh=`` with ``chunk_size`` (the
+    sharded stream, ROADMAP queue 1 item 9b) and ``tile_m="auto"`` (item
+    10) are not ported yet and raise ``NotImplementedError``.
     """
 
     slate_size: int = 50  # N (session default; RerankRequest overrides)
@@ -47,7 +54,8 @@ class DPPRerankConfig:
     eps: float = 1e-3
     use_kernel: bool = False  # CUDA kernels (their plain versions on CPU)
     window: Optional[int] = None  # sliding diversity window (None = exact)
-    mesh: Optional[object] = None
+    mesh: Optional[object] = None  # CandidateMesh: shard the candidate axis
+    axis_name: str = "data"  # the mesh axis carrying the candidate shards
     tile_m: Optional[int] = None  # kernel candidate-axis tile (forces tiled)
     chunk_size: Optional[int] = None
     obs: Optional[ObsConfig] = None  # observability (installed by Reranker)
@@ -61,32 +69,46 @@ class DPPRerankConfig:
             raise ValueError(f"window must be >= 1, got {self.window}")
         if self.eps < 0:
             raise ValueError(f"eps must be >= 0, got {self.eps}")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "mesh= (the candidate-sharded backend) is not ported yet "
-                "(ROADMAP queue 1 item 9)"
-            )
         if self.chunk_size is not None and self.chunk_size <= 0:
             raise ValueError(
                 f"chunk_size must be >= 1, got {self.chunk_size}"
+            )
+        if self.mesh is not None and self.use_kernel:
+            raise ValueError(
+                "use_kernel (the single-device CUDA kernels) and mesh (the "
+                "candidate-sharded backend) are mutually exclusive rerank "
+                "backends"
+            )
+        if self.mesh is not None and self.chunk_size is not None:
+            raise NotImplementedError(
+                "chunk_size= with mesh= streams on the candidate-sharded "
+                "mesh, which is not ported yet (ROADMAP queue 1 item 9b)"
             )
         if self.tile_m is not None:
             from repro_torch.kernels.dpp_greedy.tiling import validate_tile_m
 
             validate_tile_m(self.tile_m)
-            if not self.use_kernel:
+            if not self.use_kernel and self.mesh is None:
                 raise ValueError(
                     "tile_m= tiles the CUDA kernels — it needs "
-                    "use_kernel=True (the torch backend would silently "
-                    "ignore it)"
+                    "use_kernel=True or mesh= (the torch backend would "
+                    "silently ignore it)"
                 )
 
     def greedy_spec(self) -> GreedySpec:
+        if self.mesh is not None:
+            backend = "sharded"
+        elif self.use_kernel:
+            backend = "kernel"
+        else:
+            backend = "torch"
         return GreedySpec(
             k=self.slate_size,
             window=self.window,
-            backend="kernel" if self.use_kernel else "torch",
+            backend=backend,
             eps=self.eps,
+            mesh=self.mesh,
+            axis_name=self.axis_name,
             tile_m=self.tile_m,
             # the torch spec cannot carry a chunk size (its whole-slate
             # path would silently ignore it — GreedySpec rejects that);

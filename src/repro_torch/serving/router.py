@@ -339,6 +339,11 @@ class RerankRouter:
     def __init__(self, cfg: DPPRerankConfig,
                  router_config: Optional[RouterConfig] = None,
                  device="cuda"):
+        if cfg.mesh is not None:
+            raise NotImplementedError(
+                "the router over a candidate-sharded mesh (cfg.mesh) is not "
+                "ported yet (ROADMAP queue 1 item 9b)"
+            )
         self.cfg = cfg
         self.rcfg = router_config or RouterConfig()
         self.device = resolve_device(device)
@@ -447,8 +452,7 @@ class RerankRouter:
         shortlist = (
             req.shortlist if req.shortlist is not None else self.cfg.shortlist
         )
-        # cfg.mesh (the candidate-sharded backend, ROADMAP queue 1 item
-        # 9) is refused by DPPRerankConfig, so the width is the shortlist
+        # RerankRouter refuses cfg.mesh, so the width is the shortlist
         width = min(shortlist, req.num_candidates)
         if width > self.bucket:
             raise ValueError(

@@ -108,8 +108,11 @@ class SessionConfig:
 
 
 def _check_session_cfg(cfg: DPPRerankConfig) -> None:
-    # cfg.mesh (sessions over candidate-sharded pools, ROADMAP queue 1
-    # item 9) is refused by DPPRerankConfig itself
+    if cfg.mesh is not None:
+        raise NotImplementedError(
+            "sessions over a candidate-sharded mesh (cfg.mesh) are not "
+            "ported yet (ROADMAP queue 1 item 9b)"
+        )
     if cfg.window is None or cfg.window >= cfg.slate_size:
         raise ValueError(
             f"sessions need a windowed config (window < slate_size): the "

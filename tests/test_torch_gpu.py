@@ -1050,3 +1050,133 @@ def test_session_launches_on_the_current_stream(card):
         gi, gd = sess.next_chunk(4)
     np.testing.assert_array_equal(gi, wi)
     np.testing.assert_allclose(gd, wd, rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# The shard-local update entries of K3 / K4 (the candidate-sharded path)
+# ---------------------------------------------------------------------------
+
+
+def _update_operands(windowed, D, M, rows, t, base, seed):
+    """Three lanes on a shard whose first global id is ``base``: lane 0
+    owns its winner, lane 1 is stopped, lane 2's winner lies on another
+    shard.  Returns the entry's operands on the CPU."""
+    rng = np.random.default_rng(seed)
+    B = 3
+    f32 = np.float32
+    V = (rng.standard_normal((B, D, M)) / np.sqrt(D)).astype(f32)
+    C = (0.1 * rng.standard_normal((B, rows, M))).astype(f32)
+    cj = (0.1 * rng.standard_normal((B, rows))).astype(f32)
+    if not windowed:
+        C[:, t:] = 0.0
+        cj[:, t:] = 0.0
+    d2 = (1.0 + rng.uniform(size=(B, M))).astype(f32)
+    d2[rng.uniform(size=(B, M)) < 0.1] = -np.inf
+    ops = dict(
+        Vl=V, C=C, d2=d2,
+        vj=(rng.standard_normal((B, D)) / np.sqrt(D)).astype(f32), cj=cj,
+        dj=(0.5 + rng.uniform(size=B)).astype(f32),
+        stopped=np.array([False, True, False]),
+        j=np.array([base + 5, base + 7, base + M + 3], np.int32))
+    if windowed:
+        # Givens pairs where the ring is full, identity rotations where it
+        # is not (as eviction_coeffs gives them)
+        full = np.array([True, False, True]) & (t >= rows)
+        ang = np.where(full[:, None],
+                       rng.uniform(0, np.pi, size=(B, rows - 1)), 0.0)
+        ops.update(full=full, cos=np.cos(ang).astype(f32),
+                   sin=np.sin(ang).astype(f32))
+    return {k_: torch.from_numpy(v) for k_, v in ops.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("windowed,D,M,rows,t,tile_m", [
+    (False, 32, 777, 20, 6, 128),     # ragged: 7 tiles
+    (False, 100, 3000, 50, 12, 1024),  # phase 3's width, a ragged tile
+    (False, 16, 5000, 5, 4, 256),     # the last row
+    (True, 32, 777, 20, 6, 128),
+    (True, 100, 3000, 10, 12, 1024),  # phase 4's width and window, full
+    (True, 16, 5000, 5, 2, 256),      # the ring not full yet
+    (True, 16, 5000, 5, 9, 256),      # full, evicting
+])
+def test_update_entries_match_plain(card, windowed, D, M, rows, t, tile_m):
+    base = 40_000
+    cpu = _update_operands(windowed, D, M, rows, t, base, seed=t)
+    gpu = {k_: v.cuda() for k_, v in cpu.items()}
+    pos = min(t, rows - 1)
+    outs = []
+    for ops in (cpu, gpu):
+        keys = torch.zeros((t + 2, 3), dtype=torch.int64,
+                           device=ops["Vl"].device)
+        if windowed:
+            args = [ops[n] for n in ("Vl", "C", "d2", "vj", "cj", "dj",
+                                     "stopped", "full", "cos", "sin", "j")]
+            fn = (tiled.tiled_update_windowed if ops is gpu
+                  else tiled.tiled_update_windowed_plain)
+            cuda.reset_launch_counts()
+            fn(*args, base, pos, keys, t, tile_m)
+        else:
+            args = [ops[n] for n in ("Vl", "C", "d2", "vj", "cj", "dj",
+                                     "stopped", "j")]
+            fn = (tiled.tiled_update_exact if ops is gpu
+                  else tiled.tiled_update_exact_plain)
+            cuda.reset_launch_counts()
+            fn(*args, base, keys, t, tile_m)
+        outs.append((ops["C"].cpu(), ops["d2"].cpu(), keys[t + 1].cpu()))
+    torch.cuda.synchronize()
+    name = "tiled_update_windowed" if windowed else "tiled_update_exact"
+    assert cuda.launch_counts() == {name: 1}
+    (Cp, dp, kp), (Cg, dg, kg) = outs
+    torch.testing.assert_close(Cg, Cp, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(dg, dp, rtol=RTOL, atol=ATOL)
+    vp, ip = tiled.unpack_key(kp)
+    vg, ig = tiled.unpack_key(kg)
+    assert torch.equal(ig, ip) and bool(((ig >= base)
+                                         & (ig < base + M)).all())
+    torch.testing.assert_close(vg, vp, rtol=RTOL, atol=ATOL)
+    # the owner masked its winner; the stopped lane kept its state
+    assert dg[0, 5].item() == float("-inf")
+    orig = _update_operands(windowed, D, M, rows, t, base, seed=t)
+    assert torch.equal(Cg[1], orig["C"][1])
+    assert torch.equal(dg[1], orig["d2"][1])
+
+
+@pytest.fixture(scope="module")
+def one_rank(tmp_path_factory):
+    """A gloo group of one rank in this process, for meshes on the card
+    (the collectives stage through host tensors) and on the CPU."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import init_group
+
+    init_group("gloo", 0, 1, tmp_path_factory.mktemp("rdv") / "file",
+               timeout_s=60)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 4])
+def test_sharded_one_rank_on_card_matches_k3_k4(card, one_rank, window):
+    from repro_torch.core import dpp_greedy_sharded
+    from repro_torch.distributed import make_mesh
+
+    k, eps, tile_m = 20, 1e-6, 256
+    V, mask = _inputs(31, B=3, D=32, M=3000)
+    cuda.reset_launch_counts()
+    got = dpp_greedy_sharded(V.cuda(), k, mesh=make_mesh(device="cuda"),
+                             window=window, eps=eps, mask=mask.cuda(),
+                             tile_m=tile_m)
+    torch.cuda.synchronize()
+    name = "tiled_update_exact" if window is None else "tiled_update_windowed"
+    assert cuda.launch_counts() == {name: k}
+    plain = dpp_greedy_sharded(V, k, mesh=make_mesh(device="cpu"),
+                               window=window, eps=eps, mask=mask,
+                               tile_m=tile_m)
+    want = tiled.dpp_greedy_tiled(V.cuda(), mask.cuda(), k, window, eps,
+                                  tile_m)
+    assert torch.equal(got.indices.cpu(), plain.indices)
+    assert torch.equal(got.indices, want[0])
+    torch.testing.assert_close(got.d_hist.cpu(), plain.d_hist, rtol=RTOL,
+                               atol=ATOL)
+    torch.testing.assert_close(got.d_hist, want[1], rtol=RTOL, atol=ATOL)

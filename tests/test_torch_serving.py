@@ -167,8 +167,9 @@ def test_request_validation(kw, match):
     (dict(tile_m=64), ValueError),  # needs use_kernel
     (dict(tile_m=100, use_kernel=True), ValueError),
     (dict(tile_m="auto", use_kernel=True), NotImplementedError),
-    (dict(mesh=object()), NotImplementedError),
-    (dict(chunk_size=4, mesh=object()), NotImplementedError),
+    (dict(mesh=object(), tile_m="auto"), NotImplementedError),
+    (dict(chunk_size=4, mesh=object()), NotImplementedError),  # item 9b
+    (dict(mesh=object(), use_kernel=True), ValueError),
 ])
 def test_config_validation(kw, err):
     with pytest.raises(err):

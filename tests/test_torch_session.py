@@ -647,10 +647,12 @@ def test_session_requires_windowed_config(kw):
 
 
 def test_session_rejects_sharded_pools():
-    # the config refuses a mesh before any session sees it (ROADMAP
-    # queue 1 item 9)
+    # the config takes a mesh (the whole-slate sharded rerank); the
+    # session store refuses it itself (ROADMAP queue 1 item 9b)
+    cfg = ts.DPPRerankConfig(mesh=object(), **dict(_cfg_kw(),
+                                                   chunk_size=None))
     with pytest.raises(NotImplementedError, match="sharded"):
-        ts.DPPRerankConfig(mesh=object(), **_cfg_kw())
+        ts.SessionStore(cfg, ts.SessionConfig(), torch.device("cpu"))
 
 
 def test_session_rejects_user_batches():

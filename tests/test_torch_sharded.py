@@ -1,0 +1,741 @@
+"""The port's candidate-sharded rerank against ``repro``'s sharded path, on
+the CPU.
+
+The same seeded numpy inputs (``tests/conftest.py::make_greedy_inputs``
+and numpy draws) go through ``repro.core.sharded`` / ``repro``'s
+``Reranker`` with ``cfg.mesh`` (a ``shard_map`` over a ``("data",)`` JAX
+mesh, its jnp step) and through ``repro_torch.core.sharded`` /
+``repro_torch``'s ``Reranker`` with ``cfg.mesh`` (ranks of a gloo
+``torch.distributed`` group; on CPU shards the update step is the plain
+version of the shard-local update entry of K3/K4).  Slates must be equal
+index for index, ``d_hist`` within ``GreedyOracle``'s incremental
+tolerance (rtol 3e-4 / atol 1e-5).
+
+* One rank, in this process (a gloo group of one, made by a fixture and
+  destroyed after the module): ``repro``'s one-device cases of
+  ``tests/test_sharded.py``: spec and config validation, exact and
+  windowed against ``repro`` on a 1-device mesh and against its jnp
+  core and the shared oracle, batched ``V``, shared and per-user masks,
+  ``sharded_topk``, the rerank (masked-score poison, inf relevance
+  outside the shortlist, eps-stop); the mesh refusals of ``stream``,
+  ``submit`` and ``session``, the router and the session store.
+* P = 2, 3 and 4 ranks (P = 3 pads M): each P runs once, as gloo ranks in
+  subprocesses, beside one JAX subprocess that runs ``repro``'s sharded
+  path on 2-, 3- and 4-device host meshes (``XLA_FLAGS`` set before jax
+  is imported, as ``tests/test_sharded.py`` does); parametrised tests
+  then hold each case.  Exact ties across a shard boundary go to the
+  lowest global id, and the cross-shard argmax is checked on crafted
+  gains that are all non-negative and that straddle zero (a signed MAX
+  all-reduce of the packed argmax keys would pick a negative gain).
+* The plain update entries against ``repro``'s ``tiled_update_exact`` /
+  ``tiled_update_windowed`` in interpret mode, with a non-zero ``base``.
+* ``launch.serve_sharded`` with two gloo ranks on the CPU.
+"""
+import concurrent.futures
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from conftest import (
+    _ORACLES,
+    assert_greedy_parity,
+    make_greedy_inputs,
+    serve_rerank,
+)
+import repro.core as jcore
+import repro.serving as js
+from repro.distributed.context import make_mesh_compat
+from repro.kernels.dpp_greedy import tiled as jtiled
+import repro_torch.core as tcore
+import repro_torch.serving as ts
+from repro_torch.distributed import init_group, make_mesh, spawn_ranks
+from repro_torch.distributed import rank_env
+from repro_torch.kernels.dpp_greedy import tiled as ttiled
+from repro_torch.launch import serve_sharded
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ORACLE = _ORACLES["incremental"]()
+RTOL, ATOL = ORACLE.dh_rtol, ORACLE.dh_atol
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _close(got, want):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.fixture(scope="module")
+def mesh(tmp_path_factory):
+    """A gloo group of one rank in this process and its CPU mesh."""
+    import torch.distributed as dist
+
+    init_group("gloo", 0, 1, tmp_path_factory.mktemp("rdv") / "file",
+               timeout_s=60)
+    yield make_mesh(device="cpu")
+    dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def jmesh():
+    return make_mesh_compat((1,), ("data",))
+
+
+def _problem(seed, M=120, D=24):
+    return make_greedy_inputs(seed, None, D, M, alpha=None)
+
+
+# ---------------------------------------------------------------------------
+# Validation and refusals
+# ---------------------------------------------------------------------------
+
+
+def test_spec_validation(mesh):
+    with pytest.raises(tcore.GreedySpecError, match="mesh"):
+        tcore.GreedySpec(k=5, backend="sharded")
+    with pytest.raises(tcore.GreedySpecError, match="mesh"):
+        tcore.GreedySpec(k=5, backend="kernel", mesh=mesh)
+    with pytest.raises(tcore.GreedySpecError, match="silently ignored"):
+        tcore.GreedySpec(k=5, backend="torch", mesh=mesh)
+    with pytest.raises(NotImplementedError, match="9b"):
+        tcore.GreedySpec(k=5, backend="sharded", mesh=mesh, chunk_size=2)
+    assert tcore.GreedySpec(k=5, mesh=mesh).sharded()  # auto + mesh
+    assert not tcore.GreedySpec(k=5).sharded()
+    tcore.GreedySpec(k=5, backend="sharded", mesh=mesh, tile_m=64)
+    with pytest.raises(tcore.GreedySpecError, match="tile_m"):
+        tcore.GreedySpec(k=5, tile_m=64)
+
+
+def test_rerank_config_validation(mesh):
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        ts.DPPRerankConfig(use_kernel=True, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="9b"):
+        ts.DPPRerankConfig(mesh=mesh, chunk_size=4)
+    spec = ts.DPPRerankConfig(slate_size=4, mesh=mesh, tile_m=64).greedy_spec()
+    assert spec.backend == "sharded" and spec.mesh is mesh
+    assert spec.tile_m == 64 and spec.axis_name == "data"
+    with pytest.raises(ValueError, match="tile_m"):
+        ts.DPPRerankConfig(tile_m=64)
+
+
+def _small_request(seed=5, M=64, D=6):
+    rng = np.random.default_rng(seed)
+    f = rng.normal(size=(M, D)).astype(np.float32)
+    f /= np.linalg.norm(f, axis=1, keepdims=True)
+    return ts.RerankRequest(scores=rng.uniform(size=M).astype(np.float32),
+                            feats=f)
+
+
+@pytest.mark.parametrize("verb", ["stream", "submit", "session"])
+def test_mesh_refuses_stream_submit_session(mesh, verb):
+    cfg = ts.DPPRerankConfig(slate_size=8, shortlist=32, window=4,
+                             mesh=mesh)
+    rr = ts.Reranker(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        getattr(rr, verb)(_small_request())
+
+
+def test_router_refuses_a_mesh(mesh):
+    cfg = ts.DPPRerankConfig(slate_size=8, shortlist=32, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        ts.RerankRouter(cfg, device="cpu")
+
+
+def test_session_store_refuses_a_mesh(mesh):
+    cfg = ts.DPPRerankConfig(slate_size=8, shortlist=32, window=4,
+                             mesh=mesh)
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        ts.SessionStore(cfg, ts.SessionConfig(), torch.device("cpu"))
+
+
+def test_reranker_refuses_a_mesh_on_another_device(mesh):
+    cfg = ts.DPPRerankConfig(slate_size=8, shortlist=32, mesh=mesh)
+    mesh_meta = make_mesh(device="cpu")
+    mesh_meta.device = torch.device("meta")
+    with pytest.raises(ValueError, match="shards on"):
+        ts.Reranker(ts.DPPRerankConfig(slate_size=8, mesh=mesh_meta),
+                    device="cpu")
+    ts.Reranker(cfg, device="cpu")
+
+
+def test_sharded_rejects_dense_and_bad_rank(mesh):
+    spec = tcore.GreedySpec(k=4, backend="sharded", mesh=mesh)
+    with pytest.raises(ValueError, match="low-rank V"):
+        tcore.greedy_map(spec, L=torch.eye(8))
+    with pytest.raises(ValueError, match="ndim"):
+        tcore.dpp_greedy_sharded(torch.ones(2, 2, 4, 16), 2, mesh=mesh)
+    with pytest.raises(ValueError, match="mesh has no axis"):
+        tcore.dpp_greedy_sharded(torch.ones(4, 16), 2, mesh=mesh,
+                                 axis_name="model")
+    with pytest.raises(ValueError, match="k must be"):
+        tcore.dpp_greedy_sharded(torch.ones(4, 16), 0, mesh=mesh)
+
+
+# ---------------------------------------------------------------------------
+# One rank, in process, against repro on a 1-device mesh
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sharded_matches_repro_one_device(mesh, jmesh, seed):
+    V = _problem(seed)
+    want = jcore.dpp_greedy_sharded(V, 10, mesh=jmesh, eps=1e-6)
+    core = jcore.dpp_greedy_lowrank(V, 10, eps=1e-6)
+    got = tcore.dpp_greedy_sharded(_t(V), 10, mesh=mesh, eps=1e-6)
+    np.testing.assert_array_equal(got.indices.numpy(), np.asarray(want.indices))
+    np.testing.assert_array_equal(got.indices.numpy(), np.asarray(core.indices))
+    _close(got.d_hist, want.d_hist)
+    assert int(got.n_selected) == int(want.n_selected)
+
+
+@pytest.mark.parametrize("window", [None, 5])
+def test_sharded_matches_shared_oracle(mesh, greedy_oracle, window):
+    V = _problem(7)
+    rng = np.random.default_rng(7)
+    mask = rng.uniform(size=V.shape[1]) > 0.25
+    got = tcore.dpp_greedy_sharded(_t(V), 10, mesh=mesh, window=window,
+                                   eps=1e-6, mask=_t(mask))
+    assert_greedy_parity(greedy_oracle, got.indices.numpy(),
+                         got.d_hist.numpy(), V, 10, window=window, eps=1e-6,
+                         mask=jnp.asarray(mask))
+
+
+def test_sharded_windowed_matches_repro(mesh, jmesh):
+    V = _problem(3)
+    want = jcore.dpp_greedy_sharded(V, 24, mesh=jmesh, window=5, eps=1e-6)
+    got = tcore.dpp_greedy_sharded(_t(V), 24, mesh=mesh, window=5, eps=1e-6)
+    np.testing.assert_array_equal(got.indices.numpy(), np.asarray(want.indices))
+    _close(got.d_hist, want.d_hist)
+
+
+def test_sharded_mask_and_dispatch(mesh):
+    V = _problem(4)
+    rng = np.random.default_rng(4)
+    mask = rng.uniform(size=V.shape[1]) > 0.4
+    want = jcore.dpp_greedy_lowrank(V, 8, eps=1e-6, mask=jnp.asarray(mask))
+    for backend in ("sharded", "auto"):
+        got = tcore.greedy_map(
+            tcore.GreedySpec(k=8, backend=backend, mesh=mesh, eps=1e-6),
+            V=_t(V), mask=_t(mask))
+        np.testing.assert_array_equal(got.indices.numpy(),
+                                      np.asarray(want.indices))
+        assert all(mask[i] for i in got.indices.tolist() if i >= 0)
+
+
+@pytest.mark.parametrize("window", [None, 3])
+def test_sharded_batched_matches_repro(mesh, jmesh, window):
+    rng = np.random.default_rng(21)
+    B, D, M, k = 4, 12, 90, 8
+    V = (rng.normal(size=(B, D, M)) / np.sqrt(D)).astype(np.float32)
+    mask = rng.uniform(size=(B, M)) > 0.3
+    want = jcore.dpp_greedy_sharded(jnp.asarray(V), k, mesh=jmesh,
+                                    window=window, eps=1e-6,
+                                    mask=jnp.asarray(mask))
+    got = tcore.greedy_map(
+        tcore.GreedySpec(k=k, window=window, backend="sharded", mesh=mesh,
+                         eps=1e-6), V=_t(V), mask=_t(mask))
+    assert got.indices.shape == (B, k)
+    np.testing.assert_array_equal(got.indices.numpy(), np.asarray(want.indices))
+    np.testing.assert_array_equal(got.n_selected.numpy(),
+                                  np.asarray(want.n_selected))
+    _close(got.d_hist, want.d_hist)
+
+
+def test_shared_mask_batched_V(mesh):
+    rng = np.random.default_rng(31)
+    B, D, M, k = 3, 10, 72, 6
+    V = (rng.normal(size=(B, D, M)) / np.sqrt(D)).astype(np.float32)
+    mask = rng.uniform(size=M) > 0.4
+    got = tcore.greedy_map(tcore.GreedySpec(k=k, mesh=mesh, eps=1e-6),
+                           V=_t(V), mask=_t(mask))
+    want = jcore.greedy_map(jcore.GreedySpec(k=k, backend="jnp", eps=1e-6),
+                            V=jnp.asarray(V),
+                            mask=jnp.broadcast_to(jnp.asarray(mask), (B, M)))
+    np.testing.assert_array_equal(got.indices.numpy(), np.asarray(want.indices))
+    assert all(mask[i] for i in got.indices.flatten().tolist() if i >= 0)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("c", [13, 97, 500])
+def test_sharded_topk_one_device(mesh, jmesh, batched, c):
+    rng = np.random.default_rng(7)
+    s = rng.uniform(size=(3, 97) if batched else 97).astype(np.float32)
+    s[..., 40] = s[..., 3]  # an exact tie: the lower index first
+    v1, i1 = jax.lax.top_k(jnp.asarray(s), min(c, 97))
+    v2, i2 = tcore.sharded_topk(_t(s), c, mesh=mesh)
+    v3, i3 = jcore.sharded_topk(jnp.asarray(s), c, mesh=jmesh)
+    np.testing.assert_array_equal(i2.numpy(), np.asarray(i1))
+    np.testing.assert_array_equal(v2.numpy(), np.asarray(v1))
+    np.testing.assert_array_equal(i2.numpy(), np.asarray(i3))
+
+
+def _port_rerank(scores, feats, cfg, mask=None):
+    return ts.Reranker(cfg, device="cpu").rerank(
+        ts.RerankRequest(scores=scores, feats=feats, mask=mask))
+
+
+def _cfgs(mesh, jmesh, **kw):
+    return (js.DPPRerankConfig(mesh=jmesh, **kw),
+            ts.DPPRerankConfig(mesh=mesh, **kw))
+
+
+@pytest.mark.parametrize("window", [None, 4])
+def test_sharded_rerank_matches_repro_one_device(mesh, jmesh, window):
+    rng = np.random.default_rng(9)
+    M, D = 300, 16
+    scores = rng.uniform(size=M).astype(np.float32)
+    feats = rng.normal(size=(M, D)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    kw = dict(slate_size=10, shortlist=128, alpha=3.0, eps=1e-6,
+              window=window)
+    jcfg, tcfg = _cfgs(mesh, jmesh, **kw)
+    want, wdh = serve_rerank(jnp.asarray(scores), jnp.asarray(feats), jcfg)
+    dense, _ = serve_rerank(jnp.asarray(scores), jnp.asarray(feats),
+                            js.DPPRerankConfig(**kw))
+    got, gdh = _port_rerank(scores, feats, tcfg)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(dense))
+    _close(gdh, wdh)
+
+
+@pytest.mark.parametrize("window", [None, 3])
+@pytest.mark.parametrize("per_user_feats", [False, True])
+def test_rerank_batch_sharded_matches_repro(mesh, jmesh, window,
+                                            per_user_feats):
+    rng = np.random.default_rng(23)
+    B, M, D = 4, 121, 8
+    scores = rng.uniform(size=(B, M)).astype(np.float32)
+    feats = rng.normal(size=(B, M, D) if per_user_feats else (M, D))
+    feats = (feats / np.linalg.norm(feats, axis=-1, keepdims=True)).astype(
+        np.float32)
+    mask = rng.uniform(size=(B, M)) > 0.25
+    kw = dict(slate_size=6, shortlist=64, alpha=3.0, eps=1e-6, window=window)
+    jcfg, tcfg = _cfgs(mesh, jmesh, **kw)
+    want, wdh = serve_rerank(jnp.asarray(scores), jnp.asarray(feats), jcfg,
+                             mask=jnp.asarray(mask))
+    got, gdh = _port_rerank(scores, feats, tcfg, mask)
+    assert got.shape == (B, 6)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    _close(gdh, wdh)
+
+
+def test_rerank_batch_sharded_eps_stop(mesh, jmesh):
+    rng = np.random.default_rng(24)
+    B, M, D = 4, 80, 3
+    scores = rng.uniform(size=(B, M)).astype(np.float32)
+    feats = rng.normal(size=(B, M, D)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=-1, keepdims=True)
+    kw = dict(slate_size=10, shortlist=64, alpha=2.0, eps=1e-2)
+    jcfg, tcfg = _cfgs(mesh, jmesh, **kw)
+    want, _ = serve_rerank(jnp.asarray(scores), jnp.asarray(feats), jcfg)
+    got, _ = _port_rerank(scores, feats, tcfg)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got.numpy() == -1).any()  # the stop fired
+
+
+@pytest.mark.parametrize("poison", [float("nan"), float("-inf")])
+def test_sharded_rerank_masked_score_poison(mesh, jmesh, poison):
+    rng = np.random.default_rng(32)
+    M, D = 150, 8
+    scores = rng.uniform(size=M).astype(np.float32)
+    feats = rng.normal(size=(M, D)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    mask = np.ones(M, bool)
+    mask[7] = False
+    clean = scores.copy()
+    scores[7] = poison
+    kw = dict(slate_size=8, shortlist=64, alpha=3.0, eps=1e-6)
+    jcfg, tcfg = _cfgs(mesh, jmesh, **kw)
+    got, dh = _port_rerank(scores, feats, tcfg, mask)
+    assert (got.numpy() >= 0).sum() == 8 and 7 not in got.tolist()
+    assert torch.isfinite(dh).all()
+    ref, _ = _port_rerank(clean, feats, tcfg, mask)
+    want, _ = serve_rerank(jnp.asarray(scores), jnp.asarray(feats), jcfg,
+                           mask=jnp.asarray(mask))
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_sharded_rerank_inf_relevance_outside_shortlist(mesh, jmesh):
+    rng = np.random.default_rng(33)
+    M, D = 200, 8
+    scores = rng.uniform(size=M).astype(np.float32)
+    scores[11] = -130.0  # 0.5 ** -130 overflows float32: inf relevance
+    feats = rng.normal(size=(M, D)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    kw = dict(slate_size=8, shortlist=64, alpha=0.5, eps=1e-6)
+    jcfg, tcfg = _cfgs(mesh, jmesh, **kw)
+    want, _ = serve_rerank(jnp.asarray(scores), jnp.asarray(feats), jcfg)
+    got, dh = _port_rerank(scores, feats, tcfg)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert torch.isfinite(dh).all() and 11 not in got.tolist()
+
+
+# ---------------------------------------------------------------------------
+# The plain update entries against repro's, interpret mode
+# ---------------------------------------------------------------------------
+
+
+def _entry_operands(seed, D=16, M=256, rows=6, t=3):
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    V = (rng.normal(size=(D, M)) / np.sqrt(D)).astype(f32)
+    C = (0.1 * rng.normal(size=(rows, M))).astype(f32)
+    C[t:] = 0.0
+    d2 = (1.0 + rng.uniform(size=M)).astype(f32)
+    d2[rng.uniform(size=M) < 0.1] = -np.inf
+    vj = (rng.normal(size=D) / np.sqrt(D)).astype(f32)
+    cj = (0.1 * rng.normal(size=rows)).astype(f32)
+    return V, C, d2, vj, cj
+
+
+@pytest.mark.parametrize("stopped", [False, True])
+@pytest.mark.parametrize("owner", [True, False])
+def test_plain_update_exact_matches_repro(owner, stopped):
+    base, t, tile = 1024, 3, 128
+    V, C, d2, vj, cj = _entry_operands(1)
+    cj[t:] = 0.0
+    dj, j = np.float32(0.7), base + 9 if owner else base - 5
+    e, d2j = jtiled.tiled_update_exact(
+        jnp.asarray(V), jnp.asarray(C), jnp.asarray(d2), jnp.asarray(vj),
+        jnp.asarray(cj), jnp.float32(dj), jnp.asarray(stopped),
+        jnp.int32(j), jnp.int32(base), tile_m=tile, interpret=True)
+    Ct, d2t = _t(C)[None].clone(), _t(d2)[None].clone()
+    keys = torch.zeros((t + 2, 1), dtype=torch.int64)
+    ttiled.tiled_update_exact(
+        _t(V)[None], Ct, d2t, _t(vj)[None], _t(cj)[None],
+        torch.tensor([dj]), torch.tensor([stopped]),
+        torch.tensor([j], dtype=torch.int32), base, keys, t, tile)
+    # repro returns the appended row (zero when stopped); the port writes
+    # it in place and leaves a stopped lane's row as it was
+    _close(Ct[0, t], np.zeros_like(e) if stopped else e)
+    _close(d2t[0], d2j)
+    assert (d2t[0, 9].item() == float("-inf")) == (owner and not stopped)
+    val, idx = ttiled.unpack_key(keys[t + 1])
+    ref = np.asarray(d2j)
+    assert int(idx) == base + int(np.argmax(ref))
+    _close(val, ref.max())
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("owner", [True, False])
+def test_plain_update_windowed_matches_repro(owner, full):
+    base, w, tile = 2048, 5, 128
+    t = 7 if full else 2
+    V, C, d2, vj, cj = _entry_operands(2, rows=w, t=w if full else t)
+    Cw = (0.1 * np.random.default_rng(3).normal(size=(w, w))).astype(
+        np.float32)
+    dj2 = np.float32(0.9)
+    cos, sin, cjp, d2j = jtiled.eviction_coeffs(
+        jnp.asarray(Cw), jnp.asarray(cj), dj2, jnp.asarray(full), w)
+    djp = jnp.sqrt(jnp.maximum(d2j, 1e-12))
+    pos = min(t, w - 1)
+    j = base + 17 if owner else base + 10_000
+    Cj, d2o = jtiled.tiled_update_windowed(
+        jnp.asarray(V), jnp.asarray(C), jnp.asarray(d2), jnp.asarray(vj),
+        cjp, djp, jnp.asarray(False), jnp.asarray(full), cos, sin,
+        jnp.int32(j), jnp.int32(base), jnp.int32(pos), w=w, tile_m=tile,
+        interpret=True)
+    tcos, tsin, tcjp, td2j = ttiled.eviction_coeffs(
+        _t(Cw)[None], _t(cj)[None], torch.tensor([dj2]),
+        torch.tensor([full]), w)
+    _close(tcos, np.asarray(cos)[None])
+    _close(tcjp, np.asarray(cjp)[None])
+    Ct, d2t = _t(C)[None].clone(), _t(d2)[None].clone()
+    keys = torch.zeros((t + 2, 1), dtype=torch.int64)
+    ttiled.tiled_update_windowed(
+        _t(V)[None], Ct, d2t, _t(vj)[None], tcjp, torch.sqrt(
+            torch.clamp_min(td2j, 1e-12)), torch.tensor([False]),
+        torch.tensor([full]), tcos, tsin,
+        torch.tensor([j], dtype=torch.int32), base, pos, keys, t, tile)
+    _close(Ct[0], Cj)
+    _close(d2t[0], d2o)
+    assert (d2t[0, 17].item() == float("-inf")) == owner
+    val, idx = ttiled.unpack_key(keys[t + 1])
+    assert int(idx) == base + int(np.argmax(np.asarray(d2o)))
+
+
+# ---------------------------------------------------------------------------
+# P = 2, 3, 4 ranks against repro on P-device meshes
+# ---------------------------------------------------------------------------
+
+PS = (2, 3, 4)
+K_EXACT, K_WIN, W = 12, 20, 5
+RERANK = dict(slate_size=6, shortlist=40, alpha=3.0, eps=1e-6)
+
+
+def _cases():
+    """The multi-rank cases' inputs, as numpy arrays."""
+    out = {}
+    V = np.asarray(_problem(11, M=97, D=16))  # 97 pads for P = 2, 3, 4
+    out["single_V"] = V
+    rng = np.random.default_rng(12)
+    Vb = (rng.normal(size=(3, 12, 90)) / np.sqrt(12)).astype(np.float32)
+    out["batch_V"] = Vb
+    out["batch_mask"] = rng.uniform(size=(3, 90)) > 0.3
+    out["shared_mask"] = rng.uniform(size=90) > 0.4
+    # ties across every shard boundary: column i + 30 copies column i
+    # (boosted so the pairs lead); 60 columns split 30/30, 20/20/20 and
+    # 15 x 4, so each pair straddles a boundary.  A copy's gain is 0 once
+    # its original is picked, so the slate (k = 8 < D) holds originals
+    T = (rng.normal(size=(16, 60)) / 4.0).astype(np.float32)
+    T[:, :30] *= np.linspace(1.5, 3.0, 30, dtype=np.float32)
+    T[:, 30:] = T[:, :30]
+    out["ties_V"] = T
+    s = rng.uniform(size=(3, 97)).astype(np.float32)
+    s[:, 60] = s[:, 10]
+    out["topk_scores"] = s
+    out["rr_scores"] = rng.uniform(size=(4, 121)).astype(np.float32)
+    f = rng.normal(size=(121, 8)).astype(np.float32)
+    out["rr_feats"] = f / np.linalg.norm(f, axis=1, keepdims=True)
+    out["rr_mask"] = rng.uniform(size=(4, 121)) > 0.2
+    for P in PS:
+        out[f"argmax_vals_{P}"], out[f"argmax_gids_{P}"] = _argmax_case(P)
+    return out
+
+
+CONSTS = json.dumps(dict(KE=K_EXACT, KW=K_WIN, W=W, RR=RERANK, PS=PS))
+
+
+def _argmax_case(P):
+    """Crafted shard-local bests for the cross-shard argmax, (P, 5) values
+    and global ids: row r is rank r's best per user."""
+    r = np.arange(P, dtype=np.float32)[:, None]
+    vals = np.concatenate([
+        np.full((P, 1), 2.0),      # all equal and positive: rank 0 wins
+        r - 1.5,                   # straddles zero: the highest rank wins
+        np.zeros((P, 1)),          # all zero: rank 0
+        -1.0 - r,                  # all negative: rank 0
+        np.where(r == P - 1, 0.5, -3.0e38),  # one positive, the last rank
+    ], 1).astype(np.float32)
+    return vals, r.astype(np.int64) * 1000 + np.arange(5)
+
+
+_TORCH_RANK = r"""
+import json
+import sys
+import numpy as np
+import torch
+from repro_torch.core import dpp_greedy_sharded, sharded_topk
+from repro_torch.distributed import global_argmax, init_group, leave_group
+from repro_torch.distributed import make_mesh
+from repro_torch.serving import DPPRerankConfig, Reranker, RerankRequest
+
+rank, P, rdv, inp, out = int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:6]
+c = json.loads(sys.argv[6])
+KE, KW, W, RR = c["KE"], c["KW"], c["W"], c["RR"]
+torch.set_num_threads(1)
+init_group("gloo", rank, P, rdv, timeout_s=60)
+mesh = make_mesh(device="cpu")
+z = dict(np.load(inp))
+t = lambda x: torch.from_numpy(x)
+res = {}
+def put(name, r):
+    res[name + "_sel"] = r.indices.numpy()
+    res[name + "_dh"] = r.d_hist.numpy()
+put("exact", dpp_greedy_sharded(t(z["single_V"]), KE, mesh=mesh, eps=1e-6))
+put("windowed", dpp_greedy_sharded(t(z["single_V"]), KW, mesh=mesh,
+                                   window=W, eps=1e-6))
+put("batch", dpp_greedy_sharded(t(z["batch_V"]), 8, mesh=mesh, eps=1e-6,
+                                mask=t(z["batch_mask"])))
+put("shared", dpp_greedy_sharded(t(z["batch_V"]), 10, mesh=mesh, window=3,
+                                 eps=1e-6, mask=t(z["shared_mask"])))
+put("ties", dpp_greedy_sharded(t(z["ties_V"]), 8, mesh=mesh, eps=1e-3))
+v, i = sharded_topk(t(z["topk_scores"]), 25, mesh=mesh)
+res["topk_v"], res["topk_i"] = v.numpy(), i.numpy()
+for w in (None, 3):
+    cfg = DPPRerankConfig(mesh=mesh, window=w, **RR)
+    sel, dh = Reranker(cfg, device="cpu").rerank(RerankRequest(
+        scores=z["rr_scores"], feats=z["rr_feats"], mask=z["rr_mask"]))
+    res[f"rerank{w}_sel"], res[f"rerank{w}_dh"] = sel.numpy(), dh.numpy()
+vals, gids = z[f"argmax_vals_{P}"][rank], z[f"argmax_gids_{P}"][rank]
+dj2, j, owner = global_argmax(mesh, t(vals), t(gids))
+res["argmax_v"], res["argmax_j"] = dj2.numpy(), j.numpy()
+res["argmax_owner"] = owner.numpy()
+np.savez(out, **res)
+leave_group()
+"""
+
+_JAX_REF = r"""
+import json
+import sys
+import numpy as np
+import jax
+import jax.numpy as jnp
+from repro.core import dpp_greedy_sharded, sharded_topk
+from repro.distributed.context import make_mesh_compat
+from repro.serving import DPPRerankConfig, Reranker, RerankRequest
+
+z = dict(np.load(sys.argv[1]))
+c = json.loads(sys.argv[3])
+KE, KW, W, RR = c["KE"], c["KW"], c["W"], c["RR"]
+res = {}
+for P in c["PS"]:
+    mesh = make_mesh_compat((P,), ("data",), devices=jax.devices()[:P])
+    def put(name, r):
+        res[f"{name}_sel_{P}"] = np.asarray(r.indices)
+        res[f"{name}_dh_{P}"] = np.asarray(r.d_hist)
+    a = jnp.asarray
+    put("exact", dpp_greedy_sharded(a(z["single_V"]), KE, mesh=mesh,
+                                    eps=1e-6))
+    put("windowed", dpp_greedy_sharded(a(z["single_V"]), KW, mesh=mesh,
+                                       window=W, eps=1e-6))
+    put("batch", dpp_greedy_sharded(a(z["batch_V"]), 8, mesh=mesh, eps=1e-6,
+                                    mask=a(z["batch_mask"])))
+    put("shared", dpp_greedy_sharded(a(z["batch_V"]), 10, mesh=mesh,
+                                     window=3, eps=1e-6,
+                                     mask=a(z["shared_mask"])))
+    put("ties", dpp_greedy_sharded(a(z["ties_V"]), 8, mesh=mesh, eps=1e-3))
+    v, i = sharded_topk(a(z["topk_scores"]), 25, mesh=mesh)
+    res[f"topk_v_{P}"], res[f"topk_i_{P}"] = np.asarray(v), np.asarray(i)
+    for w in (None, 3):
+        cfg = DPPRerankConfig(mesh=mesh, window=w, **RR)
+        sel, dh = Reranker(cfg).rerank(RerankRequest(
+            scores=a(z["rr_scores"]), feats=a(z["rr_feats"]),
+            mask=a(z["rr_mask"])))
+        res[f"rerank{w}_sel_{P}"] = np.asarray(sel)
+        res[f"rerank{w}_dh_{P}"] = np.asarray(dh)
+np.savez(sys.argv[2], **res)
+"""
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _multi_started(tmp_path_factory):
+    """Start every P's torch ranks and the JAX reference when the module
+    starts, so they run while the in-process tests do; :func:`multi`
+    collects them."""
+    tmp = tmp_path_factory.mktemp("multi")
+    inp = tmp / "inputs.npz"
+    np.savez(inp, **_cases())
+    jax_env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+                   JAX_PLATFORMS="cpu",
+                   XLA_FLAGS="--xla_force_host_platform_device_count=4")
+
+    def jax_ref():
+        res = subprocess.run(
+            [sys.executable, "-c", _JAX_REF, str(inp), str(tmp / "jax.npz"),
+             CONSTS], env=jax_env, cwd=REPO, capture_output=True, text=True,
+            timeout=300)
+        assert res.returncode == 0, res.stderr[-3000:]
+        return dict(np.load(tmp / "jax.npz"))
+
+    def ranks(P):
+        d = tmp / f"p{P}"
+        d.mkdir()
+        spawn_ranks(lambda r: ["-c", _TORCH_RANK, str(r), str(P),
+                               str(d / "rdv"), str(inp),
+                               str(d / f"rank{r}.npz"), CONSTS], P, 240,
+                    env=rank_env(P, {"OMP_NUM_THREADS": "1"}), cwd=REPO)
+        return [dict(np.load(d / f"rank{r}.npz")) for r in range(P)]
+
+    pool = concurrent.futures.ThreadPoolExecutor(1 + len(PS))
+    futures = {"jax": pool.submit(jax_ref)}
+    futures.update({P: pool.submit(ranks, P) for P in PS})
+    yield futures
+    pool.shutdown(wait=True)
+
+
+@pytest.fixture(scope="module")
+def multi(_multi_started):
+    """Every P's torch ranks and the JAX reference, run once:
+    ``{"torch": {P: [rank 0's results, ...]}, "jax": results}``."""
+    return {"torch": {P: _multi_started[P].result() for P in PS},
+            "jax": _multi_started["jax"].result()}
+
+
+GREEDY_CASES = ["exact", "windowed", "batch", "shared", "ties", "rerankNone",
+                "rerank3"]
+
+
+@pytest.mark.parametrize("P", PS)
+def test_multi_rank_ranks_agree(multi, P):
+    """Every rank returns the same slates, bit for bit."""
+    ranks = multi["torch"][P]
+    for r in ranks[1:]:
+        for key, val in ranks[0].items():
+            if key.startswith("argmax_owner"):
+                continue
+            np.testing.assert_array_equal(r[key], val, err_msg=key)
+
+
+@pytest.mark.parametrize("case", GREEDY_CASES)
+@pytest.mark.parametrize("P", PS)
+def test_multi_rank_matches_repro(multi, P, case):
+    got, want = multi["torch"][P][0], multi["jax"]
+    np.testing.assert_array_equal(got[f"{case}_sel"],
+                                  want[f"{case}_sel_{P}"])
+    _close(got[f"{case}_dh"], want[f"{case}_dh_{P}"])
+
+
+@pytest.mark.parametrize("P", PS)
+def test_multi_rank_ties_pick_the_lowest_global_id(multi, P):
+    sel = multi["torch"][P][0]["ties_sel"].tolist()
+    # every pick ties its copy on the other side of a boundary: the
+    # original, with the lower global id, wins each time
+    assert all(0 <= s < 30 for s in sel) and len(set(sel)) == 8
+    ref = jcore.dpp_greedy_lowrank(jnp.asarray(_cases()["ties_V"]), 8,
+                                   eps=1e-3)
+    np.testing.assert_array_equal(sel, np.asarray(ref.indices))
+
+
+@pytest.mark.parametrize("P", PS)
+def test_multi_rank_topk_matches_repro(multi, P):
+    got, want = multi["torch"][P][0], multi["jax"]
+    np.testing.assert_array_equal(got["topk_i"], want[f"topk_i_{P}"])
+    np.testing.assert_array_equal(got["topk_v"], want[f"topk_v_{P}"])
+    top = jax.lax.top_k(jnp.asarray(_cases()["topk_scores"]), 25)[1]
+    np.testing.assert_array_equal(got["topk_i"], np.asarray(top))
+
+
+@pytest.mark.parametrize("P", PS)
+def test_multi_rank_argmax_keeps_value_order(multi, P):
+    """The fold takes the largest value, then the lowest rank, on gains
+    that are all non-negative and that straddle zero."""
+    vals, gids = _argmax_case(P)
+    best = np.argmax(vals, axis=0)  # numpy: the first maximum
+    cols = np.arange(vals.shape[1])
+    for r, res in enumerate(multi["torch"][P]):
+        np.testing.assert_array_equal(res["argmax_v"], vals[best, cols])
+        np.testing.assert_array_equal(res["argmax_j"], gids[best, cols])
+        np.testing.assert_array_equal(res["argmax_owner"], best == r)
+    assert best[1] == P - 1 and best[0] == 0 and best[4] == P - 1
+
+
+# ---------------------------------------------------------------------------
+# launch.serve_sharded
+# ---------------------------------------------------------------------------
+
+
+def test_serve_sharded_two_gloo_ranks_on_cpu(tmp_path, capsys):
+    out = serve_sharded.main([
+        "--device", "cpu", "--devices", "2", "--backend", "gloo",
+        "--candidates", "3001", "--dim", "16", "--batch", "3",
+        "--shortlist", "500", "--window", "0", "4", "--slate", "10", "12",
+        "--check", "--timeout", "240",
+        "--metrics-out", str(tmp_path / "m.json")])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) \
+        == json.loads((tmp_path / "m.json").read_text()) == out
+    assert out["devices"] == 2 and out["per_device_candidates"] == 1501
+    assert out["check"].startswith("ok")
+    for run, k in zip(out["runs"], (10, 12)):
+        assert run["ranks_agree"] and run["check"].startswith("ok")
+        assert np.asarray(run["indices"]).shape == (3, k)
+        assert [r["rank"] for r in run["ranks"]] == [0, 1]
+        # 2 collectives a step and the shortlist's one (CPU: no kernel)
+        assert all(r["collectives"] == 2 * k + 1 for r in run["ranks"])
+        assert all(r["launches"] == {} for r in run["ranks"])
+
+
+def test_serve_sharded_stream_is_not_ported():
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        serve_sharded.main(["--device", "cpu", "--stream", "4"])
