@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the DPP rerank, DeepFM
 scoring into the rerank, the fused scoring top-c, the paper's
 experiments, the continuous-batching router, session-aware incremental
-rerank and the candidate-sharded rerank.
+rerank and the candidate-sharded rerank and stream.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --resident-times   # K1, K2 alone (resident_times)
@@ -11,7 +11,7 @@ rerank and the candidate-sharded rerank.
 process for K7's profiler times: ``topk_device_times``.)
 
 Builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a),
-then runs sixteen phases through the port's entry points.  Phases 1-9
+then runs seventeen phases through the port's entry points.  Phases 1-9
 (``repro_torch.serving.Reranker(..., use_kernel=True).rerank`` and
 ``.stream``, ``repro_torch.core.greedy_map_chunks`` and
 ``greedy_chunk_slots``) run at the paper's §5.1 setup: D = 100
@@ -186,8 +186,30 @@ phase 15's wall-clock gates:
                       passes its time limit fails the phase with its
                       stderr tail.
 
+Phase 17 runs the candidate-sharded stream (``core.dispatch.
+greedy_map_chunks`` and ``Reranker.stream`` on a mesh) and figure 5,
+after phase 16, on the same update entries:
+
+17. sharded stream:   (a) in this process on 16(c)'s one-rank gloo group:
+                      ``greedy_map_chunks``, chunk 16, over 16(c)'s shard
+                      (exact k = 50; w = 10, k = 200): the chunks equal
+                      16(c)'s whole slate bit for bit, d_hist included,
+                      k update launches through one launcher a call, the
+                      update-entry device time beside 16(c)'s; (b)
+                      ``launch.serve_sharded --stream 8`` on phase 1's
+                      user 0 (pool 100,000, C = 1000), one NCCL rank and
+                      2 gloo ranks sharing the card: every rank's chunks
+                      equal its whole slate, the two runs equal, each
+                      held against phase 1/2's K1/K2 slate (certified
+                      near-ties), time to first chunk and the whole
+                      stream printed; (c) figure 5
+                      (``repro_torch.figures.fig5_sharded``) at its
+                      --smoke size through its ``main``, P = 1 (NCCL)
+                      and 2 (gloo): its rows and its update launches.
+                      (b)'s and (c)'s children start at once.
+
 Each phase resets the kernels' launch counters right before the main-path
-call (phase 16's ranks in their own processes), reads them right after,
+call (phases 16 and 17's ranks in their own processes), reads them right after,
 and checks them and the mode recorded in dispatch telemetry; holds the
 kernel against its plain PyTorch version on the same inputs (d_hist
 rtol 3e-4 / atol 1e-5; a slate may differ only
@@ -796,6 +818,8 @@ def run_resident(records, rng, refs):
                                                             out[1][:b])
     refs["b"]["npz"] = save_request(refs["work"] / "phase16b.npz",
                                     scores[:SHARDED_B_USERS], feats, None)
+    refs["b"]["npz1"] = save_request(refs["work"] / "phase17b.npz",
+                                     scores[:1], feats, None)
     return scores, feats, results
 
 
@@ -2932,15 +2956,17 @@ def save_request(path, scores, feats, mask):
     return path
 
 
-def start_child(name, npz, P, backend, shortlist):
+def start_child(name, npz, P, backend, shortlist, stream=0):
     """Start ``python -m repro_torch.launch.serve_sharded`` with P ranks
-    on ``npz``'s request, exact k = 50 and windowed w = 10, k = 200, as a
-    child process; :func:`finish_child` collects it."""
+    on ``npz``'s request, exact k = 50 and windowed w = 10, k = 200
+    (``stream``: also streamed in chunks of that many), as a child
+    process; :func:`finish_child` collects it."""
     cmd = [sys.executable, "-m", "repro_torch.launch.serve_sharded",
            "--devices", str(P), "--backend", backend, "--device", "cuda",
            "--inputs", str(npz), "--window", "0", "10", "--slate", "50",
            "200", "--shortlist", str(shortlist), "--alpha", str(ALPHA),
-           "--eps", str(EPS), "--timeout", str(SHARDED_TIMEOUT_S)]
+           "--eps", str(EPS), "--timeout", str(SHARDED_TIMEOUT_S),
+           "--stream", str(stream)]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, env=env,
@@ -3062,81 +3088,93 @@ def patched_updates(tm, plain=False, wrap=None):
         tm.update_launcher = real
 
 
-def run_update_entries(records, ref, work):
+@contextlib.contextmanager
+def one_rank_group(work):
+    """A one-rank gloo group in this process and its mesh on the card
+    (phases 16(c) and 17(a)); destroyed on the way out."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import init_group, make_mesh
+
+    init_group("gloo", 0, 1, work / "rendezvous16c", timeout_s=300)
+    try:
+        yield make_mesh(device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_update_entries(records, ref, mesh):
     """16(c): each update entry against its plain version, a whole slate
     on phase 3's shortlist (B = 4, D = 100, C = 65,536) as the shard of
     global ids from ``base = 3 C`` on, through ``core.sharded.greedy_local``
-    on a one-rank gloo group in this process; timed as K3/K4 are (one
-    CUDA event pair a launch, summed; device time by torch.profiler)."""
-    import torch.distributed as dist
-
+    on the one-rank gloo group ``mesh``; timed as K3/K4 are (one CUDA
+    event pair a launch, summed; device time by torch.profiler).  Keeps
+    each slate (shard-local ids) and its device time in ``ref["c16"]``
+    for phase 17(a)."""
     from repro_torch.core.sharded import greedy_local
-    from repro_torch.distributed import init_group, make_mesh
     from repro_torch.kernels import cuda
     from repro_torch.kernels.dpp_greedy import tiled as tm
 
     V, m_top = ref["V"], ref["m_top"]
     B, _, C = V.shape
     base = 3 * C
-    init_group("gloo", 0, 1, work / "rendezvous16c", timeout_s=300)
-    try:
-        mesh = make_mesh(device="cuda")
-        for kernel, k, w in (("tiled_update_exact", 50, None),
-                             ("tiled_update_windowed", 200, 10)):
-            name = f"phase 16(c) {kernel}"
-            print(f"[{name}] phase 3's shortlist B={B} C={C} k={k} "
-                  f"window={w}, base {base}", flush=True)
+    ref["c16"] = {}
+    for kernel, k, w in (("tiled_update_exact", 50, None),
+                         ("tiled_update_windowed", 200, 10)):
+        name = f"phase 16(c) {kernel}"
+        print(f"[{name}] phase 3's shortlist B={B} C={C} k={k} "
+              f"window={w}, base {base}", flush=True)
 
-            def run(plain=False, wrap=None):
-                with patched_updates(tm, plain, wrap):
-                    sel, dh = greedy_local(V, m_top, k, mesh=mesh, base=base,
-                                           window=w, eps=EPS)
-                return torch.where(sel >= 0, sel - base, -1), dh
+        def run(plain=False, wrap=None):
+            with patched_updates(tm, plain, wrap):
+                sel, dh = greedy_local(V, m_top, k, mesh=mesh, base=base,
+                                       window=w, eps=EPS)
+            return torch.where(sel >= 0, sel - base, -1), dh
 
-            cuda.reset_launch_counts()
-            got = run()
-            torch.cuda.synchronize()
-            check(cuda.launch_counts() == {kernel: k},
-                  f"{name}: launches {cuda.launch_counts()}")
-            want = run(plain=True)
-            torch.cuda.synchronize()
-            _, err = compare(name, V, m_top, got, want, w, EPS)
-            direct = ref["direct"][w]
-            lanes = certify(f"{name} vs phase {3 if w is None else 4}", V,
-                            m_top, got[0], direct[0], w, EPS)
-            print(f"  {name}: against phase {3 if w is None else 4}'s direct "
-                  f"{'K3' if w is None else 'K4'} slate {len(lanes)} of {B} "
-                  f"lanes part (certified); d_hist max abs diff "
-                  f"{(got[1] - direct[1]).abs().max().item():.3g}",
-                  flush=True)
+        cuda.reset_launch_counts()
+        got = run()
+        torch.cuda.synchronize()
+        check(cuda.launch_counts() == {kernel: k},
+              f"{name}: launches {cuda.launch_counts()}")
+        want = run(plain=True)
+        torch.cuda.synchronize()
+        _, err = compare(name, V, m_top, got, want, w, EPS)
+        direct = ref["direct"][w]
+        lanes = certify(f"{name} vs phase {3 if w is None else 4}", V,
+                        m_top, got[0], direct[0], w, EPS)
+        print(f"  {name}: against phase {3 if w is None else 4}'s direct "
+              f"{'K3' if w is None else 'K4'} slate {len(lanes)} of {B} "
+              f"lanes part (certified); d_hist max abs diff "
+              f"{(got[1] - direct[1]).abs().max().item():.3g}",
+              flush=True)
 
-            def summed(plain):
-                def one():
-                    acc = []
-                    run(plain, lambda step: lambda *a: acc.append(
-                        event_ms(lambda: step(*a))))
-                    return sum(acc)
-                return one
+        def summed(plain):
+            def one():
+                acc = []
+                run(plain, lambda step: lambda *a: acc.append(
+                    event_ms(lambda: step(*a))))
+                return sum(acc)
+            return one
 
-            reps = TIMING_REPS // 4  # a call stages each step through host
-            ms = time_events(summed(False), reps)
-            plain_ms = time_events(summed(True), PLAIN_REPS)
-            dev = device_ms(run, kernel, k, reps=1)
-            records.setdefault(kernel, {"launches": 0})["calls_launches"] = k
-            kernel_record(records, kernel, ms, plain_ms,
-                          bound(B, D, C, k, w, (got[0] >= 0).sum(1)), err,
-                          f"sum of {k} launches, CUDA events per launch",
-                          device=dev, reps=reps)
-            stream_floor(B, C, k, dev, exact=w is None)
-    finally:
-        dist.destroy_process_group()
+        reps = TIMING_REPS // 4  # a call stages each step through host
+        ms = time_events(summed(False), reps)
+        plain_ms = time_events(summed(True), PLAIN_REPS)
+        dev = device_ms(run, kernel, k, reps=1)
+        records.setdefault(kernel, {"launches": 0})["calls_launches"] = k
+        kernel_record(records, kernel, ms, plain_ms,
+                      bound(B, D, C, k, w, (got[0] >= 0).sum(1)), err,
+                      f"sum of {k} launches, CUDA events per launch",
+                      device=dev, reps=reps)
+        stream_floor(B, C, k, dev, exact=w is None)
+        ref["c16"][w] = (got, dev)
 
 
-def run_sharded(records, refs):
+def run_sharded(records, refs, mesh):
     """Phase 16: the candidate-sharded rerank, ``Reranker(DPPRerankConfig(
-    mesh=...)).rerank`` in ranks started by ``launch.serve_sharded``."""
+    mesh=...)).rerank`` in ranks started by ``launch.serve_sharded``;
+    16(c) on the one-rank group ``mesh`` in this process."""
     t0 = time.perf_counter()
-    run_update_entries(records, refs["a"], refs["work"])
+    run_update_entries(records, refs["a"], mesh)
     print(f"  phase 16(c) took {time.perf_counter() - t0:.1f} s", flush=True)
     a = refs["a"]
     name = f"phase 16(a) one rank, {SHARDED_A_BACKEND}"
@@ -3190,6 +3228,156 @@ def run_sharded(records, refs):
                   f"equals the one-rank run's index for index; d_hist max "
                   f"abs diff {err:.3g}", flush=True)
     print(f"  phase 16 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the sharded stream and figure 5
+# ---------------------------------------------------------------------------
+
+STREAM_CHUNK_A, STREAM_CHUNK_B = 16, 8  # phase 17(a), (b)
+
+
+def run_stream_chunks(records, ref, mesh):
+    """17(a): ``greedy_map_chunks`` on the one-rank gloo group ``mesh``,
+    chunk 16, over 16(c)'s shard (phase 3's shortlist: B = 4, C = 65,536;
+    exact k = 50, w = 10 k = 200).  One rank's shard starts at global id
+    0 where 16(c)'s started at 3 C: the ids are compared shard-local, as
+    16(c) kept them.  The concatenated chunks must equal 16(c)'s whole
+    slate bit for bit, d_hist included; a call is k update launches
+    through one launcher; the chunks' update-entry device time is printed
+    beside 16(c)'s."""
+    from repro_torch.core import GreedySpec, greedy_map_chunks
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.dpp_greedy import tiled as tm
+
+    V, m_top = ref["V"], ref["m_top"]
+    B, _, C = V.shape
+    for kernel, k, w in (("tiled_update_exact", 50, None),
+                         ("tiled_update_windowed", 200, 10)):
+        name = f"phase 17(a) {kernel}"
+        spec = GreedySpec(k=k, window=w, mesh=mesh, eps=EPS,
+                          chunk_size=STREAM_CHUNK_A)
+        print(f"[{name}] greedy_map_chunks on a one-rank mesh over phase "
+              f"3's shortlist B={B} C={C} k={k} window={w}, chunk "
+              f"{STREAM_CHUNK_A}", flush=True)
+
+        def run(built=None):
+            wrap = None if built is None else (
+                lambda step: built.append(1) or step)
+            with patched_updates(tm, wrap=wrap):
+                chunks = list(greedy_map_chunks(spec, V=V, mask=m_top))
+            return (torch.cat([c.indices for c in chunks], 1),
+                    torch.cat([c.d_hist for c in chunks], 1), len(chunks))
+
+        built = []
+        cuda.reset_launch_counts()
+        sel, dh, n = run(built)
+        torch.cuda.synchronize()
+        counts = cuda.launch_counts()
+        check(counts == {kernel: k} and built == [1],
+              f"{name}: launches {counts}, launchers built {len(built)} "
+              f"(expected {{{kernel!r}: {k}}} through one launcher)")
+        records[kernel]["launches"] += k
+        whole, dev16 = ref["c16"][w]
+        check(torch.equal(sel, whole[0]) and torch.equal(dh, whole[1]),
+              f"{name}: the concatenated chunks differ from 16(c)'s whole "
+              f"sharded slate")
+        dev = device_ms(lambda: run(), kernel, k, reps=1)
+        print(f"  {name}: {n} chunks equal 16(c)'s whole slate bit for "
+              f"bit, d_hist included; {k} launches through one launcher; "
+              f"update-entry device time {ms_text(dev)} for the stream "
+              f"against {ms_text(dev16)} for 16(c)'s whole slate",
+              flush=True)
+
+
+def stream_runs(name, rec, records, ref):
+    """Check one ``serve_sharded --stream`` record: every rank streamed
+    k update launches a call and its chunks equalled its whole slate
+    (the child raises otherwise); hold each window's slate against
+    phase 1/2's K1/K2 slate of the user; print the stream's times and
+    add its launches to the kernels' record."""
+    sharded_runs(name, rec, records)
+    for run, k in zip(rec["runs"], (50, 200)):
+        w = run["window"]
+        kernel = ("tiled_update_exact" if w is None
+                  else "tiled_update_windowed")
+        st = run["stream"]
+        check(st["chunk_size"] == STREAM_CHUNK_B
+              and len(st["ranks"]) == rec["devices"],
+              f"{name}: window {w}: stream record {st}")
+        for r in st["ranks"]:
+            check(r["launches"] == {kernel: k},
+                  f"{name}: rank {r['rank']}'s stream launched "
+                  f"{r['launches']}, expected {{{kernel!r}: {k}}}")
+            records[kernel]["launches"] += k
+        hold_sharded(f"{name} window {w} vs phase {1 if w is None else 2} "
+                     f"({'K1' if w is None else 'K2'})",
+                     (run["indices"], run["d_hist"]), ref["out"][w], ref, w)
+        coll = "; ".join(
+            f"rank {r['rank']} collectives {r['collective_s'] * 1e3:.1f} of "
+            f"{r['timed_stream_s'] * 1e3:.1f} ms ({r['collectives']})"
+            for r in st["ranks"])
+        print(f"  {name}, window {w}, k={k}, chunk {st['chunk_size']}: "
+              f"first_chunk_s {st['first_chunk_s']:.6f}, stream_total_s "
+              f"{st['stream_total_s']:.6f}, first chunk "
+              f"{st['first_chunk_vs_whole']:.3f}x the whole slate's steady "
+              f"call; every rank's chunks equal "
+              f"its whole slate bit for bit; {coll} (a third stream "
+              f"synchronised around each collective)", flush=True)
+
+
+def run_sharded_stream(records, refs, mesh):
+    """Phase 17: the sharded stream and figure 5.  (a) in this process on
+    16(c)'s one-rank group; (b) ``launch.serve_sharded --stream 8`` on
+    phase 1's user 0 as one NCCL rank and as 2 gloo ranks sharing the
+    card, and (c) figure 5 ``--smoke`` (P = 1 NCCL, P = 2 gloo), the
+    children of (b) and (c) started at once."""
+    from repro_torch.figures import fig5_sharded
+
+    t0 = time.perf_counter()
+    run_stream_chunks(records, refs["a"], mesh)
+    print(f"  phase 17(a) took {time.perf_counter() - t0:.1f} s", flush=True)
+    b = refs["b"]
+    one = {"V": b["V"][:1], "m_top": None, "top_i": b["top_i"][:1],
+           "out": {w: (o[0][:1], o[1][:1]) for w, o in b["out"].items()}}
+    print(f"[phase 17(b)] serve_sharded --stream {STREAM_CHUNK_B} on phase "
+          f"1's user 0: pool 100,000 shortlist 1000 D=100; exact k=50, "
+          f"windowed w=10 k=200; 1 rank under {SHARDED_A_BACKEND} and 2 "
+          f"under gloo sharing the card, at once with (c)'s ranks",
+          flush=True)
+    children = [start_child(f"phase 17(b) {P} rank(s), {backend}",
+                            b["npz1"], P, backend, 1000,
+                            stream=STREAM_CHUNK_B)
+                for P, backend in ((1, SHARDED_A_BACKEND), (2, "gloo"))]
+    print("[phase 17(c) fig5] Figure 5 at its --smoke size through its "
+          "main: P = 1 and 2 started at once", flush=True)
+    fig, _ = figure_run("phase 17(c) fig5", lambda: fig5_sharded.main(
+        fast_mode=True, device="cuda", at_once=True))
+    # a rank's calls a mode: 2 tiles x 2 batch sizes x (a warm call and
+    # the trials), k steps each
+    cfg = fig5_sharded.PRESETS[True]
+    per_rank = (2 * len({1, cfg["batch"]}) * (1 + cfg["trials"])
+                * cfg["slate"])
+    for P, counts in fig["launches"].items():
+        want = {"tiled_update_exact": per_rank * P,
+                "tiled_update_windowed": per_rank * P}
+        check(counts == want, f"phase 17(c) fig5: P={P} launched {counts}, "
+                              f"expected {want}")
+        for kernel, n in counts.items():
+            records[kernel]["launches"] += n
+    print(f"  phase 17(c) fig5: {len(fig['rows'])} rows; update launches "
+          f"{fig['launches']}", flush=True)
+    recs = [finish_child(child) for child in children]
+    for child, rec in zip(children, recs):
+        stream_runs(child[0], rec, records, one)
+    for run, run1 in zip(recs[1]["runs"], recs[0]["runs"]):
+        check((run["indices"], run["d_hist"])
+              == (run1["indices"], run1["d_hist"]),
+              f"phase 17(b): window {run['window']}: 2 gloo ranks' slate "
+              f"differs from the NCCL rank's")
+    print(f"  phase 17(b): 2 gloo ranks' slates equal the NCCL rank's bit "
+          f"for bit, d_hist included; phase 17 took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def resident_times():
@@ -3252,9 +3440,9 @@ def resident_times():
 
 
 def run_phases(records, rng, refs):
-    """Phases 1-16 in order, each adding to ``records``; ``refs`` carries
-    phase 16's requests and references (its ``work`` directory holds the
-    requests' files)."""
+    """Phases 1-17 in order, each adding to ``records``; ``refs`` carries
+    phases 16 and 17's requests and references (its ``work`` directory
+    holds the requests' files)."""
     t0 = time.perf_counter()
     scores, feats, resident = run_resident(records, rng, refs)
     records["tiled_step_exact"] = {"launches": 0}
@@ -3279,7 +3467,9 @@ def run_phases(records, rng, refs):
     run_router(records, rng, model.to("cuda"))
     del model
     run_sessions(records, rng)
-    run_sharded(records, refs)
+    with one_rank_group(refs["work"]) as mesh:
+        run_sharded(records, refs, mesh)
+        run_sharded_stream(records, refs, mesh)
     print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 

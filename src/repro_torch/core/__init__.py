@@ -12,9 +12,10 @@ greedy (``greedy_naive.py``: the float64 numpy oracle and the batched
 (``baselines.py``: MMR, greedy-avg, Top-N, random) and the slate metrics
 (``metrics.py``).
 
-And the candidate-sharded whole-slate greedy over ``torch.distributed``
-(``sharded.py``: ``dpp_greedy_sharded``, ``sharded_topk``).  Not ported
-yet (ROADMAP queue 1): the sharded stream (item 9b).
+And the candidate-sharded greedy over ``torch.distributed``
+(``sharded.py``: ``dpp_greedy_sharded``, ``sharded_topk``, and the
+sharded stream's resumable ``ShardedState``,
+``dpp_greedy_sharded_stream_init`` / ``_chunk``).
 """
 from repro_torch.core.kernel_matrix import (
     build_kernel_dense,
@@ -49,7 +50,13 @@ from repro_torch.core.dispatch import (
     greedy_map_chunks,
 )
 from repro_torch.core.greedy_naive import greedy_map_naive
-from repro_torch.core.sharded import dpp_greedy_sharded, sharded_topk
+from repro_torch.core.sharded import (
+    ShardedState,
+    dpp_greedy_sharded,
+    dpp_greedy_sharded_stream_chunk,
+    dpp_greedy_sharded_stream_init,
+    sharded_topk,
+)
 from repro_torch.core.baselines import (
     greedy_avg_select,
     mmr_select,
@@ -112,7 +119,10 @@ __all__ = [
     "state_admit",
     "state_evict",
     "state_splice",
+    "ShardedState",
     "dpp_greedy_sharded",
+    "dpp_greedy_sharded_stream_chunk",
+    "dpp_greedy_sharded_stream_init",
     "sharded_topk",
     "dpp_greedy_windowed",
     "dpp_greedy_windowed_batch",

@@ -26,18 +26,19 @@ Dispatch rules:
   of the shard-local update entries;
 * ``spec.chunk_size`` — greedy steps per resumable chunk.  On the kernel
   backend ``greedy_map`` then runs the slate as fused chunk kernels (one
-  K5/K6 launch per chunk) and returns the identical slate.  The torch
+  K5/K6 launch per chunk), on the sharded backend as chunks of the
+  rank's resumable state, and returns the identical slate.  The torch
   whole-slate path has no chunked execution, so ``chunk_size`` with
-  ``backend='torch'`` (or ``'auto'``) is rejected at construction —
-  torch streaming passes ``chunk_size=`` to ``greedy_map_chunks``.
+  ``backend='torch'`` (or ``'auto'`` without a mesh) is rejected at
+  construction — torch streaming passes ``chunk_size=`` to
+  ``greedy_map_chunks``.
 
 ``greedy_map_chunks`` is the streaming front door: a generator yielding
 per-chunk ``GreedyResult``s whose concatenation is the whole-slate
 ``greedy_map`` result (see ``repro_torch.core.streaming``).
 
-Not ported yet, and raising ``NotImplementedError``: chunked execution
-on the sharded backend (the sharded stream, ROADMAP queue 1 item 9b),
-``tile_m="auto"`` (item 10).
+Not ported yet, and raising ``NotImplementedError``: ``tile_m="auto"``
+(ROADMAP queue 1 item 10).
 
 ``GreedySpec`` validates itself at construction — a bad config raises
 ``GreedySpecError`` (a ``ValueError``) at spec-build time.
@@ -100,23 +101,18 @@ class GreedySpec:
                 f"'sharded' or 'auto'), not {self.backend!r} — a mesh with "
                 f"a single-device backend would be silently ignored"
             )
-        if self.sharded() and self.chunk_size is not None:
-            raise NotImplementedError(
-                "chunked execution on the sharded backend (the sharded "
-                "stream) is not ported yet (ROADMAP queue 1 item 9b)"
-            )
         if self.chunk_size is not None:
             if self.chunk_size < 1:
                 raise GreedySpecError(
                     f"chunk_size must be >= 1, got {self.chunk_size}"
                 )
-            if self.backend != "kernel":
+            if self.backend != "kernel" and not self.sharded():
                 raise GreedySpecError(
                     "chunk_size= selects chunked execution, which only the "
-                    "kernel backend (fused chunk kernels) implements — on "
-                    "the torch whole-slate path it would be silently "
-                    "ignored; stream through greedy_map_chunks(..., "
-                    "chunk_size=) instead"
+                    "kernel (fused chunk kernels) and sharded (resumable "
+                    "rank state) backends implement — on the torch "
+                    "whole-slate path it would be silently ignored; stream "
+                    "through greedy_map_chunks(..., chunk_size=) instead"
                 )
         if self.tile_m is not None:
             from repro_torch.kernels.dpp_greedy.tiling import validate_tile_m
@@ -184,19 +180,20 @@ def greedy_map(
     record_greedy_map(backend, B=kern.shape[0], k=spec.k, M=kern.shape[-1],
                       chunked=chunked)
 
-    if backend == "sharded":
+    if chunked:
+        # fused chunk kernels or the sharded state, chunk by chunk: the
+        # identical slate
+        chunks = list(greedy_map_chunks(spec, V=kern, mask=mask))
+        sel = torch.cat([c.indices for c in chunks], dim=-1)
+        dh = torch.cat([c.d_hist for c in chunks], dim=-1)
+        res = GreedyResult(sel, (sel >= 0).sum(-1).to(torch.int32), dh)
+    elif backend == "sharded":
         from repro_torch.core.sharded import dpp_greedy_sharded
 
         res = dpp_greedy_sharded(
             kern, spec.k, mesh=spec.mesh, axis_name=spec.axis_name,
             window=spec.window, eps=spec.eps, mask=mask, tile_m=spec.tile_m,
         )
-    elif chunked:
-        # fused chunk kernels, chunk by chunk: the identical slate
-        chunks = list(greedy_map_chunks(spec, V=kern, mask=mask))
-        sel = torch.cat([c.indices for c in chunks], dim=-1)
-        dh = torch.cat([c.d_hist for c in chunks], dim=-1)
-        res = GreedyResult(sel, (sel >= 0).sum(-1).to(torch.int32), dh)
     elif backend == "kernel":
         from repro_torch.kernels.dpp_greedy import dpp_greedy as dpp_kernel
 
@@ -239,7 +236,12 @@ def greedy_map_chunks(
     ``chunk_size`` overrides ``spec.chunk_size`` — that is how the torch
     backend (whose spec cannot carry a chunk size) streams.  Backends:
     torch takes single problems (dense L or low-rank V); kernel takes
-    single or batched low-rank V, one K5/K6 launch per chunk.
+    single or batched low-rank V, one K5/K6 launch per chunk; sharded
+    takes single or batched low-rank V on ``spec.mesh``, one update
+    launch a step on each rank's shard.  On a mesh every rank of the
+    group runs the generator to its end (or every rank stops at the same
+    chunk): a rank that stops early leaves its peers blocked in the next
+    step's collective.
     """
     from repro_torch.core.streaming import (
         greedy_chunk,

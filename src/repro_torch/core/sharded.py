@@ -1,6 +1,5 @@
 """Sharded candidate-axis greedy MAP: one slate over millions of
-candidates (the torch counterpart of ``repro/core/sharded.py``, its
-whole-slate part).
+candidates (the torch counterpart of ``repro/core/sharded.py``).
 
 The paper's Algorithm 1 costs O(D M) a step on the low-rank kernel
 ``L = V^T V``, and each candidate needs only its own column of ``V``.
@@ -41,11 +40,18 @@ position and this one by lowest global id.  The initial gains are a
 sum over ``D`` in a fixed order (:func:`init_gains`), so a column's
 gain has the same bits for every shard count.
 
+The loop state is resumable (:class:`ShardedState`, one update
+launcher prepared per state), and the whole slate is that state advanced
+by one chunk of ``k``: a stream's chunks concatenate to it bit for bit
+by construction.
+
 Front doors: ``greedy_map(GreedySpec(backend="sharded", mesh=...))``
 and ``Reranker(DPPRerankConfig(mesh=...)).rerank``
-(``repro_torch.serving.sharded_rerank``); ``repro_torch.launch.
-serve_sharded`` runs P ranks end to end.  The sharded stream
-(``repro``'s ``dpp_greedy_sharded_stream_*``) is ROADMAP item 9b.
+(``repro_torch.serving.sharded_rerank``); the stream through
+``core.streaming.greedy_init`` / ``greedy_chunk``,
+``core.dispatch.greedy_map_chunks`` and ``Reranker.stream`` (every rank
+consumes the same chunks); ``repro_torch.launch.serve_sharded`` runs P
+ranks end to end.
 """
 from __future__ import annotations
 
@@ -95,80 +101,109 @@ def init_gains(Vl: torch.Tensor, maskl: torch.Tensor) -> torch.Tensor:
     return torch.where(maskl, acc, NEG_INF).contiguous()
 
 
-def greedy_local(Vl: torch.Tensor, maskl: torch.Tensor, k: int, *, mesh,
-                 base: int, window: Optional[int] = None, eps: float = 1e-6,
-                 tile_m: Optional[int] = None):
-    """The sharded greedy loop on this rank's shard (``repro``'s
-    ``_exact_body`` / ``_windowed_body`` with their step functions).
+class ShardedState:
+    """The resumable sharded greedy state of one rank (``repro``'s
+    sharded ``GreedyState``, whose leaves are the global view of the
+    per-device slices; here each rank holds its own).  Each chunk
+    advances it in place: keep the object.
 
-    Vl (B, D, Mloc) float32 and maskl (B, Mloc) bool on ``mesh.device``,
-    ``base`` the shard's first global id.  Returns ``(sel (B, k) int32
-    global ids, -1 after an eps-stop; d_hist (B, k) float32)``, the same
-    on every rank.  ``tile_m`` is the update entries' candidate tile
-    (default ``tiling.DEFAULT_TILE_M``)."""
-    from repro_torch.kernels.dpp_greedy.dpp_greedy import eps_squared
-    from repro_torch.kernels.dpp_greedy.tiled import (
-        eviction_coeffs,
-        pack_key,
-        unpack_key,
-        update_launcher,
-    )
-    from repro_torch.kernels.dpp_greedy.tiling import DEFAULT_TILE_M
+    * ``Vl (B, D, Mloc)``, ``C (B, R, Mloc)`` rows (R = k exact, the ring
+      of w windowed), ``d2 (B, Mloc)``: the rank's shard of ``V``, of the
+      Cholesky rows and of the gains;
+    * ``keys (k + 1, B)`` int64: row ``t`` is the shard's packed (max
+      gain, lowest global id) for step ``t``, row 0 from the initial
+      gains, row ``t + 1`` folded by step ``t``'s update entry;
+    * ``stopped (B,)``, windowed ``win (B, w)`` (ring ids, oldest first,
+      -1 empty): replicated on every rank;
+    * ``t`` the next step, ``base`` the shard's first global id, ``M``
+      the request's candidate count, ``single`` a ``(D, M)`` request.
 
-    B, D, Mloc = Vl.shape
-    dev = Vl.device
-    tile = tile_m or DEFAULT_TILE_M
-    w = min(window, k) if window is not None and window < k else None
-    rows = k if w is None else w
-    eps2 = eps_squared(eps)
-    f32 = dict(dtype=torch.float32, device=dev)
-    ar = torch.arange(B, device=dev)
+    One update launcher is prepared here over the state's buffers and
+    the winner's (refilled in place every step), so a chunk's steps are
+    one launch each with nothing prepared again."""
 
-    d2 = init_gains(Vl, maskl)
-    C = torch.zeros((B, rows, Mloc), **f32)
-    keys = torch.zeros((k + 1, B), dtype=torch.int64, device=dev)
-    j0 = torch.argmax(d2, dim=1)
-    keys[0] = pack_key(d2[ar, j0], j0 + base)
-    # the winner's buffers, refilled in place every step, so the update
-    # entry's launcher is prepared once
-    vj = torch.zeros((B, D), **f32)
-    cj = torch.zeros((B, rows), **f32)
-    dj = torch.zeros((B,), **f32)
-    stopped = torch.zeros((B,), dtype=torch.bool, device=dev)
-    j = torch.zeros((B,), dtype=torch.int32, device=dev)
-    sel = torch.empty((B, k), dtype=torch.int32, device=dev)
-    dh = torch.empty((B, k), **f32)
-    if w is None:
-        step = update_launcher((Vl, C, d2, vj, cj, dj, stopped, j), base,
-                               keys, tile)
-    else:
-        full = torch.zeros((B,), dtype=torch.bool, device=dev)
-        cos = torch.zeros((B, w - 1), **f32)
-        sin = torch.zeros((B, w - 1), **f32)
-        win = torch.full((B, w), -1, dtype=torch.int64, device=dev)
-        step = update_launcher(
-            (Vl, C, d2, vj, cj, dj, stopped, full, cos, sin, j), base, keys,
-            tile)
+    def __init__(self, Vl: torch.Tensor, maskl: torch.Tensor, k: int, *,
+                 mesh, base: int, M: Optional[int] = None,
+                 window: Optional[int] = None,
+                 tile_m: Optional[int] = None, single: bool = False):
+        from repro_torch.kernels.dpp_greedy.tiled import (
+            pack_key,
+            update_launcher,
+        )
+        from repro_torch.kernels.dpp_greedy.tiling import DEFAULT_TILE_M
 
-    for t in range(k):
-        val, gid = unpack_key(keys[t])
+        B, D, Mloc = Vl.shape
+        dev = Vl.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.mesh, self.base, self.k, self.single = mesh, base, k, single
+        self.M = mesh.size * Mloc if M is None else M
+        self.w = min(window, k) if window is not None and window < k \
+            else None
+        rows = k if self.w is None else self.w
+        self.t = 0
+        self.Vl = Vl
+        self.d2 = init_gains(Vl, maskl)
+        self.C = torch.zeros((B, rows, Mloc), **f32)
+        self.keys = torch.zeros((k + 1, B), dtype=torch.int64, device=dev)
+        j0 = torch.argmax(self.d2, dim=1)
+        self._ar = torch.arange(B, device=dev)
+        self.keys[0] = pack_key(self.d2[self._ar, j0], j0 + base)
+        self.stopped = torch.zeros((B,), dtype=torch.bool, device=dev)
+        # the winner's buffers, refilled in place every step
+        self._vj = torch.zeros((B, D), **f32)
+        self._cj = torch.zeros((B, rows), **f32)
+        self._dj = torch.zeros((B,), **f32)
+        self._j = torch.zeros((B,), dtype=torch.int32, device=dev)
+        tile = tile_m or DEFAULT_TILE_M
+        head = (Vl, self.C, self.d2, self._vj, self._cj, self._dj,
+                self.stopped)
+        if self.w is None:
+            self.win = None
+            self._launch = update_launcher(head + (self._j,), base,
+                                           self.keys, tile)
+        else:
+            w = self.w
+            self.win = torch.full((B, w), -1, dtype=torch.int64, device=dev)
+            self._full = torch.zeros((B,), dtype=torch.bool, device=dev)
+            self._cos = torch.zeros((B, w - 1), **f32)
+            self._sin = torch.zeros((B, w - 1), **f32)
+            self._launch = update_launcher(
+                head + (self._full, self._cos, self._sin, self._j), base,
+                self.keys, tile)
+
+    def _step(self, eps2: float):
+        """Greedy step ``t`` on every rank: the global argmax, the
+        winner's columns from its owner, one update launch.  Returns the
+        step's ``(ids (B,) int32, -1 once stopped; d (B,))``."""
+        from repro_torch.kernels.dpp_greedy.tiled import (
+            eviction_coeffs,
+            unpack_key,
+        )
+
+        mesh, base, t, ar = self.mesh, self.base, self.t, self._ar
+        Vl, C, stopped = self.Vl, self.C, self.stopped
+        B, D, Mloc = Vl.shape
+        val, gid = unpack_key(self.keys[t])
         dj2, jg, owner = global_argmax(mesh, val, gid)
         stopped |= dj2 <= eps2
         d_sel = torch.sqrt(torch.clamp_min(dj2, eps2))
         jl = (jg - base).clamp(0, Mloc - 1)
         mine = torch.cat([Vl[ar, :, jl], C[ar, :, jl]], 1)
-        sel[:, t] = torch.where(stopped, -1, jg).to(torch.int32)
-        dh[:, t] = torch.where(stopped, 0.0, d_sel)
-        j.copy_(jg)
+        sel = torch.where(stopped, -1, jg).to(torch.int32)
+        dh = torch.where(stopped, 0.0, d_sel)
+        self._j.copy_(jg)
+        self.t += 1
+        w = self.w
         if w is None:
             z = bcast_from_owner(mesh, mine, owner)
-            vj.copy_(z[:, :D])
-            cj.copy_(z[:, D:])
-            dj.copy_(d_sel)
-            step(t)
-            continue
+            self._vj.copy_(z[:, :D])
+            self._cj.copy_(z[:, D:])
+            self._dj.copy_(d_sel)
+            self._launch(t)
+            return sel, dh
         # the (w, w) window factor C[:, win] from each member's owner and
         # the winner's pre-eviction column from its owner: one all-reduce
+        win = self.win
         li = win - base
         owned = (win >= 0) & (li >= 0) & (li < Mloc)
         cols = C.gather(2, li.clamp(0, Mloc - 1)[:, None, :].expand(B, w, w))
@@ -177,23 +212,92 @@ def greedy_local(Vl: torch.Tensor, maskl: torch.Tensor, k: int, *, mesh,
             [cols.reshape(B, w * w), torch.where(owner[:, None], mine, 0.0)],
             1))
         Cw = z[:, :w * w].reshape(B, w, w)
-        vj.copy_(z[:, w * w:w * w + D])
+        self._vj.copy_(z[:, w * w:w * w + D])
         is_full = (t >= w) & ~stopped
         cs, sn, cjp, d2j = eviction_coeffs(Cw, z[:, w * w + D:], dj2,
                                            is_full, w)
-        full.copy_(is_full)
-        cos.copy_(cs)
-        sin.copy_(sn)
-        cj.copy_(cjp)
-        dj.copy_(torch.sqrt(torch.clamp_min(d2j, eps2)))
+        self._full.copy_(is_full)
+        self._cos.copy_(cs)
+        self._sin.copy_(sn)
+        self._cj.copy_(cjp)
+        self._dj.copy_(torch.sqrt(torch.clamp_min(d2j, eps2)))
         pos = min(t, w - 1)
-        step(t, pos)
+        self._launch(t, pos)
         shifted = torch.roll(win, -1, dims=1)
         shifted[:, w - 1] = -1
         nxt = torch.where(is_full[:, None], shifted, win)
         nxt[:, pos] = jg
-        win = torch.where(stopped[:, None], win, nxt)
-    return sel, dh
+        self.win = torch.where(stopped[:, None], win, nxt)
+        return sel, dh
+
+    def chunk(self, n: int, eps: float):
+        """Advance ``n`` greedy steps: ``(sel (B, n) int32 global ids, -1
+        after an eps-stop; d_hist (B, n))``, the same on every rank.  The
+        state holds ``k`` steps; a chunk past them raises."""
+        from repro_torch.kernels.dpp_greedy.dpp_greedy import eps_squared
+
+        if n < 1:
+            raise ValueError(f"chunk must be >= 1, got {n}")
+        if self.t + n > self.k:
+            raise ValueError(
+                f"a chunk of {n} from step {self.t} passes the state's "
+                f"k={self.k} steps")
+        eps2 = eps_squared(eps)
+        B = self.d2.shape[0]
+        sel = torch.empty((B, n), dtype=torch.int32, device=self.d2.device)
+        dh = torch.empty((B, n), dtype=torch.float32, device=self.d2.device)
+        for s in range(n):
+            sel[:, s], dh[:, s] = self._step(eps2)
+        return sel, dh
+
+
+def greedy_local(Vl: torch.Tensor, maskl: torch.Tensor, k: int, *, mesh,
+                 base: int, window: Optional[int] = None, eps: float = 1e-6,
+                 tile_m: Optional[int] = None):
+    """The sharded greedy loop on this rank's shard (``repro``'s
+    ``_exact_body`` / ``_windowed_body``): a :class:`ShardedState` and
+    one chunk of ``k``, so a stream's chunks concatenate to it by
+    construction.
+
+    Vl (B, D, Mloc) float32 and maskl (B, Mloc) bool on ``mesh.device``,
+    ``base`` the shard's first global id.  Returns ``(sel (B, k) int32
+    global ids, -1 after an eps-stop; d_hist (B, k) float32)``, the same
+    on every rank.  ``tile_m`` is the update entries' candidate tile
+    (default ``tiling.DEFAULT_TILE_M``)."""
+    state = ShardedState(Vl, maskl, k, mesh=mesh, base=base, window=window,
+                         tile_m=tile_m)
+    return state.chunk(k, eps)
+
+
+def _check_request(V, k, window, tile_m, mesh, axis_name, name):
+    from repro_torch.kernels.dpp_greedy.tiling import validate_tile_m
+
+    if V.ndim not in (2, 3):
+        raise ValueError(
+            f"{name} takes V (D, M) or a user batch (B, D, M), "
+            f"got ndim={V.ndim}"
+        )
+    if k <= 0:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    validate_tile_m(tile_m)
+    _mesh_axis_size(mesh, axis_name)
+
+
+def _local_request(V, mask, mesh):
+    """This rank's shard of a full request: ``(Vl (B, D, Mloc) float32,
+    maskl (B, Mloc), base)`` on ``mesh.device``.  ``mask`` is ``(M,)``,
+    ``(B, M)``, or, batched, a shared ``(M,)`` filter."""
+    Vb = V if V.ndim == 3 else V[None]
+    B, _, M = Vb.shape
+    if mask is None:
+        mask = torch.ones((B, M), dtype=torch.bool, device=V.device)
+    mask = mask.to(dtype=torch.bool).expand(B, M)
+    base, Mloc = shard_bounds(M, mesh)
+    Vl = local_columns(Vb, base, Mloc, 0.0).to(mesh.device, torch.float32)
+    ml = local_columns(mask, base, Mloc, False).to(mesh.device)
+    return Vl, ml, base
 
 
 def dpp_greedy_sharded(
@@ -218,34 +322,60 @@ def dpp_greedy_sharded(
     (their ``_batch`` variants batched), identical ids and ``d_hist``
     within float32 rounding, with global ids.  ``tile_m`` is the update
     entries' candidate tile."""
-    from repro_torch.kernels.dpp_greedy.tiling import validate_tile_m
-
-    if V.ndim not in (2, 3):
-        raise ValueError(
-            f"dpp_greedy_sharded takes V (D, M) or a user batch (B, D, M), "
-            f"got ndim={V.ndim}"
-        )
-    if k <= 0:
-        raise ValueError(f"k must be >= 1, got {k}")
-    if window is not None and window < 1:
-        raise ValueError(f"window must be >= 1, got {window}")
-    validate_tile_m(tile_m)
-    _mesh_axis_size(mesh, axis_name)
-    batched = V.ndim == 3
-    Vb = V if batched else V[None]
-    B, _, M = Vb.shape
-    if mask is None:
-        mask = torch.ones((B, M), dtype=torch.bool, device=V.device)
-    mask = mask.to(dtype=torch.bool).expand(B, M)
-    base, Mloc = shard_bounds(M, mesh)
-    Vl = local_columns(Vb, base, Mloc, 0.0).to(mesh.device, torch.float32)
-    ml = local_columns(mask, base, Mloc, False).to(mesh.device)
+    _check_request(V, k, window, tile_m, mesh, axis_name,
+                   "dpp_greedy_sharded")
+    Vl, ml, base = _local_request(V, mask, mesh)
     sel, dh = greedy_local(Vl, ml, k, mesh=mesh, base=base, window=window,
                            eps=eps, tile_m=tile_m)
     n = (sel >= 0).sum(-1).to(torch.int32)
-    if batched:
+    if V.ndim == 3:
         return GreedyResult(sel, n, dh)
     return GreedyResult(sel[0], n[0], dh[0])
+
+
+def dpp_greedy_sharded_stream_init(
+    V: torch.Tensor,
+    k: int,
+    *,
+    mesh,
+    axis_name: str = "data",
+    window: Optional[int] = None,
+    mask: Optional[torch.Tensor] = None,
+    tile_m: Optional[int] = None,
+) -> ShardedState:
+    """The resumable state of the sharded stream (``repro``'s
+    ``dpp_greedy_sharded_stream_init``): the same request contract as
+    :func:`dpp_greedy_sharded`, called on every rank; the rank keeps its
+    column shard and its slice of the state on ``mesh.device``."""
+    _check_request(V, k, window, tile_m, mesh, axis_name,
+                   "sharded streaming")
+    Vl, ml, base = _local_request(V, mask, mesh)
+    return ShardedState(Vl, ml, k, mesh=mesh, base=base, M=V.shape[-1],
+                        window=window, tile_m=tile_m, single=V.ndim == 2)
+
+
+def dpp_greedy_sharded_stream_chunk(V: torch.Tensor, state: ShardedState,
+                                    chunk: int, *, eps: float = 1e-6):
+    """Advance ``chunk`` sharded greedy steps on every rank (``repro``'s
+    ``dpp_greedy_sharded_stream_chunk``).  ``V`` is the state's own
+    shard ``state.Vl`` (``core.streaming.slot_pad_v``: nothing moves) or
+    the request's ``V``, whose shard is copied into the state's.
+    Returns ``(state, sel, d_hist)``: ``(chunk,)`` for a single request,
+    ``(B, chunk)`` batched, global ids.  Chunks concatenate bit for bit
+    to :func:`dpp_greedy_sharded`'s slate.  Every rank must run the same
+    chunks: a rank that stops early leaves its peers blocked in the next
+    step's collective."""
+    if V is not state.Vl:
+        if V.shape[-1] != state.M or V.shape[-2] != state.Vl.shape[1]:
+            raise ValueError(
+                f"V {tuple(V.shape)} is neither the state's shard nor its "
+                f"request's (D={state.Vl.shape[1]}, M={state.M})")
+        Vb = V if V.ndim == 3 else V[None]
+        state.Vl.copy_(local_columns(Vb, state.base, state.Vl.shape[2], 0.0))
+    sel, dh = state.chunk(chunk, eps)
+    if state.single:
+        return state, sel[0], dh[0]
+    return state, sel, dh
 
 
 def sharded_topk(scores: torch.Tensor, c: int, *, mesh,

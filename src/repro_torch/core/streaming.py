@@ -21,16 +21,22 @@ whole-slate loop:
            (``repro_torch.kernels.dpp_greedy.ops.dpp_greedy_stream_*``):
            one cooperative CUDA launch per chunk, sharing the per-column
            device functions of the resident kernels K1/K2 (their plain
-           versions on CPU tensors).
+           versions on CPU tensors);
+* sharded — ``repro_torch.core.sharded.ShardedState``: each rank's
+           shard of the state, advanced by the step of the whole-slate
+           sharded loop (one update-entry launch a step, with that
+           step's collectives); every rank runs the same chunks.
 
 ``GreedyState`` is backend-specific: the torch exact state keeps the
 paper's column layout ``C (M, k)``, the torch windowed state the ring
 ``C (w, M)`` (single problems), the kernel state the row layout
-``C (B, R, M)`` with per-lane ``stopped (B,)``.  Thread a state back
-into the same ``spec`` that created it.  Unlike ``repro``'s immutable
-arrays, the port updates a state's tensors in place where that saves an
-O(R M) copy per chunk (exact ``C``; every kernel-state leaf; slot
-splices): keep the returned state and drop the one passed in.
+``C (B, R, M)`` with per-lane ``stopped (B,)``; the sharded state is a
+``ShardedState`` of the rank's own slices, not a ``GreedyState``.
+Thread a state back into the same ``spec`` that created it.  Unlike
+``repro``'s immutable arrays, the port updates a state's tensors in
+place where that saves an O(R M) copy per chunk (exact ``C``; every
+kernel-state leaf; slot splices): keep the returned state and drop the
+one passed in.
 
 The exact state holds ``k`` Cholesky rows; a lane whose step counter
 reaches ``k`` latches stopped (``repro`` drops the row write there
@@ -53,6 +59,11 @@ from repro_torch.core.greedy_chol import (
     _lowrank_rows,
     greedy_step_exact,
     lane_steps,
+)
+from repro_torch.core.sharded import (
+    ShardedState,
+    dpp_greedy_sharded_stream_chunk,
+    dpp_greedy_sharded_stream_init,
 )
 from repro_torch.core.windowed import greedy_step_windowed, window_solve
 from repro_torch.device import resolve_device
@@ -79,29 +90,30 @@ class GreedyState(NamedTuple):
     win: torch.Tensor
 
 
-def _refuse_sharded(spec) -> None:
-    if spec.sharded():
+def _refuse_mesh(what: str, sharded: bool) -> None:
+    if sharded:
         raise NotImplementedError(
-            "resumable chunks on the sharded backend (the sharded stream) "
-            "are not ported yet (ROADMAP queue 1 item 9b)"
+            f"{what} on a candidate-sharded mesh belongs to the router's "
+            f"slice, not ported yet (ROADMAP queue 1 item 9b): every rank "
+            f"must admit, evict and pump in the same order.  A sharded "
+            f"stream runs through greedy_init / greedy_chunk"
         )
 
 
 def _check_kernel_args(spec, L, V):
-    _refuse_sharded(spec)
     if (L is None) == (V is None):
         raise ValueError("pass exactly one of L= (dense) or V= (low-rank)")
-    if L is not None and spec.backend == "kernel":
+    if L is not None and (spec.backend == "kernel" or spec.sharded()):
         raise ValueError(
-            "backend 'kernel' streams the low-rank V only — the kernels "
-            "never materialize a dense L"
+            f"backend {spec.backend!r} streams the low-rank V only — the "
+            f"kernels never materialize a dense L, and it cannot be "
+            f"candidate-sharded"
         )
 
 
 def resolve_chunk(spec, chunk_size: Optional[int]) -> int:
     """The effective chunk size: the explicit argument wins, else
     ``spec.chunk_size``; one of them must be set and positive."""
-    _refuse_sharded(spec)
     c = chunk_size if chunk_size is not None else spec.chunk_size
     if c is None:
         raise ValueError(
@@ -193,6 +205,11 @@ def greedy_init(spec, *, L=None, V=None, mask=None) -> GreedyState:
     the state (masked entries can never be selected in any later chunk).
     """
     _check_kernel_args(spec, L, V)
+    if spec.sharded():
+        return dpp_greedy_sharded_stream_init(
+            V, spec.k, mesh=spec.mesh, axis_name=spec.axis_name,
+            window=spec.window, mask=mask, tile_m=spec.tile_m,
+        )
     if spec.backend == "kernel":
         from repro_torch.kernels.dpp_greedy import dpp_greedy_stream_init
 
@@ -209,7 +226,9 @@ def greedy_chunk(
     """Advance ``chunk_size`` greedy steps (default ``spec.chunk_size``).
 
     Returns ``(next_state, sel (chunk,), d_hist (chunk,))`` — with a
-    leading batch axis on ``sel``/``d_hist`` for batched kernel states.
+    leading batch axis on ``sel``/``d_hist`` for batched kernel and
+    sharded states.  On a mesh every rank calls it with the same
+    chunk (the step's collectives pair the ranks).
     Slots after an eps-stop hold -1 / 0, as the whole-slate result's
     tail does.  ``state.t`` advances by the chunk even across an
     eps-stop.  The caller sizes chunks so the total never exceeds
@@ -218,6 +237,11 @@ def greedy_chunk(
     """
     _check_kernel_args(spec, L, V)
     chunk = resolve_chunk(spec, chunk_size)
+    if spec.sharded():
+        # the request's B and M, as on the other backends
+        record_chunk("sharded", B=state.d2.shape[0], chunk=chunk, M=state.M)
+        return dpp_greedy_sharded_stream_chunk(V, state, chunk,
+                                               eps=spec.eps)
     kern = L if L is not None else V
     record_chunk(
         "kernel" if spec.backend == "kernel" else "torch",
@@ -248,7 +272,9 @@ def greedy_chunk_launcher(spec, state: GreedyState, *, V,
     new state into the old one's tensors.  ``V (S, D, M)`` with a
     slot-batched state (:func:`greedy_slots_init`) advances every slot,
     as :func:`greedy_chunk_slots` does; the continuous-batching router
-    runs its cycles so."""
+    runs its cycles so.  Not on a mesh: a sharded state keeps its own
+    update launcher (``core.sharded.ShardedState``)."""
+    _refuse_mesh("greedy_chunk_launcher", spec.sharded())
     _check_kernel_args(spec, None, V)
     chunk = resolve_chunk(spec, chunk_size)
     backend = "kernel" if spec.backend == "kernel" else "torch"
@@ -340,6 +366,15 @@ def _delta_cols(V, C, d2, win, start: int, V_blk, mask_blk,
 
 
 def _state_delta(spec, state, V, start, V_new, mask_new, keep_dead, op):
+    if spec.sharded():
+        # repro refuses sharded states here too (its streaming.py,
+        # _state_delta): the ring is sharded and a column delta crosses
+        # shard boundaries
+        raise NotImplementedError(
+            f"{op} is not implemented for sharded states, as in repro: the "
+            f"window ring is sharded and a column delta crosses shard "
+            f"boundaries; re-rank a sharded pool from scratch"
+        )
     if state.win.shape[-1] == 0:
         raise ValueError(
             f"{op} needs a windowed state (window < slate size): the "
@@ -461,6 +496,7 @@ def greedy_slot_state(spec, V, mask=None, dtype=None) -> GreedyState:
     leaves match the slot batch it will be spliced into; the kernels
     compute in float32 regardless.
     """
+    _refuse_mesh("greedy_slot_state", spec.sharded())
     if dtype is not None:
         V = V.to(dtype)
     if spec.backend == "kernel":
@@ -481,6 +517,7 @@ def slot_state_widen(spec, state: GreedyState, M: int) -> GreedyState:
     those a whole-slate call on the unpadded ``V`` starts from (the
     gains reduction on the card may round differently at another
     width)."""
+    _refuse_mesh("slot_state_widen", spec.sharded())
     pad = M - state.d2.shape[-1]
     if pad < 0:
         raise ValueError(
@@ -498,10 +535,14 @@ def slot_state_widen(spec, state: GreedyState, M: int) -> GreedyState:
 
 
 def slot_pad_v(spec, V, state):
-    """``V`` in the slot executor's geometry.  The port pads nothing (the
+    """``V`` in the chunk executor's geometry.  The port pads nothing (the
     kernels mask their own ragged edge), so this is the identity, kept
     for ``repro``'s name; the kernel backend casts to contiguous
-    float32 once so no chunk call copies V."""
+    float32 once so no chunk call copies V, and a sharded state gives
+    the rank's own shard (``state.Vl``), so no chunk moves O(D M)
+    data."""
+    if spec.sharded():
+        return state.Vl
     if spec.backend == "kernel":
         from repro_torch.kernels.dpp_greedy import dpp_greedy_stream_pad
 
@@ -521,6 +562,7 @@ def greedy_slots_init(spec, slots: int, D: int, M: int,
     to the card (``repro_torch.device.resolve_device``); pass ``"cpu"``
     for the plain path.
     """
+    _refuse_mesh("greedy_slots_init", spec.sharded())
     if slots < 1:
         raise ValueError(f"slots must be >= 1, got {slots}")
     device = resolve_device(device)
@@ -544,6 +586,8 @@ def state_splice(state: GreedyState, single: GreedyState,
     """Write a single-request state (``greedy_slot_state``, same spec and
     geometry) into ``slot`` of a slot-batched state, in place; each leaf
     is cast to the batch leaf's dtype.  Returns ``state``."""
+    _refuse_mesh("state_splice", isinstance(state, ShardedState)
+                 or isinstance(single, ShardedState))
     for b, s in zip(state, single):
         b[slot] = s.to(b.dtype)
     return state
@@ -562,6 +606,7 @@ def state_admit(spec, state: GreedyState, slot: int, V,
     V, mask), M), slot)`` would write, the gains computed at the
     request's own width as a whole-slate call computes them, at three
     writes instead of a state's worth of ops.  Returns ``state``."""
+    _refuse_mesh("state_admit", spec.sharded())
     m = V.shape[-1]
     if spec.backend == "kernel":
         # init_gains' reduction on (1, D, m) float32: K1's first gains
@@ -582,6 +627,7 @@ def state_evict(state: GreedyState, slot: int) -> GreedyState:
     """Park ``slot`` in place: eps-stopped with every candidate at -inf,
     step counter rewound, Cholesky rows zeroed (so a later splice starts
     from the bits of a fresh single-request state).  Returns ``state``."""
+    _refuse_mesh("state_evict", isinstance(state, ShardedState))
     state.t[slot] = 0
     state.stopped[slot] = True
     state.C[slot] = 0.0
@@ -599,6 +645,7 @@ def greedy_chunk_slots(spec, state: GreedyState, V_slots, chunk: int):
     stopped slots yield -1 / 0.  On the kernel backend this is one K5/K6
     launch for all slots; per-request k, mask and progress live in data.
     """
+    _refuse_mesh("greedy_chunk_slots", spec.sharded())
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     record_chunk(

@@ -1,9 +1,11 @@
 """The paper's experiments on the port: the counterparts of ``repro``'s
 ``benchmarks/fig1_speedup.py``, ``fig2_reference.py``,
-``fig3_tradeoff.py``, ``fig4_windowed.py``, ``fig6_streaming.py``,
-``fig7_serving.py`` and ``fig10_session.py``, one module each under the
-same name, and ``run.py``, which runs the seven and writes their
-``BENCH_<fig>.json`` artifacts.
+``fig3_tradeoff.py``, ``fig4_windowed.py``, ``fig5_sharded.py``,
+``fig6_streaming.py``, ``fig7_serving.py`` and ``fig10_session.py``, one
+module each under the same name, and ``run.py``, which runs the eight
+and writes their ``BENCH_<fig>.json`` artifacts.  ``fig5_sharded`` runs
+each rank count's ranks as subprocesses of a ``torch.distributed``
+group.
 
     python -m repro_torch.figures.fig1_speedup [--smoke | --full] [--device cuda|cpu]
     python -m repro_torch.figures.run [--smoke | --full] [--device cuda|cpu] [--out-dir DIR]

@@ -1,6 +1,6 @@
 """Run the port's figures, print their CSV and write one
 ``BENCH_<fig>.json`` artifact each; the counterpart of ``repro``'s
-``benchmarks/run.py`` for Figures 1-4, 6, 7 and 10.
+``benchmarks/run.py`` for Figures 1-7 and 10.
 
   python -m repro_torch.figures.run [--smoke | --full] [--device cuda|cpu] [--out-dir DIR]
 
@@ -36,6 +36,7 @@ from repro_torch.figures import (
     fig2_reference,
     fig3_tradeoff,
     fig4_windowed,
+    fig5_sharded,
     fig6_streaming,
     fig7_serving,
     fig10_session,
@@ -53,6 +54,8 @@ FIGURES = (
     ("fig3", "Figure 3: accuracy-diversity trade-off", fig3_tradeoff.main),
     ("fig4", "Figure 4: sliding-window vs exact, N >> w (per-step cost "
      "flat in N)", fig4_windowed.main),
+    ("fig5", "Figure 5: sharded candidate axis, weak scaling (Mloc fixed, "
+     "M = Mloc * P)", fig5_sharded.main),
     ("fig6", "Figure 6: streaming slate emission, time-to-first-chunk vs "
      "whole", fig6_streaming.main),
     ("fig7", "Figure 7: continuous-batching serving, router vs serial "

@@ -24,8 +24,17 @@ in turn by the same ranks, with ``--slate``'s one slate size or one each.  ``--b
 call (per-user scores over shared features).  ``--check`` also runs the
 single-device ``Reranker.rerank`` (``use_kernel=True``) on rank 0 and
 requires the identical slate; keep M modest when checking on the CPU.
-``--stream`` (chunked emission on the mesh) is ROADMAP item 9b and
-raises ``NotImplementedError``.
+
+``--stream N`` also serves the request (``--batch 1``) through
+``Reranker.stream`` in N-item chunks on every rank, the sharded state
+staying on the rank between chunks: a warm pass, a timed pass (time to
+first chunk, the whole stream, the update launches) and a third
+synchronised around each collective.  Every rank requires its chunks to
+concatenate to its own whole sharded slate, bit for bit, ``d_hist``
+included.  The record gets ``repro``'s ``stream`` keys (``chunk_size``,
+``first_chunk_s``, ``stream_total_s``, ``first_chunk_vs_whole`` and,
+under ``--check``, ``check``) and, per rank, the stream's launches and
+collectives.
 
 Prints one JSON record: ``repro``'s keys for the first window, and under
 ``runs`` one entry a window with rank 0's slate (``indices``,
@@ -37,6 +46,7 @@ Every rank's slate must equal rank 0's, bit for bit.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import tempfile
@@ -62,7 +72,8 @@ def _parser():
     ap.add_argument("--eps", type=float, default=1e-6)
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--stream", type=int, default=0,
-                    help="chunked emission (not ported yet: item 9b)")
+                    help="also stream the slate in chunks of this size "
+                         "(0 = whole slate only)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--inputs", default="",
                     help="an .npz with scores (B, M), feats (M, D) and "
@@ -164,6 +175,9 @@ def _serve_rank(args) -> None:
             "collectives": colls, "launches": launches,
             "indices": sel.cpu().tolist(), "d_hist": dh.cpu().tolist(),
         }
+        if args.stream:
+            run["stream"] = _stream_run(args, rr, req, dev, mesh, sel, dh,
+                                        t_steady)
         if args.check and args.rank == 0:
             ref_cfg = DPPRerankConfig(
                 slate_size=k, shortlist=args.shortlist or M,
@@ -179,6 +193,70 @@ def _serve_rank(args) -> None:
     Path(args.out).write_text(json.dumps(
         {"rank": args.rank, "device": str(dev), "runs": runs}))
     leave_group()
+
+
+def _stream_run(args, rr, req, dev, mesh, sel, dh, t_steady) -> dict:
+    """``--stream``: this rank's stream of ``req`` in ``args.stream``-item
+    chunks, held against its whole sharded slate ``(sel, dh)``."""
+    import torch
+
+    from repro_torch.kernels import cuda
+    from repro_torch.serving import Reranker
+
+    srr = Reranker(dataclasses.replace(rr.cfg, chunk_size=args.stream),
+                   device=dev)
+
+    def stream():
+        t0 = time.perf_counter()
+        first, ids, ds = None, [], []
+        for c, d in srr.stream(req):
+            _sync(dev)
+            if first is None:
+                first = time.perf_counter() - t0
+            ids.append(c)
+            ds.append(d)
+        return first, time.perf_counter() - t0, torch.cat(ids), torch.cat(ds)
+
+    stream()  # warm
+    cuda.reset_launch_counts()
+    first, total, ids, ds = stream()
+    launches = cuda.launch_counts()
+    mesh.reset_timing(True)
+    _, timed, _, _ = stream()
+    coll_s, colls = mesh.collective_s, mesh.collectives
+    mesh.reset_timing(False)
+    # the stream ends at an eps-stop: the whole slate's tail is -1 / 0
+    n = ids.numel()
+    wi, wd = sel.reshape(-1), dh.reshape(-1)
+    if not (torch.equal(ids, wi[:n]) and torch.equal(ds, wd[:n])
+            and bool((wi[n:] < 0).all()) and bool((wd[n:] == 0).all())):
+        raise AssertionError(
+            f"window {rr.cfg.window}: rank {args.rank}'s streamed chunks "
+            f"differ from its whole sharded slate")
+    return {"chunk_size": args.stream, "first_chunk_s": first,
+            "stream_total_s": total,
+            "first_chunk_vs_whole": first / max(t_steady, 1e-9),
+            "timed_stream_s": timed, "collective_s": coll_s,
+            "collectives": colls, "launches": launches}
+
+
+_STREAM_KEYS = ("chunk_size", "first_chunk_s", "stream_total_s",
+                "first_chunk_vs_whole")
+
+
+def _merge_stream(args, mine, steady) -> dict:
+    """``repro``'s stream keys for a window (the slowest rank's times) and
+    each rank's stream record."""
+    first = max(run["stream"]["first_chunk_s"] for run in mine)
+    return {
+        "chunk_size": args.stream, "first_chunk_s": first,
+        "stream_total_s": max(run["stream"]["stream_total_s"]
+                              for run in mine),
+        "first_chunk_vs_whole": first / max(steady, 1e-9),
+        **({"check": "ok (chunks concatenate to the slate)"}
+           if args.check else {}),
+        "ranks": [{"rank": r, **run["stream"]} for r, run in enumerate(mine)],
+    }
 
 
 def _merge(args, parts, M, D, B) -> dict:
@@ -204,6 +282,8 @@ def _merge(args, parts, M, D, B) -> dict:
             "us_per_user_slate": steady / max(B, 1) * 1e6,
             "ranks_agree": True,
             **({"check": head["check"]} if "check" in head else {}),
+            **({"stream": _merge_stream(args, mine, steady)}
+               if args.stream else {}),
             "ranks": [{
                 "rank": p["rank"], "device": p["device"],
                 **{key: run[key] for key in (
@@ -224,6 +304,9 @@ def _merge(args, parts, M, D, B) -> dict:
             "n_selected", "first_call_s", "steady_call_s", "us_per_step",
             "us_per_user_slate")},
         **({"check": first["check"]} if "check" in first else {}),
+        **({"stream": {key: first["stream"][key] for key in _STREAM_KEYS
+                       + (("check",) if args.check else ())}}
+           if args.stream else {}),
         "runs": runs,
     }
 
@@ -240,12 +323,10 @@ def main(argv=None):
     if args.rank is not None:
         _serve_rank(args)
         return None
-    if args.stream:
-        raise NotImplementedError(
-            "--stream (chunked emission on the mesh) is not ported yet "
-            "(ROADMAP queue 1 item 9b)")
     if args.devices < 1:
         raise SystemExit("--devices must be >= 1")
+    if args.stream < 0:
+        raise SystemExit("--stream must be >= 0")
     from repro_torch.distributed import RankError, spawn_ranks
 
     B, M, D = args.batch, args.candidates, args.dim
@@ -254,6 +335,8 @@ def main(argv=None):
 
         with np.load(args.inputs) as z:
             (B, M), D = z["scores"].shape, z["feats"].shape[1]
+    if args.stream and B > 1:
+        raise SystemExit("--stream serves a single request; keep --batch 1")
     argv = list(sys.argv[1:] if argv is None else argv)
     with tempfile.TemporaryDirectory() as tmp:
         def rank_argv(r):

@@ -15,15 +15,17 @@ tensors) onto the session's device and dispatches by request shape:
                         by every rank of the mesh's group.
 
 ``stream`` emits one request's slate in chunks as it is selected (one
-K5/K6 launch per chunk with ``use_kernel``).  ``submit`` hands a single
-request to the session's continuous-batching router
-(``repro_torch.serving.router``: one K5/K6 launch per cycle for every
-live request) and returns a ``SlateHandle``.  ``session`` opens a
-stateful feed over one request (``repro_torch.serving.session``: one K6
-launch per ``next_chunk``, O(w * dM) ``extend`` / ``rescore`` delta
-updates, LRU eviction and rebuild from host mirrors).  ``stream``,
-``submit`` and ``session`` on a mesh are ROADMAP item 9b and raise
-``NotImplementedError``.
+K5/K6 launch per chunk with ``use_kernel``; on a mesh, chunks of each
+rank's resumable shard state, one update launch a step, called by every
+rank).  ``submit`` hands a single request to the session's
+continuous-batching router (``repro_torch.serving.router``: one K5/K6
+launch per cycle for every live request) and returns a ``SlateHandle``.
+``session`` opens a stateful feed over one request
+(``repro_torch.serving.session``: one K6 launch per ``next_chunk``,
+O(w * dM) ``extend`` / ``rescore`` delta updates, LRU eviction and
+rebuild from host mirrors).  On a mesh ``submit`` (the router's mesh
+branch, ROADMAP item 9b) raises ``NotImplementedError``, and so does
+``session``, as ``repro`` refuses sessions over sharded pools.
 """
 from __future__ import annotations
 
@@ -235,6 +237,14 @@ class Reranker:
         Preparation — validation, the top-C shortlist, the resumable
         greedy state — happens here, not at the first ``next()``: the
         generator's resume path costs O(chunk), nothing O(M).
+
+        With ``cfg.mesh`` the preparation runs the sharded shortlist's
+        all-gather, so every rank of the mesh's group calls ``stream``
+        with the same request, and every rank must consume the same
+        number of chunks: a rank that stops early leaves its peers
+        blocked in the next step's collective.  The eps-stop below reads
+        a chunk's last id, which every rank holds, so all ranks end at
+        the same chunk.
         """
         req = self._as_request(req, kwargs)
         cfg = self._cfg_for(req)
@@ -255,11 +265,20 @@ class Reranker:
             feats = self._tensor(req.feats)
             mask = (None if req.mask is None
                     else self._tensor(req.mask, torch.bool)[None])
-            V, m_top, top_i = _shortlist_kernel(scores[None], feats, cfg,
-                                                mask)
-            V, top_i = V[0], top_i[0]
-            m_top = None if m_top is None else m_top[0]
-            state = greedy_init(spec, V=V, mask=m_top)
+            if cfg.mesh is not None:
+                from repro_torch.serving.sharded_rerank import (
+                    sharded_stream_state,
+                )
+
+                # the rank's shard of the masked shortlist: ids are global
+                state = sharded_stream_state(scores[None], feats, cfg, mask)
+                V, top_i = None, None
+            else:
+                V, m_top, top_i = _shortlist_kernel(scores[None], feats,
+                                                    cfg, mask)
+                V, top_i = V[0], top_i[0]
+                m_top = None if m_top is None else m_top[0]
+                state = greedy_init(spec, V=V, mask=m_top)
             V = slot_pad_v(spec, V, state)
 
         def emit():
@@ -268,8 +287,10 @@ class Reranker:
                 c = min(chunk, k - done)
                 with obs.span("serving.stream.chunk", chunk=c, done=done):
                     st, sel, dh = greedy_chunk(spec, st, V=V, chunk_size=c)
-                    sel = sel.to(torch.int64)
-                    sel = torch.where(sel >= 0, top_i[sel.clamp_min(0)], -1)
+                    if top_i is not None:
+                        sel = sel.to(torch.int64)
+                        sel = torch.where(sel >= 0, top_i[sel.clamp_min(0)],
+                                          -1)
                 yield sel.to(torch.int32), dh
                 done += c
                 # eps-stop latch: once a chunk's tail slot is -1 the state

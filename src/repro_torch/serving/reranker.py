@@ -16,7 +16,8 @@ paper's fast greedy MAP through ``repro_torch.core.greedy_map``.
   group and delegates to ``repro_torch.serving.sharded_rerank``: a
   sharded top-C shortlist mask, then the candidate-sharded greedy MAP
   (``repro_torch.core.sharded``), whose local update is the shard-local
-  update entry of K3/K4 on a CUDA mesh; ``tile_m=`` sets its tile.
+  update entry of K3/K4 on a CUDA mesh; ``tile_m=`` sets its tile;
+  ``chunk_size=`` streams on the mesh (``Reranker.stream``).
 * ``window=w`` enforces diversity only against the last ``w`` picks.
 * ``mask=`` (on the request) excludes candidates before the shortlist
   and inside greedy selection.
@@ -42,10 +43,10 @@ class DPPRerankConfig:
     ``slate_size`` / ``shortlist`` are session defaults that a
     ``RerankRequest`` may override.  ``chunk_size`` is the default chunk
     of ``Reranker.stream`` (and, with ``use_kernel``, runs the whole
-    slate as fused chunk kernels).  ``mesh=`` and ``use_kernel`` are
-    mutually exclusive backends; ``mesh=`` with ``chunk_size`` (the
-    sharded stream, ROADMAP queue 1 item 9b) and ``tile_m="auto"`` (item
-    10) are not ported yet and raise ``NotImplementedError``.
+    slate as fused chunk kernels; with ``mesh=``, chunks of the ranks'
+    resumable state).  ``mesh=`` and ``use_kernel`` are mutually
+    exclusive backends; ``tile_m="auto"`` (ROADMAP queue 1 item 10) is
+    not ported yet and raises ``NotImplementedError``.
     """
 
     slate_size: int = 50  # N (session default; RerankRequest overrides)
@@ -79,11 +80,6 @@ class DPPRerankConfig:
                 "candidate-sharded backend) are mutually exclusive rerank "
                 "backends"
             )
-        if self.mesh is not None and self.chunk_size is not None:
-            raise NotImplementedError(
-                "chunk_size= with mesh= streams on the candidate-sharded "
-                "mesh, which is not ported yet (ROADMAP queue 1 item 9b)"
-            )
         if self.tile_m is not None:
             from repro_torch.kernels.dpp_greedy.tiling import validate_tile_m
 
@@ -113,7 +109,9 @@ class DPPRerankConfig:
             # the torch spec cannot carry a chunk size (its whole-slate
             # path would silently ignore it — GreedySpec rejects that);
             # Reranker.stream passes it to the chunk executor directly
-            chunk_size=self.chunk_size if self.use_kernel else None,
+            chunk_size=(self.chunk_size
+                        if self.use_kernel or self.mesh is not None
+                        else None),
         )
 
 

@@ -109,9 +109,11 @@ class SessionConfig:
 
 def _check_session_cfg(cfg: DPPRerankConfig) -> None:
     if cfg.mesh is not None:
+        # as repro's _check_session_cfg (src/repro/serving/session.py)
         raise NotImplementedError(
             "sessions over a candidate-sharded mesh (cfg.mesh) are not "
-            "ported yet (ROADMAP queue 1 item 9b)"
+            "implemented, as in repro, which refuses them too: the window "
+            "ring is sharded and a column delta crosses shard boundaries"
         )
     if cfg.window is None or cfg.window >= cfg.slate_size:
         raise ValueError(

@@ -16,6 +16,9 @@ same request and returns the same slate):
   step; on a CUDA mesh the local update is the shard-local update entry
   of K3/K4 (``cfg.tile_m`` its tile).
 
+``sharded_stream_state`` prepares the same for ``Reranker.stream``: the
+rank's resumable ``core.sharded.ShardedState`` over its shard.
+
 Returned ids are global ids into the request's M, the single-device
 rerank's slate up to exact float ties between distinct items (see
 ``repro_torch.core.sharded``).
@@ -25,7 +28,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.kernel_matrix import map_relevance
-from repro_torch.core.sharded import greedy_local, local_columns, sharded_topk
+from repro_torch.core.sharded import (
+    ShardedState,
+    greedy_local,
+    local_columns,
+    sharded_topk,
+)
 from repro_torch.distributed.context import shard_bounds
 
 
@@ -81,3 +89,15 @@ def sharded_rerank(scores, feats, cfg, mask):
     return greedy_local(Vl, selectable, cfg.slate_size, mesh=cfg.mesh,
                         base=base, window=cfg.window, eps=cfg.eps,
                         tile_m=cfg.tile_m)
+
+
+def sharded_stream_state(scores, feats, cfg, mask):
+    """The resumable sharded state of one request on this rank (every
+    rank calls it: the shortlist's all-gather pairs them): scores
+    ``(1, M)``, feats ``(M, D)``, mask ``(1, M)`` or None, on the mesh's
+    device.  Its chunks (``core.streaming.greedy_chunk``) yield global
+    ids and concatenate to :func:`sharded_rerank`'s slate."""
+    Vl, selectable, base = _sharded_kernel(scores, feats, cfg, mask)
+    return ShardedState(Vl, selectable, cfg.slate_size, mesh=cfg.mesh,
+                        base=base, M=scores.shape[-1], window=cfg.window,
+                        tile_m=cfg.tile_m, single=True)

@@ -191,13 +191,12 @@ def test_greedy_map_single_dense():
     ({"k": 4, "tile_m": 128}, tc.GreedySpecError),  # torch backend
     ({"k": 4, "backend": "kernel", "tile_m": 100}, tc.GreedySpecError),
     ({"k": 4, "backend": "kernel", "tile_m": "auto"}, NotImplementedError),
-    # chunks on a mesh (the sharded stream, item 9b) are not ported
-    ({"k": 4, "mesh": object(), "chunk_size": 2}, NotImplementedError),
-    ({"k": 4, "backend": "sharded", "mesh": object(), "chunk_size": 4},
-     NotImplementedError),
-    ({"k": 4, "backend": "auto", "chunk_size": 2, "mesh": object()},
-     NotImplementedError),
     ({"k": 4, "backend": "sharded"}, tc.GreedySpecError),  # no mesh
+    # chunked execution: the kernel and sharded backends only
+    ({"k": 4, "chunk_size": 2}, tc.GreedySpecError),  # auto, no mesh
+    ({"k": 4, "backend": "torch", "chunk_size": 2}, tc.GreedySpecError),
+    ({"k": 4, "backend": "sharded", "mesh": object(), "chunk_size": 0},
+     tc.GreedySpecError),
     ({"k": 4, "backend": "kernel", "mesh": object()}, tc.GreedySpecError),
 ])
 def test_greedy_spec_validation(kw, err):

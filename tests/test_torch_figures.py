@@ -15,8 +15,10 @@ naive slate; Figure 4: gate-sweep parity and a past-the-gate cell on the
 tiled kernels; Figure 6: streamed = whole slate, the first chunk before
 the whole slate, and one K6 wrapper call a chunk).  Figure 4's N-sweep
 slates are held against ``repro``'s greedy, Figure 6's kernel row and
-the quickstart's slates against the torch core.  ``run.py`` must write
-its artifacts where it is told and refuse ``benchmarks/results``.
+the quickstart's slates against the torch core.  Figure 5 runs its
+smoke sweep (P = 1 and 2 gloo ranks on the CPU): its rows carry
+``repro``'s row names and CSV keys.  ``run.py`` must write its artifacts
+where it is told and refuse ``benchmarks/results``.
 """
 import json
 import subprocess
@@ -30,12 +32,14 @@ import jax.numpy as jnp
 
 import repro.core as jc
 from repro_torch.core import GreedySpec, greedy_map, scaled_features
+from repro_torch.kernels.dpp_greedy.tiling import DEFAULT_TILE_M
 from repro_torch.figures import (
     common,
     fig1_speedup,
     fig2_reference,
     fig3_tradeoff,
     fig4_windowed,
+    fig5_sharded,
     fig6_streaming,
     run,
 )
@@ -52,6 +56,15 @@ def _repro_fig3():
     finally:
         sys.path.remove(str(ROOT))
     return fig3_tradeoff
+
+
+def _repro_fig5():
+    sys.path.insert(0, str(ROOT))
+    try:
+        from benchmarks import fig5_sharded
+    finally:
+        sys.path.remove(str(ROOT))
+    return fig5_sharded
 
 
 def _gains64(L, prefix):
@@ -226,6 +239,32 @@ def test_fig6_smoke_cpu_gates_and_one_k6_call_a_chunk(monkeypatch):
     assert calls == [8] * 8 * 3
 
 
+# the keys of repro's fig5 rows (benchmarks/fig5_sharded.py, _inner)
+FIG5_KEYS = {"us_per_user_step", "B", "Mloc", "D", "N", "tile_m",
+             "past_gate"}
+
+
+def test_fig5_smoke_rows_match_repro_schema(capsys, monkeypatch):
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # rank_env keeps it
+    out = fig5_sharded.main(fast_mode=True, device=CPU, at_once=True)
+    cfg = _repro_fig5()._PRESETS[True]
+    want = [f"fig5_sharded_{label}{tl}_B{B}_P{P}_M{cfg['mloc'] * P}"
+            for P in cfg["devices"]
+            for label in ("exact", f"w{cfg['window']}")
+            for tl in ("", f"_tm{cfg['tile_m']}")
+            for B in sorted({1, cfg["batch"]})]
+    rows = run._parse_rows(capsys.readouterr().out)
+    assert [r["name"] for r in rows] == want
+    assert [r["name"] for r in out["rows"]] == want
+    for r in rows:
+        derived = dict(kv.split("=") for kv in r["derived"].split(";"))
+        assert set(derived) == FIG5_KEYS | {"backend"}, r
+        assert derived["backend"] == "gloo" and r["us_per_call"] > 0
+        assert derived["past_gate"] == "0"  # Mloc 2048: resident-size
+        assert int(derived["tile_m"]) in (cfg["tile_m"], DEFAULT_TILE_M)
+    assert out["launches"] == {1: {}, 2: {}}  # plain versions: none
+
+
 def test_run_writes_artifacts_where_told(tmp_path):
     run.main(["--device", "cpu", "--smoke", "--out-dir", str(tmp_path)])
     for fig, _, _ in run.FIGURES:
@@ -233,10 +272,11 @@ def test_run_writes_artifacts_where_told(tmp_path):
         assert doc["status"] == "ok" and doc["fast_mode"] is True
         assert doc["rows"] and doc["meta"]["device"] == "cpu"
         assert doc["meta"]["torch"] == torch.__version__
-        # every figure but fig3 (the dense core, called directly) goes
-        # through greedy_map, which the registry counts
+        # every figure but fig3 (the dense core, called directly) and
+        # fig5 (its ranks are subprocesses, with registries of their own)
+        # goes through greedy_map, which the registry counts
         counted = "greedy_dispatch_total" in doc["obs"]["counters"]
-        assert counted == (fig != "fig3"), fig
+        assert counted == (fig not in ("fig3", "fig5")), fig
 
 
 @pytest.mark.parametrize("where", ["cwd", "checkout", "inside"])

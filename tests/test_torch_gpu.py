@@ -57,6 +57,11 @@ too) equals the same session on K6's plain version; an evicted session
 rebuilds on the card and keeps matching a control that was never
 evicted; a session's launcher launches on the stream current at each
 call, not the one it was built on.
+
+The candidate-sharded path on a one-rank group: the update entries
+against their plain versions and K3/K4; its stream's chunks (and
+``Reranker.stream`` on a card mesh) against the whole sharded slate bit
+for bit, one update launcher a stream and one launch a step.
 """
 import importlib
 
@@ -1180,3 +1185,71 @@ def test_sharded_one_rank_on_card_matches_k3_k4(card, one_rank, window):
     torch.testing.assert_close(got.d_hist.cpu(), plain.d_hist, rtol=RTOL,
                                atol=ATOL)
     torch.testing.assert_close(got.d_hist, want[1], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [1, 7])
+@pytest.mark.parametrize("window", [None, 4])
+def test_sharded_stream_on_card_concatenates_to_whole(card, one_rank, window,
+                                                      chunk):
+    """The sharded stream on the card: its chunks equal the whole sharded
+    slate bit for bit, ``d_hist`` included; one update launcher for the
+    stream and one update launch a step."""
+    from repro_torch.core import (
+        GreedySpec,
+        dpp_greedy_sharded,
+        greedy_map_chunks,
+    )
+    from repro_torch.distributed import make_mesh
+
+    k, tile_m = 20, 256
+    V, mask = _inputs(33, B=3, D=32, M=3000)
+    V, mask = V.cuda(), mask.cuda()
+    mesh = make_mesh(device="cuda")
+    whole = dpp_greedy_sharded(V, k, mesh=mesh, window=window, eps=1e-6,
+                               mask=mask, tile_m=tile_m)
+    real, built = tiled.update_launcher, []
+
+    def counted(*args):
+        built.append(1)
+        return real(*args)
+
+    spec = GreedySpec(k=k, window=window, mesh=mesh, eps=1e-6,
+                      tile_m=tile_m, chunk_size=chunk)
+    tiled.update_launcher = counted
+    try:
+        cuda.reset_launch_counts()
+        chunks = list(greedy_map_chunks(spec, V=V, mask=mask))
+        torch.cuda.synchronize()
+    finally:
+        tiled.update_launcher = real
+    name = "tiled_update_exact" if window is None else "tiled_update_windowed"
+    assert cuda.launch_counts() == {name: k} and built == [1]
+    assert len(chunks) == -(-k // chunk)
+    assert torch.equal(torch.cat([c.indices for c in chunks], 1),
+                       whole.indices)
+    assert torch.equal(torch.cat([c.d_hist for c in chunks], 1),
+                       whole.d_hist)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 4])
+def test_reranker_stream_on_a_card_mesh_matches_rerank(card, one_rank,
+                                                       window):
+    from repro_torch.distributed import make_mesh
+
+    rng = np.random.default_rng(35)
+    M, D = 5000, 32
+    feats = rng.standard_normal((M, D)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    req = RerankRequest(scores=rng.uniform(size=M).astype(np.float32),
+                        feats=feats)
+    cfg = DPPRerankConfig(slate_size=24, shortlist=1000, alpha=3.0,
+                          eps=1e-3, window=window, chunk_size=5,
+                          mesh=make_mesh(device="cuda"))
+    rr = Reranker(cfg, device="cuda")
+    sel, dh = rr.rerank(req)
+    chunks = list(rr.stream(req))
+    assert [c.shape[0] for c, _ in chunks] == [5, 5, 5, 5, 4]
+    assert torch.equal(torch.cat([c for c, _ in chunks]), sel)
+    assert torch.equal(torch.cat([d for _, d in chunks]), dh)

@@ -168,7 +168,7 @@ def test_request_validation(kw, match):
     (dict(tile_m=100, use_kernel=True), ValueError),
     (dict(tile_m="auto", use_kernel=True), NotImplementedError),
     (dict(mesh=object(), tile_m="auto"), NotImplementedError),
-    (dict(chunk_size=4, mesh=object()), NotImplementedError),  # item 9b
+    (dict(chunk_size=0, mesh=object()), ValueError),
     (dict(mesh=object(), use_kernel=True), ValueError),
 ])
 def test_config_validation(kw, err):

@@ -647,8 +647,8 @@ def test_session_requires_windowed_config(kw):
 
 
 def test_session_rejects_sharded_pools():
-    # the config takes a mesh (the whole-slate sharded rerank); the
-    # session store refuses it itself (ROADMAP queue 1 item 9b)
+    # the config takes a mesh (the sharded rerank and stream); the
+    # session store refuses it itself, as repro's does
     cfg = ts.DPPRerankConfig(mesh=object(), **dict(_cfg_kw(),
                                                    chunk_size=None))
     with pytest.raises(NotImplementedError, match="sharded"):

@@ -17,8 +17,17 @@ tolerance (rtol 3e-4 / atol 1e-5).
   windowed against ``repro`` on a 1-device mesh and against its jnp
   core and the shared oracle, batched ``V``, shared and per-user masks,
   ``sharded_topk``, the rerank (masked-score poison, inf relevance
-  outside the shortlist, eps-stop); the mesh refusals of ``stream``,
-  ``submit`` and ``session``, the router and the session store.
+  outside the shortlist, eps-stop); the mesh refusals of ``submit`` and
+  ``session`` (the latter as ``repro``'s), the router, the session store,
+  the slot executors and the column deltas.
+* The sharded stream on that rank, against ``repro``'s sharded stream
+  (``tests/test_streaming.py``'s sharded cases): ``greedy_map_chunks``
+  concatenates to the port's whole sharded slate bit for bit, ``d_hist``
+  included (window None, 3, 1 x chunk 1, 4, 16), equals ``repro``'s
+  stream id for id and the shared oracle; the eps-stop latches across
+  chunks; a batched ``V`` with per-user masks; ``Reranker.stream`` on a
+  mesh against ``Reranker.rerank`` on it and ``repro``'s stream; one
+  update launcher a stream.
 * P = 2, 3 and 4 ranks (P = 3 pads M): each P runs once, as gloo ranks in
   subprocesses, beside one JAX subprocess that runs ``repro``'s sharded
   path on 2-, 3- and 4-device host meshes (``XLA_FLAGS`` set before jax
@@ -26,10 +35,14 @@ tolerance (rtol 3e-4 / atol 1e-5).
   then hold each case.  Exact ties across a shard boundary go to the
   lowest global id, and the cross-shard argmax is checked on crafted
   gains that are all non-negative and that straddle zero (a signed MAX
-  all-reduce of the packed argmax keys would pick a negative gain).
+  all-reduce of the packed argmax keys would pick a negative gain).  The
+  ranks also stream each case (``greedy_map_chunks``, ``Reranker.stream``
+  of one request): every rank's chunks equal its whole slate bit for bit
+  and ``repro``'s sharded stream at the same P.
 * The plain update entries against ``repro``'s ``tiled_update_exact`` /
   ``tiled_update_windowed`` in interpret mode, with a non-zero ``base``.
-* ``launch.serve_sharded`` with two gloo ranks on the CPU.
+* ``launch.serve_sharded`` with two gloo ranks on the CPU, whole and
+  ``--stream``.
 """
 import concurrent.futures
 import json
@@ -48,6 +61,7 @@ from conftest import (
     assert_greedy_parity,
     make_greedy_inputs,
     serve_rerank,
+    serve_rerank_stream,
 )
 import repro.core as jcore
 import repro.serving as js
@@ -106,8 +120,11 @@ def test_spec_validation(mesh):
         tcore.GreedySpec(k=5, backend="kernel", mesh=mesh)
     with pytest.raises(tcore.GreedySpecError, match="silently ignored"):
         tcore.GreedySpec(k=5, backend="torch", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="9b"):
-        tcore.GreedySpec(k=5, backend="sharded", mesh=mesh, chunk_size=2)
+    assert tcore.GreedySpec(k=5, backend="sharded", mesh=mesh,
+                            chunk_size=2).chunk_size == 2
+    assert tcore.GreedySpec(k=5, mesh=mesh, chunk_size=2).sharded()
+    with pytest.raises(tcore.GreedySpecError, match="silently ignored"):
+        tcore.GreedySpec(k=5, chunk_size=2)  # torch: no chunked execution
     assert tcore.GreedySpec(k=5, mesh=mesh).sharded()  # auto + mesh
     assert not tcore.GreedySpec(k=5).sharded()
     tcore.GreedySpec(k=5, backend="sharded", mesh=mesh, tile_m=64)
@@ -118,8 +135,8 @@ def test_spec_validation(mesh):
 def test_rerank_config_validation(mesh):
     with pytest.raises(ValueError, match="mutually exclusive"):
         ts.DPPRerankConfig(use_kernel=True, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="9b"):
-        ts.DPPRerankConfig(mesh=mesh, chunk_size=4)
+    spec = ts.DPPRerankConfig(mesh=mesh, chunk_size=4).greedy_spec()
+    assert spec.sharded() and spec.chunk_size == 4
     spec = ts.DPPRerankConfig(slate_size=4, mesh=mesh, tile_m=64).greedy_spec()
     assert spec.backend == "sharded" and spec.mesh is mesh
     assert spec.tile_m == 64 and spec.axis_name == "data"
@@ -135,12 +152,17 @@ def _small_request(seed=5, M=64, D=6):
                             feats=f)
 
 
-@pytest.mark.parametrize("verb", ["stream", "submit", "session"])
+# the router's mesh branch is ROADMAP item 9b; repro refuses sessions over
+# a sharded pool too (src/repro/serving/session.py, _check_session_cfg)
+REFUSALS = {"submit": "item 9b", "session": "as in repro"}
+
+
+@pytest.mark.parametrize("verb", ["submit", "session"])
 def test_mesh_refuses_stream_submit_session(mesh, verb):
     cfg = ts.DPPRerankConfig(slate_size=8, shortlist=32, window=4,
                              mesh=mesh)
     rr = ts.Reranker(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    with pytest.raises(NotImplementedError, match=REFUSALS[verb]):
         getattr(rr, verb)(_small_request())
 
 
@@ -153,7 +175,7 @@ def test_router_refuses_a_mesh(mesh):
 def test_session_store_refuses_a_mesh(mesh):
     cfg = ts.DPPRerankConfig(slate_size=8, shortlist=32, window=4,
                              mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    with pytest.raises(NotImplementedError, match="as in repro"):
         ts.SessionStore(cfg, ts.SessionConfig(), torch.device("cpu"))
 
 
@@ -382,6 +404,256 @@ def test_sharded_rerank_inf_relevance_outside_shortlist(mesh, jmesh):
 
 
 # ---------------------------------------------------------------------------
+# The sharded stream, one rank in process, against repro's on a 1-device
+# mesh (tests/test_streaming.py's sharded cases)
+# ---------------------------------------------------------------------------
+
+
+def _stream(spec, V, mask=None, chunk=None):
+    """The port's ``greedy_map_chunks``: (ids, d_hist) concatenated along
+    the slate, and the chunks' widths."""
+    chunks = list(tcore.greedy_map_chunks(spec, V=V, mask=mask,
+                                          chunk_size=chunk))
+    return (torch.cat([c.indices for c in chunks], -1),
+            torch.cat([c.d_hist for c in chunks], -1),
+            [c.indices.shape[-1] for c in chunks])
+
+
+def _jstream(spec, V, mask=None, chunk=None):
+    chunks = list(jcore.greedy_map_chunks(spec, V=V, mask=mask,
+                                          chunk_size=chunk))
+    return (np.concatenate([np.asarray(c.indices) for c in chunks], -1),
+            np.concatenate([np.asarray(c.d_hist) for c in chunks], -1))
+
+
+def _specs(mesh, jmesh, k, window, chunk, eps=1e-6):
+    return (tcore.GreedySpec(k=k, window=window, backend="sharded",
+                             mesh=mesh, eps=eps, chunk_size=chunk),
+            jcore.GreedySpec(k=k, window=window, backend="sharded",
+                             mesh=jmesh, eps=eps, chunk_size=chunk))
+
+
+def _equal_bits(got, want):
+    """Two (ids, d_hist) pairs of the port, equal bit for bit."""
+    assert torch.equal(got[0], want[0]), (got[0], want[0])
+    assert torch.equal(got[1], want[1]), (got[1], want[1])
+
+
+@pytest.mark.parametrize("window", [None, 3, 1])
+@pytest.mark.parametrize("chunk", [1, 4, 16])
+def test_stream_chunks_concatenate_to_whole(mesh, jmesh, window, chunk):
+    D, M, k = 16, 137, 10
+    V = make_greedy_inputs(11 + (window or 0), None, D, M)
+    mask = np.random.default_rng(5).uniform(size=M) > 0.3
+    spec, jspec = _specs(mesh, jmesh, k, window, chunk)
+    whole = tcore.greedy_map(
+        tcore.GreedySpec(k=k, window=window, mesh=mesh, eps=1e-6),
+        V=_t(V), mask=_t(mask))
+    sel, dh, sizes = _stream(spec, _t(V), _t(mask))
+    assert sum(sizes) == k and max(sizes) <= chunk  # ragged tail covered
+    _equal_bits((sel, dh), (whole.indices, whole.d_hist))
+    # chunked whole-slate execution returns the same bits
+    chunked = tcore.greedy_map(spec, V=_t(V), mask=_t(mask))
+    _equal_bits((chunked.indices, chunked.d_hist), (sel, dh))
+    want = _jstream(jspec, V, jnp.asarray(mask))
+    np.testing.assert_array_equal(sel.numpy(), want[0])
+    _close(dh, want[1])
+
+
+@pytest.mark.parametrize("window", [None, 3])
+def test_streamed_slate_matches_shared_oracle(mesh, greedy_oracle, window):
+    D, M, k, chunk = 16, 90, 8, 3
+    V = make_greedy_inputs(23, None, D, M)
+    mask = np.random.default_rng(6).uniform(size=M) > 0.25
+    spec = tcore.GreedySpec(k=k, window=window, mesh=mesh, eps=1e-6,
+                            chunk_size=chunk)
+    sel, dh, _ = _stream(spec, _t(V), _t(mask))
+    assert_greedy_parity(greedy_oracle, sel.numpy(), dh.numpy(), V, k,
+                         window=window, mask=jnp.asarray(mask))
+
+
+def test_stream_eps_stop_latches_across_chunks(mesh, jmesh):
+    D, M, k, chunk = 5, 160, 12, 4
+    V = make_greedy_inputs(31, None, D, M)
+    spec, jspec = _specs(mesh, jmesh, k, None, chunk, eps=1e-3)
+    whole = tcore.dpp_greedy_sharded(_t(V), k, mesh=mesh, eps=1e-3)
+    sel, dh, _ = _stream(spec, _t(V))
+    _equal_bits((sel, dh), (whole.indices, whole.d_hist))
+    assert (sel == -1).any(), "eps-stop never fired: the case is vacuous"
+    want = _jstream(jspec, V)
+    np.testing.assert_array_equal(sel.numpy(), want[0])
+    _close(dh, want[1])
+
+
+@pytest.mark.parametrize("window", [None, 3])
+def test_stream_batched_per_user_masks(mesh, jmesh, window):
+    B, D, M, k, chunk = 3, 10, 140, 8, 3
+    V = make_greedy_inputs(47, B, D, M)
+    mask = np.random.default_rng(8).uniform(size=(B, M)) > 0.3
+    spec, jspec = _specs(mesh, jmesh, k, window, chunk)
+    whole = tcore.dpp_greedy_sharded(_t(V), k, mesh=mesh, window=window,
+                                     eps=1e-6, mask=_t(mask))
+    sel, dh, _ = _stream(spec, _t(V), _t(mask))
+    assert sel.shape == (B, k)
+    _equal_bits((sel, dh), (whole.indices, whole.d_hist))
+    want = _jstream(jspec, V, jnp.asarray(mask))
+    np.testing.assert_array_equal(sel.numpy(), want[0])
+    _close(dh, want[1])
+    assert all(mask[b, i] for b in range(B) for i in sel[b].tolist()
+               if i >= 0)
+
+
+def test_stream_steps_and_mixed_chunks(mesh):
+    """The raw init/step/chunk API on a mesh: single steps between chunks
+    resume where the state left off, given the state's shard or the
+    request's V."""
+    V = _t(make_greedy_inputs(41, None, 12, 100))
+    spec = tcore.GreedySpec(k=9, window=4, mesh=mesh, eps=1e-6)
+    whole = tcore.greedy_map(spec, V=V)
+    state = tcore.greedy_init(spec, V=V)
+    assert isinstance(state, tcore.ShardedState)
+    state, i0, d0 = tcore.greedy_step(spec, state, V=V)
+    state, s1, d1 = tcore.greedy_chunk(spec, state, V=V, chunk_size=5)
+    Vl = tcore.slot_pad_v(spec, V, state)
+    assert Vl is state.Vl and Vl.shape == (1, 12, 100)
+    state, s2, d2 = tcore.greedy_chunk(spec, state, V=Vl, chunk_size=3)
+    assert state.t == 9 and i0.ndim == 0 and s1.shape == (5,)
+    _equal_bits((torch.cat([i0[None], s1, s2]), torch.cat([d0[None], d1,
+                                                           d2])),
+                (whole.indices, whole.d_hist))
+    with pytest.raises(ValueError, match="passes the state's k=9"):
+        tcore.greedy_chunk(spec, state, V=Vl, chunk_size=1)
+    with pytest.raises(ValueError, match="neither the state's shard"):
+        tcore.greedy_chunk(spec, tcore.greedy_init(spec, V=V), V=V[:, :50],
+                           chunk_size=1)
+
+
+@pytest.mark.parametrize("window", [None, 4])
+def test_reranker_stream_on_a_mesh_matches_rerank_and_repro(mesh, jmesh,
+                                                            window):
+    rng = np.random.default_rng(17)
+    M, D, N, chunk = 300, 16, 10, 4
+    scores = rng.uniform(size=M).astype(np.float32)
+    feats = rng.normal(size=(M, D)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    mask = rng.uniform(size=M) > 0.25
+    kw = dict(slate_size=N, shortlist=64, alpha=3.0, eps=1e-6,
+              window=window, chunk_size=chunk)
+    jcfg, tcfg = _cfgs(mesh, jmesh, **kw)
+    rr = ts.Reranker(tcfg, device="cpu")
+    req = ts.RerankRequest(scores=scores, feats=feats, mask=mask)
+    chunks = list(rr.stream(req))
+    assert [c.shape[0] for c, _ in chunks] == [4, 4, 2]
+    assert all(c.dtype == torch.int32 for c, _ in chunks)
+    sel = torch.cat([c for c, _ in chunks])
+    dh = torch.cat([d for _, d in chunks])
+    _equal_bits((sel, dh), rr.rerank(req))
+    jchunks = list(serve_rerank_stream(jnp.asarray(scores),
+                                       jnp.asarray(feats), jcfg,
+                                       mask=jnp.asarray(mask)))
+    np.testing.assert_array_equal(
+        sel.numpy(), np.concatenate([np.asarray(c) for c, _ in jchunks]))
+    _close(dh, np.concatenate([np.asarray(d) for _, d in jchunks]))
+    assert all(mask[i] for i in sel.tolist())
+
+
+def test_reranker_stream_on_a_mesh_ends_at_the_eps_stop(mesh, jmesh):
+    rng = np.random.default_rng(24)
+    M, D = 80, 3
+    scores = rng.uniform(size=M).astype(np.float32)
+    feats = rng.normal(size=(M, D)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    kw = dict(slate_size=12, shortlist=64, alpha=2.0, eps=1e-2,
+              chunk_size=2)
+    jcfg, tcfg = _cfgs(mesh, jmesh, **kw)
+    req = ts.RerankRequest(scores=scores, feats=feats)
+    rr = ts.Reranker(tcfg, device="cpu")
+    whole, _ = rr.rerank(req)
+    stop = int((whole >= 0).sum())
+    assert stop < 12  # the stop fires
+    sel = torch.cat([c for c, _ in rr.stream(req)])
+    # the stream ends with the chunk whose last slot is -1
+    assert sel.numel() == min(12, (stop // 2 + 1) * 2)
+    assert torch.equal(sel, whole[:sel.numel()])
+    want = np.concatenate([np.asarray(c) for c, _ in serve_rerank_stream(
+        jnp.asarray(scores), jnp.asarray(feats), jcfg)])
+    np.testing.assert_array_equal(sel.numpy(), want)
+
+
+def test_reranker_stream_on_a_mesh_refuses_a_batch(mesh):
+    rng = np.random.default_rng(3)
+    cfg = ts.DPPRerankConfig(slate_size=4, shortlist=16, mesh=mesh,
+                             chunk_size=2)
+    with pytest.raises(ValueError, match="single request"):
+        ts.Reranker(cfg, device="cpu").stream(ts.RerankRequest(
+            scores=rng.uniform(size=(2, 40)).astype(np.float32),
+            feats=rng.normal(size=(40, 4)).astype(np.float32)))
+
+
+@pytest.mark.parametrize("window", [None, 3])
+def test_stream_prepares_one_launcher_per_state(mesh, monkeypatch, window):
+    """A stream of n chunks prepares the update entry's launcher once,
+    with its state, and launches it once a step."""
+    built, steps = [], []
+    real = ttiled.update_launcher
+
+    def counted(*args):
+        step = real(*args)
+        built.append(args[0][0].shape)
+
+        def counted_step(*a):
+            steps.append(a[0])
+            return step(*a)
+        return counted_step
+
+    monkeypatch.setattr(ttiled, "update_launcher", counted)
+    V = _t(make_greedy_inputs(5, 2, 12, 96))
+    spec = tcore.GreedySpec(k=11, window=window, mesh=mesh, eps=1e-6,
+                            chunk_size=3)
+    chunks = list(tcore.greedy_map_chunks(spec, V=V))
+    assert len(chunks) == 4 and built == [(2, 12, 96)]
+    assert steps == list(range(11))
+
+
+SLOT_CALLS = {
+    "greedy_slot_state": lambda spec, st, V: tcore.greedy_slot_state(
+        spec, V[0]),
+    "greedy_slots_init": lambda spec, st, V: tcore.greedy_slots_init(
+        spec, 2, 12, 96, device="cpu"),
+    "state_splice": lambda spec, st, V: tcore.state_splice(st, st, 0),
+    "state_admit": lambda spec, st, V: tcore.state_admit(spec, st, 0, V[0]),
+    "state_evict": lambda spec, st, V: tcore.state_evict(st, 0),
+    "greedy_chunk_slots": lambda spec, st, V: tcore.greedy_chunk_slots(
+        spec, st, V, 2),
+    "greedy_chunk_launcher": lambda spec, st, V: tcore.greedy_chunk_launcher(
+        spec, st, V=V, chunk_size=2),
+    "slot_state_widen": lambda spec, st, V: tcore.slot_state_widen(
+        spec, st, 200),
+}
+
+
+@pytest.mark.parametrize("call", sorted(SLOT_CALLS))
+def test_slot_executors_refuse_a_mesh(mesh, call):
+    """The continuous-batching substrate stays refused on a mesh, naming
+    the router's slice."""
+    V = _t(make_greedy_inputs(5, 2, 12, 96))
+    spec = tcore.GreedySpec(k=6, window=3, mesh=mesh, eps=1e-6)
+    state = tcore.greedy_init(spec, V=V)
+    with pytest.raises(NotImplementedError, match="router's slice"):
+        SLOT_CALLS[call](spec, state, V)
+
+
+@pytest.mark.parametrize("op", ["greedy_state_extend",
+                                "greedy_state_rescore"])
+def test_column_deltas_refuse_a_sharded_state(mesh, op):
+    V = _t(make_greedy_inputs(5, None, 12, 96))
+    spec = tcore.GreedySpec(k=6, window=3, mesh=mesh, eps=1e-6)
+    state = tcore.greedy_init(spec, V=V)
+    with pytest.raises(NotImplementedError, match="as in repro"):
+        getattr(tcore, op)(spec, state, V, 0, V[:, :4])
+
+
+# ---------------------------------------------------------------------------
 # The plain update entries against repro's, interpret mode
 # ---------------------------------------------------------------------------
 
@@ -526,7 +798,12 @@ import json
 import sys
 import numpy as np
 import torch
-from repro_torch.core import dpp_greedy_sharded, sharded_topk
+from repro_torch.core import (
+    GreedySpec,
+    dpp_greedy_sharded,
+    greedy_map_chunks,
+    sharded_topk,
+)
 from repro_torch.distributed import global_argmax, init_group, leave_group
 from repro_torch.distributed import make_mesh
 from repro_torch.serving import DPPRerankConfig, Reranker, RerankRequest
@@ -558,6 +835,27 @@ for w in (None, 3):
     sel, dh = Reranker(cfg, device="cpu").rerank(RerankRequest(
         scores=z["rr_scores"], feats=z["rr_feats"], mask=z["rr_mask"]))
     res[f"rerank{w}_sel"], res[f"rerank{w}_dh"] = sel.numpy(), dh.numpy()
+def stream(name, V, k, chunk, window=None, mask=None):
+    spec = GreedySpec(k=k, window=window, mesh=mesh, eps=1e-6,
+                      chunk_size=chunk)
+    cs = list(greedy_map_chunks(spec, V=t(V), mask=mask))
+    res[f"stream_{name}_sel"] = torch.cat([c.indices for c in cs], -1).numpy()
+    res[f"stream_{name}_dh"] = torch.cat([c.d_hist for c in cs], -1).numpy()
+stream("exact", z["single_V"], KE, 4)
+stream("windowed", z["single_V"], KW, 3, window=W)
+stream("batch", z["batch_V"], 8, 3, mask=t(z["batch_mask"]))
+stream("shared", z["batch_V"], 10, 4, window=3, mask=t(z["shared_mask"]))
+one = RerankRequest(scores=z["rr_scores"][0], feats=z["rr_feats"],
+                    mask=z["rr_mask"][0])
+for w in (None, 3):
+    cfg = DPPRerankConfig(mesh=mesh, window=w, chunk_size=4, **RR)
+    rr = Reranker(cfg, device="cpu")
+    sel, dh = rr.rerank(one)
+    res[f"rerank{w}_one_sel"] = sel.numpy()
+    res[f"rerank{w}_one_dh"] = dh.numpy()
+    cs = list(rr.stream(one))
+    res[f"stream_rerank{w}_sel"] = torch.cat([c for c, _ in cs]).numpy()
+    res[f"stream_rerank{w}_dh"] = torch.cat([d for _, d in cs]).numpy()
 vals, gids = z[f"argmax_vals_{P}"][rank], z[f"argmax_gids_{P}"][rank]
 dj2, j, owner = global_argmax(mesh, t(vals), t(gids))
 res["argmax_v"], res["argmax_j"] = dj2.numpy(), j.numpy()
@@ -572,7 +870,12 @@ import sys
 import numpy as np
 import jax
 import jax.numpy as jnp
-from repro.core import dpp_greedy_sharded, sharded_topk
+from repro.core import (
+    GreedySpec,
+    dpp_greedy_sharded,
+    greedy_map_chunks,
+    sharded_topk,
+)
 from repro.distributed.context import make_mesh_compat
 from repro.serving import DPPRerankConfig, Reranker, RerankRequest
 
@@ -605,6 +908,28 @@ for P in c["PS"]:
             mask=a(z["rr_mask"])))
         res[f"rerank{w}_sel_{P}"] = np.asarray(sel)
         res[f"rerank{w}_dh_{P}"] = np.asarray(dh)
+    def stream(name, V, k, chunk, window=None, mask=None):
+        spec = GreedySpec(k=k, window=window, backend="sharded", mesh=mesh,
+                          eps=1e-6, chunk_size=chunk)
+        cs = list(greedy_map_chunks(spec, V=a(V), mask=mask))
+        res[f"stream_{name}_sel_{P}"] = np.concatenate(
+            [np.asarray(c.indices) for c in cs], -1)
+        res[f"stream_{name}_dh_{P}"] = np.concatenate(
+            [np.asarray(c.d_hist) for c in cs], -1)
+    stream("exact", z["single_V"], KE, 4)
+    stream("windowed", z["single_V"], KW, 3, window=W)
+    stream("batch", z["batch_V"], 8, 3, mask=a(z["batch_mask"]))
+    stream("shared", z["batch_V"], 10, 4, window=3,
+           mask=jnp.broadcast_to(a(z["shared_mask"]), (3, 90)))
+    for w in (None, 3):
+        cfg = DPPRerankConfig(mesh=mesh, window=w, chunk_size=4, **RR)
+        cs = list(Reranker(cfg).stream(RerankRequest(
+            scores=a(z["rr_scores"][0]), feats=a(z["rr_feats"]),
+            mask=a(z["rr_mask"][0]))))
+        res[f"stream_rerank{w}_sel_{P}"] = np.concatenate(
+            [np.asarray(c) for c, _ in cs])
+        res[f"stream_rerank{w}_dh_{P}"] = np.concatenate(
+            [np.asarray(d) for _, d in cs])
 np.savez(sys.argv[2], **res)
 """
 
@@ -677,6 +1002,34 @@ def test_multi_rank_matches_repro(multi, P, case):
     _close(got[f"{case}_dh"], want[f"{case}_dh_{P}"])
 
 
+# each stream case and the whole-slate call it streams (the rerank cases
+# stream one request, user 0, whose whole slate the ranks also served)
+STREAM_CASES = {"exact": "exact", "windowed": "windowed", "batch": "batch",
+                "shared": "shared", "rerankNone": "rerankNone_one",
+                "rerank3": "rerank3_one"}
+
+
+@pytest.mark.parametrize("case", sorted(STREAM_CASES))
+@pytest.mark.parametrize("P", PS)
+def test_multi_rank_stream_equals_whole(multi, P, case):
+    """On every rank the stream's chunks concatenate to the rank's own
+    whole sharded slate, bit for bit."""
+    whole = STREAM_CASES[case]
+    for res in multi["torch"][P]:
+        for part in ("sel", "dh"):
+            np.testing.assert_array_equal(res[f"stream_{case}_{part}"],
+                                          res[f"{whole}_{part}"])
+
+
+@pytest.mark.parametrize("case", sorted(STREAM_CASES))
+@pytest.mark.parametrize("P", PS)
+def test_multi_rank_stream_matches_repro(multi, P, case):
+    got, want = multi["torch"][P][0], multi["jax"]
+    np.testing.assert_array_equal(got[f"stream_{case}_sel"],
+                                  want[f"stream_{case}_sel_{P}"])
+    _close(got[f"stream_{case}_dh"], want[f"stream_{case}_dh_{P}"])
+
+
 @pytest.mark.parametrize("P", PS)
 def test_multi_rank_ties_pick_the_lowest_global_id(multi, P):
     sel = multi["torch"][P][0]["ties_sel"].tolist()
@@ -736,6 +1089,28 @@ def test_serve_sharded_two_gloo_ranks_on_cpu(tmp_path, capsys):
         assert all(r["launches"] == {} for r in run["ranks"])
 
 
-def test_serve_sharded_stream_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        serve_sharded.main(["--device", "cpu", "--stream", "4"])
+
+def test_serve_sharded_stream_two_gloo_ranks_on_cpu(tmp_path, capsys):
+    out = serve_sharded.main([
+        "--device", "cpu", "--devices", "2", "--backend", "gloo",
+        "--candidates", "3001", "--dim", "16", "--shortlist", "500",
+        "--window", "0", "4", "--slate", "10", "12", "--stream", "4",
+        "--check", "--timeout", "240"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) \
+        == out
+    assert set(out["stream"]) == {"chunk_size", "first_chunk_s",
+                                  "stream_total_s", "first_chunk_vs_whole",
+                                  "check"}
+    assert out["stream"]["check"] == "ok (chunks concatenate to the slate)"
+    for run, k in zip(out["runs"], (10, 12)):
+        st = run["stream"]
+        assert st["chunk_size"] == 4 and st["check"].startswith("ok")
+        assert run["check"].startswith("ok") and run["n_selected"] == k
+        assert 0 < st["first_chunk_s"] <= st["stream_total_s"]
+        assert [r["rank"] for r in st["ranks"]] == [0, 1]
+        # the stream's steps: 2 collectives each, and the shortlist's one
+        assert all(r["collectives"] == 2 * k + 1 for r in st["ranks"])
+        assert all(r["launches"] == {} for r in st["ranks"])  # CPU
+    with pytest.raises(SystemExit, match="single request"):
+        serve_sharded.main(["--device", "cpu", "--batch", "2",
+                            "--stream", "4"])
