@@ -2,16 +2,17 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the DPP rerank, DeepFM
 scoring into the rerank, the fused scoring top-c, the paper's
 experiments, the continuous-batching router, session-aware incremental
-rerank and the candidate-sharded rerank and stream.
+rerank and the candidate-sharded rerank, stream and router.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --resident-times   # K1, K2 alone (resident_times)
+    python3 chip_smoke.py --update-times     # the update entries alone
 
 (Phase 12 runs ``chip_smoke.py --topk-device-times STATE`` as a child
 process for K7's profiler times: ``topk_device_times``.)
 
 Builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a),
-then runs seventeen phases through the port's entry points.  Phases 1-9
+then runs eighteen phases through the port's entry points.  Phases 1-9
 (``repro_torch.serving.Reranker(..., use_kernel=True).rerank`` and
 ``.stream``, ``repro_torch.core.greedy_map_chunks`` and
 ``greedy_chunk_slots``) run at the paper's §5.1 setup: D = 100
@@ -207,6 +208,38 @@ after phase 16, on the same update entries:
                       --smoke size through its ``main``, P = 1 (NCCL)
                       and 2 (gloo): its rows and its update launches.
                       (b)'s and (c)'s children start at once.
+
+Phase 18 runs the continuous-batching router on the candidate-sharded
+mesh (``Reranker(DPPRerankConfig(mesh=...)).submit``, the slot
+``ShardedState`` with a step counter a lane in the update entries),
+after phase 17:
+
+18. router on a mesh: (a) in this process on 16(c)'s one-rank gloo
+                      group: 96 requests of phase 14(a)'s draw over a
+                      100,000-item catalog (pools 500..100,000, k in
+                      [25, 50], a 10% seen mask every third, two lapsed
+                      deadlines) on 32 slots of capacity 50, a bucket of
+                      100,000 columns, chunk 8; then 32 windowed, w = 10,
+                      capacity 200, k in [100, 200], chunk 16.  Every
+                      slate equals its per-request sharded rerank on the
+                      mesh index for index and d_hist bit for bit, and
+                      phase 14's K1 / K2 rerank or parts from it at a
+                      certified float64 near-tie; the same router on
+                      the plain update entry beside it; the lifecycle
+                      counts the inputs force; chunk update launches a
+                      pump with live lanes; host wall a pump by span,
+                      TTFC and the entries' device time a pump, measured
+                      before (b) starts (the references run with it); (b)
+                      ``launch.serve_sharded --router 24`` on phase 1's
+                      catalog (two lapsed deadlines, one of 0.05 s that
+                      the gloo ranks' run must see lapse mid-flight), 8
+                      slots, chunk 8, exact and w = 10: one
+                      NCCL rank and 2 gloo ranks sharing the card, at
+                      once; every rank's handles and timed_out flags
+                      equal rank 0's, the two runs' slates equal where
+                      neither timed out, each held against phase 1's
+                      K1 / K2 rerank; TTFC and the decision collective's
+                      share of a pump.
 
 Each phase resets the kernels' launch counters right before the main-path
 call (phases 16 and 17's ranks in their own processes), reads them right after,
@@ -2956,17 +2989,17 @@ def save_request(path, scores, feats, mask):
     return path
 
 
-def start_child(name, npz, P, backend, shortlist, stream=0):
+def start_child(name, npz, P, backend, shortlist, stream=0, extra=()):
     """Start ``python -m repro_torch.launch.serve_sharded`` with P ranks
     on ``npz``'s request, exact k = 50 and windowed w = 10, k = 200
-    (``stream``: also streamed in chunks of that many), as a child
-    process; :func:`finish_child` collects it."""
+    (``stream``: also streamed in chunks of that many; ``extra``: more
+    arguments), as a child process; :func:`finish_child` collects it."""
     cmd = [sys.executable, "-m", "repro_torch.launch.serve_sharded",
            "--devices", str(P), "--backend", backend, "--device", "cuda",
            "--inputs", str(npz), "--window", "0", "10", "--slate", "50",
            "200", "--shortlist", str(shortlist), "--alpha", str(ALPHA),
            "--eps", str(EPS), "--timeout", str(SHARDED_TIMEOUT_S),
-           "--stream", str(stream)]
+           "--stream", str(stream), *extra]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, env=env,
@@ -3072,13 +3105,12 @@ def patched_updates(tm, plain=False, wrap=None):
     def launcher(operands, base, keys, tile):
         if not plain:
             step = real(operands, base, keys, tile)
-        elif len(operands) == 11:
-            def step(t, pos=None):
-                tm.tiled_update_windowed_plain(*operands, base, pos, keys, t,
-                                               tile)
         else:
-            def step(t, pos=None):
-                tm.tiled_update_exact_plain(*operands, base, keys, t, tile)
+            fn = (tm.tiled_update_windowed_plain if len(operands) == 12
+                  else tm.tiled_update_exact_plain)
+
+            def step():
+                fn(*operands, base, keys, tile)
         return step if wrap is None else wrap(step)
 
     tm.update_launcher = launcher
@@ -3380,6 +3412,351 @@ def run_sharded_stream(records, refs, mesh):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the continuous-batching router on the candidate-sharded mesh
+# ---------------------------------------------------------------------------
+
+# 18(a): 96 requests exact, 32 windowed (each windowed per-request sharded
+# reference costs about 0.7 s of host-bound steps on the card)
+MESH_ROUTER = dict(n=96, n_windowed=32, slots=32, bucket=100_000, burst=32,
+                   per_pump=8, lapsed=2)
+MESH_ROUTER_B = dict(n=24, slots=8, chunk=8, lapsed=(5, 17), midflight=0,
+                     midflight_s=0.05)
+
+
+def same_slate(got, want):
+    """Two (ids, d_hist) numpy pairs equal bit for bit."""
+    return (np.array_equal(got[0], want[0])
+            and np.array_equal(got[1], want[1]))
+
+
+def mesh_router_run(mesh, reqs, window, cap, chunk, plain=False):
+    """The router on ``mesh``: ``reqs`` through ``Reranker.submit``, the
+    first ``burst`` at once, then ``per_pump`` before each pump, with the
+    launch counters, telemetry and spans of :func:`router_run`."""
+    from repro_torch.kernels.dpp_greedy import tiled as tm
+    from repro_torch.serving import DPPRerankConfig, Reranker, RouterConfig
+
+    c = MESH_ROUTER
+    cfg = DPPRerankConfig(slate_size=cap, shortlist=1000, alpha=ALPHA,
+                          eps=EPS, window=window, mesh=mesh)
+    rcfg = RouterConfig(slots=c["slots"], chunk_size=chunk,
+                        max_queue=len(reqs), max_candidates=c["bucket"])
+
+    def main():
+        rr = Reranker(cfg, router_config=rcfg, device="cuda")
+        with patched_updates(tm, plain=plain):
+            return rr, drive_router(rr, reqs, c["burst"], c["per_pump"])
+
+    return router_run(main)
+
+
+def run_router_mesh_a(records, mesh, catalog, rng, window, cap, k_lo, k_hi,
+                      chunk):
+    """18(a), exact or windowed: phase 14(a)'s draw through the router on
+    the one-rank gloo group ``mesh`` (32 slots, a bucket of the whole
+    100,000-item catalog): update launches, host wall a pump by span,
+    TTFC and the entries' device time a pump, measured here.  Returns
+    ``references()``, which holds each slate against the per-request
+    sharded rerank on the mesh (bit for bit) and phase 14's K1 / K2
+    rerank (certified near-ties), the lifecycle, and the plain update
+    entry's router run against the kernel's (its lanes at their own
+    counters, the ring of each lane full or not); phase 18 calls it
+    while 18(b)'s children run."""
+    from repro_torch.serving import DPPRerankConfig, Reranker
+
+    c = MESH_ROUTER
+    kernel = ("tiled_update_exact" if window is None
+              else "tiled_update_windowed")
+    part = "exact" if window is None else "windowed"
+    name = f"phase 18(a) router on a mesh, {part}"
+    n = c["n"] if window is None else c["n_windowed"]
+    lapsed = set(int(x) for x in rng.choice(n, size=c["lapsed"],
+                                             replace=False))
+    reqs = router_requests(rng, catalog, n, k_lo, k_hi, lapsed)
+    print(f"[{name}] {n} requests (pools "
+          f"{min(r.num_candidates for r in reqs)}.."
+          f"{max(r.num_candidates for r in reqs)}, k in [{k_lo}, {k_hi}], a "
+          f"seen mask every third, deadlines lapsed: {sorted(lapsed)}), "
+          f"{c['slots']} slots of capacity {cap}, a bucket of "
+          f"{c['bucket']} columns, chunk {chunk}, window {window}, shortlist "
+          f"1000, a one-rank gloo mesh on the card; the first {c['burst']} "
+          f"in a burst, then {c['per_pump']} a pump", flush=True)
+    t0 = time.perf_counter()
+    (rr, (handles, peak, overlap)), counts, _, spans, rebuilds, wall = \
+        mesh_router_run(mesh, reqs, window, cap, chunk)
+    st = rr.router.stats
+    busy = sum(1 for sp in spans if sp["name"] == "router.pump.launch"
+               and sp["attrs"]["lanes"] > 0)
+    check(counts == {kernel: chunk * st.chunks_launched}
+          and busy == st.chunks_launched,
+          f"{name}: launches {counts}, router_chunks_launched_total "
+          f"{st.chunks_launched}, pumps with active lanes {busy}: expected "
+          f"{chunk} update launches a pump with live lanes")
+    check(rebuilds["slot_state_allocs_total"] == 1,
+          f"{name}: rebuilds {rebuilds}: expected one slot-state allocation")
+    records.setdefault(kernel, {"launches": 0})["launches"] += counts[kernel]
+    mean, parts, npump = pump_split(spans)
+    ttfc = np.array([h.ttfc for h in handles if h.ttfc is not None])
+    dev = device_ms(lambda: mesh_router_run(mesh, reqs, window, cap, chunk),
+                    kernel, counts[kernel], reps=1)
+    print(f"  main path: {wall * 1e3:.1f} ms host wall, launches {counts} "
+          f"({chunk} a pump with live lanes, {st.chunks_launched} such "
+          f"pumps); host wall a pump: {mean:.1f} us over {npump} pumps ("
+          + ", ".join(f"{p} {parts[p]:.1f}" for p in PUMP_SPANS)
+          + " us); TTFC mean {:.3f} ms, p99 {:.3f} ms; fill ratio {:.3f}; "
+          "peak concurrency {}; {} device time by torch.profiler {} for {} "
+          "launches{}; measured in {:.1f} s".format(
+              ttfc.mean() * 1e3, np.percentile(ttfc, 99) * 1e3,
+              st.fill_ratio, peak, kernel, ms_text(dev), counts[kernel],
+              "" if dev is None else
+              f", {dev / st.chunks_launched:.4f} ms a pump with live lanes "
+              f"({dev / counts[kernel]:.4f} ms a launch)",
+              time.perf_counter() - t0), flush=True)
+
+    def references():
+        t1 = time.perf_counter()
+        ref = [tuple(x.cpu().numpy() for x in rr.rerank(r)) for r in reqs]
+        kcfg = DPPRerankConfig(slate_size=cap, shortlist=1000, alpha=ALPHA,
+                               eps=EPS, window=window, use_kernel=True)
+        rk = Reranker(kcfg, device="cuda")
+        stops = sum(1 for i, (ei, _) in enumerate(ref)
+                    if i not in lapsed and (ei < 0).any())
+        want = dict(submitted=n, admitted=n - len(lapsed),
+                    completed=n - len(lapsed), timed_out=len(lapsed),
+                    eps_stopped=stops, rejected=0)
+        got = {key: getattr(st, key) for key in want}
+        check(got == want,
+              f"{name}: lifecycle {got}, the inputs force {want}")
+        diverged = 0
+        for i, (h, r) in enumerate(zip(handles, reqs)):
+            if i in lapsed:
+                check(h.timed_out and len(h.slate()[0]) == 0,
+                      f"{name}: request {i} (lapsed) was served")
+                continue
+            gi, gd = h.slate()
+            check(h.done and not h.timed_out
+                  and same_slate((gi, gd), ref[i]),
+                  f"{name}: request {i}'s slate differs from its sharded "
+                  f"rerank on the mesh")
+            want_k = tuple(x.cpu().numpy() for x in rk.rerank(r))
+            diverged += hold_slate(f"{name} request {i} vs "
+                                   f"{'K1' if window is None else 'K2'}", rk,
+                                   r, (gi, gd), want_k, window, False)[0]
+        print(f"  {name}: lifecycle {got}; every slate equals the request's "
+              f"sharded rerank on the mesh index for index and d_hist bit "
+              f"for bit; {n - len(lapsed) - diverged} of {n - len(lapsed)} "
+              f"equal phase 14's per-request "
+              f"{'K1' if window is None else 'K2'} rerank index for index, "
+              f"the rest certified ({time.perf_counter() - t1:.1f} s)",
+              flush=True)
+        t1 = time.perf_counter()
+        (_, (plain, _, _)), pcounts, *_ = mesh_router_run(
+            mesh, reqs, window, cap, chunk, plain=True)
+        check(not pcounts, f"{name}: the plain run launched {pcounts}")
+        err = 0.0
+        for i, (h, p) in enumerate(zip(handles, plain)):
+            if i not in lapsed:
+                err = max(err, hold_slate(
+                    f"{name} {kernel} vs plain, request {i}", rk, reqs[i],
+                    h.slate(), p.slate(), window, False)[1])
+        rec = records[kernel]
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+        print(f"  {kernel} vs plain at the router's shapes ({c['slots']} "
+              f"lanes x {c['bucket']} columns, per-lane step counters): "
+              f"every slate equal or certified, d_hist max abs err "
+              f"{err:.3g} ({time.perf_counter() - t1:.1f} s)", flush=True)
+
+    return references
+
+
+def run_router_mesh_b(records, refs, rng, meanwhile):
+    """18(b): ``serve_sharded --router`` on 24 requests of phase 1's
+    catalog (two lapsed deadlines, one that lapses mid-flight), 8 slots,
+    chunk 8, exact and w = 10: one NCCL rank and 2 gloo ranks sharing the
+    card, at once, while this process runs ``meanwhile()``.  Every rank's handles equal rank 0's (the child
+    raises otherwise); the two runs agree wherever neither timed out;
+    each slate is held against phase 1's per-request rerank (K1 / K2,
+    certified near-ties).  (18(a) holds the router against the
+    per-request sharded rerank; ``--check`` would repeat that here at
+    about 0.7 s a windowed request.)"""
+    from repro_torch.serving import DPPRerankConfig, Reranker, RerankRequest
+
+    cb = MESH_ROUTER_B
+    n = cb["n"]
+    with np.load(refs["b"]["npz"]) as z:
+        feats = z["feats"]
+    M = feats.shape[0]
+    scores = rng.uniform(size=(n, M)).astype(np.float32)
+    mask = rng.uniform(size=(n, M)) >= 0.1
+    mask[np.arange(n) % 3 != 2] = True
+    sizes = np.exp(rng.uniform(np.log(500), np.log(M), size=n)).astype(
+        np.int64)
+    sizes[0] = M
+    dls = np.zeros(n)
+    dls[list(cb["lapsed"])] = 1e-9
+    dls[cb["midflight"]] = cb["midflight_s"]
+    npz = refs["work"] / "router18b.npz"
+    np.savez(npz, scores=scores, feats=feats, mask=mask, sizes=sizes,
+             deadlines=dls)
+    print(f"[phase 18(b)] serve_sharded --router {n} on phase 1's catalog "
+          f"(pools {sizes.min()}..{sizes.max()}, k 25..50 exact and "
+          f"100..200 at w=10, deadlines lapsed: {list(cb['lapsed'])}, "
+          f"request {cb['midflight']} given {cb['midflight_s']} s), "
+          f"{cb['slots']} slots, chunk {cb['chunk']}; 1 rank "
+          f"under {SHARDED_A_BACKEND} and 2 under gloo sharing the card, at "
+          f"once, while 18(a)'s references run", flush=True)
+    t0 = time.perf_counter()
+    extra = ["--router", str(n), "--slots", str(cb["slots"]), "--chunk",
+             str(cb["chunk"]), "--seed", str(SEED + 18)]
+    children = [start_child(f"phase 18(b) {P} rank(s), {backend}", npz, P,
+                            backend, 1000, extra=extra)
+                for P, backend in ((1, SHARDED_A_BACKEND), (2, "gloo"))]
+    try:
+        meanwhile()
+    except BaseException:
+        for child in children:  # no child outlives a failed phase
+            child[3].kill()
+            child[3].communicate()
+        raise
+    catalog = torch.from_numpy(feats).to("cuda")
+    recs = [finish_child(child) for child in children]
+    for child, rec in zip(children, recs):
+        name = child[0]
+        for run, k in zip(rec["runs"], (50, 200)):
+            w = run["window"]
+            kernel = ("tiled_update_exact" if w is None
+                      else "tiled_update_windowed")
+            check(run["ranks_agree"]
+                  and [run["timed_out"][i] for i in cb["lapsed"]]
+                  == [True] * len(cb["lapsed"]),
+                  f"{name}: window {w}: timed out {run['timed_out']}")
+            mid = cb["midflight"]
+            # on several ranks the lapse mid-flight is the evidence that
+            # an active lane's expiry keeps the ranks in step
+            check(len(run["ranks"]) == 1 or (
+                run["timed_out"][mid]
+                and 0 < run["delivered"][mid] < run["slate_sizes"][mid]),
+                f"{name}: window {w}: request {mid} (deadline "
+                f"{cb['midflight_s']} s) timed out {run['timed_out'][mid]} "
+                f"after {run['delivered'][mid]} of "
+                f"{run['slate_sizes'][mid]} picks: its deadline did not "
+                f"lapse mid-flight")
+            kcfg = DPPRerankConfig(slate_size=k, shortlist=1000,
+                                   alpha=ALPHA, eps=EPS, window=w,
+                                   use_kernel=True)
+            rk = Reranker(kcfg, device="cuda")
+            diverged = 0
+            for i in range(n):
+                if run["timed_out"][i]:
+                    continue
+                m = int(sizes[i])
+                req = RerankRequest(
+                    scores=torch.from_numpy(scores[i, :m].copy()).to("cuda"),
+                    feats=catalog[:m],
+                    mask=torch.from_numpy(mask[i, :m].copy()).to("cuda"),
+                    slate_size=run["slate_sizes"][i])
+                kk = run["slate_sizes"][i]
+                got = (np.asarray(run["indices"][i][:kk], np.int32),
+                       np.asarray(run["d_hist"][i][:kk], np.float32))
+                want = tuple(x.cpu().numpy() for x in rk.rerank(req))
+                diverged += hold_slate(f"{name} window {w} request {i}", rk,
+                                       req, got, want, w, False)[0]
+            for r in run["ranks"]:
+                check(sum(r["launches"].values())
+                      == cb["chunk"] * r["chunks_launched"]
+                      and set(r["launches"]) == {kernel},
+                      f"{name}: rank {r['rank']} launched {r['launches']} "
+                      f"for {r['chunks_launched']} pumps with live lanes")
+                records[kernel]["launches"] += r["launches"][kernel]
+            served = [i for i in range(n) if not run["timed_out"][i]]
+            head = run["ranks"][0]
+            ttfc = np.array([x for x in head["ttfc_s"] if x is not None])
+            share = ", ".join(
+                f"rank {r['rank']} {r['decisions']} decisions, "
+                f"{r['pump_us']['decide']:.1f} us a pump, "
+                f"{r['pump_us']['decide'] / r['pump_us']['pump']:.2%} of a "
+                f"pump's {r['pump_us']['pump']:.1f} us" for r in run["ranks"])
+            print(f"  {name}, window {w}: {run['pumps']} pumps; every rank's "
+                  f"handles equal rank 0's; timed out "
+                  f"{[i for i in range(n) if run['timed_out'][i]]} "
+                  f"(request {cb['midflight']} delivered "
+                  f"{run['delivered'][cb['midflight']]} of "
+                  f"{run['slate_sizes'][cb['midflight']]}); of "
+                  f"{len(served)} slates {len(served) - diverged} equal the "
+                  f"per-request "
+                  f"{'K1' if w is None else 'K2'} rerank, the rest "
+                  f"certified; TTFC mean {ttfc.mean() * 1e3:.3f} ms, p99 "
+                  f"{np.percentile(ttfc, 99) * 1e3:.3f} ms (rank 0); the "
+                  f"decision collective: {share}", flush=True)
+    for run, run1 in zip(recs[1]["runs"], recs[0]["runs"]):
+        both = [i for i in range(n)
+                if not (run["timed_out"][i] or run1["timed_out"][i])]
+        check(all(run["indices"][i] == run1["indices"][i] for i in both),
+              f"phase 18(b): window {run['window']}: the gloo ranks' slates "
+              f"differ from the NCCL rank's")
+        print(f"  phase 18(b), window {run['window']}: the 2 gloo ranks' "
+              f"slates equal the NCCL rank's for the {len(both)} requests "
+              f"neither timed out", flush=True)
+    print(f"  phase 18(b) took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def run_router_mesh(records, refs, mesh):
+    """Phase 18: the continuous-batching router on the candidate-sharded
+    mesh.  (a) in this process on 16(c)'s one-rank gloo group, exact and
+    windowed, measured first; (b) ``serve_sharded --router`` as child
+    processes, while (a)'s references run here."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 18)
+    catalog = torch.from_numpy(
+        rng.standard_normal(size=(100_000, D), dtype=np.float32)).to("cuda")
+    catalog /= catalog.norm(dim=1, keepdim=True)
+    checks = [run_router_mesh_a(records, mesh, catalog, rng, None, 50, 25,
+                                50, 8),
+              run_router_mesh_a(records, mesh, catalog, rng, 10, 200, 100,
+                                200, 16)]
+    run_router_mesh_b(records, refs, rng,
+                      lambda: [references() for references in checks])
+    print(f"  phase 18 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def update_times():
+    """``--update-times``: the shard-local update entries alone at 16(c)'s
+    shape (B = 4, D = 100, C = 65,536 of a 10^6 pool with a 10% seen
+    mask; exact k = 50, w = 10 k = 200) through ``core.sharded.
+    greedy_local`` on a one-rank gloo group: torch.profiler's device time
+    of a slate's k launches (median of 5).  Whatever ``repro_torch`` sits
+    beside the script is timed, so a copy of this script in another
+    tree's root times that tree's entries the same way."""
+    from repro_torch.core.sharded import greedy_local
+    from repro_torch.serving import DPPRerankConfig
+    from repro_torch.serving.reranker import _shortlist_kernel
+
+    rng = np.random.default_rng(SEED + 3)
+    scores, feats, mask = make_inputs(rng, 4, 1_000_000, seen_frac=0.1)
+    V, m_top, _ = _shortlist_kernel(
+        scores, feats, DPPRerankConfig(shortlist=65536, alpha=ALPHA,
+                                       eps=EPS), mask)
+    del scores, feats, mask
+    C = V.shape[2]
+    work = Path(tempfile.mkdtemp(prefix="update_times_"))
+    out = {}
+    try:
+        with one_rank_group(work) as mesh:
+            for kernel, k, w in (("tiled_update_exact", 50, None),
+                                 ("tiled_update_windowed", 200, 10)):
+                def run():
+                    return greedy_local(V, m_top, k, mesh=mesh, base=3 * C,
+                                        window=w, eps=EPS)
+                dev = device_ms(run, kernel, k, reps=5)
+                out[kernel] = dev
+                print(f"  {kernel}: B=4 C={C} k={k} window={w}: device "
+                      f"time {ms_text(dev)} for {k} launches", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print("update_times " + json.dumps(out), flush=True)
+
+
 def resident_times():
     """``--resident-times``: K1 and K2 alone, one launch each at phases 1
     and 2's kernel shapes (the same seeded shortlists: B = 64, C = 1000,
@@ -3440,7 +3817,7 @@ def resident_times():
 
 
 def run_phases(records, rng, refs):
-    """Phases 1-17 in order, each adding to ``records``; ``refs`` carries
+    """Phases 1-18 in order, each adding to ``records``; ``refs`` carries
     phases 16 and 17's requests and references (its ``work`` directory
     holds the requests' files)."""
     t0 = time.perf_counter()
@@ -3470,6 +3847,7 @@ def run_phases(records, rng, refs):
     with one_rank_group(refs["work"]) as mesh:
         run_sharded(records, refs, mesh)
         run_sharded_stream(records, refs, mesh)
+        run_router_mesh(records, refs, mesh)
     print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -3503,6 +3881,9 @@ def main() -> int:
 
     if sys.argv[1:] == ["--resident-times"]:
         resident_times()
+        return 0
+    if sys.argv[1:] == ["--update-times"]:
+        update_times()
         return 0
     if sys.argv[1:2] == ["--topk-device-times"]:
         topk_device_times(sys.argv[2])

@@ -43,15 +43,21 @@ gain has the same bits for every shard count.
 The loop state is resumable (:class:`ShardedState`, one update
 launcher prepared per state), and the whole slate is that state advanced
 by one chunk of ``k``: a stream's chunks concatenate to it bit for bit
-by construction.
+by construction.  Each lane keeps its own step counter (``repro``'s
+``t_batched``), so the continuous-batching router's slot state is a
+:class:`ShardedState` too, its lanes admitted and evicted in place at
+their own depths.
 
 Front doors: ``greedy_map(GreedySpec(backend="sharded", mesh=...))``
 and ``Reranker(DPPRerankConfig(mesh=...)).rerank``
 (``repro_torch.serving.sharded_rerank``); the stream through
 ``core.streaming.greedy_init`` / ``greedy_chunk``,
 ``core.dispatch.greedy_map_chunks`` and ``Reranker.stream`` (every rank
-consumes the same chunks); ``repro_torch.launch.serve_sharded`` runs P
-ranks end to end.
+consumes the same chunks); the router through
+``Reranker(DPPRerankConfig(mesh=...)).submit`` on the slot executors of
+``core.streaming`` (every rank submits and pumps alike);
+``repro_torch.launch.serve_sharded`` runs P ranks end to end, whole,
+``--stream`` or ``--router``.
 """
 from __future__ import annotations
 
@@ -110,13 +116,25 @@ class ShardedState:
     * ``Vl (B, D, Mloc)``, ``C (B, R, Mloc)`` rows (R = k exact, the ring
       of w windowed), ``d2 (B, Mloc)``: the rank's shard of ``V``, of the
       Cholesky rows and of the gains;
-    * ``keys (k + 1, B)`` int64: row ``t`` is the shard's packed (max
-      gain, lowest global id) for step ``t``, row 0 from the initial
-      gains, row ``t + 1`` folded by step ``t``'s update entry;
+    * ``t (B,)`` int32: each lane's next step (``repro``'s per-slot
+      ``t_batched``); a lane whose counter reaches ``k`` latches stopped;
+    * ``keys (2, B)`` int64: each lane's packed (max gain, lowest global
+      id) of its shard, two rows used in turn: step ``t`` reads row
+      ``t & 1`` and its update entry folds the next into row
+      ``(t + 1) & 1`` (zeroing the one it read), so a lane's keys never
+      run out and a lane admitted again needs only its two keys reset;
     * ``stopped (B,)``, windowed ``win (B, w)`` (ring ids, oldest first,
       -1 empty): replicated on every rank;
-    * ``t`` the next step, ``base`` the shard's first global id, ``M``
-      the request's candidate count, ``single`` a ``(D, M)`` request.
+    * ``steps`` the chunks' steps so far, ``base`` the shard's first
+      global id, ``M`` the request's candidate count, ``single`` a
+      ``(D, M)`` request.
+
+    The whole slate and the stream start every lane together (one ``t``
+    for all).  A slot state (``slots=True``, the continuous-batching
+    router's; ``core.streaming.greedy_slots_init``) starts parked and
+    takes requests lane by lane (:meth:`admit`, :meth:`evict`), each at
+    its own depth; its chunks run past ``k`` on lanes that finished, whose
+    counters stay at ``k`` (parked lanes' too), stopped.
 
     One update launcher is prepared here over the state's buffers and
     the winner's (refilled in place every step), so a chunk's steps are
@@ -125,30 +143,29 @@ class ShardedState:
     def __init__(self, Vl: torch.Tensor, maskl: torch.Tensor, k: int, *,
                  mesh, base: int, M: Optional[int] = None,
                  window: Optional[int] = None,
-                 tile_m: Optional[int] = None, single: bool = False):
-        from repro_torch.kernels.dpp_greedy.tiled import (
-            pack_key,
-            update_launcher,
-        )
+                 tile_m: Optional[int] = None, single: bool = False,
+                 slots: bool = False):
+        from repro_torch.kernels.dpp_greedy.tiled import update_launcher
         from repro_torch.kernels.dpp_greedy.tiling import DEFAULT_TILE_M
 
         B, D, Mloc = Vl.shape
         dev = Vl.device
         f32 = dict(dtype=torch.float32, device=dev)
         self.mesh, self.base, self.k, self.single = mesh, base, k, single
+        self.slots = slots
         self.M = mesh.size * Mloc if M is None else M
         self.w = min(window, k) if window is not None and window < k \
             else None
         rows = k if self.w is None else self.w
-        self.t = 0
+        self.steps = 0
+        self.t = torch.zeros((B,), dtype=torch.int32, device=dev)
         self.Vl = Vl
-        self.d2 = init_gains(Vl, maskl)
+        self.d2 = torch.empty((B, Mloc), **f32)
         self.C = torch.zeros((B, rows, Mloc), **f32)
-        self.keys = torch.zeros((k + 1, B), dtype=torch.int64, device=dev)
-        j0 = torch.argmax(self.d2, dim=1)
+        self.keys = torch.zeros((2, B), dtype=torch.int64, device=dev)
         self._ar = torch.arange(B, device=dev)
-        self.keys[0] = pack_key(self.d2[self._ar, j0], j0 + base)
         self.stopped = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self._first(slice(None), Vl, maskl)
         # the winner's buffers, refilled in place every step
         self._vj = torch.zeros((B, D), **f32)
         self._cj = torch.zeros((B, rows), **f32)
@@ -159,7 +176,7 @@ class ShardedState:
                 self.stopped)
         if self.w is None:
             self.win = None
-            self._launch = update_launcher(head + (self._j,), base,
+            self._launch = update_launcher(head + (self._j, self.t), base,
                                            self.keys, tile)
         else:
             w = self.w
@@ -168,13 +185,55 @@ class ShardedState:
             self._cos = torch.zeros((B, w - 1), **f32)
             self._sin = torch.zeros((B, w - 1), **f32)
             self._launch = update_launcher(
-                head + (self._full, self._cos, self._sin, self._j), base,
-                self.keys, tile)
+                head + (self._full, self._cos, self._sin, self._j, self.t),
+                base, self.keys, tile)
+
+    def _first(self, lanes, Vl, maskl) -> None:
+        """The gains of ``lanes`` from their shard ``Vl`` and mask, in
+        :func:`init_gains`' order, and their first key (row 0)."""
+        from repro_torch.kernels.dpp_greedy.tiled import pack_key
+
+        d2 = init_gains(Vl, maskl)
+        j0 = torch.argmax(d2, dim=1)
+        ar = torch.arange(d2.shape[0], device=d2.device)
+        self.d2[lanes] = d2
+        self.keys[:, lanes] = 0
+        self.keys[0, lanes] = pack_key(d2[ar, j0], j0 + self.base)
+
+    def admit(self, lane: int, Vl: torch.Tensor, maskl: torch.Tensor):
+        """Start a request in the parked ``lane`` (:meth:`evict`, or a
+        fresh slot state), in place: its shard ``Vl (D, Mloc)`` of the
+        request padded to the state's ``M`` and its mask ``(Mloc,)``
+        written, its gains and first key computed as a fresh state of
+        that request computes them, its ring ids reset and its counter at
+        0, its stop flag cleared.  The lane then holds the bits of a
+        fresh single-request :class:`ShardedState` of the request at the
+        same ``M`` (its Cholesky rows are zero from the park)."""
+        self.Vl[lane].copy_(Vl)
+        self._first(slice(lane, lane + 1), self.Vl[lane:lane + 1],
+                    maskl[None])
+        if self.win is not None:
+            self.win[lane] = -1
+        self.t[lane] = 0
+        self.stopped[lane] = False
+
+    def evict(self, lane: int) -> None:
+        """Park ``lane`` in place: stopped, every gain at -inf, its
+        Cholesky rows and keys zero, its counter rewound.  A parked lane
+        selects -1 while its neighbours run."""
+        self.stopped[lane] = True
+        self.d2[lane] = NEG_INF
+        self.C[lane] = 0.0
+        self.keys[:, lane] = 0
+        self.t[lane] = 0
+        if self.win is not None:
+            self.win[lane] = -1
 
     def _step(self, eps2: float):
-        """Greedy step ``t`` on every rank: the global argmax, the
-        winner's columns from its owner, one update launch.  Returns the
-        step's ``(ids (B,) int32, -1 once stopped; d (B,))``."""
+        """One greedy step of every lane, each at its own ``t``, on every
+        rank: the global argmax, the winner's columns from its owner, one
+        update launch.  Returns the step's ``(ids (B,) int32, -1 once
+        stopped; d (B,))``."""
         from repro_torch.kernels.dpp_greedy.tiled import (
             eviction_coeffs,
             unpack_key,
@@ -183,23 +242,24 @@ class ShardedState:
         mesh, base, t, ar = self.mesh, self.base, self.t, self._ar
         Vl, C, stopped = self.Vl, self.C, self.stopped
         B, D, Mloc = Vl.shape
-        val, gid = unpack_key(self.keys[t])
+        val, gid = unpack_key(self.keys[t & 1, ar])
         dj2, jg, owner = global_argmax(mesh, val, gid)
-        stopped |= dj2 <= eps2
+        stopped |= (dj2 <= eps2) | (t >= self.k)
         d_sel = torch.sqrt(torch.clamp_min(dj2, eps2))
         jl = (jg - base).clamp(0, Mloc - 1)
         mine = torch.cat([Vl[ar, :, jl], C[ar, :, jl]], 1)
         sel = torch.where(stopped, -1, jg).to(torch.int32)
         dh = torch.where(stopped, 0.0, d_sel)
         self._j.copy_(jg)
-        self.t += 1
+        self.steps += 1
         w = self.w
         if w is None:
             z = bcast_from_owner(mesh, mine, owner)
             self._vj.copy_(z[:, :D])
             self._cj.copy_(z[:, D:])
             self._dj.copy_(d_sel)
-            self._launch(t)
+            self._launch()
+            t.add_(t < self.k)  # a counter stops at k
             return sel, dh
         # the (w, w) window factor C[:, win] from each member's owner and
         # the winner's pre-eviction column from its owner: one all-reduce
@@ -221,26 +281,29 @@ class ShardedState:
         self._sin.copy_(sn)
         self._cj.copy_(cjp)
         self._dj.copy_(torch.sqrt(torch.clamp_min(d2j, eps2)))
-        pos = min(t, w - 1)
-        self._launch(t, pos)
+        self._launch()
         shifted = torch.roll(win, -1, dims=1)
         shifted[:, w - 1] = -1
         nxt = torch.where(is_full[:, None], shifted, win)
-        nxt[:, pos] = jg
+        nxt.scatter_(1, t.clamp_max(w - 1).to(torch.int64)[:, None],
+                     jg[:, None])
         self.win = torch.where(stopped[:, None], win, nxt)
+        t.add_(t < self.k)
         return sel, dh
 
     def chunk(self, n: int, eps: float):
         """Advance ``n`` greedy steps: ``(sel (B, n) int32 global ids, -1
-        after an eps-stop; d_hist (B, n))``, the same on every rank.  The
-        state holds ``k`` steps; a chunk past them raises."""
+        after an eps-stop; d_hist (B, n))``, the same on every rank.  A
+        state that started its lanes together holds ``k`` steps, and a
+        chunk past them raises; a slot state's lanes latch stopped at
+        ``k`` instead."""
         from repro_torch.kernels.dpp_greedy.dpp_greedy import eps_squared
 
         if n < 1:
             raise ValueError(f"chunk must be >= 1, got {n}")
-        if self.t + n > self.k:
+        if not self.slots and self.steps + n > self.k:
             raise ValueError(
-                f"a chunk of {n} from step {self.t} passes the state's "
+                f"a chunk of {n} from step {self.steps} passes the state's "
                 f"k={self.k} steps")
         eps2 = eps_squared(eps)
         B = self.d2.shape[0]

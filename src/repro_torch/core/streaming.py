@@ -25,7 +25,9 @@ whole-slate loop:
 * sharded — ``repro_torch.core.sharded.ShardedState``: each rank's
            shard of the state, advanced by the step of the whole-slate
            sharded loop (one update-entry launch a step, with that
-           step's collectives); every rank runs the same chunks.
+           step's collectives); every rank runs the same chunks.  Its
+           step counter is a lane's own, so the router's lanes sit at
+           their own depths on a mesh too.
 
 ``GreedyState`` is backend-specific: the torch exact state keeps the
 paper's column layout ``C (M, k)``, the torch windowed state the ring
@@ -66,7 +68,8 @@ from repro_torch.core.sharded import (
     dpp_greedy_sharded_stream_init,
 )
 from repro_torch.core.windowed import greedy_step_windowed, window_solve
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, same_device
+from repro_torch.distributed.context import shard_bounds
 from repro_torch.obs.dispatch import record_chunk, record_slot_state_alloc
 
 
@@ -90,13 +93,13 @@ class GreedyState(NamedTuple):
     win: torch.Tensor
 
 
-def _refuse_mesh(what: str, sharded: bool) -> None:
+def _refuse_sharded_splice(what: str, sharded: bool) -> None:
     if sharded:
         raise NotImplementedError(
-            f"{what} on a candidate-sharded mesh belongs to the router's "
-            f"slice, not ported yet (ROADMAP queue 1 item 9b): every rank "
-            f"must admit, evict and pump in the same order.  A sharded "
-            f"stream runs through greedy_init / greedy_chunk"
+            f"{what} takes no candidate-sharded state: a sharded lane is "
+            f"built at the slot batch's bucket width, so that a column has "
+            f"the same owner in every lane, and admitted in place "
+            f"(state_admit, ShardedState.admit)"
         )
 
 
@@ -272,11 +275,20 @@ def greedy_chunk_launcher(spec, state: GreedyState, *, V,
     new state into the old one's tensors.  ``V (S, D, M)`` with a
     slot-batched state (:func:`greedy_slots_init`) advances every slot,
     as :func:`greedy_chunk_slots` does; the continuous-batching router
-    runs its cycles so.  Not on a mesh: a sharded state keeps its own
-    update launcher (``core.sharded.ShardedState``)."""
-    _refuse_mesh("greedy_chunk_launcher", spec.sharded())
+    runs its cycles so.  On a mesh a call is :meth:`ShardedState.chunk`
+    through the update launcher the state keeps (``chunk`` update
+    launches, with their collectives: every rank calls it together),
+    and ``V`` is the state's own shard (:func:`slot_pad_v`)."""
     _check_kernel_args(spec, None, V)
     chunk = resolve_chunk(spec, chunk_size)
+    if spec.sharded():
+        def launch_sharded():
+            record_chunk("sharded", B=state.d2.shape[0], chunk=chunk,
+                         M=state.M)
+            return dpp_greedy_sharded_stream_chunk(V, state, chunk,
+                                                   eps=spec.eps)[1:]
+
+        return launch_sharded
     backend = "kernel" if spec.backend == "kernel" else "torch"
     B, M = (V.shape[0] if V.ndim == 3 else 1), V.shape[-1]
     if backend == "kernel":
@@ -494,11 +506,18 @@ def greedy_slot_state(spec, V, mask=None, dtype=None) -> GreedyState:
     slot.  ``V (D, M)`` must already span the slot batch's width (mask
     False over padding).  ``dtype`` casts ``V`` first so the state's
     leaves match the slot batch it will be spliced into; the kernels
-    compute in float32 regardless.
+    compute in float32 regardless.  On a mesh this is the rank's
+    single-request :class:`~repro_torch.core.sharded.ShardedState` of
+    ``V`` (called on every rank), the state a slot-batched lane holds
+    after :func:`state_admit` of the same request.
     """
-    _refuse_mesh("greedy_slot_state", spec.sharded())
     if dtype is not None:
         V = V.to(dtype)
+    if spec.sharded():
+        return dpp_greedy_sharded_stream_init(
+            V, spec.k, mesh=spec.mesh, axis_name=spec.axis_name,
+            window=spec.window, mask=mask, tile_m=spec.tile_m,
+        )
     if spec.backend == "kernel":
         from repro_torch.kernels.dpp_greedy import dpp_greedy_stream_init
 
@@ -517,7 +536,7 @@ def slot_state_widen(spec, state: GreedyState, M: int) -> GreedyState:
     those a whole-slate call on the unpadded ``V`` starts from (the
     gains reduction on the card may round differently at another
     width)."""
-    _refuse_mesh("slot_state_widen", spec.sharded())
+    _refuse_sharded_splice("slot_state_widen", spec.sharded())
     pad = M - state.d2.shape[-1]
     if pad < 0:
         raise ValueError(
@@ -560,11 +579,16 @@ def greedy_slots_init(spec, slots: int, D: int, M: int,
     :func:`state_evict`.  ``dtype`` is the resident element type; it
     must match the lanes that will be spliced in.  ``device`` defaults
     to the card (``repro_torch.device.resolve_device``); pass ``"cpu"``
-    for the plain path.
+    for the plain path.  On a mesh the state is the rank's slot
+    :class:`~repro_torch.core.sharded.ShardedState` over its shard of
+    the ``M``-column bucket on ``spec.mesh.device`` (``device``, when
+    given, must be that device; ``dtype`` float32, as the sharded path
+    computes), and ``V_slots`` is the state's own shard ``state.Vl``.
     """
-    _refuse_mesh("greedy_slots_init", spec.sharded())
     if slots < 1:
         raise ValueError(f"slots must be >= 1, got {slots}")
+    if spec.sharded():
+        return _sharded_slots_init(spec, slots, D, M, dtype, device)
     device = resolve_device(device)
     record_slot_state_alloc(slots=slots, M=M)
     Vz = torch.zeros((D, M), dtype=dtype, device=device)
@@ -581,13 +605,34 @@ def greedy_slots_init(spec, slots: int, D: int, M: int,
     return state, V_slots
 
 
+def _sharded_slots_init(spec, slots: int, D: int, M: int, dtype, device):
+    mesh = spec.mesh
+    if dtype != torch.float32:
+        raise ValueError(f"a sharded slot state computes in float32, got "
+                         f"dtype {dtype}")
+    if device is not None and not same_device(resolve_device(device),
+                                              mesh.device):
+        raise ValueError(f"spec.mesh keeps its shards on {mesh.device}, "
+                         f"not on {device}")
+    record_slot_state_alloc(slots=slots, M=M)
+    base, Mloc = shard_bounds(M, mesh)
+    dev = mesh.device
+    state = ShardedState(
+        torch.zeros((slots, D, Mloc), dtype=torch.float32, device=dev),
+        torch.zeros((slots, Mloc), dtype=torch.bool, device=dev), spec.k,
+        mesh=mesh, base=base, M=M, window=spec.window, tile_m=spec.tile_m,
+        slots=True)
+    state.stopped.fill_(True)
+    return state, state.Vl
+
+
 def state_splice(state: GreedyState, single: GreedyState,
                  slot: int) -> GreedyState:
     """Write a single-request state (``greedy_slot_state``, same spec and
     geometry) into ``slot`` of a slot-batched state, in place; each leaf
     is cast to the batch leaf's dtype.  Returns ``state``."""
-    _refuse_mesh("state_splice", isinstance(state, ShardedState)
-                 or isinstance(single, ShardedState))
+    _refuse_sharded_splice("state_splice", isinstance(state, ShardedState)
+                           or isinstance(single, ShardedState))
     for b, s in zip(state, single):
         b[slot] = s.to(b.dtype)
     return state
@@ -605,8 +650,20 @@ def state_admit(spec, state: GreedyState, slot: int, V,
     ``state_splice(state, slot_state_widen(spec, greedy_slot_state(spec,
     V, mask), M), slot)`` would write, the gains computed at the
     request's own width as a whole-slate call computes them, at three
-    writes instead of a state's worth of ops.  Returns ``state``."""
-    _refuse_mesh("state_admit", spec.sharded())
+    writes instead of a state's worth of ops.  Returns ``state``.
+
+    On a mesh ``V`` is the rank's shard ``(D, Mloc)`` of the request
+    padded to the slot state's bucket and ``mask`` its selectable columns
+    ``(Mloc,)`` (``serving.sharded_rerank._sharded_kernel`` with the
+    bucket as ``width``), written by :meth:`ShardedState.admit`: the lane
+    then holds the bits of ``greedy_slot_state(spec, V_padded, mask)``
+    on every rank."""
+    if spec.sharded():
+        if mask is None:
+            mask = torch.ones(V.shape[-1:], dtype=torch.bool,
+                              device=V.device)
+        state.admit(slot, V, mask)
+        return state
     m = V.shape[-1]
     if spec.backend == "kernel":
         # init_gains' reduction on (1, D, m) float32: K1's first gains
@@ -626,8 +683,12 @@ def state_admit(spec, state: GreedyState, slot: int, V,
 def state_evict(state: GreedyState, slot: int) -> GreedyState:
     """Park ``slot`` in place: eps-stopped with every candidate at -inf,
     step counter rewound, Cholesky rows zeroed (so a later splice starts
-    from the bits of a fresh single-request state).  Returns ``state``."""
-    _refuse_mesh("state_evict", isinstance(state, ShardedState))
+    from the bits of a fresh single-request state); a sharded state's
+    lane also has its keys zeroed (:meth:`ShardedState.evict`).  Returns
+    ``state``."""
+    if isinstance(state, ShardedState):
+        state.evict(slot)
+        return state
     state.t[slot] = 0
     state.stopped[slot] = True
     state.C[slot] = 0.0
@@ -644,10 +705,17 @@ def greedy_chunk_slots(spec, state: GreedyState, V_slots, chunk: int):
     Returns ``(state, sel (S, chunk), d_hist (S, chunk))`` — parked and
     stopped slots yield -1 / 0.  On the kernel backend this is one K5/K6
     launch for all slots; per-request k, mask and progress live in data.
+    On a mesh it is ``chunk`` steps of the rank's slot
+    :class:`~repro_torch.core.sharded.ShardedState` (one update launch
+    and its collectives a step, every rank together; ``V_slots`` the
+    state's shard), global ids.
     """
-    _refuse_mesh("greedy_chunk_slots", spec.sharded())
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if spec.sharded():
+        record_chunk("sharded", B=V_slots.shape[0], chunk=chunk, M=state.M)
+        return dpp_greedy_sharded_stream_chunk(V_slots, state, chunk,
+                                               eps=spec.eps)
     record_chunk(
         "kernel" if spec.backend == "kernel" else "torch",
         B=V_slots.shape[0],

@@ -35,3 +35,15 @@ def to_device(x, device, dtype=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     return torch.as_tensor(np.asarray(x), device=device, dtype=dtype)
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether ``a`` and ``b`` name one device (a CUDA device without an
+    index is the current card)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == (
+        cur if b.index is None else b.index)

@@ -234,18 +234,30 @@ tiled_step_windowed_kernel(const float* __restrict__ V, float* __restrict__ C,
 // cols_windowed) over the shard's tile with column ids offset by the
 // shard's base, so only the owner (base <= j < base + M) masks its
 // column to -inf.  Each block folds its tile's (max, lowest global
-// index) into the shard's key keys[t + 1, b] with one atomicMax; the
-// caller exchanges the shards' keys.  The same bound and design notes as
+// index) into the shard's key with one atomicMax; the caller exchanges
+// the shards' keys.  The same bound and design notes as
 // K3 / K4 above (one read of the shard's V and live state, one write of
 // row t or the ring a step, device-memory bandwidth bound); warp 0 of
 // the windowed entry takes no columns, as in K4, but has no eviction
 // to derive.  Two kernels of their own, so K3 / K4 stay as they are.
+//
+// Each lane b reads its own step counter t[b] (the continuous-batching
+// router's lanes sit at different depths; the whole slate and the stream
+// pass one value for every lane): it appends Cholesky row t[b] (exact)
+// or ring row min(t[b], w - 1) (windowed) and reads rows [0, t[b]) of
+// its winner's column.  An exact lane whose counter has reached the
+// state's k rows is stopped (it writes no row).  The shard keys hold two
+// rows a lane, used in turn: step t reads row t & 1 (on the host,
+// before the launch), the block of tile 0 zeroes that row and every
+// block folds into row (t + 1) & 1, which the step before zeroed.  So a
+// lane runs any number of steps, and a lane admitted again at t = 0
+// needs only its two keys reset.
 // ---------------------------------------------------------------------------
 
-// Exact update on a shard: V (B, D, M), C (B, k, M) (row t written),
-// d2 (B, M) updated in place; vj (B, D), cj (B, k) (rows [0, t) read),
-// dj (B,), stopped (B,) bool, j (B,) global winner ids; keys (k+1, B)
-// u64, row t + 1 zeroed before the launch.
+// Exact update on a shard: V (B, D, M), C (B, k, M) (row t[b] written),
+// d2 (B, M) updated in place; vj (B, D), cj (B, k) (rows [0, t[b])
+// read), dj (B,), stopped (B,) bool, j (B,) global winner ids, t (B,)
+// step counters; keys (2, B) u64, row (t[b] + 1) & 1 zero.
 __global__ void __launch_bounds__(DPP_THREADS, 2)
 tiled_update_exact_kernel(const float* __restrict__ V, float* __restrict__ C,
                           float* __restrict__ d2,
@@ -254,8 +266,9 @@ tiled_update_exact_kernel(const float* __restrict__ V, float* __restrict__ C,
                           const float* __restrict__ dj_g,
                           const unsigned char* __restrict__ stopped,
                           const int* __restrict__ j_g,
+                          const int* __restrict__ t_g,
                           unsigned long long* __restrict__ keys, int B, int D,
-                          int M, int k, int t, int base, int tile_m) {
+                          int M, int k, int base, int tile_m) {
   extern __shared__ float sm[];
   float* vj = sm;                 // D
   float* cj = vj + D;             // k
@@ -270,7 +283,8 @@ tiled_update_exact_kernel(const float* __restrict__ V, float* __restrict__ C,
   const float* Vb = V + (size_t)b * D * M;
   float* Cb = C + (size_t)b * k * M;
   float* d2b = d2 + (size_t)b * M;
-  const bool stop = stopped[b] != 0;
+  const int t = t_g[b];
+  const bool stop = stopped[b] != 0 || t >= k;
   const int j = j_g[b];
 
   float bv = -INFINITY;
@@ -286,16 +300,19 @@ tiled_update_exact_kernel(const float* __restrict__ V, float* __restrict__ C,
       argmax_merge(bv, bi, d2b[i], base + i);
   }
   block_argmax(bv, bi, redv, redi, &s_mx, &s_am);
-  if (tid == 0)
-    atomicMax(&keys[(size_t)(t + 1) * B + b], pack_key(s_mx, s_am));
+  if (tid == 0) {
+    if (blockIdx.x == 0) keys[(size_t)(t & 1) * B + b] = 0ull;
+    atomicMax(&keys[(size_t)((t + 1) & 1) * B + b], pack_key(s_mx, s_am));
+  }
 }
 
 // Windowed update on a shard: evict with the given Givens pairs
 // cs / sn (B, w-1) where full[b], then append e against the
-// post-eviction ring at row pos.  C (B, w, M) ring, d2 (B, M) updated in
-// place; vj (B, D), cjp (B, w) the winner's post-eviction column, djp
-// (B,) its repaired sqrt gain; stopped, full (B,) bool; j (B,) global
-// winner ids; keys as the exact entry.
+// post-eviction ring at row pos = min(t[b], w - 1).  C (B, w, M) ring,
+// d2 (B, M) updated in place; vj (B, D), cjp (B, w) the winner's
+// post-eviction column, djp (B,) its repaired sqrt gain; stopped, full
+// (B,) bool; j (B,) global winner ids; t (B,) and keys as the exact
+// entry.
 __global__ void __launch_bounds__(DPP_THREADS, 2)
 tiled_update_windowed_kernel(const float* __restrict__ V,
                              float* __restrict__ C, float* __restrict__ d2,
@@ -307,9 +324,9 @@ tiled_update_windowed_kernel(const float* __restrict__ V,
                              const float* __restrict__ cs_g,
                              const float* __restrict__ sn_g,
                              const int* __restrict__ j_g,
+                             const int* __restrict__ t_g,
                              unsigned long long* __restrict__ keys, int B,
-                             int D, int M, int w, int t, int base, int pos,
-                             int tile_m) {
+                             int D, int M, int w, int base, int tile_m) {
   extern __shared__ float sm[];
   float* vj = sm;                  // D
   float* cjp = vj + D;             // w
@@ -326,6 +343,8 @@ tiled_update_windowed_kernel(const float* __restrict__ V,
   const float* Vb = V + (size_t)b * D * M;
   float* Cb = C + (size_t)b * w * M;
   float* d2b = d2 + (size_t)b * M;
+  const int t = t_g[b];
+  const int pos = min(t, w - 1);
   const bool stop = stopped[b] != 0;
   const bool full = full_g[b] != 0;
   const int j = j_g[b];
@@ -350,8 +369,10 @@ tiled_update_windowed_kernel(const float* __restrict__ V,
       argmax_merge(bv, bi, d2b[i], base + i);
   }
   block_argmax(bv, bi, redv, redi, &s_mx, &s_am);
-  if (tid == 0)
-    atomicMax(&keys[(size_t)(t + 1) * B + b], pack_key(s_mx, s_am));
+  if (tid == 0) {
+    if (blockIdx.x == 0) keys[(size_t)(t & 1) * B + b] = 0ull;
+    atomicMax(&keys[(size_t)((t + 1) & 1) * B + b], pack_key(s_mx, s_am));
+  }
 }
 
 // Host entry points: plain C interface for ctypes.  Each returns a
@@ -398,26 +419,26 @@ extern "C" int tiled_update_exact(const float* V, float* C, float* d2,
                                   const float* vj, const float* cj,
                                   const float* dj,
                                   const unsigned char* stopped, const int* j,
-                                  unsigned long long* keys, int B, int D,
-                                  int M, int k, int t, int base, int tile_m,
-                                  int smem, void* stream) {
+                                  const int* t, unsigned long long* keys,
+                                  int B, int D, int M, int k, int base,
+                                  int tile_m, int smem, void* stream) {
   dim3 grid((M + tile_m - 1) / tile_m, B);
   tiled_update_exact_kernel<<<grid, DPP_THREADS, smem,
                               (cudaStream_t)stream>>>(
-      V, C, d2, vj, cj, dj, stopped, j, keys, B, D, M, k, t, base, tile_m);
+      V, C, d2, vj, cj, dj, stopped, j, t, keys, B, D, M, k, base, tile_m);
   return (int)cudaGetLastError();
 }
 
 extern "C" int tiled_update_windowed(
     const float* V, float* C, float* d2, const float* vj, const float* cjp,
     const float* djp, const unsigned char* stopped, const unsigned char* full,
-    const float* cs, const float* sn, const int* j, unsigned long long* keys,
-    int B, int D, int M, int w, int t, int base, int pos, int tile_m,
-    int smem, void* stream) {
+    const float* cs, const float* sn, const int* j, const int* t,
+    unsigned long long* keys, int B, int D, int M, int w, int base,
+    int tile_m, int smem, void* stream) {
   dim3 grid((M + tile_m - 1) / tile_m, B);
   tiled_update_windowed_kernel<<<grid, DPP_THREADS, smem,
                                  (cudaStream_t)stream>>>(
-      V, C, d2, vj, cjp, djp, stopped, full, cs, sn, j, keys, B, D, M, w, t,
-      base, pos, tile_m);
+      V, C, d2, vj, cjp, djp, stopped, full, cs, sn, j, t, keys, B, D, M, w,
+      base, tile_m);
   return (int)cudaGetLastError();
 }

@@ -74,12 +74,12 @@ _SIGNATURES = {
         _F, _I, _P,
     ],
     "tiled_update_exact": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
         _P,
     ],
     "tiled_update_windowed": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-        _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+        _I, _I, _I, _P,
     ],
 }
 # tiled_set_smem's kernel index of each entry (csrc/tiled.cu)
@@ -397,62 +397,104 @@ def step_launcher(kernel: str, operands: tuple, eps: float, tile_m: int):
 # ---------------------------------------------------------------------------
 
 
-def _pack_shard_argmax(d2, base: int, tile_m: int, keys, t: int) -> None:
+def _umax(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The larger of two keys in the kernels' unsigned order (the int64
+    tensors hold u64 bits): the plain version of ``atomicMax``."""
+    flip = -2**63
+    return torch.where((a ^ flip) >= (b ^ flip), a, b)
+
+
+def _pack_shard_argmax(d2, base: int, tile_m: int, keys, t) -> None:
+    """Fold each lane's shard argmax into its key row ``(t + 1) & 1`` (an
+    unsigned max, as the entries' ``atomicMax``) and zero the row
+    ``t & 1`` that its step read, as the entries do."""
     mx, am = _tile_argmax(d2, tile_m)
-    keys[t + 1] = pack_key(mx, am + base)
+    ar = torch.arange(d2.shape[0], device=d2.device)
+    row = (t & 1).to(torch.int64)
+    keys[row, ar] = 0
+    keys[1 - row, ar] = _umax(keys[1 - row, ar], pack_key(mx, am + base))
 
 
-def tiled_update_exact_plain(Vl, C, d2, vj, cj, dj, stopped, j, base: int,
-                             keys, t: int, tile_m: int) -> None:
+def _lane_groups(x: torch.Tensor):
+    """``(value, lanes)`` for each distinct value of the per-lane ``x``:
+    ``lanes`` a slice of every lane when they all share it (the whole
+    slate and the stream), else their indices."""
+    vals = torch.unique(x).tolist()
+    if len(vals) == 1:
+        return [(vals[0], slice(None))]
+    return [(v, torch.nonzero(x == v)[:, 0]) for v in vals]
+
+
+def _prefix_dots(c, C, n):
+    """``c[b, :n_b] @ C[b, :n_b]`` for every lane, ``n (B,)`` per lane:
+    one ``bmm`` over the lanes that share a prefix length."""
+    out = torch.empty((C.shape[0], C.shape[2]), dtype=C.dtype,
+                      device=C.device)
+    for v, lanes in _lane_groups(n):
+        out[lanes] = torch.bmm(c[lanes, None, :v], C[lanes, :v])[:, 0]
+    return out
+
+
+def tiled_update_exact_plain(Vl, C, d2, vj, cj, dj, stopped, j, t,
+                             base: int, keys, tile_m: int) -> None:
     """Plain version of the exact update entry, same operands, updated in
     place: on the column shard ``Vl`` whose first column is global id
-    ``base``, append Cholesky row ``t`` for the winner ``j`` (global ids)
-    from its broadcast columns ``vj`` / ``cj`` and sqrt gain ``dj``,
-    update ``d2`` (the owner masks ``j`` to -inf), leave stopped users as
-    they are, and pack the shard's (max, lowest global index) into
-    ``keys[t + 1]``."""
-    M = Vl.shape[2]
+    ``base``, append Cholesky row ``t[b]`` of each lane for its winner
+    ``j`` (global ids) from the broadcast columns ``vj`` / ``cj`` (rows
+    below ``t[b]``) and sqrt gain ``dj``, update ``d2`` (the owner masks
+    ``j`` to -inf), leave stopped lanes and lanes at ``t[b] >= k`` as
+    they are, and fold the shard's (max, lowest global index) into the
+    lane's key row ``(t + 1) & 1``, zeroing row ``t & 1``."""
+    B, k, M = C.shape
+    ar = torch.arange(B, device=Vl.device)
+    t = t.to(torch.int64)
     lj = torch.bmm(vj[:, None, :], Vl)[:, 0]
-    dots = torch.bmm(cj[:, None, :t], C[:, :t])[:, 0]
+    dots = _prefix_dots(cj, C, t.clamp_max(k))
     e = (lj - dots) / dj[:, None]
-    live = ~stopped[:, None]
-    C[:, t] = torch.where(live, e, C[:, t])
+    live = ~stopped & (t < k)
+    row = t.clamp_max(k - 1)
+    C[ar, row] = torch.where(live[:, None], e, C[ar, row])
     gid = torch.arange(M, device=Vl.device) + base
     d2_next = torch.where(gid == j.to(torch.int64)[:, None], NEG_INF,
                           d2 - e * e)
-    d2.copy_(torch.where(live, d2_next, d2))
+    d2.copy_(torch.where(live[:, None], d2_next, d2))
     _pack_shard_argmax(d2, base, tile_m, keys, t)
 
 
-def tiled_update_exact(Vl, C, d2, vj, cj, dj, stopped, j, base: int, keys,
-                       t: int, tile_m: int) -> None:
-    """The exact update entry: one launch = the local update of greedy
-    step ``t`` on a column shard, over ``(ceil(Mloc / tile_m), B)``
-    blocks.  The counterpart of ``repro``'s ``tiled_update_exact``, with
-    a leading user axis: Vl (B, D, Mloc), C (B, k, Mloc), d2 (B, Mloc)
-    f32; the winner's columns vj (B, D), cj (B, k) (rows < t read),
-    dj (B,) f32; stopped (B,) bool; j (B,) int32 global winner ids;
-    ``base`` the shard's first global id; keys (k+1, B) int64, row
-    ``t + 1`` zero.  C, d2 and keys are updated in place."""
+def tiled_update_exact(Vl, C, d2, vj, cj, dj, stopped, j, t, base: int,
+                       keys, tile_m: int) -> None:
+    """The exact update entry: one launch = the local update of one greedy
+    step on a column shard, over ``(ceil(Mloc / tile_m), B)`` blocks.  The
+    counterpart of ``repro``'s ``tiled_update_exact``, with a leading
+    lane axis and a step counter a lane: Vl (B, D, Mloc), C (B, k, Mloc),
+    d2 (B, Mloc) f32; the winner's columns vj (B, D), cj (B, k) (rows
+    below ``t[b]`` read), dj (B,) f32; stopped (B,) bool; j (B,) int32
+    global winner ids; t (B,) int32 step counters (lane b appends row
+    ``t[b]``; a lane at ``t[b] >= k`` is stopped); ``base`` the shard's
+    first global id; keys (2, B) int64, the two key rows of each lane
+    used in turn (row ``(t + 1) & 1`` zero).  C, d2 and keys are updated
+    in place."""
     if not _cpu_or_cuda(Vl):
-        return tiled_update_exact_plain(Vl, C, d2, vj, cj, dj, stopped, j,
-                                        base, keys, t, tile_m)
-    update_launcher((Vl, C, d2, vj, cj, dj, stopped, j), base, keys,
-                    tile_m)(t)
+        return tiled_update_exact_plain(Vl, C, d2, vj, cj, dj, stopped, j, t,
+                                        base, keys, tile_m)
+    update_launcher((Vl, C, d2, vj, cj, dj, stopped, j, t), base, keys,
+                    tile_m)()
 
 
 def tiled_update_windowed_plain(Vl, C, d2, vj, cjp, djp, stopped, full, cos,
-                                sin, j, base: int, pos: int, keys, t: int,
+                                sin, j, t, base: int, keys,
                                 tile_m: int) -> None:
     """Plain version of the windowed update entry, same operands, updated
     in place: where ``full``, evict the ring's oldest row with the Givens
     pairs ``(cos, sin)`` (from :func:`eviction_coeffs`; the residue
     repairs d2), then append the winner ``j``'s row against the
-    post-eviction ring at row ``pos`` from its broadcast ``vj``, its
-    post-eviction column ``cjp`` and repaired sqrt gain ``djp``; stopped
-    users stay as they are; pack the shard's argmax into ``keys[t+1]``
-    as the exact entry does."""
+    post-eviction ring at row ``pos = min(t[b], w - 1)`` from its
+    broadcast ``vj``, its post-eviction column ``cjp`` and repaired sqrt
+    gain ``djp``; stopped lanes stay as they are; fold the shard's
+    argmax into the keys as the exact entry does."""
     B, w, M = C.shape
+    ar = torch.arange(B, device=Vl.device)
+    pos = t.to(torch.int64).clamp_max(w - 1)
     fc = full[:, None]
     u = torch.where(fc, C[:, 0], 0.0)
     rows = []
@@ -464,9 +506,9 @@ def tiled_update_windowed_plain(Vl, C, d2, vj, cjp, djp, stopped, full, cos,
     Cpost = torch.stack(rows, 1)
     d2e = torch.where(fc, d2 + u * u, d2)
     lj = torch.bmm(vj[:, None, :], Vl)[:, 0]
-    dots = torch.bmm(cjp[:, None, :pos], Cpost[:, :pos])[:, 0]
+    dots = _prefix_dots(cjp, Cpost, pos)
     e = (lj - dots) / djp[:, None]
-    Cpost[:, pos] = e
+    Cpost[ar, pos] = e
     live = ~stopped
     C.copy_(torch.where(live[:, None, None], Cpost, C))
     gid = torch.arange(M, device=Vl.device) + base
@@ -477,25 +519,24 @@ def tiled_update_windowed_plain(Vl, C, d2, vj, cjp, djp, stopped, full, cos,
 
 
 def tiled_update_windowed(Vl, C, d2, vj, cjp, djp, stopped, full, cos, sin,
-                          j, base: int, pos: int, keys, t: int,
-                          tile_m: int) -> None:
+                          j, t, base: int, keys, tile_m: int) -> None:
     """The windowed update entry: one launch = the local evict + append of
-    greedy step ``t`` on a column shard.  The counterpart of ``repro``'s
-    ``tiled_update_windowed``, with a leading user axis: C (B, w, Mloc)
+    one greedy step on a column shard.  The counterpart of ``repro``'s
+    ``tiled_update_windowed``, with a leading lane axis: C (B, w, Mloc)
     ring; cjp (B, w) the winner's post-eviction column, djp (B,) its
     repaired sqrt gain; full (B,) bool (evict this step); cos, sin
-    (B, w - 1) the Givens pairs; ``pos`` the ring row receiving the
-    append; the rest as :func:`tiled_update_exact`."""
+    (B, w - 1) the Givens pairs; lane b appends at ring row
+    ``min(t[b], w - 1)``; the rest as :func:`tiled_update_exact`."""
     if not _cpu_or_cuda(Vl):
         return tiled_update_windowed_plain(Vl, C, d2, vj, cjp, djp, stopped,
-                                           full, cos, sin, j, base, pos,
-                                           keys, t, tile_m)
-    update_launcher((Vl, C, d2, vj, cjp, djp, stopped, full, cos, sin, j),
-                    base, keys, tile_m)(t, pos)
+                                           full, cos, sin, j, t, base, keys,
+                                           tile_m)
+    update_launcher((Vl, C, d2, vj, cjp, djp, stopped, full, cos, sin, j, t),
+                    base, keys, tile_m)()
 
 
 def _require_update(operands, keys) -> None:
-    windowed = len(operands) == 11
+    windowed = len(operands) == 12
     Vl, C, d2, vj, cj, dj, stopped = operands[:7]
     B, D, M = Vl.shape
     rows = C.shape[1]
@@ -506,8 +547,9 @@ def _require_update(operands, keys) -> None:
     cuda.require(cj, "cjp" if windowed else "cj", torch.float32, (B, rows))
     cuda.require(dj, "djp" if windowed else "dj", torch.float32, (B,))
     cuda.require(stopped, "stopped", torch.bool, (B,))
-    cuda.require(operands[-1], "j", torch.int32, (B,))
-    cuda.require(keys, "keys", torch.int64, (keys.shape[0], B))
+    cuda.require(operands[-2], "j", torch.int32, (B,))
+    cuda.require(operands[-1], "t", torch.int32, (B,))
+    cuda.require(keys, "keys", torch.int64, (2, B))
     if windowed:
         full, cos, sin = operands[7:10]
         cuda.require(full, "full", torch.bool, (B,))
@@ -516,26 +558,25 @@ def _require_update(operands, keys) -> None:
 
 
 def update_launcher(operands: tuple, base: int, keys, tile_m: int):
-    """``step(t, pos=None)``: the update entry of one greedy step on a
-    column shard, exact (``operands = (Vl, C, d2, vj, cj, dj, stopped,
-    j)``) or windowed (``(Vl, C, d2, vj, cjp, djp, stopped, full, cos,
-    sin, j)``, ``pos`` the append row), writing ``keys[t + 1]``.
+    """``step()``: the update entry of one greedy step on a column shard,
+    exact (``operands = (Vl, C, d2, vj, cj, dj, stopped, j, t)``) or
+    windowed (``(Vl, C, d2, vj, cjp, djp, stopped, full, cos, sin, j,
+    t)``), folding into ``keys (2, B)``.
 
-    The caller refills the winner's buffers in place before each step,
-    so for CUDA tensors the operands are checked, the pointers, the
-    shared-memory size and stream worked out and the kernel's
-    shared-memory limit raised here, once (as :func:`step_launcher`
-    does for K3 / K4): a step is one ctypes call and its launch count.
-    For CPU tensors each step runs the entry's plain version."""
-    windowed = len(operands) == 11
+    The caller refills the winner's buffers and advances the step
+    counters ``t`` in place between steps, so for CUDA tensors the
+    operands are checked, the pointers, the shared-memory size and
+    stream worked out and the kernel's shared-memory limit raised here,
+    once (as :func:`step_launcher` does for K3 / K4): a step is one
+    ctypes call and its launch count.  For CPU tensors each step runs
+    the entry's plain version."""
+    windowed = len(operands) == 12
     kernel = "tiled_update_windowed" if windowed else "tiled_update_exact"
     Vl = operands[0]
     if not _cpu_or_cuda(Vl):
-        if windowed:
-            return lambda t, pos: tiled_update_windowed_plain(
-                *operands, base, pos, keys, t, tile_m)
-        return lambda t, pos=None: tiled_update_exact_plain(
-            *operands, base, keys, t, tile_m)
+        plain = (tiled_update_windowed_plain if windowed
+                 else tiled_update_exact_plain)
+        return lambda: plain(*operands, base, keys, tile_m)
     _require_update(operands, keys)
     B, D, M = Vl.shape
     rows = operands[1].shape[1]
@@ -544,15 +585,12 @@ def update_launcher(operands: tuple, base: int, keys, tile_m: int):
     cuda.raise_smem(lib, "tiled_set_smem", _SMEM_WHICH[kernel], smem,
                     Vl.device)
     fn = getattr(lib, kernel)
-    head = tuple(x.data_ptr() for x in operands + (keys,)) + (B, D, M, rows)
-    last = keys.shape[0] - 1
+    args = tuple(x.data_ptr() for x in operands + (keys,)) + (
+        B, D, M, rows, base, tile_m, smem)
     count = cuda.count_launch
 
-    def step(t: int, pos=None) -> None:
-        if not 0 <= t < last:
-            raise ValueError(f"step t={t} outside [0, {last})")
-        mid = (t, base, pos) if windowed else (t, base)
-        err = fn(*head, *mid, tile_m, smem, cuda.stream_ptr(Vl))
+    def step(_operands=operands) -> None:  # the pointers' tensors live on
+        err = fn(*args, cuda.stream_ptr(Vl))
         count(kernel)
         if err:
             cuda.check(err, kernel)

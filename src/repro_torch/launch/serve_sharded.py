@@ -36,6 +36,33 @@ included.  The record gets ``repro``'s ``stream`` keys (``chunk_size``,
 under ``--check``, ``check``) and, per rank, the stream's launches and
 collectives.
 
+``--router N`` serves N single requests instead through the
+continuous-batching router on the mesh (``Reranker.submit`` /
+``RerankRouter`` with ``cfg.mesh``), one router a window, ``--slots``
+lanes advancing ``--chunk`` steps a pump, ``repro``'s router on a mesh
+(its ``test_router_multidevice_sharded_parity``).  Every rank builds the
+same requests: from ``--seed``, pools of log-uniform size up to
+``--candidates`` (the router's bucket) drawn from one catalog, uniform
+scores, a 10% seen mask on every third, and ``--deadline`` seconds each
+(0: none); or from ``--inputs``, whose ``scores (N, M)`` / ``mask`` rows
+are the requests, cut to ``sizes (N,)`` columns and given ``deadlines
+(N,)`` (0: none) when the file has them.  Request i's slate size is
+``k // 2`` to ``k`` of the window's ``--slate k``, from ``--seed``.
+Every rank submits them in the same order and pumps until every handle
+is done, once to warm and once measured.  Deadlines are decided on rank
+0 alone and replicated to every rank (``serving.router``), so every
+rank's handles, ``timed_out`` flags included, must equal rank 0's, bit
+for bit.  ``--check`` also serves each request through the per-request
+sharded ``Reranker.rerank`` on the same ranks: each slate must equal
+its ids (a timed-out slate their prefix), and ``rerank_max_abs_diff``
+records the largest ``d_hist`` difference.  Each run's record adds
+``pumps``, each rank's mean host wall a pump by span
+(``router.pump`` and its ``sync`` / ``decide`` / ``evict`` / ``admit``
+/ ``launch`` / ``materialize`` children; ``decide`` is the decision
+collective's), its ``decisions`` (the collective's calls), the update
+launches and the TTFC of every handle; ``indices``, ``d_hist`` (padded with -1 / 0 to ``k``) and
+``timed_out`` are rank 0's.
+
 Prints one JSON record: ``repro``'s keys for the first window, and under
 ``runs`` one entry a window with rank 0's slate (``indices``,
 ``d_hist``) and, per rank, its host wall, its collectives' host seconds
@@ -74,6 +101,20 @@ def _parser():
     ap.add_argument("--stream", type=int, default=0,
                     help="also stream the slate in chunks of this size "
                          "(0 = whole slate only)")
+    ap.add_argument("--router", type=int, default=0,
+                    help="serve this many single requests through the "
+                         "continuous-batching router on the mesh instead "
+                         "(0 = the whole-slate rerank); deadlines are "
+                         "decided on rank 0 and sent to every rank; the "
+                         "record adds pumps, pump_us by span, decisions, "
+                         "launches and ttfc_s per rank")
+    ap.add_argument("--slots", type=int, default=8,
+                    help="--router: the router's lanes")
+    ap.add_argument("--chunk", type=int, default=8,
+                    help="--router: greedy steps a pump")
+    ap.add_argument("--deadline", type=float, default=0.0,
+                    help="--router: seconds each request may take "
+                         "(0 = none; --inputs may give one each)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--inputs", default="",
                     help="an .npz with scores (B, M), feats (M, D) and "
@@ -81,7 +122,8 @@ def _parser():
                          "--seed's draw")
     ap.add_argument("--check", action="store_true",
                     help="rank 0 holds the slate against the single-device "
-                         "rerank")
+                         "rerank (--router: every rank holds each slate "
+                         "against the per-request sharded rerank)")
     ap.add_argument("--timeout", type=float, default=600.0,
                     help="seconds for the whole run, each collective too")
     ap.add_argument("--metrics-out", default="")
@@ -137,6 +179,13 @@ def _serve_rank(args) -> None:
     init_group(args.backend, args.rank, args.devices, args.init_file,
                args.timeout, dev)
     mesh = make_mesh(device=dev)
+    if args.router:
+        runs = [_router_run(args, mesh, dev, w, k)
+                for w, k in zip(args.window, args.slate)]
+        Path(args.out).write_text(json.dumps(
+            {"rank": args.rank, "device": str(dev), "runs": runs}))
+        leave_group()
+        return
     scores, feats, mask = _request(args)
     B, M = scores.shape
     single = B == 1
@@ -240,6 +289,173 @@ def _stream_run(args, rr, req, dev, mesh, sel, dh, t_steady) -> dict:
             "collectives": colls, "launches": launches}
 
 
+PUMP_SPANS = ("sync", "decide", "evict", "admit", "launch", "materialize")
+
+
+def _router_requests(args, dev, k):
+    """The ``--router`` requests, the same on every rank: a list of
+    ``RerankRequest`` on ``dev`` with slate sizes in ``[k // 2, k]``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import RerankRequest
+
+    n = args.router
+    rng = np.random.default_rng(args.seed)
+    if args.inputs:
+        with np.load(args.inputs) as z:
+            scores, feats = z["scores"], z["feats"]
+            mask = z["mask"] if "mask" in z.files else None
+            M = scores.shape[1]
+            sizes = z["sizes"] if "sizes" in z.files else np.full(n, M)
+            dls = (z["deadlines"] if "deadlines" in z.files
+                   else np.full(n, args.deadline))
+        if scores.shape[0] < n:
+            raise SystemExit(f"--inputs holds {scores.shape[0]} requests, "
+                             f"--router asks for {n}")
+    else:
+        M, D = args.candidates, args.dim
+        feats = rng.normal(size=(M, D)).astype(np.float32)
+        feats /= np.maximum(np.linalg.norm(feats, axis=1, keepdims=True),
+                            1e-12)
+        scores = rng.uniform(size=(n, M)).astype(np.float32)
+        mask = rng.uniform(size=(n, M)) >= 0.1
+        mask[np.arange(n) % 3 != 2] = True
+        lo = max(2 * k, M // 16)
+        sizes = np.exp(rng.uniform(np.log(lo), np.log(M), size=n)).astype(
+            np.int64)
+        dls = np.full(n, args.deadline)
+    ks = k // 2 + np.round(rng.uniform(size=n) * (k - k // 2)).astype(int)
+    catalog = torch.from_numpy(np.ascontiguousarray(feats)).to(dev)
+    reqs = []
+    for i in range(n):
+        m = int(min(sizes[i], M))
+        reqs.append(RerankRequest(
+            scores=torch.from_numpy(scores[i, :m].copy()).to(dev),
+            feats=catalog[:m],
+            mask=None if mask is None else torch.from_numpy(
+                mask[i, :m].copy()).to(dev),
+            slate_size=int(ks[i]),
+            deadline=float(dls[i]) if dls[i] > 0 else None, rid=i))
+    return reqs, M
+
+
+def _router_run(args, mesh, dev, w, k) -> dict:
+    """``--router``: one window's requests through the router on the mesh
+    (warm, then measured), and, under ``--check``, each against the
+    per-request sharded rerank on the same ranks."""
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.kernels import cuda
+    from repro_torch.serving import DPPRerankConfig, Reranker, RouterConfig
+
+    reqs, M = _router_requests(args, dev, k)
+    cfg = DPPRerankConfig(slate_size=k, shortlist=args.shortlist or M,
+                          alpha=args.alpha, eps=args.eps, window=w or None,
+                          mesh=mesh)
+    rcfg = RouterConfig(slots=args.slots, chunk_size=args.chunk,
+                        max_queue=len(reqs), max_candidates=M)
+
+    def serve():
+        rr = Reranker(cfg, router_config=rcfg, device=dev)
+        handles = [rr.submit(r) for r in reqs]
+        pumps = 0
+        while not all(h.done for h in handles):
+            rr.router.pump()
+            pumps += 1
+        rr.router.drain()  # the last chunk's copies
+        _sync(dev)
+        return rr, handles, pumps
+
+    serve()  # warm: the kernels' library, the first collectives
+    obs.disable()
+    obs.enable(obs.ObsConfig(enabled=True))
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    rr, handles, pumps = serve()
+    wall = time.perf_counter() - t0
+    launches = cuda.launch_counts()
+    spans = obs.tracer().finished()
+    obs.disable()
+    router = rr.router
+    n_pump = sum(1 for sp in spans if sp["name"] == "router.pump")
+    split = {"pump": sum(sp["dur_us"] for sp in spans
+                         if sp["name"] == "router.pump") / n_pump}
+    split.update({p: sum(sp["dur_us"] for sp in spans
+                         if sp["name"] == f"router.pump.{p}") / n_pump
+                  for p in PUMP_SPANS})
+    ids = np.full((len(reqs), k), -1, np.int64)
+    dh = np.zeros((len(reqs), k), np.float32)
+    for i, h in enumerate(handles):
+        gi, gd = h.slate()
+        ids[i, :len(gi)], dh[i, :len(gd)] = gi, gd
+    run = {
+        "window": w or None, "requests": len(reqs), "pumps": pumps,
+        "wall_s": wall, "pump_us": split,
+        "decisions": sum(1 for sp in spans
+                         if sp["name"] == "router.pump.decide"),
+        "launches": launches,
+        "chunks_launched": router.stats.chunks_launched,
+        "ttfc_s": [h.ttfc for h in handles],
+        "timed_out": [h.timed_out for h in handles],
+        "delivered": [h.delivered for h in handles],
+        "slate_sizes": [r.slate_size for r in reqs],
+        "indices": ids.tolist(), "d_hist": dh.tolist(),
+    }
+    if args.check:
+        err = 0.0
+        for i, (req, h) in enumerate(zip(reqs, handles)):
+            sel, d = rr.rerank(req)
+            sel, d = sel.cpu().numpy(), d.cpu().numpy()
+            gi, gd = h.slate()
+            if not np.array_equal(gi, sel[:len(gi)]) or (
+                    not h.timed_out and len(gi) != len(sel)):
+                raise AssertionError(
+                    f"window {w}: request {i}'s router slate differs from "
+                    f"its sharded rerank")
+            if len(gi):
+                err = max(err, float(np.abs(gd - d[:len(gd)]).max()))
+        run["check"] = "ok (each slate the per-request sharded rerank's)"
+        run["rerank_max_abs_diff"] = err
+    return run
+
+
+def _merge_router(args, parts) -> dict:
+    """The ``--router`` record from the ranks' records; raises unless every
+    rank's handles equal rank 0's bit for bit."""
+    runs = []
+    for i, w in enumerate(args.window):
+        mine = [p["runs"][i] for p in parts]
+        head = mine[0]
+        for r, run in enumerate(mine[1:], 1):
+            for key in ("indices", "d_hist", "timed_out", "delivered",
+                        "pumps"):
+                if run[key] != head[key]:
+                    raise AssertionError(
+                        f"window {w}: rank {r}'s {key} differ from rank 0's")
+        runs.append({
+            **{key: head[key] for key in (
+                "window", "requests", "pumps", "slate_sizes", "timed_out",
+                "delivered", "indices", "d_hist")},
+            "slate": args.slate[i], "ranks_agree": True,
+            **{key: head[key] for key in ("check", "rerank_max_abs_diff")
+               if key in head},
+            "ranks": [{"rank": p["rank"], "device": p["device"],
+                       **{key: run[key] for key in (
+                           "wall_s", "pump_us", "decisions",
+                           "launches", "chunks_launched", "ttfc_s")}}
+                      for p, run in zip(parts, mine)],
+        })
+    return {"devices": args.devices, "backend": args.backend,
+            "device": args.device, "router": args.router,
+            "slots": args.slots, "chunk": args.chunk,
+            "window": [w or None for w in args.window],
+            "shortlist": args.shortlist or None, "eps": args.eps,
+            "runs": runs}
+
+
 _STREAM_KEYS = ("chunk_size", "first_chunk_s", "stream_total_s",
                 "first_chunk_vs_whole")
 
@@ -337,6 +553,8 @@ def main(argv=None):
             (B, M), D = z["scores"].shape, z["feats"].shape[1]
     if args.stream and B > 1:
         raise SystemExit("--stream serves a single request; keep --batch 1")
+    if args.router < 0 or (args.router and args.stream):
+        raise SystemExit("--router takes a request count, without --stream")
     argv = list(sys.argv[1:] if argv is None else argv)
     with tempfile.TemporaryDirectory() as tmp:
         def rank_argv(r):
@@ -352,7 +570,8 @@ def main(argv=None):
             raise SystemExit(1) from None
         parts = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
                  for r in range(args.devices)]
-    out = _merge(args, parts, M, D, B)
+    out = (_merge_router(args, parts) if args.router
+           else _merge(args, parts, M, D, B))
     print(json.dumps(out), flush=True)
     if args.metrics_out:
         Path(args.metrics_out).write_text(json.dumps(out))

@@ -23,9 +23,12 @@ launch per cycle for every live request) and returns a ``SlateHandle``.
 ``session`` opens a stateful feed over one request
 (``repro_torch.serving.session``: one K6 launch per ``next_chunk``,
 O(w * dM) ``extend`` / ``rescore`` delta updates, LRU eviction and
-rebuild from host mirrors).  On a mesh ``submit`` (the router's mesh
-branch, ROADMAP item 9b) raises ``NotImplementedError``, and so does
-``session``, as ``repro`` refuses sessions over sharded pools.
+rebuild from host mirrors).  On a mesh ``submit`` serves through the
+router on the mesh's device (every rank submits the same requests in
+the same order and pumps together; decisions that read a clock are made
+on rank 0 and sent to the others), and ``session`` raises
+``NotImplementedError``, as ``repro`` refuses sessions over sharded
+pools.
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ from repro_torch.core.streaming import (
     resolve_chunk,
     slot_pad_v,
 )
-from repro_torch.device import resolve_device, to_device
+from repro_torch.device import resolve_device, same_device, to_device
 from repro_torch.serving.reranker import DPPRerankConfig, _shortlist_kernel
 
 
@@ -162,8 +165,8 @@ class Reranker:
             )
         self.cfg = cfg
         self.device = resolve_device(device)
-        if cfg.mesh is not None and not _same_device(cfg.mesh.device,
-                                                     self.device):
+        if cfg.mesh is not None and not same_device(cfg.mesh.device,
+                                                    self.device):
             raise ValueError(
                 f"cfg.mesh keeps its shards on {cfg.mesh.device}, but the "
                 f"session serves on {self.device}: pass device="
@@ -359,16 +362,6 @@ class Reranker:
         ``handle.result()`` (or pump the router) to drive it."""
         req = self._as_request(req, kwargs)
         return self.router.submit(req)
-
-
-def _same_device(a: torch.device, b: torch.device) -> bool:
-    if a.type != b.type:
-        return False
-    if a.type != "cuda":
-        return True
-    cur = torch.cuda.current_device()
-    return (cur if a.index is None else a.index) == (
-        cur if b.index is None else b.index)
 
 
 def _sharded_rerank_impl(scores, feats, cfg, mask):

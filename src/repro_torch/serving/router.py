@@ -52,6 +52,31 @@ refuses with a ``ValueError`` naming the largest ``slots`` that fits.
 It never splits the slots across launches and has no CPU fallback: the
 device is the session's.
 
+**On a candidate-sharded mesh** (``cfg.mesh``, ``repro``'s router on a
+mesh) the slot batch is each rank's slot
+``repro_torch.core.sharded.ShardedState`` on the mesh's device: a lane's
+bucket is the request's full candidate axis (``max_candidates`` bounds
+``num_candidates``, not the shortlist), split over the ranks at the
+bucket's width so that a column has one owner in every lane; admission
+builds the rank's shard of the lane through the sharded shortlist
+(``serving.sharded_rerank._sharded_kernel``) and writes it in place, and
+the ids it returns are global already.  A cycle is ``chunk_size`` steps
+of the shard-local update entries of K3/K4, each lane at its own step
+counter, with each step's two collectives.  Every rank runs the same
+router: it submits the same requests in the same order and pumps
+together, so every rank admits, evicts and launches the same lanes, or
+the step's collectives would pair different requests.  FIFO order,
+``RouterQueueFull`` and the eps-stops are the same on every rank by
+construction (the stop flags come from the replicated global argmax);
+deadlines are not, since each rank reads its own clock.  So the
+deadline decisions of a pump (the active lanes that expired, the queued
+requests that ``_admit`` finishes as timed out) are made on rank 0 and
+sent to every rank in one fixed-size all-reduce (``slots + max_queue``
+flags) before any rank acts on them; no rank sends it when no live or
+queued request has a deadline, which every rank knows alike.  Its span,
+``router.pump.decide``, reads its host time and calls.  TTFC, the
+submit times and the spans stay each rank's own.
+
 **Observability.**  The router's counters live in a
 ``repro_torch.obs.MetricsRegistry`` (the process-global one when an
 observability session is installed, ``RouterConfig.obs`` /
@@ -85,11 +110,13 @@ from repro_torch.core.streaming import (
     state_admit,
     state_evict,
 )
-from repro_torch.device import resolve_device, to_device
+from repro_torch.device import resolve_device, same_device, to_device
+from repro_torch.distributed.context import all_reduce_sum
 from repro_torch.kernels.dpp_greedy.tiled import chunk_capacity
 from repro_torch.kernels.dpp_greedy.tiling import TilePolicy
 from repro_torch.obs import MetricsRegistry, ObsConfig
 from repro_torch.serving.reranker import DPPRerankConfig, _shortlist_kernel
+from repro_torch.serving.sharded_rerank import _sharded_kernel
 
 _log = logging.getLogger(__name__)
 
@@ -339,14 +366,15 @@ class RerankRouter:
     def __init__(self, cfg: DPPRerankConfig,
                  router_config: Optional[RouterConfig] = None,
                  device="cuda"):
-        if cfg.mesh is not None:
-            raise NotImplementedError(
-                "the router over a candidate-sharded mesh (cfg.mesh) is not "
-                "ported yet (ROADMAP queue 1 item 9b)"
-            )
         self.cfg = cfg
         self.rcfg = router_config or RouterConfig()
         self.device = resolve_device(device)
+        if cfg.mesh is not None and not same_device(cfg.mesh.device,
+                                                    self.device):
+            raise ValueError(
+                f"cfg.mesh keeps its shards on {cfg.mesh.device}, but the "
+                f"router serves on {self.device}"
+            )
         self.capacity = (
             self.rcfg.max_slate if self.rcfg.max_slate is not None
             else cfg.slate_size
@@ -452,8 +480,9 @@ class RerankRouter:
         shortlist = (
             req.shortlist if req.shortlist is not None else self.cfg.shortlist
         )
-        # RerankRouter refuses cfg.mesh, so the width is the shortlist
-        width = min(shortlist, req.num_candidates)
+        # on a mesh a lane holds the request's full candidate axis
+        width = (req.num_candidates if self.cfg.mesh is not None
+                 else min(shortlist, req.num_candidates))
         if width > self.bucket:
             raise ValueError(
                 f"request needs {width} candidate columns, over the "
@@ -471,7 +500,8 @@ class RerankRouter:
         # the resident slot batch's dtype: the feats' promoted with the
         # float32 relevance weights (bf16/f16 -> f32, f64 stays f64), so
         # no lane is silently rounded through another precision
-        dt = torch.promote_types(_dtype_of(req.feats), torch.float32)
+        dt = (torch.float32 if self.cfg.mesh is not None  # the sharded path's
+              else torch.promote_types(_dtype_of(req.feats), torch.float32))
         if self._dtype is None:
             self._dtype = dt
         elif dt != self._dtype:
@@ -522,10 +552,19 @@ class RerankRouter:
 
     def _prep(self, live: _Live):
         """Admission prep: the shortlist.  Returns ``(V (D, m), mask (m,)
-        or None)`` at the request's own width."""
+        or None)`` at the request's own width; on a mesh the rank's shard
+        ``(D, Mloc)`` of the request padded to the bucket and its
+        selectable columns (every rank runs the shortlist's all-gather
+        here, in the same order)."""
         req, cfg = live.req, self._cfg_for(live.req)
         mask = (None if req.mask is None
                 else self._tensor(req.mask, torch.bool)[None])
+        if self.cfg.mesh is not None:
+            Vl, ml, _ = _sharded_kernel(
+                self._tensor(req.scores)[None], self._tensor(req.feats), cfg,
+                mask, width=self.bucket)
+            live.top_i = None  # sharded ids are global already
+            return Vl[0], ml[0]
         V, m, top_i = _shortlist_kernel(
             self._tensor(req.scores)[None], self._tensor(req.feats), cfg, mask
         )
@@ -533,12 +572,15 @@ class RerankRouter:
         live.top_i = top_i[0].cpu().numpy()
         return V[0], None if m is None else m[0]
 
-    def _admit(self, now: float):
-        """FIFO admission into free slots; expired queued requests are
-        finished (empty partial, timed_out) without ever occupying one."""
-        while self._queue and self._free:
+    def _admit(self, late: List[bool]):
+        """FIFO admission into free slots; expired queued requests
+        (``late``, by queue position: :meth:`_decide`) are finished (empty
+        partial, timed_out) without ever occupying one."""
+        for expired in late:
+            if not (self._queue and self._free):
+                break
             live = self._queue.popleft()
-            if live.deadline_at is not None and now > live.deadline_at:
+            if expired:
                 live.handle._finish(timed_out=True)
                 self._count("timed_out")
                 continue
@@ -554,9 +596,11 @@ class RerankRouter:
             V, mask = self._prep(live)
             # a parked slot is zero past the request's width (V) and
             # parked there (never selectable): the lane's gains are the
-            # bits a per-request rerank starts from
+            # bits a per-request rerank starts from.  On a mesh V is the
+            # lane's whole shard, written by state_admit itself
             state_admit(self.spec, self._state, slot, V, mask)
-            self._V[slot, :, : V.shape[-1]] = V
+            if self.cfg.mesh is None:
+                self._V[slot, :, : V.shape[-1]] = V
             self._active[slot] = live
             self._count("admitted")
 
@@ -605,17 +649,47 @@ class RerankRouter:
 
     def _evict(self, slot: int):
         state_evict(self._state, slot)
-        self._V[slot] = 0.0
+        if self.cfg.mesh is None:  # a sharded admit writes the whole shard
+            self._V[slot] = 0.0
         del self._active[slot]
         self._free.append(slot)
+
+    def _decide(self, now: float):
+        """The pump's deadline decisions: ``(expired active slots, [queued
+        request expired, by queue position])``.  On a mesh of several
+        ranks rank 0 decides on its clock and one all-reduce of
+        ``slots + max_queue`` flags hands every rank the same answer;
+        without a deadline among the live and queued requests (the same
+        on every rank) nothing is sent."""
+        slots = sorted(self._active)
+        due = [self._active[s].deadline_at for s in slots] + [
+            live.deadline_at for live in self._queue]
+        if all(d is None for d in due):
+            return set(), [False] * len(self._queue)
+        late = [d is not None and now > d for d in due]
+        mesh = self.cfg.mesh
+        if mesh is not None and mesh.size > 1:
+            with obs.span("router.pump.decide", flags=len(due)):
+                n = self.rcfg.slots
+                at = slots + [n + i for i in range(len(self._queue))]
+                flags = torch.zeros((n + self.rcfg.max_queue,),
+                                    dtype=torch.int32, device=mesh.device)
+                if mesh.rank == 0:
+                    flags[at] = torch.tensor(late, dtype=torch.int32,
+                                             device=mesh.device)
+                flags = all_reduce_sum(mesh, flags).tolist()
+                late = [flags[i] > 0 for i in at]
+        return ({s for s, x in zip(slots, late) if x},
+                late[len(slots):])
 
     def pump(self):
         """One router cycle.
 
-        Wait for the previous chunk's host copies -> evict finished /
-        eps-stopped / expired lanes -> admit from the queue -> launch
-        the next chunk (async) -> deliver the previous chunk's
-        selections from host memory while the card computes the next.
+        Decide the deadlines (:meth:`_decide`) -> wait for the previous
+        chunk's host copies -> evict finished / eps-stopped / expired
+        lanes -> admit from the queue -> launch the next chunk (async) ->
+        deliver the previous chunk's selections from host memory while
+        the card computes the next.
 
         Each phase runs inside its own span (``router.pump.sync`` /
         ``.evict`` / ``.admit`` / ``.launch`` / ``.materialize``) under
@@ -623,7 +697,7 @@ class RerankRouter:
         observability is off.
         """
         with obs.span("router.pump"):
-            now = time.monotonic()
+            expired_slots, late = self._decide(time.monotonic())
             prev = self._inflight
             deliveries: list = []
             evictions: List[int] = []
@@ -637,9 +711,7 @@ class RerankRouter:
                 for slot, live in sorted(self._active.items()):
                     consume = min(self.chunk, live.k - live.count)
                     lane_stopped = bool(stopped[slot])
-                    expired = (
-                        live.deadline_at is not None and now > live.deadline_at
-                    )
+                    expired = slot in expired_slots
                     complete = live.count + consume >= live.k
                     deliveries.append(
                         (slot, live, consume, lane_stopped, expired, complete)
@@ -650,7 +722,7 @@ class RerankRouter:
                 for slot in evictions:
                     self._evict(slot)
             with obs.span("router.pump.admit", queued=len(self._queue)):
-                self._admit(now)
+                self._admit(late)
             with obs.span("router.pump.launch", lanes=len(self._active)):
                 nxt = self._launch()  # async: the card starts chunk N+1
             # ... while the host unpacks chunk N
@@ -661,9 +733,10 @@ class RerankRouter:
                 for slot, live, consume, lane_stopped, expired, complete in (
                         deliveries):
                     idx = sel_np[slot, :consume].astype(np.int32)
-                    idx = np.where(
-                        idx >= 0, live.top_i[np.clip(idx, 0, None)], -1
-                    ).astype(np.int32)
+                    if live.top_i is not None:
+                        idx = np.where(
+                            idx >= 0, live.top_i[np.clip(idx, 0, None)], -1
+                        ).astype(np.int32)
                     first = live.handle.ttfc is None
                     live.handle._deliver(
                         idx, dh_np[slot, :consume].astype(live.handle._dt),

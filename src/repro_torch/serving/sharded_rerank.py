@@ -37,19 +37,26 @@ from repro_torch.core.sharded import (
 from repro_torch.distributed.context import shard_bounds
 
 
-def _sharded_kernel(scores, feats, cfg, mask):
+def _sharded_kernel(scores, feats, cfg, mask, width=None):
     """This rank's shard of the masked shortlist and of the scaled
     features.  scores (B, M); feats (M, D) shared or (B, M, D) per user;
     mask (B, M) bool or None; all on the mesh's device.  Returns
     ``(Vl (B, D, Mloc) float32, selectable mask (B, Mloc), base)``:
-    columns ``[base, base + Mloc)``, padded past M."""
+    columns ``[base, base + Mloc)`` of the request padded (mask False,
+    relevance 0) to ``width >= M`` columns (default M) and split over
+    the mesh at that width.  The router passes its bucket, so a column
+    has the same owner in every lane; the shortlist is the request's
+    own either way."""
     if cfg.mesh is None:
         raise ValueError(
             "the sharded rerank path needs cfg.mesh (see DPPRerankConfig)"
         )
     B, M = scores.shape
     C = min(cfg.shortlist, M)
-    base, Mloc = shard_bounds(M, cfg.mesh)
+    if width is not None and width < M:
+        raise ValueError(f"a request of {M} candidates does not fit a "
+                         f"width of {width}")
+    base, Mloc = shard_bounds(M if width is None else width, cfg.mesh)
     selectable = local_columns(
         torch.ones_like(scores, dtype=torch.bool) if mask is None else mask,
         base, Mloc, False)

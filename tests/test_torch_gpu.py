@@ -59,9 +59,12 @@ evicted; a session's launcher launches on the stream current at each
 call, not the one it was built on.
 
 The candidate-sharded path on a one-rank group: the update entries
-against their plain versions and K3/K4; its stream's chunks (and
-``Reranker.stream`` on a card mesh) against the whole sharded slate bit
-for bit, one update launcher a stream and one launch a step.
+against their plain versions (four lanes at their own step counters,
+one stopped, an exact one at the state's k rows) and K3/K4; its
+stream's chunks (and ``Reranker.stream`` on a card mesh) against the
+whole sharded slate bit for bit, one update launcher a stream and one
+launch a step; the router on a card mesh against the per-request
+sharded rerank bit for bit, ``chunk`` update launches a pump.
 """
 import importlib
 
@@ -1062,31 +1065,43 @@ def test_session_launches_on_the_current_stream(card):
 # ---------------------------------------------------------------------------
 
 
+def _update_lanes(windowed, rows, t):
+    """Each lane's step counter: lane 0 at ``t``, lane 1 (stopped) and
+    lane 2 shallower, lane 3 exact at the state's k rows (latched) or,
+    windowed, deeper with its ring full."""
+    last = rows if not windowed else t + rows + 1
+    return [t, max(t - 2, 0), t // 2, last]
+
+
 def _update_operands(windowed, D, M, rows, t, base, seed):
-    """Three lanes on a shard whose first global id is ``base``: lane 0
-    owns its winner, lane 1 is stopped, lane 2's winner lies on another
-    shard.  Returns the entry's operands on the CPU."""
+    """Four lanes at their own depths (:func:`_update_lanes`) on a shard
+    whose first global id is ``base``: lane 0 owns its winner, lane 1 is
+    stopped, lanes 2 and 3's winners lie on another shard.  Returns the
+    entry's operands on the CPU."""
     rng = np.random.default_rng(seed)
-    B = 3
+    B = 4
     f32 = np.float32
+    ts = np.array(_update_lanes(windowed, rows, t), np.int32)
     V = (rng.standard_normal((B, D, M)) / np.sqrt(D)).astype(f32)
     C = (0.1 * rng.standard_normal((B, rows, M))).astype(f32)
     cj = (0.1 * rng.standard_normal((B, rows))).astype(f32)
     if not windowed:
-        C[:, t:] = 0.0
-        cj[:, t:] = 0.0
+        for b, tb in enumerate(ts):
+            C[b, tb:] = 0.0
+            cj[b, tb:] = 0.0
     d2 = (1.0 + rng.uniform(size=(B, M))).astype(f32)
     d2[rng.uniform(size=(B, M)) < 0.1] = -np.inf
     ops = dict(
         Vl=V, C=C, d2=d2,
         vj=(rng.standard_normal((B, D)) / np.sqrt(D)).astype(f32), cj=cj,
         dj=(0.5 + rng.uniform(size=B)).astype(f32),
-        stopped=np.array([False, True, False]),
-        j=np.array([base + 5, base + 7, base + M + 3], np.int32))
+        stopped=np.array([False, True, False, False]),
+        j=np.array([base + 5, base + 7, base + M + 3, base - 2], np.int32),
+        t=ts)
     if windowed:
         # Givens pairs where the ring is full, identity rotations where it
         # is not (as eviction_coeffs gives them)
-        full = np.array([True, False, True]) & (t >= rows)
+        full = (ts >= rows) & ~ops["stopped"]
         ang = np.where(full[:, None],
                        rng.uniform(0, np.pi, size=(B, rows - 1)), 0.0)
         ops.update(full=full, cos=np.cos(ang).astype(f32),
@@ -1105,45 +1120,104 @@ def _update_operands(windowed, D, M, rows, t, base, seed):
     (True, 16, 5000, 5, 9, 256),      # full, evicting
 ])
 def test_update_entries_match_plain(card, windowed, D, M, rows, t, tile_m):
+    """Each update entry against its plain version, four lanes at their
+    own step counters in one launch: the stopped lane and the exact lane
+    at the state's k rows keep their state, every lane's key lands in its
+    row ``(t + 1) & 1`` and the row ``t & 1`` it read is zeroed."""
     base = 40_000
     cpu = _update_operands(windowed, D, M, rows, t, base, seed=t)
     gpu = {k_: v.cuda() for k_, v in cpu.items()}
-    pos = min(t, rows - 1)
+    ts = _update_lanes(windowed, rows, t)
+    lanes = torch.arange(4)
     outs = []
     for ops in (cpu, gpu):
-        keys = torch.zeros((t + 2, 3), dtype=torch.int64,
-                           device=ops["Vl"].device)
+        keys = torch.full((2, 4), 7, dtype=torch.int64,
+                          device=ops["Vl"].device)
+        keys[(torch.tensor(ts) + 1) & 1, lanes] = 0  # the row to fold into
         if windowed:
             args = [ops[n] for n in ("Vl", "C", "d2", "vj", "cj", "dj",
-                                     "stopped", "full", "cos", "sin", "j")]
+                                     "stopped", "full", "cos", "sin", "j",
+                                     "t")]
             fn = (tiled.tiled_update_windowed if ops is gpu
                   else tiled.tiled_update_windowed_plain)
-            cuda.reset_launch_counts()
-            fn(*args, base, pos, keys, t, tile_m)
         else:
             args = [ops[n] for n in ("Vl", "C", "d2", "vj", "cj", "dj",
-                                     "stopped", "j")]
+                                     "stopped", "j", "t")]
             fn = (tiled.tiled_update_exact if ops is gpu
                   else tiled.tiled_update_exact_plain)
-            cuda.reset_launch_counts()
-            fn(*args, base, keys, t, tile_m)
-        outs.append((ops["C"].cpu(), ops["d2"].cpu(), keys[t + 1].cpu()))
+        cuda.reset_launch_counts()
+        fn(*args, base, keys, tile_m)
+        outs.append((ops["C"].cpu(), ops["d2"].cpu(), keys.cpu()))
     torch.cuda.synchronize()
     name = "tiled_update_windowed" if windowed else "tiled_update_exact"
     assert cuda.launch_counts() == {name: 1}
     (Cp, dp, kp), (Cg, dg, kg) = outs
     torch.testing.assert_close(Cg, Cp, rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(dg, dp, rtol=RTOL, atol=ATOL)
-    vp, ip = tiled.unpack_key(kp)
-    vg, ig = tiled.unpack_key(kg)
+    read = torch.tensor(ts) & 1
+    assert bool((kg[read, lanes] == 0).all()) and bool(
+        (kp[read, lanes] == 0).all())
+    vp, ip = tiled.unpack_key(kp[1 - read, lanes])
+    vg, ig = tiled.unpack_key(kg[1 - read, lanes])
     assert torch.equal(ig, ip) and bool(((ig >= base)
                                          & (ig < base + M)).all())
     torch.testing.assert_close(vg, vp, rtol=RTOL, atol=ATOL)
-    # the owner masked its winner; the stopped lane kept its state
+    # the owner masked its winner; the stopped lane (and, exact, the lane
+    # at the state's k rows) kept its state
     assert dg[0, 5].item() == float("-inf")
     orig = _update_operands(windowed, D, M, rows, t, base, seed=t)
-    assert torch.equal(Cg[1], orig["C"][1])
-    assert torch.equal(dg[1], orig["d2"][1])
+    for b in (1,) if windowed else (1, 3):
+        assert torch.equal(Cg[b], orig["C"][b])
+        assert torch.equal(dg[b], orig["d2"][b])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("windowed,past", [(False, 0), (False, 5), (True, 9)])
+def test_update_entries_write_nothing_past_the_state(card, windowed, past):
+    """The last lane's counter at or past the state's rows (exact: ``k +
+    past``; windowed: deep in a full ring): ``C``, ``d2`` and ``keys`` are
+    views at the head of buffers whose tails hold a sentinel, so a write
+    past row ``k - 1``, past a lane's gains or past key row 1 would land
+    in a tail.  Every tail keeps its sentinel, and the entry still agrees
+    with its plain version."""
+    D, M, rows, t, tile_m, base, B = 32, 777, 6, 4, 128, 0, 4
+    ops = _update_operands(windowed, D, M, rows, t, base, seed=11)
+    ts = ops["t"].clone()
+    ts[3] = rows + past if not windowed else 2 * rows + past
+    ops["t"] = ts
+    if windowed:
+        ops["full"] = (ts >= rows) & ~ops["stopped"]
+    gpu = {k_: v.cuda() for k_, v in ops.items()}
+    guard = 4 * rows * M
+    tails = {}
+    for name, shape, dtype, fill in (("C", (B, rows, M), torch.float32,
+                                      None),
+                                     ("d2", (B, M), torch.float32, None),
+                                     ("keys", (2, B), torch.int64, 0)):
+        n = int(np.prod(shape))
+        buf = torch.full((n + guard,), 12345, dtype=dtype, device="cuda")
+        view = buf[:n].view(shape)
+        view.copy_(gpu[name] if fill is None else torch.full(
+            shape, fill, dtype=dtype, device="cuda"))
+        gpu[name], tails[name] = view, buf[n:]
+    keys_cpu = torch.zeros((2, B), dtype=torch.int64)
+    names = (("Vl", "C", "d2", "vj", "cj", "dj", "stopped", "full", "cos",
+              "sin", "j", "t") if windowed
+             else ("Vl", "C", "d2", "vj", "cj", "dj", "stopped", "j", "t"))
+    fn, plain = ((tiled.tiled_update_windowed,
+                  tiled.tiled_update_windowed_plain) if windowed
+                 else (tiled.tiled_update_exact, tiled.tiled_update_exact_plain))
+    fn(*[gpu[n] for n in names], base, gpu["keys"], tile_m)
+    plain(*[ops[n] for n in names], base, keys_cpu, tile_m)
+    torch.cuda.synchronize()
+    for name, tail in tails.items():
+        assert bool((tail == 12345).all()), f"{name} written past its end"
+    torch.testing.assert_close(gpu["C"].cpu(), ops["C"], rtol=RTOL,
+                               atol=ATOL)
+    torch.testing.assert_close(gpu["d2"].cpu(), ops["d2"], rtol=RTOL,
+                               atol=ATOL)
+    assert torch.equal(tiled.unpack_key(gpu["keys"].cpu())[1],
+                       tiled.unpack_key(keys_cpu)[1])
 
 
 @pytest.fixture(scope="module")
@@ -1253,3 +1327,46 @@ def test_reranker_stream_on_a_card_mesh_matches_rerank(card, one_rank,
     assert [c.shape[0] for c, _ in chunks] == [5, 5, 5, 5, 4]
     assert torch.equal(torch.cat([c for c, _ in chunks]), sel)
     assert torch.equal(torch.cat([d for _, d in chunks]), dh)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 4])
+def test_router_on_a_card_mesh_matches_sharded_rerank(card, one_rank,
+                                                      window):
+    """``Reranker.submit`` on a one-rank mesh on the card: requests of
+    different M, k and mask on 3 slots, chunks past the capacity of 12;
+    every slate equals the per-request sharded rerank's, ids and d_hist
+    bit for bit (the entries' per-column code gives the same bits at the
+    bucket's width as at the request's), and a pump with live lanes is
+    ``chunk`` update launches."""
+    from repro_torch.distributed import make_mesh
+    from repro_torch.serving import RouterConfig
+
+    rng = np.random.default_rng(37)
+    feats = rng.standard_normal((3000, 32)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    catalog = torch.from_numpy(feats).cuda()
+    reqs = []
+    for i, m in enumerate((3000, 700, 2100, 1200, 3000, 450, 1800)):
+        mask = rng.uniform(size=m) >= 0.1 if i % 3 == 2 else None
+        reqs.append(RerankRequest(
+            scores=torch.from_numpy(rng.uniform(size=m).astype(
+                np.float32)).cuda(), feats=catalog[:m],
+            mask=None if mask is None else torch.from_numpy(mask).cuda(),
+            slate_size=int(rng.integers(6, 13))))
+    cfg = DPPRerankConfig(slate_size=12, shortlist=500, alpha=3.0,
+                          eps=1e-3, window=window,
+                          mesh=make_mesh(device="cuda"))
+    rr = Reranker(cfg, router_config=RouterConfig(
+        slots=3, chunk_size=5, max_candidates=3000), device="cuda")
+    cuda.reset_launch_counts()
+    handles = [rr.submit(r) for r in reqs]
+    rr.router.drain()
+    torch.cuda.synchronize()
+    name = "tiled_update_exact" if window is None else "tiled_update_windowed"
+    assert cuda.launch_counts() == {name: 5 * rr.router.stats.chunks_launched}
+    for h, r in zip(handles, reqs):
+        gi, gd = h.slate()
+        ei, ed = (x.cpu().numpy() for x in rr.rerank(r))
+        np.testing.assert_array_equal(gi, ei)
+        np.testing.assert_array_equal(gd, ed)

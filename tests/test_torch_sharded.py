@@ -17,9 +17,9 @@ tolerance (rtol 3e-4 / atol 1e-5).
   windowed against ``repro`` on a 1-device mesh and against its jnp
   core and the shared oracle, batched ``V``, shared and per-user masks,
   ``sharded_topk``, the rerank (masked-score poison, inf relevance
-  outside the shortlist, eps-stop); the mesh refusals of ``submit`` and
-  ``session`` (the latter as ``repro``'s), the router, the session store,
-  the slot executors and the column deltas.
+  outside the shortlist, eps-stop); the mesh refusals of ``session`` (as
+  ``repro``'s), the session store, slot splicing and widening and the
+  column deltas.
 * The sharded stream on that rank, against ``repro``'s sharded stream
   (``tests/test_streaming.py``'s sharded cases): ``greedy_map_chunks``
   concatenates to the port's whole sharded slate bit for bit, ``d_hist``
@@ -39,10 +39,19 @@ tolerance (rtol 3e-4 / atol 1e-5).
   ranks also stream each case (``greedy_map_chunks``, ``Reranker.stream``
   of one request): every rank's chunks equal its whole slate bit for bit
   and ``repro``'s sharded stream at the same P.
+  The ranks also run the continuous-batching router on the mesh
+  (``repro``'s ``test_router_multidevice_sharded_parity`` mix and a
+  windowed twin), against ``repro``'s router on the same meshes.
 * The plain update entries against ``repro``'s ``tiled_update_exact`` /
-  ``tiled_update_windowed`` in interpret mode, with a non-zero ``base``.
-* ``launch.serve_sharded`` with two gloo ranks on the CPU, whole and
-  ``--stream``.
+  ``tiled_update_windowed`` in interpret mode, with a non-zero ``base``,
+  one lane and four lanes at their own step counters.
+* The router on a mesh in process: the slot executors on a mesh, a lane
+  admitted in place equal to a fresh state bit for bit, a lane admitted
+  again after a request with larger gains (stale keys), the one-rank
+  router against ``repro``'s on a 1-device mesh; two gloo ranks whose
+  clocks disagree return the same handles (deadlines decided on rank 0).
+* ``launch.serve_sharded`` with two gloo ranks on the CPU, whole,
+  ``--stream`` and ``--router``.
 """
 import concurrent.futures
 import json
@@ -152,24 +161,18 @@ def _small_request(seed=5, M=64, D=6):
                             feats=f)
 
 
-# the router's mesh branch is ROADMAP item 9b; repro refuses sessions over
-# a sharded pool too (src/repro/serving/session.py, _check_session_cfg)
-REFUSALS = {"submit": "item 9b", "session": "as in repro"}
+# repro refuses sessions over a sharded pool (src/repro/serving/session.py,
+# _check_session_cfg); the router serves a mesh (the router tests below)
+REFUSALS = {"session": "as in repro"}
 
 
-@pytest.mark.parametrize("verb", ["submit", "session"])
+@pytest.mark.parametrize("verb", ["session"])
 def test_mesh_refuses_stream_submit_session(mesh, verb):
     cfg = ts.DPPRerankConfig(slate_size=8, shortlist=32, window=4,
                              mesh=mesh)
     rr = ts.Reranker(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=REFUSALS[verb]):
         getattr(rr, verb)(_small_request())
-
-
-def test_router_refuses_a_mesh(mesh):
-    cfg = ts.DPPRerankConfig(slate_size=8, shortlist=32, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        ts.RerankRouter(cfg, device="cpu")
 
 
 def test_session_store_refuses_a_mesh(mesh):
@@ -600,10 +603,11 @@ def test_stream_prepares_one_launcher_per_state(mesh, monkeypatch, window):
     def counted(*args):
         step = real(*args)
         built.append(args[0][0].shape)
+        t = args[0][-1]  # the lanes' step counters, advanced in place
 
-        def counted_step(*a):
-            steps.append(a[0])
-            return step(*a)
+        def counted_step():
+            steps.append(t.tolist())
+            return step()
         return counted_step
 
     monkeypatch.setattr(ttiled, "update_launcher", counted)
@@ -612,21 +616,11 @@ def test_stream_prepares_one_launcher_per_state(mesh, monkeypatch, window):
                             chunk_size=3)
     chunks = list(tcore.greedy_map_chunks(spec, V=V))
     assert len(chunks) == 4 and built == [(2, 12, 96)]
-    assert steps == list(range(11))
+    assert steps == [[t, t] for t in range(11)]
 
 
 SLOT_CALLS = {
-    "greedy_slot_state": lambda spec, st, V: tcore.greedy_slot_state(
-        spec, V[0]),
-    "greedy_slots_init": lambda spec, st, V: tcore.greedy_slots_init(
-        spec, 2, 12, 96, device="cpu"),
     "state_splice": lambda spec, st, V: tcore.state_splice(st, st, 0),
-    "state_admit": lambda spec, st, V: tcore.state_admit(spec, st, 0, V[0]),
-    "state_evict": lambda spec, st, V: tcore.state_evict(st, 0),
-    "greedy_chunk_slots": lambda spec, st, V: tcore.greedy_chunk_slots(
-        spec, st, V, 2),
-    "greedy_chunk_launcher": lambda spec, st, V: tcore.greedy_chunk_launcher(
-        spec, st, V=V, chunk_size=2),
     "slot_state_widen": lambda spec, st, V: tcore.slot_state_widen(
         spec, st, 200),
 }
@@ -634,12 +628,12 @@ SLOT_CALLS = {
 
 @pytest.mark.parametrize("call", sorted(SLOT_CALLS))
 def test_slot_executors_refuse_a_mesh(mesh, call):
-    """The continuous-batching substrate stays refused on a mesh, naming
-    the router's slice."""
+    """Splicing and widening stay refused on a mesh: a sharded lane is
+    built at the bucket width and admitted in place."""
     V = _t(make_greedy_inputs(5, 2, 12, 96))
     spec = tcore.GreedySpec(k=6, window=3, mesh=mesh, eps=1e-6)
     state = tcore.greedy_init(spec, V=V)
-    with pytest.raises(NotImplementedError, match="router's slice"):
+    with pytest.raises(NotImplementedError, match="admitted in place"):
         SLOT_CALLS[call](spec, state, V)
 
 
@@ -683,17 +677,20 @@ def test_plain_update_exact_matches_repro(owner, stopped):
         jnp.asarray(cj), jnp.float32(dj), jnp.asarray(stopped),
         jnp.int32(j), jnp.int32(base), tile_m=tile, interpret=True)
     Ct, d2t = _t(C)[None].clone(), _t(d2)[None].clone()
-    keys = torch.zeros((t + 2, 1), dtype=torch.int64)
+    keys = torch.zeros((2, 1), dtype=torch.int64)
+    keys[t & 1] = 1  # the row step t read: the entry zeroes it
     ttiled.tiled_update_exact(
         _t(V)[None], Ct, d2t, _t(vj)[None], _t(cj)[None],
         torch.tensor([dj]), torch.tensor([stopped]),
-        torch.tensor([j], dtype=torch.int32), base, keys, t, tile)
+        torch.tensor([j], dtype=torch.int32),
+        torch.tensor([t], dtype=torch.int32), base, keys, tile)
     # repro returns the appended row (zero when stopped); the port writes
     # it in place and leaves a stopped lane's row as it was
     _close(Ct[0, t], np.zeros_like(e) if stopped else e)
     _close(d2t[0], d2j)
     assert (d2t[0, 9].item() == float("-inf")) == (owner and not stopped)
-    val, idx = ttiled.unpack_key(keys[t + 1])
+    assert int(keys[t & 1]) == 0
+    val, idx = ttiled.unpack_key(keys[(t + 1) & 1])
     ref = np.asarray(d2j)
     assert int(idx) == base + int(np.argmax(ref))
     _close(val, ref.max())
@@ -724,17 +721,379 @@ def test_plain_update_windowed_matches_repro(owner, full):
     _close(tcos, np.asarray(cos)[None])
     _close(tcjp, np.asarray(cjp)[None])
     Ct, d2t = _t(C)[None].clone(), _t(d2)[None].clone()
-    keys = torch.zeros((t + 2, 1), dtype=torch.int64)
+    keys = torch.zeros((2, 1), dtype=torch.int64)
     ttiled.tiled_update_windowed(
         _t(V)[None], Ct, d2t, _t(vj)[None], tcjp, torch.sqrt(
             torch.clamp_min(td2j, 1e-12)), torch.tensor([False]),
         torch.tensor([full]), tcos, tsin,
-        torch.tensor([j], dtype=torch.int32), base, pos, keys, t, tile)
+        torch.tensor([j], dtype=torch.int32),
+        torch.tensor([t], dtype=torch.int32), base, keys, tile)
     _close(Ct[0], Cj)
     _close(d2t[0], d2o)
     assert (d2t[0, 17].item() == float("-inf")) == owner
-    val, idx = ttiled.unpack_key(keys[t + 1])
+    val, idx = ttiled.unpack_key(keys[(t + 1) & 1])
     assert int(idx) == base + int(np.argmax(np.asarray(d2o)))
+
+
+@pytest.mark.parametrize("windowed", [False, True])
+def test_plain_update_entries_per_lane_t_match_repro(windowed):
+    """Four lanes at different depths in one call of the plain entry, one
+    of them stopped: each live lane equals ``repro``'s entry run on that
+    lane alone at its own ``t`` (interpret mode, non-zero ``base``), the
+    stopped lane and, exact, the lane whose counter reached ``k`` keep
+    their state; each lane's key lands in its row ``(t + 1) & 1`` and its
+    row ``t & 1`` is zeroed."""
+    base, tile, D, M, rows = 1024, 128, 16, 256, 6
+    ts_ = [0, 3, 9, 5] if windowed else [0, 3, 6, 4]
+    stopped = [False, False, False, True]
+    if not windowed:
+        ts_[2] = rows  # reached the state's k rows: latched
+    lanes = [_entry_operands(10 + b, rows=rows, t=min(t, rows))
+             for b, t in enumerate(ts_)]
+    V, C, d2, vj, cj = (np.stack(x) for x in zip(*lanes))
+    rng = np.random.default_rng(5)
+    j = np.array([base + 9, base - 5, base + 30, base + 11], np.int32)
+    dj2 = (0.5 + rng.uniform(size=4)).astype(np.float32)
+    keys = torch.ones((2, 4), dtype=torch.int64)
+    Ct, d2t = _t(C).clone(), _t(d2).clone()
+    tt = torch.tensor(ts_, dtype=torch.int32)
+    if windowed:
+        Cw = (0.1 * rng.normal(size=(4, rows, rows))).astype(np.float32)
+        full = np.array([t >= rows for t in ts_]) & ~np.array(stopped)
+        cos, sin, cjp, d2j = ttiled.eviction_coeffs(
+            _t(Cw), _t(cj), _t(dj2), torch.from_numpy(full), rows)
+        djp = torch.sqrt(torch.clamp_min(d2j, 1e-12))
+        ttiled.tiled_update_windowed_plain(
+            _t(V), Ct, d2t, _t(vj), cjp, djp, torch.tensor(stopped),
+            torch.from_numpy(full), cos, sin, _t(j), tt, base, keys, tile)
+    else:
+        dj = np.sqrt(dj2)
+        ttiled.tiled_update_exact_plain(
+            _t(V), Ct, d2t, _t(vj), _t(cj), _t(dj), torch.tensor(stopped),
+            _t(j), tt, base, keys, tile)
+    for b, t in enumerate(ts_):
+        assert int(keys[t & 1, b]) == 0
+        live = not stopped[b] and (windowed or t < rows)
+        if not live:
+            assert torch.equal(Ct[b], _t(C[b])) and torch.equal(d2t[b],
+                                                                _t(d2[b]))
+            continue
+        if windowed:
+            want_C, want_d2 = jtiled.tiled_update_windowed(
+                jnp.asarray(V[b]), jnp.asarray(C[b]), jnp.asarray(d2[b]),
+                jnp.asarray(vj[b]), jnp.asarray(cjp[b].numpy()),
+                jnp.float32(djp[b]), jnp.asarray(False),
+                jnp.asarray(full[b]), jnp.asarray(cos[b].numpy()),
+                jnp.asarray(sin[b].numpy()), jnp.int32(j[b]),
+                jnp.int32(base), jnp.int32(min(t, rows - 1)), w=rows,
+                tile_m=tile, interpret=True)
+        else:
+            cjb = cj[b].copy()
+            cjb[t:] = 0.0
+            e, want_d2 = jtiled.tiled_update_exact(
+                jnp.asarray(V[b]), jnp.asarray(C[b]), jnp.asarray(d2[b]),
+                jnp.asarray(vj[b]), jnp.asarray(cjb), jnp.float32(dj[b]),
+                jnp.asarray(False), jnp.int32(j[b]), jnp.int32(base),
+                tile_m=tile, interpret=True)
+            want_C = np.asarray(C[b]).copy()
+            want_C[t] = np.asarray(e)
+        _close(Ct[b], want_C)
+        _close(d2t[b], want_d2)
+        val, idx = ttiled.unpack_key(keys[(t + 1) & 1, b])
+        assert int(idx) == base + int(np.argmax(np.asarray(want_d2)))
+
+
+# ---------------------------------------------------------------------------
+# The router on a mesh: slot states, lanes, and the router against repro's
+# ---------------------------------------------------------------------------
+
+
+def _bucket(V, mask, M):
+    """A request ``V (D, m)`` and its mask padded to a bucket of M
+    columns (mask False): what a one-rank mesh's lane holds."""
+    D, m = V.shape
+    Vp = torch.zeros((D, M))
+    Vp[:, :m] = V
+    mp = torch.zeros((M,), dtype=torch.bool)
+    mp[:m] = True if mask is None else mask
+    return Vp, mp
+
+
+def _lane_leaves(state, lane):
+    out = [state.Vl[lane], state.d2[lane], state.C[lane], state.keys[:, lane],
+           state.t[lane], state.stopped[lane]]
+    return out + ([] if state.win is None else [state.win[lane]])
+
+
+def _slot_spec(mesh, window, k=9):
+    return tcore.GreedySpec(k=k, window=window, mesh=mesh, eps=1e-6)
+
+
+ACCEPT_CALLS = {
+    "greedy_slot_state": lambda spec, st, V, m: tcore.greedy_slot_state(
+        spec, V, m),
+    "greedy_slots_init": lambda spec, st, V, m: tcore.greedy_slots_init(
+        spec, 3, 12, 96, device="cpu")[0],
+    "state_admit": lambda spec, st, V, m: tcore.state_admit(spec, st, 1, V,
+                                                            m),
+    "state_evict": lambda spec, st, V, m: tcore.state_evict(st, 1),
+    "greedy_chunk_slots": lambda spec, st, V, m: tcore.greedy_chunk_slots(
+        spec, st, st.Vl, 2)[1],
+    "greedy_chunk_launcher": lambda spec, st, V, m: (
+        tcore.greedy_chunk_launcher(spec, st, V=st.Vl, chunk_size=2)()[0]),
+}
+
+
+@pytest.mark.parametrize("call", sorted(ACCEPT_CALLS))
+def test_slot_executors_accept_a_mesh(mesh, call):
+    """The slot executors run on a mesh: a slot state of parked lanes, a
+    lane admitted and evicted in place, chunks of every lane (-1 where
+    parked)."""
+    spec = _slot_spec(mesh, 3)
+    state, Vs = tcore.greedy_slots_init(spec, 3, 12, 96, device="cpu")
+    assert isinstance(state, tcore.ShardedState) and Vs is state.Vl
+    assert state.stopped.all() and state.slots and Vs.shape == (3, 12, 96)
+    V, m = _bucket(_t(make_greedy_inputs(5, None, 12, 80)), None, 96)
+    out = ACCEPT_CALLS[call](spec, state, V, m)
+    if call == "greedy_slot_state":
+        assert isinstance(out, tcore.ShardedState) and out.single
+    elif call == "greedy_slots_init":
+        assert out.Vl.shape == (3, 12, 96) and out.stopped.all()
+    elif call == "state_admit":
+        assert out is state and not bool(state.stopped[1])
+        assert torch.equal(state.Vl[1], V) and int(state.t[1]) == 0
+    elif call == "state_evict":
+        assert out is state and bool(state.stopped[1])
+        assert torch.equal(state.keys[:, 1], torch.zeros(2, dtype=torch.int64))
+    else:
+        assert out.shape == (3, 2) and (out == -1).all()  # every lane parked
+
+
+@pytest.mark.parametrize("window", [None, 3])
+def test_sharded_lane_equals_fresh_state(mesh, window):
+    """A lane admitted in place holds the bits of a fresh single-request
+    sharded state of its request at the same bucket, and steps as it
+    does while its neighbour sits at another depth."""
+    M, k = 96, 9
+    spec = _slot_spec(mesh, window, k)
+    V0, m0 = _bucket(_t(make_greedy_inputs(6, None, 12, 96)), None, M)
+    mask = torch.from_numpy(np.random.default_rng(2).uniform(size=70) > 0.3)
+    V1, m1 = _bucket(_t(make_greedy_inputs(7, None, 12, 70)), mask, M)
+    state, Vs = tcore.greedy_slots_init(spec, 2, 12, M, device="cpu")
+    tcore.state_admit(spec, state, 0, V0, m0)
+    tcore.greedy_chunk_slots(spec, state, Vs, 3)  # lane 0 at t = 3
+    tcore.state_admit(spec, state, 1, V1, m1)
+    fresh = tcore.greedy_slot_state(spec, V1, m1)
+    for got, want in zip(_lane_leaves(state, 1), _lane_leaves(fresh, 0)):
+        assert torch.equal(got, want)
+    assert state.t.tolist() == [3, 0]
+    for n in (4, 2):
+        _, sel, dh = tcore.greedy_chunk_slots(spec, state, Vs, n)
+        _, fsel, fdh = tcore.greedy_chunk(spec, fresh, V=fresh.Vl,
+                                          chunk_size=n)
+        assert torch.equal(sel[1], fsel) and torch.equal(dh[1], fdh)
+    for got, want in zip(_lane_leaves(state, 1), _lane_leaves(fresh, 0)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("window", [None, 3])
+def test_sharded_evict_admit_lower_gains(mesh, jmesh, window):
+    """A lane evicted mid-slate and admitted again with a request whose
+    gains all lie below its previous occupant's: the new request's slate
+    is its own (a key of the old request left in the lane would win
+    every fold, as the kernel's atomicMax and the plain version's
+    unsigned max both keep the larger key), equal to a fresh state's bit
+    for bit and to ``repro``'s sharded slate id for id."""
+    M, k = 96, 8
+    spec = _slot_spec(mesh, window, k)
+    big = 10.0 * _t(make_greedy_inputs(8, None, 12, M))
+    small = 0.1 * _t(make_greedy_inputs(9, None, 12, 60))
+    assert float((small ** 2).sum(0).max()) < float((big ** 2).sum(0).min())
+    state, Vs = tcore.greedy_slots_init(spec, 2, 12, M, device="cpu")
+    tcore.state_admit(spec, state, 0, *_bucket(big, None, M))
+    tcore.state_admit(spec, state, 1, *_bucket(big, None, M))
+    for n in (3, 2):  # lane 0 left at t = 5 with the big request's keys
+        tcore.greedy_chunk_slots(spec, state, Vs, n)
+    tcore.state_evict(state, 0)
+    Vp, mp = _bucket(small, None, M)
+    tcore.state_admit(spec, state, 0, Vp, mp)
+    sel = [tcore.greedy_chunk_slots(spec, state, Vs, n)[1:] for n in (4, 4)]
+    got_i = torch.cat([s[0][0] for s in sel])
+    got_d = torch.cat([s[1][0] for s in sel])
+    fresh = tcore.greedy_map(spec, V=Vp, mask=mp)
+    assert torch.equal(got_i, fresh.indices) and torch.equal(got_d,
+                                                             fresh.d_hist)
+    assert bool((got_i < 60).all())
+    want = jcore.dpp_greedy_sharded(jnp.asarray(small.numpy()), k,
+                                    mesh=jmesh, window=window, eps=1e-6)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want.indices))
+    _close(got_d, want.d_hist)
+
+
+@pytest.mark.parametrize("window", [None, 3])
+def test_sharded_slot_counters_stop_at_k(mesh, window):
+    """A slot state's counters stop at ``k``: a lane run a chunk past
+    its capacity and a lane parked all along both sit at ``t = k``,
+    stopped, however many more steps run, and a finished lane's rows and
+    gains stay as its last step left them."""
+    M, k = 96, 6
+    spec = _slot_spec(mesh, window, k)
+    state, Vs = tcore.greedy_slots_init(spec, 2, 12, M, device="cpu")
+    tcore.state_admit(spec, state, 0,
+                      *_bucket(_t(make_greedy_inputs(4, None, 12, 80)),
+                               None, M))
+    _, sel, _ = tcore.greedy_chunk_slots(spec, state, Vs, k + 2)
+    assert bool((sel[0, :k] >= 0).all()) and sel[0, k:].tolist() == [-1, -1]
+    assert state.t.tolist() == [k, k] and bool(state.stopped.all())
+    done = [x.clone() for x in (state.C[0], state.d2[0])]
+    _, sel, _ = tcore.greedy_chunk_slots(spec, state, Vs, 3 * k)
+    assert bool((sel == -1).all()) and state.t.tolist() == [k, k]
+    assert all(torch.equal(a, b) for a, b in zip(done, (state.C[0],
+                                                        state.d2[0])))
+
+
+ROUTER_MIX = [(0, 64, 6, False), (1, 48, 4, True), (2, 64, 5, False),
+              (3, 56, 6, True), (4, 40, 6, False), (5, 64, 3, True)]
+
+
+def _router_arrays(seed, m, rank2=False):
+    rng = np.random.default_rng(seed)
+    f = rng.normal(size=(m, 8)).astype(np.float32)
+    if rank2:  # features of rank 2: the slate eps-stops after 2 picks
+        f[:, 2:] = 0.0
+    f /= np.linalg.norm(f, axis=1, keepdims=True)
+    s = rng.uniform(0.1, 1.0, size=m).astype(np.float32)
+    mm = np.ones(m, bool)
+    mm[::3] = False
+    return s, f, mm
+
+
+def _router_mix(mod, arr, lapsed=()):
+    """``ROUTER_MIX`` (``repro``'s ``test_router_multidevice_sharded_parity``
+    mix and two more) as requests of ``mod`` (``ts`` or ``js``); request 4
+    eps-stops, the requests in ``lapsed`` carry a lapsed deadline."""
+    reqs = []
+    for i, (seed, m, k, masked) in enumerate(ROUTER_MIX):
+        s, f, mm = _router_arrays(seed, m, rank2=i == 4)
+        reqs.append(mod.RerankRequest(
+            scores=arr(s), feats=arr(f), slate_size=k,
+            mask=arr(mm) if masked else None,
+            deadline=1e-9 if i in lapsed else None))
+    return reqs
+
+
+def _serve_router(rr, reqs):
+    handles = [rr.submit(r) for r in reqs]
+    rr.router.drain()
+    return handles
+
+
+@pytest.mark.parametrize("chunk", [2, 4])
+@pytest.mark.parametrize("window", [None, 3])
+def test_router_on_a_mesh_matches_repro(mesh, jmesh, window, chunk):
+    """``Reranker.submit`` on a one-rank mesh against ``repro``'s router on
+    a one-device mesh: requests of different M, k and mask over 2 slots,
+    one eps-stop, one lapsed deadline, lanes whose chunks run past the
+    slot capacity of 6; ids equal and d_hist within the oracle's
+    tolerance, each slate also the per-request sharded rerank's."""
+    kw = dict(slate_size=6, shortlist=48, alpha=3.0, eps=1e-3,
+              window=window)
+    jcfg, tcfg = _cfgs(mesh, jmesh, **kw)
+    rcfg = dict(slots=2, chunk_size=chunk, max_candidates=64)
+    rr = ts.Reranker(tcfg, router_config=ts.RouterConfig(**rcfg),
+                     device="cpu")
+    got = _serve_router(rr, _router_mix(ts, np.asarray, lapsed=(2,)))
+    jrr = js.Reranker(jcfg, router_config=js.RouterConfig(**rcfg))
+    want = _serve_router(jrr, _router_mix(js, jnp.asarray, lapsed=(2,)))
+    assert rr.router.stats.timed_out == 1 and rr.router.stats.eps_stopped
+    assert rr.router.stats.completed == len(ROUTER_MIX) - 1
+    for i, (h, jh, req) in enumerate(zip(got, want,
+                                         _router_mix(ts, np.asarray))):
+        assert h.timed_out == jh.timed_out == (i == 2)
+        gi, gd = h.slate()
+        wi, wd = jh.slate()
+        np.testing.assert_array_equal(gi, np.asarray(wi))
+        _close(gd, np.asarray(wd))
+        if i != 2:
+            ri, rd = rr.rerank(req)
+            np.testing.assert_array_equal(gi, ri.numpy())
+            _close(gd, rd.numpy())
+    assert (got[4].slate()[0] < 0).any()  # the eps-stop
+
+
+def test_router_on_a_mesh_refuses_what_the_bucket_cannot_hold(mesh):
+    cfg = ts.DPPRerankConfig(slate_size=6, shortlist=8, mesh=mesh)
+    rr = ts.Reranker(cfg, router_config=ts.RouterConfig(max_candidates=50),
+                     device="cpu")
+    s, f, _ = _router_arrays(0, 64)
+    with pytest.raises(ValueError, match="64 candidate columns"):
+        rr.submit(ts.RerankRequest(scores=s, feats=f))  # full M, not C
+
+
+_SKEWED_RANK = r"""
+import json
+import sys
+import time
+import numpy as np
+from repro_torch import obs
+from repro_torch.distributed import init_group, leave_group, make_mesh
+from repro_torch.serving import (
+    DPPRerankConfig,
+    Reranker,
+    RerankRequest,
+    RouterConfig,
+)
+import repro_torch.serving.router as router_mod
+
+rank, rdv, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+init_group("gloo", rank, 2, rdv, timeout_s=60)
+mesh = make_mesh(device="cpu")
+skew = [0.0]
+if rank == 1:  # rank 1's clock jumps 1000 s ahead once the requests are in
+    class _Clock:
+        perf_counter = staticmethod(time.perf_counter)
+        monotonic = staticmethod(lambda: time.monotonic() + skew[0])
+    router_mod.time = _Clock
+rr = Reranker(DPPRerankConfig(slate_size=6, shortlist=48, alpha=3.0,
+                              mesh=mesh),
+              router_config=RouterConfig(slots=2, chunk_size=2,
+                                         max_candidates=64), device="cpu")
+handles = []
+for i in range(6):
+    rng = np.random.default_rng(i)
+    f = rng.normal(size=(64, 8)).astype(np.float32)
+    f /= np.linalg.norm(f, axis=1, keepdims=True)
+    handles.append(rr.submit(RerankRequest(
+        scores=rng.uniform(size=64).astype(np.float32), feats=f,
+        deadline=1e-9 if i == 3 else 100.0)))
+skew[0] = 1000.0
+obs.enable(obs.ObsConfig(enabled=True))
+rr.router.drain()
+json.dump({"slates": [h.slate()[0].tolist() for h in handles],
+           "d_hist": [h.slate()[1].tolist() for h in handles],
+           "timed_out": [h.timed_out for h in handles],
+           "decisions": sum(1 for sp in obs.tracer().finished()
+                            if sp["name"] == "router.pump.decide")},
+          open(out, "w"))
+leave_group()
+"""
+
+
+def test_router_on_two_ranks_decides_deadlines_on_rank_zero(tmp_path):
+    """Two gloo ranks, rank 1's clock 1000 s ahead after submission: had
+    each rank read its own clock, rank 1 would time out every 100-s
+    request at its first pump while rank 0 served it, and the ranks'
+    collectives would pair different lanes.  Rank 0 decides: both ranks
+    return the same handles, only the lapsed request timed out."""
+    spawn_ranks(lambda r: ["-c", _SKEWED_RANK, str(r), str(tmp_path / "rdv"),
+                           str(tmp_path / f"rank{r}.json")], 2, 120,
+                env=rank_env(2, {"OMP_NUM_THREADS": "1"}), cwd=REPO)
+    r0, r1 = (json.loads((tmp_path / f"rank{r}.json").read_text())
+              for r in (0, 1))
+    assert r0 == r1
+    assert r0["timed_out"] == [i == 3 for i in range(6)]
+    assert all(len(s) == 6 for i, s in enumerate(r0["slates"]) if i != 3)
+    assert r0["decisions"] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -773,10 +1132,19 @@ def _cases():
     out["rr_mask"] = rng.uniform(size=(4, 121)) > 0.2
     for P in PS:
         out[f"argmax_vals_{P}"], out[f"argmax_gids_{P}"] = _argmax_case(P)
+    for i, (seed, m, _, _) in enumerate(ROUTER_MIX):
+        out[f"router_s{i}"], out[f"router_f{i}"], out[f"router_m{i}"] = \
+            _router_arrays(seed, m, rank2=i == 4)
     return out
 
 
-CONSTS = json.dumps(dict(KE=K_EXACT, KW=K_WIN, W=W, RR=RERANK, PS=PS))
+# the router cases: ROUTER_MIX on 2 slots of capacity 6, chunk 2, a
+# bucket of 64 columns (repro's test_router_multidevice_sharded_parity)
+ROUTER = dict(cfg=dict(slate_size=6, shortlist=48, alpha=3.0, eps=1e-3,
+                       chunk_size=2),
+              rcfg=dict(slots=2, chunk_size=2, max_candidates=64))
+CONSTS = json.dumps(dict(KE=K_EXACT, KW=K_WIN, W=W, RR=RERANK, PS=PS,
+                         RM=ROUTER_MIX, ROUTER=ROUTER))
 
 
 def _argmax_case(P):
@@ -806,7 +1174,12 @@ from repro_torch.core import (
 )
 from repro_torch.distributed import global_argmax, init_group, leave_group
 from repro_torch.distributed import make_mesh
-from repro_torch.serving import DPPRerankConfig, Reranker, RerankRequest
+from repro_torch.serving import (
+    DPPRerankConfig,
+    Reranker,
+    RerankRequest,
+    RouterConfig,
+)
 
 rank, P, rdv, inp, out = int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:6]
 c = json.loads(sys.argv[6])
@@ -856,6 +1229,20 @@ for w in (None, 3):
     cs = list(rr.stream(one))
     res[f"stream_rerank{w}_sel"] = torch.cat([c for c, _ in cs]).numpy()
     res[f"stream_rerank{w}_dh"] = torch.cat([d for _, d in cs]).numpy()
+for w, key in ((None, "router"), (3, "router3")):
+    rr = Reranker(DPPRerankConfig(mesh=mesh, window=w, **c["ROUTER"]["cfg"]),
+                  router_config=RouterConfig(**c["ROUTER"]["rcfg"]),
+                  device="cpu")
+    hs = [rr.submit(RerankRequest(
+        scores=z[f"router_s{i}"], feats=z[f"router_f{i}"], slate_size=k,
+        mask=z[f"router_m{i}"] if masked else None))
+        for i, (_, _, k, masked) in enumerate(c["RM"])]
+    rr.router.drain()
+    sel, dh = np.full((len(hs), 6), -2), np.zeros((len(hs), 6), np.float32)
+    for i, h in enumerate(hs):
+        gi, gd = h.slate()
+        sel[i, :len(gi)], dh[i, :len(gd)] = gi, gd
+    res[f"{key}_sel"], res[f"{key}_dh"] = sel, dh
 vals, gids = z[f"argmax_vals_{P}"][rank], z[f"argmax_gids_{P}"][rank]
 dj2, j, owner = global_argmax(mesh, t(vals), t(gids))
 res["argmax_v"], res["argmax_j"] = dj2.numpy(), j.numpy()
@@ -877,7 +1264,12 @@ from repro.core import (
     sharded_topk,
 )
 from repro.distributed.context import make_mesh_compat
-from repro.serving import DPPRerankConfig, Reranker, RerankRequest
+from repro.serving import (
+    DPPRerankConfig,
+    Reranker,
+    RerankRequest,
+    RouterConfig,
+)
 
 z = dict(np.load(sys.argv[1]))
 c = json.loads(sys.argv[3])
@@ -930,6 +1322,21 @@ for P in c["PS"]:
             [np.asarray(c) for c, _ in cs])
         res[f"stream_rerank{w}_dh_{P}"] = np.concatenate(
             [np.asarray(d) for _, d in cs])
+    for w, key in ((None, "router"), (3, "router3")):
+        rr = Reranker(DPPRerankConfig(mesh=mesh, window=w,
+                                      **c["ROUTER"]["cfg"]),
+                      router_config=RouterConfig(**c["ROUTER"]["rcfg"]))
+        hs = [rr.submit(RerankRequest(
+            scores=a(z[f"router_s{i}"]), feats=a(z[f"router_f{i}"]),
+            slate_size=k, mask=a(z[f"router_m{i}"]) if masked else None))
+            for i, (_, _, k, masked) in enumerate(c["RM"])]
+        rr.router.drain()
+        sel = np.full((len(hs), 6), -2)
+        dh = np.zeros((len(hs), 6), np.float32)
+        for i, h in enumerate(hs):
+            gi, gd = h.slate()
+            sel[i, :len(gi)], dh[i, :len(gd)] = gi, gd
+        res[f"{key}_sel_{P}"], res[f"{key}_dh_{P}"] = sel, dh
 np.savez(sys.argv[2], **res)
 """
 
@@ -979,7 +1386,7 @@ def multi(_multi_started):
 
 
 GREEDY_CASES = ["exact", "windowed", "batch", "shared", "ties", "rerankNone",
-                "rerank3"]
+                "rerank3", "router", "router3"]
 
 
 @pytest.mark.parametrize("P", PS)
@@ -1114,3 +1521,43 @@ def test_serve_sharded_stream_two_gloo_ranks_on_cpu(tmp_path, capsys):
     with pytest.raises(SystemExit, match="single request"):
         serve_sharded.main(["--device", "cpu", "--batch", "2",
                             "--stream", "4"])
+
+
+def test_serve_sharded_router_two_gloo_ranks_on_cpu(tmp_path, capsys):
+    """``serve_sharded --router``: two gloo ranks serve the requests of an
+    ``--inputs`` file (pools cut by ``sizes``, two lapsed ``deadlines``)
+    through the router on the mesh, exact and windowed; every rank's
+    handles equal rank 0's and each slate the per-request sharded
+    rerank's."""
+    rng = np.random.default_rng(3)
+    f = rng.normal(size=(500, 8)).astype(np.float32)
+    np.savez(tmp_path / "req.npz", feats=f / np.linalg.norm(
+        f, axis=1, keepdims=True),
+        scores=rng.uniform(size=(6, 500)).astype(np.float32),
+        mask=rng.uniform(size=(6, 500)) > 0.1,
+        sizes=np.array([500, 300, 120, 500, 260, 400]),
+        deadlines=np.array([0, 1e-9, 0, 0, 1e-9, 0]))
+    out = serve_sharded.main([
+        "--device", "cpu", "--devices", "2", "--backend", "gloo",
+        "--inputs", str(tmp_path / "req.npz"), "--shortlist", "100",
+        "--window", "0", "3", "--slate", "8", "10", "--router", "6",
+        "--slots", "3", "--chunk", "4", "--check", "--timeout", "240"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) \
+        == out
+    assert out["router"] == 6 and out["slots"] == 3
+    for run, k in zip(out["runs"], (8, 10)):
+        assert run["ranks_agree"] and run["check"].startswith("ok")
+        assert run["timed_out"] == [i in (1, 4) for i in range(6)]
+        assert np.asarray(run["indices"]).shape == (6, k)
+        assert all(k // 2 <= n <= k for n in run["slate_sizes"])
+        assert [r["rank"] for r in run["ranks"]] == [0, 1]
+        for r in run["ranks"]:
+            # a collective a pump while a queued or live request has a
+            # deadline: the two lapsed ones leave the queue at once
+            assert 0 < r["decisions"] < run["pumps"]
+            assert r["launches"] == {}
+            assert set(r["pump_us"]) == {"pump", "sync", "decide", "evict",
+                                         "admit", "launch", "materialize"}
+            assert r["chunks_launched"] <= run["pumps"]
+            ttfc = [x for x in r["ttfc_s"] if x is not None]
+            assert len(ttfc) == 4 and min(ttfc) > 0
