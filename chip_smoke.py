@@ -12,7 +12,7 @@ rerank and the candidate-sharded rerank, stream and router.
 process for K7's profiler times: ``topk_device_times``.)
 
 Builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a),
-then runs eighteen phases through the port's entry points.  Phases 1-9
+then runs nineteen phases through the port's entry points.  Phases 1-9
 (``repro_torch.serving.Reranker(..., use_kernel=True).rerank`` and
 ``.stream``, ``repro_torch.core.greedy_map_chunks`` and
 ``greedy_chunk_slots``) run at the paper's §5.1 setup: D = 100
@@ -240,6 +240,34 @@ after phase 17:
                       neither timed out, each held against phase 1's
                       K1 / K2 rerank; TTFC and the decision collective's
                       share of a pump.
+
+Phase 19 runs the measured tile choice (``tile_m="auto"``, the
+``DPP_TILE_M`` override) on K3-K6, last.  The script drops
+``DPP_TILE_M`` and points ``DPP_AUTOTUNE_CACHE`` at a file of its own
+temporary directory when it starts, so no earlier phase depends on the
+machine's tile settings:
+
+19. measured tile:    (a) ``run_sweep`` of ``smoke_cases()`` (D = 64,
+                      M = 65,536, one lane) and ``serving_cases()``
+                      (phases 3/4/8's D = 100, C = 65,536, B = 4, and K3 /
+                      K4 at one lane) into that cache, every candidate's
+                      time printed; (b) Figure 9
+                      (``repro_torch.figures.fig9_autotune``) at its
+                      --smoke size with its four gates: the measured tile
+                      within 2x of the model's, a cache hit, no rebuild
+                      after warmup, slates equal to the model tile's bit
+                      for bit and the torch core's; (c) phase 3's and
+                      phase 4's request and one single request of that
+                      pool through ``Reranker(..., tile_m="auto")``, and
+                      phase 8's chunks under ``"auto"``: each an exact
+                      cache hit whose slate and d_hist equal the model
+                      tile's (phases 3, 4, 8) bit for bit, with K3-K6's
+                      device time at the measured tile and at the model's;
+                      (d) phase 6's stream under ``"auto"``, equal to
+                      phase 6's; (e) ``DPP_TILE_M=256`` over ``tile_m=512``
+                      on phase 1's inputs, equal to phase 5's slate, the
+                      override counted.  Its time is printed against its
+                      30 s aim.
 
 Each phase resets the kernels' launch counters right before the main-path
 call (phases 16 and 17's ranks in their own processes), reads them right after,
@@ -953,7 +981,8 @@ def run_tiled(records, rng, refs):
         stream_floor(B, C, k, dev, exact=window is None)
         results[window] = (V, m_top, got)
         refs.setdefault("a", {"V": V, "m_top": m_top, "top_i": top_i,
-                              "out": {}, "direct": {}})
+                              "out": {}, "direct": {},
+                              "req": (scores, feats, mask)})
         refs["a"]["out"][window] = out
         refs["a"]["direct"][window] = got
     refs["a"]["npz"] = save_request(refs["work"] / "phase16a.npz", scores,
@@ -1082,12 +1111,13 @@ def drive_chunks(fn):
     return out, counts, modes, wall
 
 
-def stream_slate(V, mask, k, window, chunk):
+def stream_slate(V, mask, k, window, chunk, tile_m=None):
     """The concatenated ``greedy_map_chunks`` slate of V (B, D, M) on the
     kernel backend: (sel (B, k), d_hist (B, k))."""
     from repro_torch.core import GreedySpec, greedy_map_chunks
 
-    spec = GreedySpec(k=k, window=window, backend="kernel", eps=EPS)
+    spec = GreedySpec(k=k, window=window, backend="kernel", eps=EPS,
+                      tile_m=tile_m)
     parts = list(greedy_map_chunks(spec, V=V, mask=mask, chunk_size=chunk))
     return (torch.cat([p.indices for p in parts], -1),
             torch.cat([p.d_hist for p in parts], -1))
@@ -1229,6 +1259,7 @@ def run_stream(records, resident, scores, feats):
           f"{ms_text(k1_dev)}: phase 1's single request at {s} CTAs a "
           f"cluster), K5 {one:.4f} ms (one launch, chunk {k}; device "
           f"{ms_text(k5_dev)})", flush=True)
+    return sel, dh
 
 
 def chunk_tiles(M, R, windowed, lanes, device):
@@ -3720,6 +3751,246 @@ def run_router_mesh(records, refs, mesh):
     print(f"  phase 18 took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: measured tile choice (tile_m="auto", DPP_TILE_M) on K3-K6
+# ---------------------------------------------------------------------------
+
+TILE_AIM_S = 30.0
+TILE_DEVICE_REPS = 3
+
+
+def drive_tile(fn):
+    """One main-path run ``fn()`` with the launch counters and the obs
+    registry reset right before and read right after: (fn's result, the
+    launches, the tile counters' snapshots, the dispatch's ``dpp_tile_m``
+    gauge)."""
+    from repro_torch import obs
+    from repro_torch.kernels import cuda
+
+    obs.disable()
+    obs.enable(obs.ObsConfig(enabled=True))
+    cuda.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    reg = obs.registry()
+    snap = {name: reg.counter(name)._snapshot() for name in (
+        "dpp_kernel_dispatch_total", "autotune_cache_hits_total",
+        "autotune_cache_misses_total", "dpp_tile_source_total",
+        "dpp_tile_override_total")}
+    tile = reg.gauge("dpp_tile_m").value()
+    obs.disable()
+    return out, counts, snap, tile
+
+
+def check_bits(name, got, want):
+    """``got`` must equal ``want`` index for index and d_hist bit for bit."""
+    check(torch.equal(got[0], want[0]), f"{name}: slate differs from the "
+                                        f"model tile's")
+    check(torch.equal(got[1], want[1]),
+          f"{name}: d_hist differs from the model tile's by "
+          f"{(got[1] - want[1]).abs().max().item()}")
+
+
+def add_launches(records, counts):
+    for kernel, n in counts.items():
+        records.setdefault(kernel, {"launches": 0})["launches"] += n
+
+
+def sweep_line(r):
+    c = r["case"]
+    cand = ", ".join(f"{t}: {us:.1f}" for t, us in
+                     sorted(r["candidates"].items()))
+    return (f"  19(a) {c.family} D={c.D} M={c.M} rows={c.state_rows} "
+            f"lanes={c.lanes}{f' chunk={c.chunk}' if c.chunked else ''}: "
+            f"tile {r['tile_m']} at {r['best_us']:.1f} us; every candidate "
+            f"(tile: us, best of 3 CUDA event pairs around one dispatch) "
+            f"{cand}")
+
+
+def tile_times(swept, model, device_of, kernel, where):
+    """One line: the sweep's time (CUDA events around one dispatch at the
+    sweep case's shape) at its tile and at the model's, and where the two
+    tiles differ the device time of the main path's call at each
+    (``device_of(tile)``, torch.profiler)."""
+    cand, tile = swept["candidates"], swept["tile_m"]
+    at_model = ("not swept" if model not in cand else
+                f"{cand[model]:.1f} us")
+    text = (f"  {kernel} at {where}: the sweep's tile {tile} "
+            f"{cand[tile]:.1f} us, the model's {model} {at_model} a dispatch "
+            f"of its case")
+    if tile == model:
+        return text + "; the same tile, so the main path is unchanged"
+    dev = {t: device_of(t) for t in (tile, model)}
+    return (text + f"; device time by torch.profiler of the main path's "
+            f"call {ms_text(dev[tile])} at {tile}, {ms_text(dev[model])} at "
+            f"{model}")
+
+
+def run_measured_tile(records, refs):
+    """Phase 19 (aim 30 s): (a) the sweep of ``smoke_cases()`` and phases
+    3/4/8's serving shape into this run's cache; (b) fig9 ``--smoke`` with
+    its four gates; (c) phase 3's and phase 4's request and one single
+    request of that pool through ``Reranker(..., tile_m="auto")``, and
+    phase 8's chunks under ``"auto"``, each equal to the model tile's
+    slate bit for bit, timed against the model's tile; (d) phase 6's
+    stream under ``"auto"``; (e) ``DPP_TILE_M=256`` on phase 1's inputs
+    against phase 5."""
+    from repro_torch.figures import fig9_autotune
+    from repro_torch.figures.common import launch_delta
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.dpp_greedy import autotune as tat
+    from repro_torch.kernels.dpp_greedy import tiled as tm
+    from repro_torch.kernels.dpp_greedy.tiling import DEFAULT_TILE_M
+    from repro_torch.serving import DPPRerankConfig, Reranker, RerankRequest
+
+    t0 = time.perf_counter()
+    print(f"[phase 19 measured tile] cache {os.environ[tat.CACHE_ENV]}, "
+          f"DPP_TILE_M unset", flush=True)
+    results, _ = tat.run_sweep(tat.smoke_cases() + tat.serving_cases(),
+                               trials=3, device="cuda")
+    for r in results:
+        print(sweep_line(r), flush=True)
+    swept = {(r["case"].family, r["case"].D, r["case"].lanes): r
+             for r in results}
+    print(f"  19(a) sweep: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t1 = time.perf_counter()
+    before = cuda.launch_counts()
+    fig9_autotune.main(fast_mode=True, device=torch.device("cuda"))
+    fig9 = launch_delta(before, cuda.launch_counts())
+    add_launches(records, fig9)
+    print(f"  19(b) fig9 --smoke: its four gates hold on the card "
+          f"(tolerance 2.0, hits, no rebuild, parity); launches {fig9}; "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+
+    # (c) phase 3's and phase 4's request under "auto"
+    a = refs["a"]
+    scores, feats, mask = a["req"]
+    B, _, C = a["V"].shape
+    for kernel, fam, window in (
+        ("tiled_step_exact", "step_exact", None),
+        ("tiled_step_windowed", "step_windowed", 10),
+    ):
+        name = f"19(c) phase {3 if window is None else 4} under auto"
+        want = a["out"][window]
+        k = want[0].shape[1]
+        rr = Reranker(DPPRerankConfig(
+            slate_size=k, window=window, use_kernel=True, shortlist=C,
+            alpha=ALPHA, eps=EPS, tile_m="auto"), device="cuda")
+        V, m_top = a["V"], a["m_top"]
+        for single, req, ref in (
+            (False, RerankRequest(scores=scores, feats=feats, mask=mask),
+             want),
+            (True, RerankRequest(scores=scores[0], feats=feats,
+                                 mask=mask[0]),
+             (want[0][:1], want[1][:1])),
+        ):
+            lanes = 1 if single else B
+            label = f"B = {lanes}"
+            ours = swept[fam, D, lanes]
+            out, counts, snap, tile = drive_tile(lambda: rr.rerank(req))
+            check(counts == {kernel: k},
+                  f"{name} {label}: launches {counts}, expected {k}")
+            check(snap["autotune_cache_hits_total"] == {"kind=exact": 1},
+                  f"{name} {label}: lookups {snap}")
+            check(tile == ours["tile_m"],
+                  f"{name} {label}: tile {tile}, swept at {lanes} lanes "
+                  f"{ours['tile_m']}")
+            got = (out[0][None], out[1][None]) if single else out
+            check_bits(f"{name} {label}", got, ref)
+            add_launches(records, counts)
+            print(f"  {name} {label}: tile {int(tile)} (the sweep's at "
+                  f"{lanes} lane{'s' * (lanes > 1)}, an exact hit), launches "
+                  f"{counts}; slate and d_hist equal phase "
+                  f"{3 if window is None else 4}'s at tile {DEFAULT_TILE_M} "
+                  f"bit for bit", flush=True)
+            Vl, ml = (V[:1], m_top[:1]) if single else (V, m_top)
+            print(tile_times(ours, DEFAULT_TILE_M, lambda t: device_ms(
+                lambda: tm.dpp_greedy_tiled(Vl, ml, k, window, EPS, t),
+                kernel, k, reps=TILE_DEVICE_REPS), kernel,
+                f"phase {3 if window is None else 4}'s shape (B = {lanes}, "
+                f"C = {C}, k = {k})"), flush=True)
+
+    # phase 8's chunks under "auto" (K5 / K6 at phase 3/4's shape)
+    for kernel, fam, window in (
+        ("fused_chunk_exact", "chunk_exact", None),
+        ("fused_chunk_windowed", "chunk_windowed", 10),
+    ):
+        name = f"19(c) phase 8 {'exact' if window is None else 'windowed'} " \
+               f"under auto"
+        V, m_top = a["V"], a["m_top"]
+        k = a["direct"][window][0].shape[1]
+        n = -(-k // 16)
+        got, counts, snap, tile = drive_tile(
+            lambda: stream_slate(V, m_top, k, window, 16, "auto"))
+        check(counts == {kernel: n}, f"{name}: launches {counts}")
+        check(snap["autotune_cache_hits_total"] == {"kind=exact": 1},
+              f"{name}: lookups {snap}")
+        check_bits(name, got, a["direct"][window])
+        add_launches(records, counts)
+        line = chunk_tiles(C, window or k, window is not None, B,
+                           V.device)[0]
+        print(f"  {name}: tile {int(tile)} (the sweep's), launches "
+              f"{counts}; slate and d_hist equal phase "
+              f"{3 if window is None else 4}'s bit for bit; the model's "
+              f"tiling: {line}", flush=True)
+        model = tat.model_tile(D, C, window or k, window is not None, True,
+                               B, tm.capacity_fn(window is not None,
+                                                 V.device))
+        print(tile_times(swept[fam, D, B], model, lambda t: device_ms(
+            lambda: stream_slate(V, m_top, k, window, 16, t), kernel, n,
+            reps=TILE_DEVICE_REPS), kernel,
+            f"phase 8's shape (B = {B}, C = {C}, k = {k}, chunk 16)"),
+            flush=True)
+
+    # (d) phase 6's stream under "auto"
+    p1_scores, p1_feats, p1_out = refs["p1"]
+    k = p1_out[0].shape[1]
+    rr = Reranker(DPPRerankConfig(slate_size=k, shortlist=1000, alpha=ALPHA,
+                                  eps=EPS, use_kernel=True, tile_m="auto"),
+                  device="cuda")
+    req = RerankRequest(scores=p1_scores[0], feats=p1_feats)
+    parts, counts, snap, tile = drive_tile(
+        lambda: list(rr.stream(req, chunk_size=8)))
+    check(counts == {"fused_chunk_exact": -(-k // 8)},
+          f"19(d) stream under auto: launches {counts}")
+    got = (torch.cat([p[0] for p in parts])[None],
+           torch.cat([p[1] for p in parts])[None])
+    check_bits("19(d) phase 6 under auto", got, refs["p6"])
+    add_launches(records, counts)
+    looked = (snap["autotune_cache_hits_total"]
+              or snap["autotune_cache_misses_total"]
+              or "none: the model keeps one whole-M tile")
+    print(f"  19(d) phase 6's stream under auto: tile {int(tile)} (lookup "
+          f"{looked}), launches {counts}; slate and d_hist equal phase 6's "
+          f"bit for bit", flush=True)
+
+    # (e) DPP_TILE_M=256 on phase 1's inputs against phase 5
+    rr = Reranker(DPPRerankConfig(use_kernel=True, shortlist=1000,
+                                  slate_size=k, alpha=ALPHA, eps=EPS,
+                                  tile_m=512), device="cuda")
+    os.environ["DPP_TILE_M"] = "256"
+    try:
+        out, counts, snap, tile = drive_tile(lambda: rr.rerank(
+            RerankRequest(scores=p1_scores, feats=p1_feats)))
+    finally:
+        os.environ.pop("DPP_TILE_M", None)
+    check(counts == {"tiled_step_exact": k},
+          f"19(e) DPP_TILE_M=256: launches {counts}")
+    check(snap["dpp_tile_override_total"]
+          == {"lost=explicit,winner=env": 1} and tile == 256,
+          f"19(e) DPP_TILE_M=256: tile {tile}, counters {snap}")
+    check_bits("19(e) DPP_TILE_M=256 vs phase 5", out, p1_out)
+    add_launches(records, counts)
+    print(f"  19(e) DPP_TILE_M=256 over tile_m=512 on phase 1's inputs: tile "
+          f"256, dpp_tile_override_total "
+          f"{snap['dpp_tile_override_total']}, launches {counts}; slate and "
+          f"d_hist equal phase 5's (= phase 1's) bit for bit", flush=True)
+    took = time.perf_counter() - t0
+    print(f"  phase 19: {took:.1f} s (aim {TILE_AIM_S:.0f} s)", flush=True)
+
+
 def update_times():
     """``--update-times``: the shard-local update entries alone at 16(c)'s
     shape (B = 4, D = 100, C = 65,536 of a 10^6 pool with a 10% seen
@@ -3817,17 +4088,18 @@ def resident_times():
 
 
 def run_phases(records, rng, refs):
-    """Phases 1-18 in order, each adding to ``records``; ``refs`` carries
-    phases 16 and 17's requests and references (its ``work`` directory
+    """Phases 1-19 in order, each adding to ``records``; ``refs`` carries
+    phases 16, 17 and 19's requests and references (its ``work`` directory
     holds the requests' files)."""
     t0 = time.perf_counter()
     scores, feats, resident = run_resident(records, rng, refs)
+    refs["p1"] = (scores, feats, resident[None][2])  # phase 19's
     records["tiled_step_exact"] = {"launches": 0}
     records["tiled_step_exact"]["launches"] += run_forced_tile(
         resident[None][2], resident[None][0], scores, feats)
     pool_state = rng.bit_generator.state  # phase 3 draws its pool from here
     tiled, pool = run_tiled(records, rng, refs)
-    run_stream(records, resident, scores, feats)
+    refs["p6"] = run_stream(records, resident, scores, feats)
     del scores, feats
     run_chunks_windowed(records, resident)
     run_chunks_large(records, tiled)
@@ -3848,10 +4120,24 @@ def run_phases(records, rng, refs):
         run_sharded(records, refs, mesh)
         run_sharded_stream(records, refs, mesh)
         run_router_mesh(records, refs, mesh)
+    run_measured_tile(records, refs)
     print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main() -> int:
+    # no phase may depend on the machine's tile settings: the process-wide
+    # tile override is dropped and the autotune cache is this run's own
+    # file (phase 19 sweeps into it)
+    os.environ.pop("DPP_TILE_M", None)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    os.environ["DPP_AUTOTUNE_CACHE"] = str(work / "dpp_autotune.json")
+    try:
+        return run_main(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_main(work: Path) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
@@ -3890,11 +4176,7 @@ def main() -> int:
         return 0
     rng = np.random.default_rng(SEED)
     records = {}
-    refs = {"work": Path(tempfile.mkdtemp(prefix="chip_smoke_"))}
-    try:
-        run_phases(records, rng, refs)
-    finally:
-        shutil.rmtree(refs["work"], ignore_errors=True)
+    run_phases(records, rng, {"work": work})
 
     kernels = []
     for name in KERNELS:

@@ -23,7 +23,11 @@ Dispatch rules:
   tiled per-step kernels (by default ``TilePolicy`` keeps the resident
   kernels while they fit shared memory and tiles past that), and sets
   the tile of the fused chunk kernels; on the sharded backend, the tile
-  of the shard-local update entries;
+  of the shard-local update entries.  ``"auto"`` (kernel backend only:
+  the sharded update entries need an explicit tile, as in ``repro``)
+  keeps the resident rule and takes the tile past it from the measured
+  autotune cache (``kernels/dpp_greedy/autotune.py``), the model's tile
+  on a miss;
 * ``spec.chunk_size`` — greedy steps per resumable chunk.  On the kernel
   backend ``greedy_map`` then runs the slate as fused chunk kernels (one
   K5/K6 launch per chunk), on the sharded backend as chunks of the
@@ -36,9 +40,6 @@ Dispatch rules:
 ``greedy_map_chunks`` is the streaming front door: a generator yielding
 per-chunk ``GreedyResult``s whose concatenation is the whole-slate
 ``greedy_map`` result (see ``repro_torch.core.streaming``).
-
-Not ported yet, and raising ``NotImplementedError``: ``tile_m="auto"``
-(ROADMAP queue 1 item 10).
 
 ``GreedySpec`` validates itself at construction — a bad config raises
 ``GreedySpecError`` (a ``ValueError``) at spec-build time.
@@ -79,7 +80,8 @@ class GreedySpec:
     eps: float = 1e-6
     mesh: Optional[object] = None  # CandidateMesh of the sharded backend
     axis_name: str = "data"  # the mesh axis carrying the candidate shards
-    tile_m: Optional[int] = None  # kernel candidate-axis tile (forces tiled)
+    # kernel candidate-axis tile (an int forces tiled; "auto": measured)
+    tile_m: Optional[object] = None
     chunk_size: Optional[int] = None  # greedy steps per resumable chunk
 
     def __post_init__(self):
@@ -118,9 +120,17 @@ class GreedySpec:
             from repro_torch.kernels.dpp_greedy.tiling import validate_tile_m
 
             try:
-                validate_tile_m(self.tile_m)
+                validate_tile_m(self.tile_m, allow_auto=True)
             except ValueError as e:
                 raise GreedySpecError(str(e)) from None
+            if self.tile_m == "auto" and self.backend != "kernel":
+                raise GreedySpecError(
+                    'tile_m="auto" consults the measured autotune cache, '
+                    "which only the single-device kernel dispatch does "
+                    "(backend='kernel') — the torch backend ignores tile_m "
+                    "and the sharded update entries need an explicit warp "
+                    "multiple"
+                )
             if self.backend != "kernel" and not self.sharded():
                 raise GreedySpecError(
                     "tile_m= only applies to the CUDA kernels "

@@ -228,12 +228,17 @@ def bcast_from_owner(mesh: CandidateMesh, z: torch.Tensor,
 class RankError(RuntimeError):
     """A rank of :func:`spawn_ranks` failed or passed its time limit; the
     others were ended.  ``rank`` is the failing rank, ``stderr`` the end
-    of its error output."""
+    of its error output, ``tails`` every rank's (``{rank: tail}``), all of
+    them in the message: a peer's tail often says why the failing rank
+    waited or aborted."""
 
-    def __init__(self, msg: str, rank: int, stderr: str):
-        super().__init__(f"{msg}\n--- rank {rank} stderr (tail) ---\n"
-                         f"{stderr}")
+    def __init__(self, msg: str, rank: int, stderr: str,
+                 tails: Optional[dict] = None):
         self.rank, self.stderr = rank, stderr
+        self.tails = tails if tails is not None else {rank: stderr}
+        super().__init__(msg + "".join(
+            f"\n--- rank {r} stderr (tail) ---\n{t}"
+            for r, t in sorted(self.tails.items())))
 
 
 def rank_env(world_size: int = 1, extra: Optional[dict] = None) -> dict:
@@ -257,13 +262,15 @@ def rank_env(world_size: int = 1, extra: Optional[dict] = None) -> dict:
 
 def spawn_ranks(argv: Callable[[int], Sequence[str]], world_size: int,
                 timeout_s: float, env: Optional[dict] = None,
-                cwd=None) -> List[str]:
+                cwd=None, tails: Optional[list] = None) -> List[str]:
     """Run ``world_size`` processes ``[sys.executable, *argv(rank)]``
     together and wait for all of them, at most ``timeout_s`` seconds in
     all.  Returns each rank's standard output.  When one exits non-zero
     or the time runs out, every rank still running is ended (terminate,
-    then kill) and :class:`RankError` carries the failing rank's stderr
-    tail."""
+    then kill) and :class:`RankError` carries the failing rank's and
+    every other rank's stderr tail.  ``tails``, when given, receives each
+    rank's stderr tail in rank order either way (a caller that checks the
+    ranks' results puts them in its own failure message)."""
     procs, files = [], []
     deadline = time.monotonic() + timeout_s
     failed = None
@@ -299,9 +306,12 @@ def spawn_ranks(argv: Callable[[int], Sequence[str]], world_size: int,
                       err.read().decode(errors="replace")))
         out.close()
         err.close()
+    ends = [e[-4000:] for _, e in texts]
+    if tails is not None:
+        tails[:] = ends
     if failed is not None:
         r, msg = failed
-        raise RankError(msg, r, texts[r][1][-4000:])
+        raise RankError(msg, r, ends[r], dict(enumerate(ends)))
     return [o for o, _ in texts]
 
 

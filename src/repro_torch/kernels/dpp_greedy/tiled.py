@@ -690,6 +690,19 @@ def chunk_capacity(windowed: bool, smem: int, device) -> int:
 _COOPERATIVE_TOO_LARGE = 720
 
 
+@functools.lru_cache(maxsize=None)
+def capacity_fn(windowed: bool, device):
+    """``smem bytes -> co-resident blocks`` of K5 (K6 ``windowed``) on
+    ``device`` (:func:`chunk_capacity`, the bound ``TilePolicy`` sizes a
+    cooperative grid by); None off the card, where the plain versions
+    launch no grid.  One function per (windowed, device), so it keys the
+    autotune lookup's memo."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return functools.partial(chunk_capacity, windowed, device=device)
+
+
 def _check_cooperative(err: int, name: str, B: int, M: int,
                        tile_m: int) -> None:
     if err == _COOPERATIVE_TOO_LARGE:

@@ -38,11 +38,16 @@ tiles of at least ``DEFAULT_TILE_M`` columns, widened until ``B`` lanes
 of tiles fit.  Without a ``capacity`` (the plain
 versions on the CPU, which launch no grid) only the shared memory bounds
 the tile.
+
+``tile_m="auto"`` keeps every answer above where the model stays
+resident and takes the tile past that from the measured autotune cache
+(``autotune.lookup_tile``, which accepts only tiles this model accepts at
+the queried lanes), the model's own answer on a miss.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Union
 
 # Shared memory one H100 thread block may use (227 KB, dynamic only
 # past 48 KB; cudaFuncAttributeMaxDynamicSharedMemorySize is raised).
@@ -55,27 +60,42 @@ _RED_FLOATS = 2 * WARP
 DEFAULT_TILE_M = 1024
 
 
+# What the tile_m knob accepts across the stack: an explicit warp
+# multiple, the measured autotuner's "auto", or None (the model decides).
+TileM = Union[int, str, None]
+
+
 def round_up(x: int, m: int) -> int:
     """Smallest multiple of ``m`` >= ``x``."""
     return (x + m - 1) // m * m
 
 
-def validate_tile_m(tile_m) -> None:
-    """``None`` (budget model decides) or a positive multiple of the
-    32-thread warp.  ``"auto"`` (the measured autotune cache) is not
-    ported yet."""
+def validate_tile_m(tile_m, allow_auto: bool = False) -> None:
+    """Shared tile_m validation (``TilePolicy``, ``GreedySpec``,
+    ``DPPRerankConfig`` and the sharded path accept the knob): ``None``
+    (budget model decides), a positive multiple of the 32-thread warp,
+    or, where ``allow_auto``, the string ``"auto"`` (the measured
+    autotune cache, ``autotune.lookup_tile``, with the model as its
+    fallback).  Call sites that cannot consult the cache (the sharded
+    update entries) keep ``allow_auto=False``, so a stray ``"auto"``
+    fails loudly instead of reaching tile arithmetic."""
     if tile_m is None:
         return
     if tile_m == "auto":
-        raise NotImplementedError(
-            'tile_m="auto" needs the measured autotune cache, which is not '
-            "ported yet (ROADMAP queue 1 item 10); pass None or an int"
+        if allow_auto:
+            return
+        raise ValueError(
+            'tile_m="auto" (the measured autotune cache) is only understood '
+            "by the single-device kernel dispatch — this call site needs "
+            f"None or an explicit positive multiple of the {WARP}-thread "
+            "warp"
         )
     if (not isinstance(tile_m, int) or isinstance(tile_m, bool)
             or tile_m < WARP or tile_m % WARP != 0):
         raise ValueError(
-            f"tile_m must be None or a positive multiple of the {WARP}-thread "
-            f"warp, got {tile_m!r}"
+            f'tile_m must be None, "auto" (measured autotune cache with '
+            f"budget-model fallback), or a positive multiple of the {WARP}-"
+            f"thread warp, got {tile_m!r}"
         )
 
 
@@ -266,17 +286,46 @@ class TilePolicy:
         that is how tiled-vs-resident parity is tested.  ``None``: the
         resident kernels while their shared memory fits
         ``SMEM_BUDGET_BYTES``, else tiles of ``DEFAULT_TILE_M``.
+        ``"auto"`` keeps the resident-while-it-fits rule (for the chunk
+        kernels: one whole-M tile a lane) but takes the tile past it
+        from the measured autotune cache (``autotune.lookup_tile``) when
+        the cache has an entry for this card and shape that the model
+        accepts, falling back to the model's answer — never an error —
+        when it has none.
     """
 
-    tile_m: Optional[int] = None
+    tile_m: TileM = None
 
     def __post_init__(self):
-        validate_tile_m(self.tile_m)
+        validate_tile_m(self.tile_m, allow_auto=True)
+
+    def resolve(
+        self, D: int, M: int, state_rows: int, windowed: bool,
+        chunked: bool = False, lanes: int = 1,
+        capacity: Optional[Callable[[int], int]] = None, device=None,
+    ) -> Optional[int]:
+        """The ``tile_m`` this policy stands for at this shape: itself
+        unless ``"auto"``; for ``"auto"`` the cache's tile where the
+        model would tile and the cache has one (looked up, and counted,
+        once here), else ``None`` (the model).  ``TilePolicy(tile_m=
+        resolve(...)).decide(...)`` is this policy's ``decide``, so a
+        caller that repeats one shape resolves once and keeps the
+        answer."""
+        if self.tile_m != "auto":
+            return self.tile_m
+        if TilePolicy().decide(D, M, state_rows, windowed, chunked, lanes,
+                               capacity)[0] == "resident":
+            return None
+        from repro_torch.kernels.dpp_greedy.autotune import lookup_tile
+
+        return lookup_tile(D=D, M=M, state_rows=state_rows,
+                           windowed=windowed, chunked=chunked, lanes=lanes,
+                           capacity=capacity, device=device)
 
     def decide(
         self, D: int, M: int, state_rows: int, windowed: bool,
         chunked: bool = False, lanes: int = 1,
-        capacity: Optional[Callable[[int], int]] = None,
+        capacity: Optional[Callable[[int], int]] = None, device=None,
     ) -> tuple:
         """-> ("resident", None) | ("tiled", tile_m).
 
@@ -287,8 +336,14 @@ class TilePolicy:
         ``("tiled", tile_m, v)`` splits M so that the cooperative grid of
         ``lanes * ceil(M / tile_m)`` blocks stays within
         ``capacity(smem)`` (see the module docstring); raises when no
-        tile fits.
+        tile fits.  ``device`` (the tensors' device) names the card the
+        ``"auto"`` lookup keys on.
         """
+        if self.tile_m == "auto":
+            return TilePolicy(tile_m=self.resolve(
+                D, M, state_rows, windowed, chunked, lanes, capacity,
+                device)).decide(D, M, state_rows, windowed, chunked, lanes,
+                                capacity)
         if chunked:
             return self._decide_chunked(D, M, state_rows, windowed, lanes,
                                         capacity)

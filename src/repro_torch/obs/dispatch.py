@@ -21,9 +21,10 @@ Two halves:
   picked (resident / tiled, and the ``TilePolicy`` tile and
   shared-memory numbers behind it), the backend ``greedy_map`` routed
   to, the resumable chunk launches of the streaming layer, the
-  launched work in greedy steps and per-step marginal evaluations, and
-  the session layer's delta updates, evictions and device footprint
-  (``repro_torch.serving.session``).
+  launched work in greedy steps and per-step marginal evaluations, the
+  session layer's delta updates, evictions and device footprint
+  (``repro_torch.serving.session``), and the tile_m precedence ladder
+  with its measured-autotune lookups (``kernels/dpp_greedy/autotune.py``).
 
 All helpers no-op (one global read) when observability is disabled and
 consume only shapes and config.
@@ -138,15 +139,57 @@ def record_kernel_dispatch(
 
 
 def record_tile_resolution(source: str) -> None:
-    """Which source decided one tile_m resolution in ``ops.py``
-    (``explicit`` int or the on-chip budget ``model``)."""
+    """Which source won one tile_m precedence resolution in ``ops.py``
+    (``env`` > ``explicit`` int > requested ``auto`` > ``model``;
+    ``policy`` = an explicit ``TilePolicy`` object bypassed the ladder)."""
     reg = _obs.registry()
     if reg is None:
         return
     reg.counter(
         "dpp_tile_source_total",
-        "tile_m resolutions by source (explicit/model)",
+        "tile_m precedence winners by source "
+        "(env/explicit/auto/model/policy)",
     ).inc(source=source)
+
+
+def record_tile_override(winner: str, lost: str) -> None:
+    """A tile_m request that *lost* the precedence resolution (a call
+    site's ``tile_m=`` shadowed by the ``DPP_TILE_M`` override), recorded
+    instead of silently ignored."""
+    reg = _obs.registry()
+    if reg is None:
+        return
+    reg.counter(
+        "dpp_tile_override_total",
+        "tile_m requests shadowed by a higher-precedence source",
+    ).inc(winner=winner, lost=lost)
+
+
+def record_autotune_lookup(
+    outcome: str, *, reason: str = "", tile_m: Optional[int] = None
+) -> None:
+    """One ``tile_m="auto"`` cache consultation: an ``exact`` or
+    nearest-``bucket`` hit (with the chosen tile), or a ``miss`` with its
+    reason (empty/corrupt/no_entry/error), after which the on-chip budget
+    model decides, never an error."""
+    reg = _obs.registry()
+    if reg is None:
+        return
+    if outcome in ("exact", "bucket"):
+        reg.counter(
+            "autotune_cache_hits_total",
+            "tile_m='auto' lookups that produced a measured tile",
+        ).inc(kind=outcome)
+        if tile_m is not None:
+            reg.gauge(
+                "autotune_tile_m",
+                "tile chosen by the last autotune cache hit",
+            ).set(tile_m)
+    else:
+        reg.counter(
+            "autotune_cache_misses_total",
+            "tile_m='auto' lookups that fell back to the budget model",
+        ).inc(reason=reason or "unknown")
 
 
 def record_greedy_map(backend: str, *, B: int, k: int, M: int,

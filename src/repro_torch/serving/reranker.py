@@ -9,8 +9,9 @@ paper's fast greedy MAP through ``repro_torch.core.greedy_map``.
 
 * ``use_kernel=True`` routes through the hand-written CUDA kernels
   (resident while one user's gains fit a block's shared memory, tiled
-  past that; ``tile_m=`` pins the tiled kernels); the default runs the
-  plain PyTorch core.
+  past that; ``tile_m=`` pins the tiled kernels, ``tile_m="auto"`` takes
+  the tile past the resident gate from the measured autotune cache);
+  the default runs the plain PyTorch core.
 * ``mesh=`` (a ``repro_torch.distributed.CandidateMesh``, with
   ``axis_name=``) shards the candidate axis over the ranks of a process
   group and delegates to ``repro_torch.serving.sharded_rerank``: a
@@ -45,8 +46,10 @@ class DPPRerankConfig:
     of ``Reranker.stream`` (and, with ``use_kernel``, runs the whole
     slate as fused chunk kernels; with ``mesh=``, chunks of the ranks'
     resumable state).  ``mesh=`` and ``use_kernel`` are mutually
-    exclusive backends; ``tile_m="auto"`` (ROADMAP queue 1 item 10) is
-    not ported yet and raises ``NotImplementedError``.
+    exclusive backends.  ``tile_m="auto"`` needs ``use_kernel=True``:
+    the resident kernels while they fit, past that the measured autotune
+    cache's tile (``kernels/dpp_greedy/autotune.py``), the model's on a
+    miss; a mesh refuses it, as ``repro``'s does.
     """
 
     slate_size: int = 50  # N (session default; RerankRequest overrides)
@@ -57,7 +60,8 @@ class DPPRerankConfig:
     window: Optional[int] = None  # sliding diversity window (None = exact)
     mesh: Optional[object] = None  # CandidateMesh: shard the candidate axis
     axis_name: str = "data"  # the mesh axis carrying the candidate shards
-    tile_m: Optional[int] = None  # kernel candidate-axis tile (forces tiled)
+    # kernel candidate-axis tile (an int forces tiled; "auto": measured)
+    tile_m: Optional[object] = None
     chunk_size: Optional[int] = None
     obs: Optional[ObsConfig] = None  # observability (installed by Reranker)
 
@@ -83,7 +87,14 @@ class DPPRerankConfig:
         if self.tile_m is not None:
             from repro_torch.kernels.dpp_greedy.tiling import validate_tile_m
 
-            validate_tile_m(self.tile_m)
+            validate_tile_m(self.tile_m, allow_auto=True)
+            if self.tile_m == "auto" and not self.use_kernel:
+                raise ValueError(
+                    'tile_m="auto" consults the measured autotune cache, '
+                    "which only the CUDA kernels do — set use_kernel=True "
+                    "(the torch and sharded backends do not consult the "
+                    "cache)"
+                )
             if not self.use_kernel and self.mesh is None:
                 raise ValueError(
                     "tile_m= tiles the CUDA kernels — it needs "

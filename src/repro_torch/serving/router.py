@@ -97,7 +97,6 @@ import itertools
 import logging
 import time
 from collections import deque
-from functools import partial
 from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -112,7 +111,8 @@ from repro_torch.core.streaming import (
 )
 from repro_torch.device import resolve_device, same_device, to_device
 from repro_torch.distributed.context import all_reduce_sum
-from repro_torch.kernels.dpp_greedy.tiled import chunk_capacity
+from repro_torch.kernels.dpp_greedy.ops import resolve_chunk_tile
+from repro_torch.kernels.dpp_greedy.tiled import capacity_fn
 from repro_torch.kernels.dpp_greedy.tiling import TilePolicy
 from repro_torch.obs import MetricsRegistry, ObsConfig
 from repro_torch.serving.reranker import DPPRerankConfig, _shortlist_kernel
@@ -313,21 +313,23 @@ def _card_capacity(windowed: bool, device: torch.device):
     """The card's co-residency for the fused chunk kernels,
     ``smem bytes -> blocks`` (None off the card, where the plain
     versions launch no grid)."""
-    if device.type != "cuda":
-        return None
-    return partial(chunk_capacity, windowed, device=device)
+    return capacity_fn(windowed, device)
 
 
 def check_slots(slots: int, D: int, M: int, state_rows: int,
-                windowed: bool, tile_m: Optional[int], capacity) -> None:
+                windowed: bool, tile_m, capacity, device=None) -> None:
     """Refuse ``slots`` lanes of one fused chunk launch (``M`` candidate
     columns, ``state_rows`` Cholesky or ring rows) that the card cannot
     keep co-resident: a ``ValueError`` naming the largest ``slots`` that
     fits.  ``capacity`` (``smem bytes -> blocks``, None: no limit) is
-    ``tiled.chunk_capacity`` on the card."""
+    ``tiled.chunk_capacity`` on the card.  ``tile_m`` is resolved once
+    as the chunk launches resolve it (``ops.resolve_chunk_tile``: the
+    ``DPP_TILE_M`` override, then ``tile_m``, ``"auto"`` looked up at
+    ``slots`` lanes on ``device``)."""
     if capacity is None:
         return
-    policy = TilePolicy(tile_m=tile_m)
+    policy = TilePolicy(tile_m=resolve_chunk_tile(
+        D, M, state_rows, windowed, slots, capacity, device, tile_m))
 
     def fits(lanes: int) -> bool:
         try:
@@ -537,7 +539,8 @@ class RerankRouter:
             self.capacity
         rows = self.spec.window if windowed else self.capacity
         check_slots(self.rcfg.slots, D, self.bucket, rows, windowed,
-                    self.spec.tile_m, _card_capacity(windowed, self.device))
+                    self.spec.tile_m, _card_capacity(windowed, self.device),
+                    self.device)
 
     # -- request preparation -------------------------------------------------
 

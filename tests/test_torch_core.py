@@ -190,7 +190,10 @@ def test_greedy_map_single_dense():
     ({"k": 4, "backend": "jnp"}, tc.GreedySpecError),
     ({"k": 4, "tile_m": 128}, tc.GreedySpecError),  # torch backend
     ({"k": 4, "backend": "kernel", "tile_m": 100}, tc.GreedySpecError),
-    ({"k": 4, "backend": "kernel", "tile_m": "auto"}, NotImplementedError),
+    # "auto": the single-device kernel dispatch only, as in repro
+    ({"k": 4, "backend": "torch", "tile_m": "auto"}, tc.GreedySpecError),
+    ({"k": 4, "backend": "sharded", "mesh": object(), "tile_m": "auto"},
+     tc.GreedySpecError),
     ({"k": 4, "backend": "sharded"}, tc.GreedySpecError),  # no mesh
     # chunked execution: the kernel and sharded backends only
     ({"k": 4, "chunk_size": 2}, tc.GreedySpecError),  # auto, no mesh

@@ -65,6 +65,11 @@ stream's chunks (and ``Reranker.stream`` on a card mesh) against the
 whole sharded slate bit for bit, one update launcher a stream and one
 launch a step; the router on a card mesh against the per-request
 sharded rerank bit for bit, ``chunk`` update launches a pump.
+
+Measured tile choice: a smoke sweep on the card into a temporary cache
+yields entries that ``lookup_tile`` hits, and ``tile_m="auto"`` on a
+cache holding another tile than the model's gives the model default's
+slates bit for bit on K3-K6, through the kernels it names.
 """
 import importlib
 
@@ -77,6 +82,7 @@ from repro_torch.core import (
     GreedySpec,
     greedy_avg_select,
     greedy_chunk_slots,
+    greedy_map,
     greedy_map_naive,
     greedy_map_chunks,
     greedy_slot_state,
@@ -1370,3 +1376,75 @@ def test_router_on_a_card_mesh_matches_sharded_rerank(card, one_rank,
         ei, ed = (x.cpu().numpy() for x in rr.rerank(r))
         np.testing.assert_array_equal(gi, ei)
         np.testing.assert_array_equal(gd, ed)
+
+
+# ---------------------------------------------------------------------------
+# Measured tile choice (tile_m="auto") on the card
+# ---------------------------------------------------------------------------
+
+
+def _chunk_cap(windowed):
+    return tiled.capacity_fn(windowed, torch.device("cuda"))
+
+
+@pytest.mark.gpu
+def test_smoke_sweep_on_card_yields_entries_lookup_hits(card, tmp_path):
+    from repro_torch.kernels.dpp_greedy import autotune as tat
+
+    path = str(tmp_path / "cache.json")
+    results, _ = tat.run_sweep(tat.smoke_cases(), trials=1, limit=3,
+                               path=path, device="cuda")
+    assert [r["case"] for r in results] == tat.smoke_cases()
+    for r in results:
+        c = r["case"]
+        assert r["best_us"] > 0 and r["tile_m"] in r["candidates"]
+        assert tat.lookup_tile(
+            D=c.D, M=c.M, state_rows=c.state_rows, windowed=c.windowed,
+            chunked=c.chunked,
+            capacity=_chunk_cap(c.windowed) if c.chunked else None,
+            device="cuda", path=path) == r["tile_m"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,tile,kernel", [
+    ("step_exact", 512, "tiled_step_exact"),
+    ("step_windowed", 4096, "tiled_step_windowed"),
+    ("chunk_exact", 2048, "fused_chunk_exact"),
+    ("chunk_windowed", 512, "fused_chunk_windowed"),
+])
+def test_auto_equals_the_model_default_on_card(card, tmp_path, monkeypatch,
+                                               family, tile, kernel):
+    from repro_torch import obs
+    from repro_torch.kernels.dpp_greedy import autotune as tat
+
+    case = next(c for c in tat.smoke_cases() if c.family == family)
+    dev = torch.device("cuda")
+    assert tile != tat.model_tile(case.D, case.M, case.state_rows,
+                                  case.windowed, case.chunked,
+                                  capacity=_chunk_cap(case.windowed))
+    cache = tat.AutotuneCache(str(tmp_path / "cache.json"), {})
+    cache.put(D=case.D, M_bucket=case.M, state_rows=case.state_rows,
+              windowed=case.windowed, chunked=case.chunked, tile_m=tile,
+              best_us=1.0, candidates={tile: 1.0}, plain=False,
+              device=tat.device_fingerprint(dev))
+    cache.save()
+    monkeypatch.setenv("DPP_AUTOTUNE_CACHE", cache.path)
+    monkeypatch.delenv("DPP_TILE_M", raising=False)
+    V = tat.case_inputs(case, dev)
+    out = {}
+    with obs.session(obs.ObsConfig(enabled=True)):
+        for tile_m in ("auto", None):
+            spec = GreedySpec(k=case.k, window=case.window, backend="kernel",
+                              eps=1e-6, tile_m=tile_m,
+                              chunk_size=case.chunk if case.chunked
+                              else None)
+            cuda.reset_launch_counts()
+            res = greedy_map(spec, V=V)
+            torch.cuda.synchronize()
+            out[tile_m] = (res.indices, res.d_hist, cuda.launch_counts())
+        hits = obs.registry().counter("autotune_cache_hits_total").total()
+        assert obs.registry().gauge("autotune_tile_m").value() == tile
+    assert hits >= 1
+    (a_sel, a_dh, a_n), (m_sel, m_dh, m_n) = out["auto"], out[None]
+    assert set(a_n) == set(m_n) == {kernel}
+    assert torch.equal(a_sel, m_sel) and torch.equal(a_dh, m_dh)

@@ -166,8 +166,8 @@ def test_request_validation(kw, match):
     (dict(eps=-1.0), ValueError),
     (dict(tile_m=64), ValueError),  # needs use_kernel
     (dict(tile_m=100, use_kernel=True), ValueError),
-    (dict(tile_m="auto", use_kernel=True), NotImplementedError),
-    (dict(mesh=object(), tile_m="auto"), NotImplementedError),
+    (dict(tile_m="auto"), ValueError),  # "auto" needs use_kernel
+    (dict(mesh=object(), tile_m="auto"), ValueError),  # refused on a mesh
     (dict(chunk_size=0, mesh=object()), ValueError),
     (dict(mesh=object(), use_kernel=True), ValueError),
 ])

@@ -1085,15 +1085,43 @@ def test_router_on_two_ranks_decides_deadlines_on_rank_zero(tmp_path):
     request at its first pump while rank 0 served it, and the ranks'
     collectives would pair different lanes.  Rank 0 decides: both ranks
     return the same handles, only the lapsed request timed out."""
+    tails = []  # both ranks' stderr tails, for every failure message
     spawn_ranks(lambda r: ["-c", _SKEWED_RANK, str(r), str(tmp_path / "rdv"),
                            str(tmp_path / f"rank{r}.json")], 2, 120,
-                env=rank_env(2, {"OMP_NUM_THREADS": "1"}), cwd=REPO)
+                env=rank_env(2, {"OMP_NUM_THREADS": "1"}), cwd=REPO,
+                tails=tails)
     r0, r1 = (json.loads((tmp_path / f"rank{r}.json").read_text())
               for r in (0, 1))
-    assert r0 == r1
-    assert r0["timed_out"] == [i == 3 for i in range(6)]
-    assert all(len(s) == 6 for i, s in enumerate(r0["slates"]) if i != 3)
-    assert r0["decisions"] > 0
+    why = "".join(f"\n--- rank {r}: {json.dumps(rec)}\n--- rank {r} stderr "
+                  f"(tail) ---\n{tail}"
+                  for r, (rec, tail) in enumerate(zip((r0, r1), tails)))
+    assert r0 == r1, why
+    assert r0["timed_out"] == [i == 3 for i in range(6)], why
+    assert all(len(s) == 6 for i, s in enumerate(r0["slates"]) if i != 3), why
+    assert r0["decisions"] > 0, why
+
+
+def test_rank_error_carries_every_ranks_stderr_tail(tmp_path):
+    """A failing rank's error names every rank's stderr tail: the peer's
+    often says why the failing one waited or aborted."""
+    from repro_torch.distributed import RankError
+
+    # rank 1 fails once rank 0 has written its line (a file says so)
+    script = ("import os, sys, time\nr, flag = int(sys.argv[1]), sys.argv[2]"
+              "\nprint(f'rank {r} was here', file=sys.stderr, flush=True)\n"
+              "if r == 0:\n    open(flag, 'w').close()\n    time.sleep(60)\n"
+              "while not os.path.exists(flag):\n    time.sleep(0.01)\n"
+              "sys.exit(3)")
+    tails = []
+    with pytest.raises(RankError, match="rank 1 of 2 exited with code 3") \
+            as e:
+        spawn_ranks(lambda r: ["-c", script, str(r), str(tmp_path / "flag")],
+                    2, 60, tails=tails)
+    assert e.value.rank == 1 and set(e.value.tails) == {0, 1}
+    for r in (0, 1):
+        assert f"rank {r} was here" in e.value.tails[r] == tails[r]
+        assert f"--- rank {r} stderr (tail) ---\nrank {r} was here" in \
+            str(e.value)
 
 
 # ---------------------------------------------------------------------------
