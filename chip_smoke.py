@@ -12,7 +12,7 @@ rerank and the candidate-sharded rerank, stream and router.
 process for K7's profiler times: ``topk_device_times``.)
 
 Builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a),
-then runs nineteen phases through the port's entry points.  Phases 1-9
+then runs twenty phases through the port's entry points.  Phases 1-9
 (``repro_torch.serving.Reranker(..., use_kernel=True).rerank`` and
 ``.stream``, ``repro_torch.core.greedy_map_chunks`` and
 ``greedy_chunk_slots``) run at the paper's §5.1 setup: D = 100
@@ -268,6 +268,29 @@ machine's tile settings:
                       on phase 1's inputs, equal to phase 5's slate, the
                       override counted.  Its time is printed against its
                       30 s aim.
+
+Phase 20 runs the static checks and Figure 8 on the card, after phase 19
+(so the autotune cache it validates is phase 19's):
+
+20. static checks:    (a) ``repro_torch.analysis.run_analysis`` over
+                      ``src/repro_torch`` and this script, the kernel
+                      contracts given the card's own capacity queries
+                      (``analysis.kernels.card_capacities``): zero
+                      findings; the geometries checked per family and,
+                      per cooperative family (K5, K6, K7), the largest
+                      grid against what the card keeps co-resident;
+                      (b) Figure 8 (``repro_torch.figures.
+                      fig8_observability``) at its --full size (M = 1024,
+                      D = 32, shortlist 256, k in [16, 32], 4 slots,
+                      chunk 4, 32 requests) with its gates: no rebuild
+                      after warmup, the pump split complete, a state
+                      allocation per distinct serial k, a valid trace,
+                      live dispatch counters, every router slate equal
+                      to its K1 rerank bit for bit and every stream a
+                      prefix of it; each pump phase's mean host
+                      microseconds and share of the pump.  Its K5
+                      launches go into K5's record.  Its time is printed
+                      against its 20 s aim.
 
 Each phase resets the kernels' launch counters right before the main-path
 call (phases 16 and 17's ranks in their own processes), reads them right after,
@@ -3991,6 +4014,77 @@ def run_measured_tile(records, refs):
     print(f"  phase 19: {took:.1f} s (aim {TILE_AIM_S:.0f} s)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the static checks and Figure 8 on the card
+# ---------------------------------------------------------------------------
+
+STATIC_AIM_S = 20.0
+
+
+def run_static_checks(records):
+    """Phase 20 (aim 20 s): (a) the port's static checks with the card's
+    capacities, zero findings; (b) Figure 8 ``--full`` on the card, its
+    gates, its pump split and its K5 launches."""
+    from repro_torch import obs
+    from repro_torch.analysis import run_analysis
+    from repro_torch.analysis.cli import summary_line
+    from repro_torch.analysis.kernels import COOPERATIVE, card_capacities
+    from repro_torch.figures import fig8_observability as fig8
+    from repro_torch.kernels import cuda
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    name = "phase 20(a) static checks"
+    paths = [str(ROOT / "src" / "repro_torch"), str(ROOT / "chip_smoke.py")]
+    print(f"[{name}] python -m repro_torch.analysis over {len(paths)} "
+          f"paths, kernel contracts on the card's capacity queries",
+          flush=True)
+    findings, summary = run_analysis(paths, capacities=card_capacities(dev))
+    check(not findings, f"{name}: {len(findings)} finding(s):\n"
+          + "\n".join(f.format() for f in findings))
+    print("  " + summary_line(findings, summary), flush=True)
+    for fam, got in summary["kernel_contracts"]["per_family"].items():
+        line = (f"  {fam}: {got['geometries']} geometries, "
+                f"{got['refused']} refused by the policy")
+        if fam in COOPERATIVE:
+            line += (f"; largest cooperative grid {got['largest_grid']} "
+                     f"blocks against {got['co_resident']} co-resident")
+        print(line, flush=True)
+    t_a = time.perf_counter() - t0
+
+    name = "phase 20(b) fig8"
+    print(f"[{name}] Figure 8 at its --full size on the card", flush=True)
+    cuda.reset_launch_counts()
+    try:
+        rows, failures, slates = fig8.run(False, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        obs.disable()
+    counts = cuda.launch_counts()
+    check(not failures, f"{name}: gate failures {failures}")
+    check(set(counts) == {"fused_chunk_exact", "dpp_greedy_resident"},
+          f"{name}: launches {counts}")
+    check(counts["dpp_greedy_resident"] == len(slates),
+          f"{name}: {counts['dpp_greedy_resident']} K1 reranks for "
+          f"{len(slates)} slates")
+    records["fused_chunk_exact"]["launches"] += counts["fused_chunk_exact"]
+    by_name = {row[0]: row for row in rows}
+    for phase in fig8.PUMP_PHASES + ("sync",):
+        _, us, derived = by_name[f"fig8_pump_{phase}"]
+        share = dict(kv.split("=") for kv in derived.split(";"))["share"]
+        print(f"  pump {phase}: {us:.1f} us mean, {share} of the pump",
+              flush=True)
+    for row in rows:
+        print(f"  {row[0]},{row[1]:.1f},{row[2]}", flush=True)
+    print(f"  launches {counts}: K5 the router (warm set and drive) and the "
+          f"per-k serial streams, every router slate equal to its K1 "
+          f"rerank index for index and d_hist bit for bit, every stream a "
+          f"prefix of it", flush=True)
+    took = time.perf_counter() - t0
+    print(f"  phase 20: {took:.1f} s ((a) {t_a:.1f} s; aim "
+          f"{STATIC_AIM_S:.0f} s)", flush=True)
+
+
 def update_times():
     """``--update-times``: the shard-local update entries alone at 16(c)'s
     shape (B = 4, D = 100, C = 65,536 of a 10^6 pool with a 10% seen
@@ -4088,7 +4182,7 @@ def resident_times():
 
 
 def run_phases(records, rng, refs):
-    """Phases 1-19 in order, each adding to ``records``; ``refs`` carries
+    """Phases 1-20 in order, each adding to ``records``; ``refs`` carries
     phases 16, 17 and 19's requests and references (its ``work`` directory
     holds the requests' files)."""
     t0 = time.perf_counter()
@@ -4121,6 +4215,7 @@ def run_phases(records, rng, refs):
         run_sharded_stream(records, refs, mesh)
         run_router_mesh(records, refs, mesh)
     run_measured_tile(records, refs)
+    run_static_checks(records)
     print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 

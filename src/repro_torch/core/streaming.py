@@ -70,7 +70,11 @@ from repro_torch.core.sharded import (
 from repro_torch.core.windowed import greedy_step_windowed, window_solve
 from repro_torch.device import resolve_device, same_device
 from repro_torch.distributed.context import shard_bounds
-from repro_torch.obs.dispatch import record_chunk, record_slot_state_alloc
+from repro_torch.obs.dispatch import (
+    record_chunk,
+    record_slot_state_alloc,
+    record_state_alloc,
+)
 
 
 class GreedyState(NamedTuple):
@@ -208,6 +212,7 @@ def greedy_init(spec, *, L=None, V=None, mask=None) -> GreedyState:
     the state (masked entries can never be selected in any later chunk).
     """
     _check_kernel_args(spec, L, V)
+    record_state_alloc(k=spec.k)
     if spec.sharded():
         return dpp_greedy_sharded_stream_init(
             V, spec.k, mesh=spec.mesh, axis_name=spec.axis_name,

@@ -1,9 +1,9 @@
 """The paper's experiments on the port: the counterparts of ``repro``'s
 ``benchmarks/fig1_speedup.py``, ``fig2_reference.py``,
 ``fig3_tradeoff.py``, ``fig4_windowed.py``, ``fig5_sharded.py``,
-``fig6_streaming.py``, ``fig7_serving.py``, ``fig9_autotune.py`` and
-``fig10_session.py``, one module each under the same name, and
-``run.py``, which runs the nine and writes their ``BENCH_<fig>.json``
+``fig6_streaming.py``, ``fig7_serving.py``, ``fig8_observability.py``,
+``fig9_autotune.py`` and ``fig10_session.py``, one module each under the
+same name, and ``run.py``, which runs the ten and writes their ``BENCH_<fig>.json``
 artifacts.  ``fig5_sharded`` runs
 each rank count's ranks as subprocesses of a ``torch.distributed``
 group.

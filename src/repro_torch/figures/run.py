@@ -1,6 +1,6 @@
 """Run the port's figures, print their CSV and write one
 ``BENCH_<fig>.json`` artifact each; the counterpart of ``repro``'s
-``benchmarks/run.py`` for Figures 1-7, 9 and 10.
+``benchmarks/run.py`` for Figures 1-10.
 
   python -m repro_torch.figures.run [--smoke | --full] [--device cuda|cpu] [--out-dir DIR]
 
@@ -39,6 +39,7 @@ from repro_torch.figures import (
     fig5_sharded,
     fig6_streaming,
     fig7_serving,
+    fig8_observability,
     fig9_autotune,
     fig10_session,
 )
@@ -61,6 +62,8 @@ FIGURES = (
      "whole", fig6_streaming.main),
     ("fig7", "Figure 7: continuous-batching serving, router vs serial "
      "streaming and an open-loop sweep", fig7_serving.main),
+    ("fig8", "Figure 8: observability, the router pump's phases from "
+     "spans and the rebuild ledger", fig8_observability.main),
     ("fig9", "Figure 9: measured tile choice (tile_m='auto') vs the "
      "on-chip budget model", fig9_autotune.main),
     ("fig10", "Figure 10: session delta-resume vs a full re-rerank",

@@ -61,6 +61,7 @@ from repro_torch.kernels.dpp_greedy.tiling import (
     WARP,
     TilePolicy,
     chunk_smem_bytes,
+    tile_count,
     tiled_smem_bytes,
 )
 from repro_torch.obs.dispatch import record_autotune_lookup
@@ -362,7 +363,7 @@ def tile_fits(tile_m: int, D: int, M: int, state_rows: int, windowed: bool,
     smem = chunk_smem_bytes(D, cols, state_rows, windowed)
     if smem > SMEM_BUDGET_BYTES:
         return False
-    return capacity is None or lanes * -(-M // cols) <= capacity(smem)
+    return capacity is None or lanes * tile_count(M, cols) <= capacity(smem)
 
 
 def _entry_tile(entry: object, D: int, M: int, state_rows: int,

@@ -57,6 +57,7 @@ from repro_torch.kernels.dpp_greedy.dpp_greedy import (
 )
 from repro_torch.kernels.dpp_greedy.tiling import (
     chunk_smem_bytes,
+    tile_count,
     tiled_smem_bytes,
     update_smem_bytes,
 )
@@ -707,9 +708,9 @@ def _check_cooperative(err: int, name: str, B: int, M: int,
                        tile_m: int) -> None:
     if err == _COOPERATIVE_TOO_LARGE:
         raise ValueError(
-            f"{name}: the grid of {B * -(-M // tile_m)} blocks ({B} lanes x "
-            f"tiles of {tile_m} columns) cannot be co-resident for one "
-            f"cooperative launch; size the tile with TilePolicy.decide(..., "
+            f"{name}: the grid of {B * tile_count(M, tile_m)} blocks ({B} "
+            f"lanes x tiles of {tile_m} columns) cannot be co-resident for "
+            f"one cooperative launch; size the tile with TilePolicy.decide(..., "
             f"chunked=True, capacity=chunk_capacity)"
         )
     cuda.check(err, name)
@@ -758,7 +759,7 @@ def chunk_launcher(V, C, d2, t, stopped, win, chunk: int, eps: float,
     ptrs = [V, C, d2, t, stopped]
     if windowed:
         cuda.require(win, "win", torch.int32, (B, R))
-        nt = -(-M // tile_m)
+        nt = tile_count(M, tile_m)
         ptrs += [win, scratch, scratch[(chunk + 1) * B:],
                  torch.empty((2, B, nt, R), dtype=torch.float32, device=dev),
                  torch.empty((2, B, R, R), dtype=torch.float32, device=dev)]
@@ -843,7 +844,7 @@ def dpp_greedy_tiled(V, mask, k: int, window=None, eps: float = 1e-3,
         step = step_launcher("tiled_step_exact",
                              (V, C, d2, keys, flags, sel, dh), eps, tile_m)
     else:
-        nt = -(-M // tile_m)
+        nt = tile_count(M, tile_m)
         win = torch.full((2, B, w), -1, dtype=torch.int32, device=dev)
         cand = torch.zeros((2, B, nt, w), dtype=torch.float32, device=dev)
         wcol = torch.zeros((2, B, w, w), dtype=torch.float32, device=dev)

@@ -70,6 +70,13 @@ def round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+def tile_count(M: int, tile_m: int) -> int:
+    """Tiles of ``tile_m`` columns a lane of ``M`` candidates spans: the
+    x extent of the tiled and fused chunk kernels' grids, ``(M + tile_m
+    - 1) / tile_m`` in ``csrc/tiled.cu`` and ``csrc/chunk.cu``."""
+    return -(-M // tile_m)
+
+
 def validate_tile_m(tile_m, allow_auto: bool = False) -> None:
     """Shared tile_m validation (``TilePolicy``, ``GreedySpec``,
     ``DPPRerankConfig`` and the sharded path accept the knob): ``None``
@@ -273,7 +280,7 @@ def chunk_v_resident(D: int, M: int, tile_m: int, state_rows: int,
     smem = chunk_smem_bytes(D, tile_m, state_rows, windowed, v_resident=True)
     if smem > SMEM_BUDGET_BYTES:
         return False
-    return capacity is None or lanes * -(-M // tile_m) <= capacity(smem)
+    return capacity is None or lanes * tile_count(M, tile_m) <= capacity(smem)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -384,7 +391,7 @@ class TilePolicy:
                 f"of shared memory, not {min(tile, M)}"
             )
         while True:
-            nt = -(-M // tile)
+            nt = tile_count(M, tile)
             cols = min(tile, M)
             vres = chunk_v_resident(D, M, cols, R, windowed, lanes, capacity)
             if capacity is None:

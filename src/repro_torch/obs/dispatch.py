@@ -74,6 +74,21 @@ def record_slot_state_alloc(*, slots: int, M: int) -> None:
     ).inc(slots=slots, M=M)
 
 
+def record_state_alloc(*, k: int) -> None:
+    """One whole-request resumable greedy state of slate length ``k``
+    allocated (``core.streaming.greedy_init``: a stream's, or a chunked
+    ``greedy_map``'s).  Each request allocates its own, so this is no
+    rebuild and stays out of :data:`REBUILD_COUNTERS`; figure 8 reads it
+    as the per-k serial streams' counter-example to the router."""
+    reg = _obs.registry()
+    if reg is None:
+        return
+    reg.counter(
+        "greedy_state_allocs_total",
+        "whole-request greedy states allocated (one a stream)",
+    ).inc(k=k)
+
+
 class RebuildMonitor:
     """Kernel builds, module loads and slot-state allocations in one
     registry, bracketed around a warmup (``repro``'s ``CompileMonitor``

@@ -1448,3 +1448,47 @@ def test_auto_equals_the_model_default_on_card(card, tmp_path, monkeypatch,
     (a_sel, a_dh, a_n), (m_sel, m_dh, m_n) = out["auto"], out[None]
     assert set(a_n) == set(m_n) == {kernel}
     assert torch.equal(a_sel, m_sel) and torch.equal(a_dh, m_dh)
+
+
+@pytest.mark.gpu
+def test_static_checks_on_the_card_capacities(card, tmp_path, monkeypatch):
+    """``repro_torch.analysis`` over the port with the card's own
+    occupancy queries: zero findings, every cooperative family's largest
+    grid within what the card keeps co-resident."""
+    from pathlib import Path
+
+    from repro_torch.analysis import run_analysis
+    from repro_torch.analysis.kernels import COOPERATIVE, card_capacities
+
+    monkeypatch.setenv("DPP_AUTOTUNE_CACHE", str(tmp_path / "absent.json"))
+    monkeypatch.delenv("DPP_TILE_M", raising=False)
+    root = Path(__file__).resolve().parents[1]
+    findings, summary = run_analysis(
+        [str(root / "src" / "repro_torch")],
+        capacities=card_capacities(torch.device("cuda")))
+    assert findings == [], "\n".join(f.format() for f in findings)
+    per = summary["kernel_contracts"]["per_family"]
+    for fam in COOPERATIVE:
+        assert 0 < per[fam]["largest_grid"] <= per[fam]["co_resident"]
+
+
+@pytest.mark.gpu
+def test_fig8_full_on_the_card(card):
+    """Figure 8 at its --full size: its gates (no rebuild after warmup,
+    router slates equal to their K1 rerank bit for bit) and its K5
+    launches, the router's and the serial streams'."""
+    from repro_torch import obs
+    from repro_torch.figures import fig8_observability as fig8
+
+    cuda.reset_launch_counts()
+    try:
+        rows, failures, slates = fig8.run(False, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        obs.disable()
+    assert failures == []
+    counts = cuda.launch_counts()
+    assert counts.get("fused_chunk_exact", 0) > 0
+    assert counts.get("dpp_greedy_resident") == len(slates) == 32
+    assert [r[0] for r in rows][:5] == [
+        f"fig8_pump_{p}" for p in fig8.PUMP_PHASES + ("sync",)]
