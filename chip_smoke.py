@@ -2,17 +2,19 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the DPP rerank, DeepFM
 scoring into the rerank, the fused scoring top-c, the paper's
 experiments, the continuous-batching router, session-aware incremental
-rerank and the candidate-sharded rerank, stream and router.
+rerank, the candidate-sharded rerank, stream and router, and the LM and
+GNN model families with the LM-embedded rerank.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --resident-times   # K1, K2 alone (resident_times)
     python3 chip_smoke.py --update-times     # the update entries alone
+    python3 chip_smoke.py --models           # phase 21 alone (run_models)
 
 (Phase 12 runs ``chip_smoke.py --topk-device-times STATE`` as a child
 process for K7's profiler times: ``topk_device_times``.)
 
 Builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a),
-then runs twenty phases through the port's entry points.  Phases 1-9
+then runs twenty-one phases through the port's entry points.  Phases 1-9
 (``repro_torch.serving.Reranker(..., use_kernel=True).rerank`` and
 ``.stream``, ``repro_torch.core.greedy_map_chunks`` and
 ``greedy_chunk_slots``) run at the paper's §5.1 setup: D = 100
@@ -292,6 +294,43 @@ Phase 20 runs the static checks and Figure 8 on the card, after phase 19
                       launches go into K5's record.  Its time is printed
                       against its 20 s aim.
 
+Phase 21 runs the LM and GNN families, last (``run_models``, 60 s aim;
+TF32 off; each part frees its weights before the next):
+
+21. models:           (a) ``repro_torch.examples.lm_rerank.main`` at
+                      qwen1.5-4b's published config, all 40 layers in
+                      bf16 (about 3.95e9 random parameters drawn on the
+                      card from a seeded CUDA generator): 256 items of 16
+                      tokens embedded by the mean-pooled, normalised
+                      ``forward_hidden``, scored against item 0 and
+                      reranked by ``Reranker(use_kernel=True)``: one K1
+                      launch at D = 2560, C = 64, k = 10, its cluster
+                      layout printed beside the tiling model's (4 CTAs,
+                      V and the Cholesky rows in shared memory); the
+                      slate equals a direct K1 call's, K1 is held against
+                      its plain version and both against the float64
+                      greedy (``certify``); the forward's host wall, K1's
+                      event, device and plain times; (b) prefill then 4
+                      decode steps (B = 2) against the full forward's
+                      logits (rtol / atol 2e-3) in float32 at published
+                      widths: qwen1.5-4b at 4 layers (64-token prompt),
+                      gemma3-27b at 6 (5 local layers of window 1024, 1
+                      global; a 1100-token prompt, so the rings wrap),
+                      olmoe-1b-7b at 2 (64 experts, top-8; the slots its
+                      published capacity factor drops over the forward
+                      are printed, and the check runs at capacity factor
+                      E / K, where none drops, since a forward over B(S +
+                      4) tokens and a decode step over B have other
+                      capacities); (c) graphcast's published config (16
+                      layers, d_hidden 512, d_edge 64, n_vars 227, sum)
+                      on GNN_SHAPES full_graph_sm (2708 nodes, 10,556
+                      edges, d_feat 1433) and molecule (128 x 30 nodes,
+                      64 edges each, d_feat 64) from ``data.synthetic``,
+                      bf16 and float32: finite, shaped, and the float32
+                      molecule output within rtol 1e-4 / atol 1e-5 of
+                      the same parameters on the CPU.  K1's launch goes
+                      into K1's record.
+
 Each phase resets the kernels' launch counters right before the main-path
 call (phases 16 and 17's ranks in their own processes), reads them right after,
 and checks them and the mode recorded in dispatch telemetry; holds the
@@ -317,6 +356,7 @@ JSON record, the last the device line.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -4085,6 +4125,347 @@ def run_static_checks(records):
           f"{STATIC_AIM_S:.0f} s)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the LM and GNN families
+# ---------------------------------------------------------------------------
+
+MODELS_AIM_S = 60.0
+LM_ARCH = "qwen1.5-4b"  # 21(a): the example's arch, published config
+LM_LAYOUT = (4, True, True)  # the tiling model's K1 layout at D = 2560
+# 21(b): (arch, layers, prompt tokens), B = 2, 4 decode steps, float32
+LM_DECODE = (("qwen1.5-4b", 4, 64), ("gemma3-27b", 6, 1100),
+             ("olmoe-1b-7b", 2, 64))
+LM_B, LM_EXTRA, LM_TOL = 2, 4, 2e-3
+GNN_SHAPE_NAMES = ("full_graph_sm", "molecule")  # 21(c), graphcast
+GNN_RTOL, GNN_ATOL = 1e-4, 1e-5  # card vs CPU, same parameters
+
+
+def free_card():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_lm_rerank(records, smi):
+    """21(a): ``examples.lm_rerank`` at qwen1.5-4b's published config, all
+    its layers in bf16, K1 reranking the LM embeddings (D = d_model)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.greedy_naive import greedy_map_naive
+    from repro_torch.examples import lm_rerank
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.dpp_greedy.dpp_greedy import (
+        dpp_greedy_resident,
+        dpp_greedy_resident_plain,
+        init_gains,
+    )
+    from repro_torch.serving.reranker import _shortlist_kernel
+
+    name = "phase 21(a) lm_rerank"
+    kernel = "dpp_greedy_resident"
+    cfg = get_arch(LM_ARCH).config
+    rr = lm_rerank.RERANK
+    k, C, D_ = rr.slate_size, rr.shortlist, cfg.d_model
+    print(f"[{name}] examples.lm_rerank.main at {LM_ARCH}'s published "
+          f"config: {cfg.n_layers} layers (no depth cut), d_model {D_}, "
+          f"{cfg.n_heads} heads (kv {cfg.n_kv_heads}), d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, QKV bias {cfg.qkv_bias}, {cfg.dtype}; "
+          f"{cfg.param_count()} parameters drawn on the card from a seeded "
+          f"CUDA generator; {lm_rerank.M} items x {lm_rerank.S} tokens; "
+          f"K1 at D={D_}, C={C}, k={k}", flush=True)
+    plan, line = cluster_line(D_, C, k, False, 1)
+    print(f"  K1 layout on this card: {line} ("
+          + ("as the tiling model predicts" if tuple(plan) == LM_LAYOUT
+             else f"the tiling model predicts {LM_LAYOUT}: the card cannot "
+                  f"place that cluster, so the policy took the next "
+                  f"layout") + ")", flush=True)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = lm_rerank.main(device="cuda", arch=LM_ARCH, reduced=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = cuda.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    free_card()
+    check(counts == {kernel: 1}, f"{name}: launches {counts}, expected one "
+          f"{kernel}")
+    records[kernel]["launches"] += counts[kernel]
+    emb, slate, top = out["emb"], out["slate"], out["top"]
+    check(emb.shape == (lm_rerank.M, D_) and np.isfinite(emb).all(),
+          f"{name}: embeddings {emb.shape}, finite {np.isfinite(emb).all()}")
+    check(np.allclose(np.linalg.norm(emb, axis=1), 1.0, atol=1e-5),
+          f"{name}: embeddings not unit-norm")
+    check(slate.shape == (k,) and (slate >= 0).all()
+          and len(set(slate.tolist())) == k and (slate < lm_rerank.M).all(),
+          f"{name}: slate {slate.tolist()}")
+    check(top.tolist() == np.argsort(-out["scores"], kind="stable")[
+        :k].tolist(), f"{name}: top-N slate {top.tolist()}")
+    # the same weights again, for the forward's steady time
+    _, model = lm_rerank.build_model(LM_ARCH, False, "cuda")
+    tokens = lm_rerank.item_tokens(cfg.vocab)
+    walls = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lm_rerank.embed_items(model, cfg, tokens)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    del model
+    free_card()
+    warm = statistics.median(walls[1:])
+    body = cfg.param_count() - 2 * cfg.vocab * D_  # embed, unembed unused
+    flops = 2 * body * lm_rerank.M * lm_rerank.S
+    print(f"  forward_hidden ({lm_rerank.M} x {lm_rerank.S} tokens, "
+          f"{flops:.3g} FLOP in its dense layers), host wall synchronised: "
+          f"first call {out['forward_s'] * 1e3:.1f} ms "
+          f"({flops / out['forward_s'] / 1e12:.1f} TFLOP/s), warm "
+          f"{warm * 1e3:.1f} ms (median of 3: "
+          f"{flops / warm / 1e12:.1f} TFLOP/s, bf16 peak 989); main() "
+          f"{wall:.2f} s with the weights' draw; peak device memory "
+          f"{peak / 2**30:.2f} GiB; {smi}", flush=True)
+
+    # K1 against its plain version and both against float64, on the same
+    # embeddings (V rebuilt from the main path's scores and rows)
+    scores = torch.from_numpy(out["scores"]).to("cuda")
+    feats = torch.from_numpy(emb).to("cuda")
+    V, _, top_i = _shortlist_kernel(scores[None], feats, rr, None)
+    d2 = init_gains(V, torch.ones(1, V.shape[2], dtype=torch.bool,
+                                  device="cuda"))
+    kfn = lambda: dpp_greedy_resident(V, d2, k, rr.eps)  # noqa: E731
+    pfn = lambda: dpp_greedy_resident_plain(V, d2, k, rr.eps)  # noqa: E731
+    got, want = kfn(), pfn()
+    torch.cuda.synchronize()
+    direct = torch.where(got[0] >= 0, top_i.gather(
+        1, got[0].long().clamp_min(0)), -1)[0].cpu().numpy()
+    check(direct.tolist() == slate.tolist(),
+          f"{name}: the direct K1 call {direct.tolist()} differs from the "
+          f"main path's slate {slate.tolist()}")
+    _, err = compare(name + " K1 vs plain", V, None, got, want, None, rr.eps)
+    picks, _ = greedy_map_naive((V[0].T @ V[0]).double().cpu().numpy(), k,
+                                rr.eps)  # the determinant greedy, float64
+    ref = torch.full((1, k), -1, dtype=torch.int32, device="cuda")
+    ref[0, :len(picks)] = torch.as_tensor(picks, dtype=torch.int32)
+    for label, sel in (("K1", got[0]), ("plain", want[0])):
+        lanes = certify(f"{name} {label} vs float64", V, None, sel, ref,
+                        None, rr.eps)
+        print(f"  {label} vs the float64 greedy: "
+              + ("equal" if not lanes else "parts at a certified near-tie"),
+              flush=True)
+    ms = time_events(lambda: event_ms(kfn), TIMING_REPS)
+    dev = device_ms(kfn, kernel, 1, cuda_name=RESIDENT_CUDA[kernel])
+    plain_ms = time_events(lambda: event_ms(pfn), PLAIN_REPS)
+    b_ms, by, nbytes, nflops = bound(1, D_, C, k, None,
+                                     (got[0] >= 0).sum(1))
+    print(f"  K1 at D={D_}: {ms:.4f} ms (CUDA events, median of "
+          f"{TIMING_REPS}), device {ms_text(dev)}, plain {plain_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms by {by} ({nbytes} B, {nflops} FP32 FLOP); "
+          f"max abs d_hist err {err:.3g}; {smi}", flush=True)
+
+
+@contextlib.contextmanager
+def counting_moe_drops(counter):
+    """Count into ``counter["dropped"]`` the (token, slot) pairs every MoE
+    call drops at its capacity while the block runs."""
+    from repro_torch.models import moe
+
+    local = moe._local_moe
+
+    def counted(x, p, cfg, *args):
+        _, top_e, _ = moe.route(x, p, cfg)
+        cap = moe.capacity(cfg, x.shape[0])
+        counter["dropped"] += int((moe.dispatch_positions(
+            top_e, cfg.n_experts, cap) == cap).sum())
+        counter["slots"] += top_e.numel()
+        return local(x, p, cfg, *args)
+
+    moe._local_moe = counted
+    try:
+        yield counter
+    finally:
+        moe._local_moe = local
+
+
+def lm_decode_check(arch, n_layers, S, smi):
+    """21(b), one arch: prefill S tokens and decode LM_EXTRA more at
+    published widths in float32, each position's logits against the full
+    forward's.  Returns (max abs error, seconds)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+
+    t0 = time.perf_counter()
+    name = f"phase 21(b) decode {arch}"
+    full_cfg = get_arch(arch).config
+    cfg = dataclasses.replace(full_cfg, n_layers=n_layers,
+                              dtype=torch.float32)
+    cut = f"{n_layers} of {full_cfg.n_layers} layers, float32"
+    drops = None
+    if cfg.moe is not None:
+        # GShard capacity: cap = max(8, int(cf * T * K / E)) for T tokens,
+        # so a forward over B * (S + extra) tokens drops other slots than a
+        # prefill over B * S and a decode step over B (cap 8, none); at
+        # cf = E / K every expert holds all T tokens and none drops
+        drops = {"dropped": 0, "slots": 0}
+        wide = dataclasses.replace(cfg.moe, capacity_factor=float(
+            cfg.moe.n_experts // cfg.moe.top_k))
+        cut += (f", capacity_factor {cfg.moe.capacity_factor} -> "
+                f"{wide.capacity_factor} (E / K: no slot drops)")
+    windows = [w for w in cfg.layer_windows() if w is not None]
+    print(f"[{name}] {cut}; B={LM_B}, prompt {S} tokens, {LM_EXTRA} decode "
+          f"steps, max_seq {S + LM_EXTRA}"
+          + (f"; windows {sorted(set(windows))} (ring wraps: "
+             f"{S > min(windows)})" if windows else ""), flush=True)
+    model = tfm.init_params(torch.Generator("cuda").manual_seed(SEED), cfg)
+    toks = torch.from_numpy(np.random.default_rng(SEED + 21).integers(
+        0, cfg.vocab, size=(LM_B, S + LM_EXTRA))).to("cuda")
+    with torch.inference_mode():
+        if drops is not None:
+            with counting_moe_drops(drops):
+                tfm.forward_hidden(model, toks, cfg)
+            print(f"  at the published capacity_factor the forward over "
+                  f"{toks.numel()} tokens drops {drops['dropped']} of "
+                  f"{drops['slots']} (token, slot) pairs", flush=True)
+            cfg = dataclasses.replace(cfg, moe=wide)
+        hidden, _, _ = tfm.forward_hidden(model, toks, cfg)
+        full = (hidden[:, S - 1:] @ model.unembed).float()
+        del hidden
+        logits, cache = tfm.prefill(model, toks[:, :S], cfg, S + LM_EXTRA)
+        steps = [logits]
+        for t in range(LM_EXTRA):
+            logits, cache = tfm.decode_step(model, cache,
+                                            toks[:, S + t:S + t + 1], cfg)
+            steps.append(logits)
+        torch.cuda.synchronize()
+    err = 0.0
+    for t, got in enumerate(steps):
+        want = full[:, t]
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{name}: step {t} logits {tuple(got.shape)}")
+        err = max(err, (got - want).abs().max().item())
+        check(torch.allclose(got, want, rtol=LM_TOL, atol=LM_TOL),
+              f"{name}: position {S - 1 + t}'s logits beyond rtol / atol "
+              f"{LM_TOL} of the full forward's (max abs "
+              f"{(got - want).abs().max().item():.3g})")
+    del model, cache, full, steps
+    free_card()
+    took = time.perf_counter() - t0
+    print(f"  prefill + {LM_EXTRA} decode steps equal the full forward's "
+          f"logits within rtol / atol {LM_TOL} (max abs err {err:.3g}); "
+          f"{took:.1f} s with the weights' draw; {smi}", flush=True)
+    return err, took
+
+
+def graphcast_check(shape_name, smi):
+    """21(c), one shape: graphcast's published config on a graph of that
+    shape from ``data.synthetic``, in bf16 (finite, shapes), float32 and
+    float64 on the card, and float64 on the CPU with the same parameters:
+    the card's float64 within rtol 1e-4 / atol 1e-5 of the CPU's, its
+    float32 within 1e-4 of the largest output (normwise) of it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.data import batched_molecules, random_graph
+    from repro_torch.models import gnn
+
+    name = f"phase 21(c) graphcast {shape_name}"
+    shp = GNN_SHAPES[shape_name]
+    cfg = dataclasses.replace(get_arch("graphcast").config,
+                              d_feat=shp.d_feat)
+    if shp.n_graphs:
+        g = batched_molecules(shp.n_graphs, shp.nodes_per_graph,
+                              shp.edges_per_graph, shp.d_feat, cfg.n_vars,
+                              seed=SEED)
+        feats, edges = g["node_feats"], g["edges"]
+    else:
+        g = random_graph(shp.n_nodes, shp.n_edges, shp.d_feat, cfg.n_vars,
+                         seed=SEED)
+        feats, edges = g.node_feats, g.edges
+    N = feats.shape[0]
+    print(f"[{name}] {cfg.n_layers} layers, d_hidden {cfg.d_hidden}, d_edge "
+          f"{cfg.d_edge}, n_vars {cfg.n_vars}, {cfg.aggregator}, d_feat "
+          f"{cfg.d_feat} (no cut); {N} nodes, {edges.shape[0]} edges",
+          flush=True)
+    drawn = gnn.init_params(torch.Generator("cuda").manual_seed(SEED),
+                            dataclasses.replace(cfg, dtype=torch.float32))
+    state = {k: v.cpu() for k, v in drawn.state_dict().items()}
+    del drawn
+    line, outs = [], {}
+    for dev, dtype in (("cuda", torch.bfloat16), ("cuda", torch.float32),
+                       ("cuda", torch.float64), ("cpu", torch.float32),
+                       ("cpu", torch.float64)):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        model = gnn.GNN(c, device=dev)
+        model.load_state_dict({k: v.to(dtype) for k, v in state.items()})
+        x = torch.from_numpy(feats).to(dev)
+        e = torch.from_numpy(edges).to(dev)
+        with torch.inference_mode():
+            if dev == "cuda":
+                gnn.apply(model, x, e, c)  # warm
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = gnn.apply(model, x, e, c)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        check(out.shape == (N, c.n_vars) and out.dtype == dtype,
+              f"{name} {dev} {dtype}: output {tuple(out.shape)} {out.dtype}")
+        check(bool(torch.isfinite(out.float()).all()),
+              f"{name} {dev} {dtype}: non-finite outputs")
+        outs[dev, dtype] = out.double().cpu()
+        line.append(f"{dev} {str(dtype)[6:]} {wall * 1e3:.1f} ms")
+        del model, out
+        free_card()
+    ref = outs["cpu", torch.float64]
+    scale = ref.abs().max().item()
+    got64 = outs["cuda", torch.float64]
+    err64 = (got64 - ref).abs().max().item()
+    check(torch.allclose(got64, ref, rtol=GNN_RTOL, atol=GNN_ATOL),
+          f"{name}: the card's float64 output beyond rtol {GNN_RTOL} / atol "
+          f"{GNN_ATOL} of the CPU's (max abs {err64:.3g})")
+    err32 = (outs["cuda", torch.float32] - ref).abs().max().item()
+    check(err32 <= GNN_RTOL * scale + GNN_ATOL,
+          f"{name}: the card's float32 output {err32:.3g} from the CPU's "
+          f"float64, above {GNN_RTOL} of its largest entry {scale:.3g}")
+
+    def f32_text(dev):
+        d = (outs[dev, torch.float32] - ref).abs()
+        off = (d > GNN_ATOL + GNN_RTOL * ref.abs()).double().mean().item()
+        return (f"{dev} float32 {d.max().item() / scale:.3g} of the largest "
+                f"output, {100 * off:.3g}% of entries past rtol {GNN_RTOL} "
+                f"/ atol {GNN_ATOL}")
+
+    card32, cpu32 = f32_text("cuda"), f32_text("cpu")
+    print(f"  host wall, synchronised, warm: {', '.join(line)}; largest "
+          f"output {scale:.4g}, median {ref.abs().median().item():.4g}; "
+          f"card float64 vs the CPU's: max abs {err64:.3g} (rtol "
+          f"{GNN_RTOL}, atol {GNN_ATOL}); against the CPU's float64: "
+          f"{card32} (limit {GNN_RTOL} of the largest output), {cpu32}; "
+          f"{smi}", flush=True)
+
+
+def run_models(records):
+    """Phase 21 (aim 60 s): (a) the LM-embedded rerank at qwen1.5-4b's
+    published config on K1; (b) prefill and decode against the full
+    forward for qwen1.5-4b, gemma3-27b past its window and olmoe-1b-7b;
+    (c) graphcast on two graph shapes.  Each part frees its weights."""
+    from repro_torch.figures.common import device_name
+
+    t0 = time.perf_counter()
+    smi = device_name(torch.device("cuda"))
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "phase 21 runs with TF32 off")
+    run_lm_rerank(records, smi)
+    t_a = time.perf_counter() - t0
+    for arch, n_layers, S in LM_DECODE:
+        lm_decode_check(arch, n_layers, S, smi)
+    t_b = time.perf_counter() - t0 - t_a
+    for shape_name in GNN_SHAPE_NAMES:
+        graphcast_check(shape_name, smi)
+    took = time.perf_counter() - t0
+    print(f"  phase 21: {took:.1f} s ((a) {t_a:.1f} s, (b) {t_b:.1f} s, (c) "
+          f"{took - t_a - t_b:.1f} s; aim {MODELS_AIM_S:.0f} s)", flush=True)
+
+
 def update_times():
     """``--update-times``: the shard-local update entries alone at 16(c)'s
     shape (B = 4, D = 100, C = 65,536 of a 10^6 pool with a 10% seen
@@ -4182,7 +4563,7 @@ def resident_times():
 
 
 def run_phases(records, rng, refs):
-    """Phases 1-20 in order, each adding to ``records``; ``refs`` carries
+    """Phases 1-21 in order, each adding to ``records``; ``refs`` carries
     phases 16, 17 and 19's requests and references (its ``work`` directory
     holds the requests' files)."""
     t0 = time.perf_counter()
@@ -4216,6 +4597,7 @@ def run_phases(records, rng, refs):
         run_router_mesh(records, refs, mesh)
     run_measured_tile(records, refs)
     run_static_checks(records)
+    run_models(records)
     print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -4268,6 +4650,9 @@ def run_main(work: Path) -> int:
         return 0
     if sys.argv[1:2] == ["--topk-device-times"]:
         topk_device_times(sys.argv[2])
+        return 0
+    if sys.argv[1:] == ["--models"]:
+        run_models({"dpp_greedy_resident": {"launches": 0}})
         return 0
     rng = np.random.default_rng(SEED)
     records = {}

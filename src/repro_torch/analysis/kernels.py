@@ -16,7 +16,8 @@ over its whole grid in plain Python:
   rows than its key slots;
 * **alignment** — a tile is a warp multiple (``validate_tile_m``) or
   the whole M, a cluster slice 16-byte aligned, K7's block rows a
-  multiple of 128;
+  multiple of 128 and its tiles groups of 8 rows (or, where a stage
+  holds fewer, that many);
 * **smem budget** — the bytes the launch gets (the wrapper module's own
   binding of the model) fit ``SMEM_BUDGET_BYTES``;
 * **cluster** — a policy cluster size lies in ``CLUSTER_SIZES`` (at most
@@ -58,7 +59,7 @@ from repro_torch.analysis.findings import Finding
 # The geometries: repro's feature dims and state rows, the lanes a router
 # or batch launch carries, candidate widths from a router bucket to the
 # 10^6 pool, and the tile knob's three kinds (model, measured, explicit)
-SWEEP_D = (8, 64, 256)
+SWEEP_D = (8, 64, 256, 2048, 2560, 3072, 5376)
 SWEEP_R = (8, 48, 128)
 SWEEP_LANES = (1, 4, 32, 64)
 SWEEP_M = (1000, 20_000, 65_536, 1_000_000)
@@ -448,7 +449,11 @@ def _sweep_topk(caps: Capacities, report: _Report,
             report.add(anchor, "cuda-alignment",
                        f"block rows {seg} not a multiple of {tk.LANE} "
                        f"({geom})")
-        if plan.tile_rows % 8:
+        # a stage too short for 8 rows (the LM widths) holds as many as
+        # fit: the plan's fallback, whose partial group score_rows guards
+        short = tk.TILE_BYTES // (D * dtype.itemsize)
+        if plan.tile_rows % 8 and not (plan.stages and
+                                       plan.tile_rows == short < 8):
             report.add(anchor, "cuda-alignment",
                        f"tile of {plan.tile_rows} rows is not a multiple "
                        f"of a warp's group of 8 ({geom})")
@@ -571,11 +576,15 @@ def _check_smem_model(caps: Capacities, report: _Report) -> int:
     # every capacity the drive needs, asked before the stand-in card
     # replaces the library the card's occupancy queries go through (and
     # whose answers the wrappers memoize)
-    chunk_plans = {}
+    chunk_plans = {}  # None: the policy refuses K5/K6 there
     for windowed, D, R in itertools.product((False, True), SWEEP_D, SWEEP_R):
-        mode, tm, vres = tiling.TilePolicy().decide(
-            D, M, R, windowed, chunked=True, lanes=1,
-            capacity=caps.chunk(windowed))
+        try:
+            mode, tm, vres = tiling.TilePolicy().decide(
+                D, M, R, windowed, chunked=True, lanes=1,
+                capacity=caps.chunk(windowed))
+        except ValueError:
+            chunk_plans[windowed, D, R] = None
+            continue
         chunk_plans[windowed, D, R] = (M if mode == "resident"
                                        else min(tm, M)), vres
     topk_caps = {}
@@ -650,6 +659,8 @@ def _check_smem_model(caps: Capacities, report: _Report) -> int:
             driven += 1
             # K5 / K6 at the policy's tile, V resident and streamed
             anchor = _anchor(tiled.chunk_launcher)
+            if chunk_plans[windowed, D, R] is None:
+                continue
             tile, vres = chunk_plans[windowed, D, R]
             for v in {vres, False}:
                 want = tiling.chunk_smem_bytes(D, tile, R, windowed, v)

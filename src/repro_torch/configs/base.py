@@ -14,7 +14,7 @@ from repro_torch.configs.shapes import ShapeSpec
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     id: str
-    family: str  # recsys (lm and gnn are not ported yet)
+    family: str  # lm | gnn | recsys
     config: Any
     shapes: Dict[str, ShapeSpec]
     skips: Dict[str, str]  # shape name -> reason

@@ -1,6 +1,6 @@
 """Candidate-sharded execution over ``torch.distributed`` (the torch
 counterpart of ``repro.distributed``, candidate axis only; the LM axis
-rules are ROADMAP item 12): ``CandidateMesh`` and its collectives,
+rules are ROADMAP item 12c): ``CandidateMesh`` and its collectives,
 ``init_group``, ``leave_group``, ``make_mesh`` and ``spawn_ranks``
 (``repro_torch.distributed.context``)."""
 from repro_torch.distributed.context import (

@@ -1,3 +1,4 @@
 """Runnable examples of the port (the counterparts of ``repro``'s
-``examples/``): ``python -m repro_torch.examples.quickstart`` and
-``python -m repro_torch.examples.serve_recsys``."""
+``examples/``): ``python -m repro_torch.examples.quickstart``,
+``python -m repro_torch.examples.serve_recsys`` and
+``python -m repro_torch.examples.lm_rerank``."""

@@ -91,7 +91,9 @@ def _layout(D: int, c: int, dtype: torch.dtype):
     """(tile rows, stages, ring bytes, round 0's digit bits, fixed bytes,
     Q, the keys-on-chip budget in keys), Q the power of two >= c the
     final sort needs at least.  A tile is a multiple of 64 rows where it
-    can be (every warp scores a group of 8), else of 8."""
+    can be (every warp scores a group of 8), else of 8, else (a stage
+    holds fewer than 8 rows: D past 832 float32, 1664 bf16) the rows one
+    stage holds, most warps idle."""
     row = D * dtype.itemsize
     tile = TILE_BYTES // row
     for m in (ROWS_PER_CTA_PASS, 8):

@@ -1,9 +1,15 @@
 """Models (the torch counterpart of ``repro.models``): the recsys family
 (DeepFM, xDeepFM, Wide&Deep, AutoInt) for serving, its fused
-EmbeddingBag and the converter of ``repro``'s parameter trees.  The LM
-and GNN families wait for ROADMAP queue 1 item 12.
+EmbeddingBag, the LM family (``transformer``, ``moe``, over the LM
+layers of ``layers``), the GraphCast-style GNN (``gnn``), and the
+converters of ``repro``'s parameter trees (``convert``).
 """
-from repro_torch.models.convert import params_from_jax
+from repro_torch.models import gnn, moe, transformer
+from repro_torch.models.convert import (
+    gnn_from_jax,
+    params_from_jax,
+    transformer_from_jax,
+)
 from repro_torch.models.recsys import (
     RecsysConfig,
     RecsysModel,
@@ -17,8 +23,13 @@ __all__ = [
     "RecsysConfig",
     "RecsysModel",
     "forward_logits",
+    "gnn",
+    "gnn_from_jax",
     "init_params",
     "item_embeddings",
+    "moe",
     "params_from_jax",
     "serve_scores",
+    "transformer",
+    "transformer_from_jax",
 ]

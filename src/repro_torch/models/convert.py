@@ -1,8 +1,10 @@
-"""Carry a ``repro`` recsys parameter tree across to the port.
+"""Carry a ``repro`` parameter tree across to the port.
 
-``params_from_jax(tree, cfg, device)`` takes the tree as numpy arrays
-(``jax.tree.map(np.asarray, params)``; this module imports no JAX) and
-fills a ``RecsysModel`` with it:
+Each converter takes the tree as numpy arrays (``jax.tree.map(np.asarray,
+params)``; this module imports no JAX) and fills the port's module with
+it on ``device`` (default the card).
+
+``params_from_jax(tree, cfg, device)`` fills a ``RecsysModel``:
 
   table, wide, bias          -> the same-named parameters
   mlp.layers[i].{w, b}       -> model.mlp.layers[i] (nn.Linear)
@@ -10,10 +12,20 @@ fills a ``RecsysModel`` with it:
   attn[i].{wq, wk, wv, wr}.w -> model.attn[i][...] (nn.Linear, no bias)
   attn_out.{w, b}            -> model.attn_out
 
+``transformer_from_jax(tree, cfg, device)`` fills a ``Transformer`` and
+``gnn_from_jax(tree, cfg, device)`` a ``GNN``, key for key by the
+modules' own names (``embed``, ``layers``, ``ln_f``, ``unembed``;
+``encoder``, ``edge_embed``, ``processor``, ``decoder``).  ``repro``
+stacks the per-layer leaves of ``layers`` and ``processor`` as ``(L,
+...)`` (its ``vmap`` init); they are unstacked into the ``ModuleList``,
+every leaf's leading dimension checked against the layer count.
+
 ``repro``'s dense weight is ``(d_in, d_out)``, applied as ``x @ w``;
 ``nn.Linear`` stores ``(d_out, d_in)``, so every dense weight is
-transposed.  Every array must match its parameter's shape exactly, and
-every leaf of the tree must be used.
+transposed into its ``nn.Linear``.  The MoE experts' ``wi``, ``wg``,
+``wo`` (E, d_in, d_out), the embedding ``(vocab, d)`` and ``unembed``
+``(d, vocab)`` keep ``repro``'s layout.  Every array must match its
+parameter's shape exactly, and every leaf of the tree must be used.
 """
 from __future__ import annotations
 
@@ -21,11 +33,16 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.models.gnn import GNN, GNNConfig
 from repro_torch.models.recsys import RecsysConfig, RecsysModel
+from repro_torch.models.transformer import Transformer, TransformerConfig
 
 
 def _set(param: torch.Tensor, value, name: str) -> None:
-    value = torch.tensor(np.asarray(value))
+    value = np.asarray(value)
+    if value.dtype.name == "bfloat16":  # ml_dtypes: torch cannot wrap it
+        value = value.astype(np.float32)
+    value = torch.tensor(value)
     if tuple(value.shape) != tuple(param.shape):
         raise ValueError(
             f"{name}: array of shape {tuple(value.shape)} for a parameter of "
@@ -83,4 +100,68 @@ def params_from_jax(tree: dict, cfg: RecsysConfig, device=None) -> RecsysModel:
                 for key in layer:
                     _set_dense(layer[key], p[key], f"attn[{i}].{key}")
             _set_dense(model.attn_out, tree["attn_out"], "attn_out")
+    return model
+
+
+def _fill(mod: nn.Module, tree: dict, name: str) -> None:
+    """``mod``'s parameters from ``tree``, key for key by the module's
+    own names; a ``ModuleList`` takes a stacked ``(L, ...)`` subtree."""
+    if isinstance(mod, nn.Linear):
+        _set_dense(mod, tree, name)
+        return
+    params = dict(mod.named_parameters(recurse=False))
+    children = dict(mod.named_children())
+    if not isinstance(tree, dict) or set(tree) != set(params) | set(children):
+        got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+        raise KeyError(f"{name}: parameter tree has keys {got}, the module "
+                       f"needs {sorted(set(params) | set(children))}")
+    for key, prm in params.items():
+        _set(prm, tree[key], f"{name}.{key}")
+    for key, child in children.items():
+        if isinstance(child, nn.ModuleList):
+            _fill_stacked(child, tree[key], f"{name}.{key}")
+        else:
+            _fill(child, tree[key], f"{name}.{key}")
+
+
+def _leaves(tree, name: str):
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            yield from _leaves(sub, f"{name}.{key}")
+    else:
+        yield name, np.asarray(tree)
+
+
+def _index(tree, i: int):
+    if isinstance(tree, dict):
+        return {key: _index(sub, i) for key, sub in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _fill_stacked(layers: nn.ModuleList, tree: dict, name: str) -> None:
+    """Unstack ``repro``'s ``(L, ...)`` layer leaves into ``layers``."""
+    for leaf, arr in _leaves(tree, name):
+        if arr.ndim == 0 or arr.shape[0] != len(layers):
+            raise ValueError(f"{leaf}: stacked array of shape {arr.shape} "
+                             f"for {len(layers)} layers")
+    for i, layer in enumerate(layers):
+        _fill(layer, _index(tree, i), f"{name}[{i}]")
+
+
+def transformer_from_jax(tree: dict, cfg: TransformerConfig,
+                         device=None) -> Transformer:
+    """``repro``'s transformer parameter tree (numpy leaves) -> the port's
+    ``Transformer`` on ``device`` (default the card)."""
+    model = Transformer(cfg, device=device)
+    with torch.no_grad():
+        _fill(model, tree, "params")
+    return model
+
+
+def gnn_from_jax(tree: dict, cfg: GNNConfig, device=None) -> GNN:
+    """``repro``'s GNN parameter tree (numpy leaves) -> the port's ``GNN``
+    on ``device`` (default the card)."""
+    model = GNN(cfg, device=device)
+    with torch.no_grad():
+        _fill(model, tree, "params")
     return model

@@ -8,7 +8,7 @@ padding) looks up (B, F, D) bag sums: one gather and a masked sum.
 
 ``mode`` is accepted and, as in ``repro`` without a mesh, changes
 nothing: the row-sharded psum and all-to-all bodies are not ported yet
-(ROADMAP queue 1 item 12, with the training stack's mesh).
+(ROADMAP queue 1 item 12c, the model-parallel mesh).
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
-"""Shared neural-net layers (the torch counterpart of the part of
-``repro.models.layers`` the recsys models use: ``dense`` and the ReLU
-``mlp_head``).
+"""Shared neural-net layers (the torch counterpart of
+``repro.models.layers``): ``dense`` and the ReLU ``MLPHead`` the recsys
+and GNN models use, and the LM layers: RMSNorm, RoPE, chunked causal
+GQA attention with an optional sliding window, and the SwiGLU MLP.
 
 ``repro``'s dense weight is ``(d_in, d_out)``, applied as ``x @ w``;
 ``nn.Linear`` stores ``(d_out, d_in)``.  The initialisation draws the
@@ -8,12 +9,16 @@ same distribution (normal times ``d_in ** -0.5``, zero bias) from an
 explicit ``torch.Generator``; without one the layer is left for a
 converter to fill (``repro_torch.models.convert``).
 
-The LM layers (norms, RoPE, attention, gated MLPs) are not ported yet
-(ROADMAP queue 1 item 12).
+Conventions, as in ``repro``: the compute dtype is the input's (bf16 at
+the published configs); norms, RoPE, attention scores and softmax run in
+float32.  The attention is plain PyTorch: queries in chunks of
+``chunk_q`` against the whole K/V, so the (S, S) score matrix is never
+built for a long prompt.  ``repro``'s ``constrain`` (a sharding hint, a
+no-op off a mesh) has no counterpart.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -52,3 +57,192 @@ class MLPHead(nn.Module):
         for layer in self.layers[:-1]:
             x = torch.relu(layer(x))
         return self.layers[-1](x)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+
+class RMSNorm(nn.Module):
+    """``repro``'s ``rmsnorm_init``: a ``scale`` of ones."""
+
+    def __init__(self, d: int, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, device=device, dtype=dtype))
+
+
+def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """float32 mean of squares, ``rsqrt(var + eps)``, times the scale,
+    cast back to ``x``'s dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p.scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
+    """(d_head // 2,) float32 inverse frequencies."""
+    half = d_head // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x (..., S, H, d_head), positions (..., S) -> rotated x: the halves
+    ``[x1 cos - x2 sin, x1 sin + x2 cos]`` (not interleaved), in
+    float32, cast back to ``x``'s dtype."""
+    d_head = x.shape[-1]
+    half = d_head // 2
+    freqs = rope_freqs(d_head, theta, x.device)
+    ang = positions[..., :, None].float() * freqs  # (..., S, half)
+    cos = torch.cos(ang)[..., :, None, :]  # (..., S, 1, half)
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, causal, optional sliding window), queries in chunks
+# ---------------------------------------------------------------------------
+
+
+class Attention(nn.Module):
+    """``repro``'s ``attention_init``: ``wq``, ``wk``, ``wv`` (biased with
+    ``qkv_bias``) and ``wo``."""
+
+    def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
+                 d_head: int, *, qkv_bias: bool = False,
+                 generator: Optional[torch.Generator] = None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.wq = dense(d_model, n_heads * d_head, bias=qkv_bias, **kw)
+        self.wk = dense(d_model, n_kv_heads * d_head, bias=qkv_bias, **kw)
+        self.wv = dense(d_model, n_kv_heads * d_head, bias=qkv_bias, **kw)
+        self.wo = dense(n_heads * d_head, d_model, **kw)
+
+
+def _init_device(generator: Optional[torch.Generator], device):
+    """Where an ``*_init`` builds: ``device``, else the generator's."""
+    if device is None and generator is not None:
+        return generator.device
+    return device
+
+
+def attention_init(generator: Optional[torch.Generator], d_model: int,
+                   n_heads: int, n_kv_heads: int, d_head: int, dtype,
+                   qkv_bias: bool = False, device=None) -> Attention:
+    return Attention(d_model, n_heads, n_kv_heads, d_head, qkv_bias=qkv_bias,
+                     generator=generator,
+                     device=_init_device(generator, device), dtype=dtype)
+
+
+def _chunk_attn(q, k, v, q_pos, kv_pos, window: Optional[int]):
+    """One query chunk against the whole K/V.
+
+    q (B, Sq, KV, G, dh); k, v (B, Skv, KV, dh); positions int.  Scores
+    in float32, masked scores at -1e30, normalised by ``max(l, 1e-30)``.
+    Returns (B, Sq, KV, G, dh) float32."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqkgd,btkd->bkgqt", q.float(), k.float()) * scale
+    mask = kv_pos[None, :] <= q_pos[:, None]  # causal (Sq, Skv)
+    if window is not None:
+        mask &= (q_pos[:, None] - kv_pos[None, :]) < window
+    s = s.masked_fill(~mask[None, None, None], -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)  # noqa: E741
+    return torch.einsum("bkgqt,btkd->bqkgd", p / torch.clamp_min(l, 1e-30),
+                        v.float())
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: Optional[int] = None,
+                  q_offset: Union[int, torch.Tensor] = 0,
+                  chunk_q: int = 512,
+                  remat_chunks: bool = False) -> torch.Tensor:
+    """Causal GQA attention, in chunks of ``chunk_q`` queries.
+
+    q (B, Sq, H, dh); k, v (B, Skv, KV, dh).  ``q_offset`` is the
+    absolute position of q[0] (prefill continuation, decode).  A ragged
+    last chunk is padded and its padding sliced off.  ``remat_chunks``
+    (recompute chunks in a backward pass) is accepted and ignored: there
+    is no backward here.  Returns (B, Sq, H, dh) in q's dtype."""
+    del remat_chunks
+    B, Sq, H, dh = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, dh)
+    kv_pos = torch.arange(k.shape[1], dtype=torch.int64, device=q.device)
+
+    if Sq <= chunk_q:
+        q_pos = q_offset + torch.arange(Sq, dtype=torch.int64,
+                                        device=q.device)
+        o = _chunk_attn(qg, k, v, q_pos, kv_pos, window)
+        return o.reshape(B, Sq, H, dh).to(q.dtype)
+
+    pad = (-Sq) % chunk_q
+    if pad:  # ragged tail: pad queries (outputs sliced off below)
+        qg = torch.nn.functional.pad(qg, (0, 0, 0, 0, 0, 0, 0, pad))
+    outs = []
+    for i in range((Sq + pad) // chunk_q):
+        q_pos = q_offset + i * chunk_q + torch.arange(
+            chunk_q, dtype=torch.int64, device=q.device)
+        outs.append(_chunk_attn(qg[:, i * chunk_q:(i + 1) * chunk_q], k, v,
+                                q_pos, kv_pos, window))
+    o = torch.cat(outs, dim=1).reshape(B, Sq + pad, H, dh)[:, :Sq]
+    return o.to(q.dtype)
+
+
+def attention_apply(p: Attention, x: torch.Tensor, *, n_heads: int,
+                    n_kv_heads: int, d_head: int, rope_theta: float,
+                    window: Optional[int] = None,
+                    chunk_q: int = 512) -> torch.Tensor:
+    """Self-attention over x (B, S, d_model) with RoPE; returns (B, S, d)."""
+    B, S, _ = x.shape
+    q = p.wq(x).reshape(B, S, n_heads, d_head)
+    k = p.wk(x).reshape(B, S, n_kv_heads, d_head)
+    v = p.wv(x).reshape(B, S, n_kv_heads, d_head)
+    pos = torch.arange(S, dtype=torch.int64, device=x.device)
+    q = apply_rope(q, pos, rope_theta)
+    k = apply_rope(k, pos, rope_theta)
+    o = gqa_attention(q, k, v, window=window, chunk_q=chunk_q)
+    return p.wo(o.reshape(B, S, n_heads * d_head))
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+
+class MLP(nn.Module):
+    """``repro``'s ``mlp_init``: ``wi``, ``wg`` (d_model -> d_ff) and ``wo``
+    (d_ff -> d_model), no biases."""
+
+    def __init__(self, d_model: int, d_ff: int, *,
+                 generator: Optional[torch.Generator] = None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.wi = dense(d_model, d_ff, **kw)
+        self.wg = dense(d_model, d_ff, **kw)
+        self.wo = dense(d_ff, d_model, **kw)
+
+
+def mlp_init(generator: Optional[torch.Generator], d_model: int, d_ff: int,
+             dtype, device=None) -> MLP:
+    return MLP(d_model, d_ff, generator=generator,
+               device=_init_device(generator, device), dtype=dtype)
+
+
+def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
+    """``wo(silu(wg x) * wi x)``."""
+    return p.wo(torch.nn.functional.silu(p.wg(x)) * p.wi(x))

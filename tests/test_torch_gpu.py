@@ -66,6 +66,12 @@ whole sharded slate bit for bit, one update launcher a stream and one
 launch a step; the router on a card mesh against the per-request
 sharded rerank bit for bit, ``chunk`` update launches a pump.
 
+The LM family: K1 at an LM's width (D = 2560, qwen1.5-4b's d_model; M =
+64, k = 10, the LM-embedded rerank's shape) against its plain version,
+one launch; a short float32 prefill and decode on the card against the
+card's full forward (rtol / atol 3e-3, a window-8 ring that wraps) and
+against the same weights on the CPU (rtol 1e-4 / atol 1e-5).
+
 Measured tile choice: a smoke sweep on the card into a temporary cache
 yields entries that ``lookup_tile`` hits, and ``tile_m="auto"`` on a
 cache holding another tile than the model's gives the model default's
@@ -1492,3 +1498,57 @@ def test_fig8_full_on_the_card(card):
     assert counts.get("dpp_greedy_resident") == len(slates) == 32
     assert [r[0] for r in rows][:5] == [
         f"fig8_pump_{p}" for p in fig8.PUMP_PHASES + ("sync",)]
+
+
+def _unit_features(B, D, M, seed):
+    rng = np.random.default_rng(seed)
+    F = rng.standard_normal((B, D, M)).astype(np.float32)
+    F /= np.linalg.norm(F, axis=1, keepdims=True)
+    return torch.from_numpy(F * np.exp(rng.uniform(size=(B, 1, M))
+                                       * np.log(4.0)).astype(np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 2])
+def test_k1_at_lm_width_matches_plain(card, B):
+    """K1 at D = 2560 (qwen1.5-4b's d_model), M = 64, k = 10."""
+    V = _unit_features(B, 2560, 64, 11).cuda()
+    d2 = init_gains(V, torch.ones(B, 64, dtype=torch.bool, device="cuda"))
+    cuda.reset_launch_counts()
+    got = dpp_greedy_resident(V, d2, 10, 1e-3)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts() == {"dpp_greedy_resident": 1}
+    want = dpp_greedy_resident_plain(V, d2, 10, 1e-3)
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_prefill_decode_on_card_matches_forward_and_cpu(card):
+    from repro_torch.models import transformer as tfm
+
+    cfg = tfm.TransformerConfig(
+        name="tiny-mixed", n_layers=6, d_model=32, n_heads=4, n_kv_heads=2,
+        d_ff=64, vocab=64, window=8, global_every=3, dtype=torch.float32,
+        chunk_q=16)
+    model = tfm.init_params(torch.Generator("cuda").manual_seed(0), cfg)
+    cpu = tfm.Transformer(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    S, extra = 20, 3
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, size=(2, S + extra)))
+    with torch.inference_mode():
+        hidden, _, _ = tfm.forward_hidden(model, toks.cuda(), cfg)
+        full = tfm.logits_from_hidden(model, hidden).float()
+        logits, cache = tfm.prefill(model, toks[:, :S].cuda(), cfg, 40)
+        clogits, ccache = tfm.prefill(cpu, toks[:, :S], cfg, 40)
+        steps = [(logits, clogits)]
+        for t in range(extra):
+            step = toks[:, S + t:S + t + 1]
+            logits, cache = tfm.decode_step(model, cache, step.cuda(), cfg)
+            clogits, ccache = tfm.decode_step(cpu, ccache, step, cfg)
+            steps.append((logits, clogits))
+    for t, (got, want) in enumerate(steps):
+        torch.testing.assert_close(got, full[:, S - 1 + t], rtol=3e-3,
+                                   atol=3e-3)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)

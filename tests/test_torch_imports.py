@@ -62,6 +62,10 @@ def test_every_module_imports_without_jax():
     assert "repro_torch.core.streaming" in mods
     assert "repro_torch.models.recsys" in mods
     assert "repro_torch.launch.serve" in mods
+    for mod in ("models.layers", "models.moe", "models.transformer",
+                "models.gnn", "models.convert", "configs.qwen15_4b",
+                "configs.graphcast", "examples.lm_rerank"):
+        assert f"repro_torch.{mod}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

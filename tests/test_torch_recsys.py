@@ -265,10 +265,10 @@ def test_configs_match_repro(arch):
 
 
 def test_registry_and_shapes():
-    assert configs.list_archs() == sorted(ARCHS)
-    for name in ("gemma3-27b", "graphcast"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            configs.get_arch(name)
+    assert configs.list_archs() == jax_configs.list_archs()
+    assert set(ARCHS) <= set(configs.list_archs())
+    for name, family in (("gemma3-27b", "lm"), ("graphcast", "gnn")):
+        assert configs.get_arch(name).family == family
     with pytest.raises(KeyError):
         configs.get_arch("nope")
     for name, s in shapes.RECSYS_SHAPES.items():
