@@ -2,19 +2,20 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the DPP rerank, DeepFM
 scoring into the rerank, the fused scoring top-c, the paper's
 experiments, the continuous-batching router, session-aware incremental
-rerank, the candidate-sharded rerank, stream and router, and the LM and
-GNN model families with the LM-embedded rerank.
+rerank, the candidate-sharded rerank, stream and router, the LM and
+GNN model families with the LM-embedded rerank, and training.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --resident-times   # K1, K2 alone (resident_times)
     python3 chip_smoke.py --update-times     # the update entries alone
     python3 chip_smoke.py --models           # phase 21 alone (run_models)
+    python3 chip_smoke.py --training         # phase 22 alone (run_training)
 
 (Phase 12 runs ``chip_smoke.py --topk-device-times STATE`` as a child
 process for K7's profiler times: ``topk_device_times``.)
 
 Builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a),
-then runs twenty-one phases through the port's entry points.  Phases 1-9
+then runs twenty-two phases through the port's entry points.  Phases 1-9
 (``repro_torch.serving.Reranker(..., use_kernel=True).rerank`` and
 ``.stream``, ``repro_torch.core.greedy_map_chunks`` and
 ``greedy_chunk_slots``) run at the paper's §5.1 setup: D = 100
@@ -331,6 +332,36 @@ TF32 off; each part frees its weights before the next):
                       the same parameters on the CPU.  K1's launch goes
                       into K1's record.
 
+Phase 22 trains, last (``run_training``, 90 s aim, TF32 off):
+
+22. training:         (a) K8's backward (``fm_interaction_bwd``) at the
+                      train shape, N = 65,536, F = 39, D = 10, float32
+                      and bfloat16, and a ragged N + 3: against its
+                      plain version on the card (float32 rtol 1e-5 /
+                      atol 1e-6 * F; bfloat16 one ulp), against autograd
+                      of the plain forward, and through ``FMInteraction``
+                      bit for bit; timed against its plain version and
+                      its 0.0611 ms bound; (b) DeepFM at its published
+                      width, uncut, batch ``train_batch`` = 65,536,
+                      through ``repro_torch.launch.train.main``: 20
+                      steps, a commit every 8, an injected failure at
+                      step 14 after the step-8 commit, then ``--resume
+                      auto`` from step 8 (the restored tree equal to the
+                      committed one bit for bit) to step 20, then 6
+                      steps with ``int8_ef``; each step's host wall, K8's
+                      forward and backward launches (1 and 1), each
+                      save's time and bytes, the free disk and the peak
+                      memory; then the first 3 steps again on the card
+                      and on the CPU from the same init and batches
+                      (``step_pair``); (c) the same, 2 steps, for
+                      qwen1.5-4b and olmoe-1b-7b at 2 layers of their
+                      published widths in float32 (olmoe at capacity
+                      factor E / K) and graphcast's reduced config on
+                      ``launch.train``'s random graph; (d)
+                      ``repro_torch.examples.train_fault_tolerant``.
+                      K8's backward launches on the main path (b) go into
+                      its record, its forward's into K8's.
+
 Each phase resets the kernels' launch counters right before the main-path
 call (phases 16 and 17's ranks in their own processes), reads them right after,
 and checks them and the mode recorded in dispatch telemetry; holds the
@@ -356,6 +387,7 @@ JSON record, the last the device line.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -411,6 +443,11 @@ KERNELS = {
         source="src/repro_torch/kernels/fm_interaction/csrc/"
                "fm_interaction.cu",
         replaces="src/repro/kernels/fm_interaction/fm_interaction.py:23"),
+    "fm_interaction_bwd": dict(
+        source="src/repro_torch/kernels/fm_interaction/csrc/"
+               "fm_interaction.cu",
+        replaces="jax.grad of src/repro/models/recsys.py:108 "
+                 "fm_second_order, no Pallas twin"),
 }
 FM_RTOL, FM_ATOL = 1e-5, 1e-6  # K8 vs plain: f32 sums in another order
 SCORE_RTOL, SCORE_ATOL = 1e-5, 1e-6  # recsys scores, card vs CPU
@@ -4466,6 +4503,521 @@ def run_models(records):
           f"{took - t_a - t_b:.1f} s; aim {MODELS_AIM_S:.0f} s)", flush=True)
 
 
+TRAIN_AIM_S = 90.0
+TRAIN_ARCH = "deepfm"  # 22(b): the published config, uncut
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 20, 8, 14
+TRAIN_EF_STEPS, TRAIN_REF_STEPS = 6, 3
+TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-5  # card vs CPU, same init and batches
+# an element's gradient the devices give more than 1% of |g| + eps apart
+# makes AdamW's step there ill-conditioned ("shaky", ``step_pair``); the
+# shaky share is bounded only against a wholesale disagreement (1.6e-4
+# of DeepFM's elements after 3 steps on an H100 80GB HBM3): the loss,
+# grad_norm and first-step gradient checks are the fine ones
+TRAIN_GRAD_REL, TRAIN_SHAKY_FRAC = 1e-2, 1e-2
+FM_BWD_RTOL = 1e-5  # K8's backward vs plain, float32; atol 1e-6 * F
+# 22(c): (arch, layers) at published widths in float32, B x S tokens
+TRAIN_LM = (("qwen1.5-4b", 2), ("olmoe-1b-7b", 2))
+TRAIN_LM_B, TRAIN_LM_S, TRAIN_C_STEPS = 2, 64, 2
+
+
+def run_fm_backward(records, F, Dm, N, smi):
+    """22(a): K8's backward at the train shape, float32 and bfloat16, and a
+    ragged N + 3: against its plain version on the card, against autograd
+    of the plain forward, and through ``FMInteraction`` (bit for bit the
+    direct call); timed at the float32 train shape."""
+    from repro_torch.kernels.fm_interaction import (
+        fm_interaction,
+        fm_interaction_bwd_kernel,
+        fm_interaction_bwd_ref,
+        fm_interaction_ref,
+    )
+
+    name = "phase 22(a) fm_interaction_bwd"
+    rng = np.random.default_rng(SEED + 22)
+    err32 = 0.0
+    for label, n, dt in (("float32", N, torch.float32),
+                         ("bfloat16", N, torch.bfloat16),
+                         ("float32 ragged", N + 3, torch.float32)):
+        emb = torch.from_numpy(rng.standard_normal(
+            (n, F, Dm), dtype=np.float32)).to("cuda", dt)
+        g = torch.from_numpy(rng.standard_normal(n, dtype=np.float32)).to(
+            "cuda")
+        got = fm_interaction_bwd_kernel(emb, g)
+        want = fm_interaction_bwd_ref(emb, g)
+        x = emb.clone().requires_grad_(True)
+        fm_interaction_ref(x).backward(g)
+        y = emb.clone().requires_grad_(True)
+        fm_interaction(y).backward(g)
+        torch.cuda.synchronize()
+        rtol = FM_BWD_RTOL if dt == torch.float32 else 2 ** -7
+        atol = 1e-6 * F
+        err = (got.float() - want.float()).abs().max().item()
+        err_auto = (got.float() - x.grad.float()).abs().max().item()
+        check(got.dtype == dt and got.shape == (n, F, Dm),
+              f"{name} {label}: {got.dtype} {tuple(got.shape)}")
+        check(torch.allclose(got.float(), want.float(), rtol=rtol,
+                             atol=atol),
+              f"{name} {label}: differs from its plain version by {err}")
+        check(torch.allclose(got.float(), x.grad.float(), rtol=rtol,
+                              atol=atol),
+              f"{name} {label}: differs from autograd of the plain forward "
+              f"by {err_auto}")
+        check(torch.equal(y.grad, got),
+              f"{name} {label}: FMInteraction's gradient is not the "
+              f"kernel's")
+        if dt == torch.float32:
+            err32 = max(err32, err)
+        print(f"[{name}] {label} emb {tuple(emb.shape)}: max abs err "
+              f"{err:.3g} against the plain version, {err_auto:.3g} against "
+              f"autograd of the plain forward (rtol {rtol:.3g} / atol "
+              f"{atol:.3g}); FMInteraction's gradient equals it bit for bit",
+              flush=True)
+        del x, y, got, want
+    emb = torch.from_numpy(rng.standard_normal(
+        (N, F, Dm), dtype=np.float32)).to("cuda")
+    g = torch.from_numpy(rng.standard_normal(N, dtype=np.float32)).to("cuda")
+    ms = time_events(lambda: event_ms(
+        lambda: fm_interaction_bwd_kernel(emb, g)), TIMING_REPS)
+    plain_ms = time_events(lambda: event_ms(
+        lambda: fm_interaction_bwd_ref(emb, g)), PLAIN_REPS)
+    dev = device_ms(lambda: fm_interaction_bwd_kernel(emb, g),
+                    "fm_interaction_bwd", 1)
+    with torch.no_grad():
+        fwd_ms = time_events(lambda: event_ms(lambda: fm_interaction(emb)),
+                             TIMING_REPS)
+    fwd_bound = bound_of(4 * N * F * Dm + 4 * N,
+                         N * (3 * F * Dm + 3 * Dm + 1))
+    records["fm_interaction_bwd"]["calls_launches"] = 1
+    kernel_record(records, "fm_interaction_bwd", ms, plain_ms,
+                  bound_of(8 * N * F * Dm + 4 * N, 3 * N * F * Dm),
+                  err32, "one launch, CUDA events", None,
+                  "no single PyTorch call computes the FM term's gradient",
+                  device=dev)
+    print(f"  fm_interaction (forward) at the same shape: {fwd_ms:.4f} ms, "
+          f"bound {fwd_bound[0]:.4f} ms by {fwd_bound[1]}; {smi}",
+          flush=True)
+
+
+@contextlib.contextmanager
+def patched(obj, attr, value):
+    old = getattr(obj, attr)
+    setattr(obj, attr, value)
+    try:
+        yield
+    finally:
+        setattr(obj, attr, old)
+
+
+@contextlib.contextmanager
+def train_probes(log):
+    """Context: ``launch.train`` instrumented for 22(b).  Each step is
+    timed between two synchronizes (host wall) with the kernel launches
+    it made; each save is timed with its bytes; the tree committed at
+    step ``TRAIN_CKPT_EVERY`` is kept (the host snapshot the save wrote),
+    and a restore is held against it bit for bit on the spot, before the
+    resumed run's updates move the moments in place."""
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.checkpoint.checkpointer import _flatten_with_names
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import train
+
+    make0, save0, restore0 = (train.make_step, checkpointer.save_checkpoint,
+                              train.restore_checkpoint)
+
+    def make_step(*a, **kw):
+        inner = make0(*a, **kw)
+
+        def step(model, opt, ef, batch):
+            torch.cuda.synchronize()
+            before = cuda.launch_counts()
+            t0 = time.perf_counter()
+            out = inner(model, opt, ef, batch)
+            loss, gnorm = float(out[3]["loss"]), float(out[3]["grad_norm"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            after = cuda.launch_counts()
+            log["steps"].append((wall, loss, gnorm, {
+                k: v - before.get(k, 0) for k, v in after.items()
+                if v != before.get(k, 0)}))
+            return out
+
+        return step
+
+    def save_checkpoint(directory, step, tree):
+        t0 = time.perf_counter()
+        path = save0(directory, step, tree)
+        took = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(path).iterdir())
+        log["saves"].append((step, took, size))
+        if step == TRAIN_CKPT_EVERY:
+            log["committed"] = tree
+        return path
+
+    def restore_checkpoint(directory, skeleton, step=None):
+        got = restore0(directory, skeleton, step)
+        want = _flatten_with_names(log.pop("committed"))
+        have = _flatten_with_names(got[1])
+        check(sorted(have) == sorted(want), "restored names differ")
+        for n, t in have.items():
+            check(t.dtype == want[n].dtype and torch.equal(t.cpu(), want[n]),
+                  f"phase 22(b): restored {n} differs from the committed "
+                  f"step {got[0]}")
+        log["restored"] = (got[0], len(have))
+        return got
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(train, "make_step", make_step))
+        stack.enter_context(patched(checkpointer, "save_checkpoint",
+                                    save_checkpoint))
+        stack.enter_context(patched(train, "restore_checkpoint",
+                                    restore_checkpoint))
+        yield
+
+
+def run_train_main(argv, expect_failure=None):
+    """``launch.train.main(argv)`` with its stdout captured and echoed;
+    (summary or None, the printed lines)."""
+    import io
+
+    from repro_torch.launch import train
+
+    out = io.StringIO()
+    summary = None
+    try:
+        with contextlib.redirect_stdout(out):
+            summary = train.main(argv)
+    except RuntimeError as e:
+        check(expect_failure is not None and str(e) == expect_failure,
+              f"phase 22(b): {e}")
+        print(f"  raised: {e}", flush=True)
+    else:
+        check(expect_failure is None, "phase 22(b): the injected failure "
+              "did not happen")
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(f"  | {line}", flush=True)
+    return summary, lines
+
+
+def step_text(steps):
+    walls = [s[0] * 1e3 for s in steps]
+    warm = statistics.median(walls[1:]) if len(walls) > 1 else float("nan")
+    return (f"first step {walls[0]:.1f} ms, warm median {warm:.1f} ms "
+            f"(min {min(walls[1:] or walls):.1f}, max "
+            f"{max(walls[1:] or walls):.1f}) host wall between two "
+            f"synchronizes")
+
+
+def run_train_deepfm(records, work, smi):
+    """22(b): DeepFM at its published width through ``launch.train.main``:
+    fail at step 14 after committing step 8, resume, finish at step 20;
+    then 6 steps with int8 error feedback."""
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.kernels import cuda
+
+    name = "phase 22(b) deepfm train"
+    cfg = get_arch(TRAIN_ARCH).config
+    N = RECSYS_SHAPES["train_batch"].batch
+    ck = work / "train_ckpt"
+    rows = cfg.spec.total_rows
+    nparam = rows * cfg.embed_dim + rows + 1 + sum(
+        a * b + b for a, b in zip((cfg.n_fields * cfg.embed_dim,)
+                                  + cfg.mlp_dims, cfg.mlp_dims + (1,)))
+    free = shutil.disk_usage(work).free
+    print(f"[{name}] {cfg.n_fields} fields, {rows} fused rows x "
+          f"{cfg.embed_dim}, MLP {cfg.mlp_dims}, float32: {nparam} "
+          f"parameters ({4 * nparam / 1e9:.3f} GB; a save holds them and "
+          f"both moments, {12 * nparam / 1e9:.2f} GB, at most 3 kept); "
+          f"batch {N}; free disk under the work directory "
+          f"{free / 1e9:.1f} GB", flush=True)
+    check(free > 3 * 12 * nparam, f"{name}: {free} bytes free, need room for "
+          f"3 saves")
+    base = ["--device", "cuda", "--arch", TRAIN_ARCH, "--batch", str(N),
+            "--log-every", "1"]
+    run = base + ["--steps", str(TRAIN_STEPS), "--ckpt-dir", str(ck),
+                  "--ckpt-every", str(TRAIN_CKPT_EVERY)]
+    log = {"steps": [], "saves": []}
+    dirs = lambda: sorted(p.name for p in ck.iterdir())
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launch_counts()
+    with train_probes(log):
+        run_train_main(run + ["--fail-at-step", str(TRAIN_FAIL_AT)],
+                       f"injected failure at step {TRAIN_FAIL_AT} (restart "
+                       f"test)")
+        first = list(log["steps"])
+        check(len(first) == TRAIN_FAIL_AT and latest_step(str(ck))
+              == TRAIN_CKPT_EVERY and dirs() == ["step_00000008"],
+              f"{name}: {len(first)} steps, committed {dirs()}")
+        free_card()
+        summary, lines = run_train_main(run + ["--resume", "auto"])
+        second = log["steps"][len(first):]
+        check(f"resumed from step {TRAIN_CKPT_EVERY}" in lines,
+              f"{name}: the second run did not resume from step 8")
+        check(log.get("restored") is not None, f"{name}: nothing restored")
+        check(summary["steps_run"] == TRAIN_STEPS - TRAIN_CKPT_EVERY
+              and len(second) == summary["steps_run"],
+              f"{name}: summary {summary}")
+        check(dirs() == ["step_00000008", "step_00000016", "step_00000020"],
+              f"{name}: committed {dirs()}")
+        free_card()
+        ef_summary, _ = run_train_main(
+            base + ["--steps", str(TRAIN_EF_STEPS), "--grad-compression",
+                    "int8_ef"])
+        third = log["steps"][len(first) + len(second):]
+    counts = cuda.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = len(log["steps"])
+    for i, (_, loss, gnorm, c) in enumerate(log["steps"]):
+        check(np.isfinite(loss) and np.isfinite(gnorm),
+              f"{name}: step {i} loss {loss} grad_norm {gnorm}")
+        check(c == {"fm_interaction": 1, "fm_interaction_bwd": 1},
+              f"{name}: step {i} launched {c}, expected one K8 forward and "
+              f"one backward")
+    check(counts == {"fm_interaction": n_steps,
+                     "fm_interaction_bwd": n_steps},
+          f"{name}: launches {counts} over {n_steps} steps")
+    check(ef_summary["steps_run"] == TRAIN_EF_STEPS and np.isfinite(
+        ef_summary["last_loss"]), f"{name}: int8_ef summary {ef_summary}")
+    records["fm_interaction_bwd"]["launches"] = counts["fm_interaction_bwd"]
+    records["fm_interaction"]["launches"] += counts["fm_interaction"]
+    print(f"  run 1 (fails at step {TRAIN_FAIL_AT}): {step_text(first)}; "
+          f"losses {[round(s[1], 5) for s in first]}", flush=True)
+    print(f"  run 2 (resumed from step {log['restored'][0]}, "
+          f"{log['restored'][1]} leaves equal to the committed ones bit for "
+          f"bit): {step_text(second)}; losses "
+          f"{[round(s[1], 5) for s in second]}; summary wall "
+          f"{summary['wall_s']} s", flush=True)
+    print(f"  run 3 (int8_ef, {TRAIN_EF_STEPS} steps): {step_text(third)}; "
+          f"losses {[round(s[1], 5) for s in third]}", flush=True)
+    for step, took, size in log["saves"]:
+        print(f"  save of step {step}: {size / 1e9:.3f} GB in {took:.2f} s "
+              f"({size / 1e9 / took:.2f} GB/s, background thread)",
+              flush=True)
+    print(f"  launches per step: fm_interaction 1, fm_interaction_bwd 1 "
+          f"({counts} over {n_steps} steps); peak memory "
+          f"{peak / 1e9:.2f} GB; {smi}", flush=True)
+    return N
+
+
+def step_pair(label, make_model, loss_fn, batches, steps):
+    """``steps`` ``make_step`` steps from ``make_model()`` on the card and
+    on the CPU, the same batches.  Each step's loss and grad_norm within
+    rtol 1e-4 / atol 1e-5; the gradients (recorded where ``make_step``
+    hands them to ``adamw_update``) of the first step, taken at the same
+    parameters, normwise within 1e-4 (later steps' are printed: they are
+    taken at parameters that differ at the shaky elements below).
+    The parameters after the last step within rtol 1e-4 / atol 1e-5,
+    except where AdamW's per-element step is ill-conditioned: an element
+    whose gradient the two devices give more than 1% apart, measured
+    against ``|g| + eps``, at some step ("shaky").  AdamW moves an element
+    by lr * m_hat / (sqrt(v_hat) + eps), close to lr * sign(g), so where
+    g sits within float32 noise of 0 (about one element in 10^6 of a
+    sum that cancels) the two devices step it by up to 2 lr apart however
+    close their gradients are; and an element that moved apart so changes
+    the next step's gradients of the examples that read it, so the set
+    grows with the steps.  The shaky elements must be fewer than
+    ``TRAIN_SHAKY_FRAC`` of all.  Returns (the largest absolute
+    difference outside them, their count)."""
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    acfg = AdamWConfig()
+    step = train.make_step(loss_fn, acfg, 20, TRAIN_STEPS)
+    grads_log = []
+    update0 = train.adamw_update
+
+    def adamw_update(params, grads, state, cfg, lr_scale=1.0):
+        grads_log.append({n: g.detach().clone() for n, g in grads.items()})
+        return update0(params, grads, state, cfg, lr_scale)
+
+    out, spent = {}, {}
+    t0 = time.perf_counter()
+    model = make_model()
+    cpu_model = copy.deepcopy(model).to("cpu")
+    with patched(train, "adamw_update", adamw_update):
+        for key, dev, m in (("card", "cuda", model),
+                            ("host", "cpu", cpu_model)):
+            t1 = time.perf_counter()
+            opt = adamw_init(dict(m.named_parameters()))
+            mets = []
+            for b in batches[:steps]:
+                batch = {k: torch.as_tensor(v, device=dev)
+                         for k, v in b.items()}
+                m, opt, _, met = step(m, opt, None, batch)
+                mets.append((float(met["loss"]), float(met["grad_norm"])))
+            out[key] = (mets, m)
+            spent[key] = time.perf_counter() - t1
+            del opt
+    for s, ((lg, ng), (lc, nc)) in enumerate(zip(out["card"][0],
+                                                 out["host"][0])):
+        check(np.isfinite(lg) and abs(lg - lc) <= TRAIN_ATOL
+              + TRAIN_RTOL * abs(lc) and abs(ng - nc) <= TRAIN_ATOL
+              + TRAIN_RTOL * abs(nc),
+              f"{label}: step {s} loss {lg} vs {lc}, grad_norm {ng} vs {nc}")
+    # compared on the card: the host's tensors are moved there a leaf at
+    # a time
+    shaky, gerr = {}, []
+    for s in range(steps):
+        card, host = grads_log[s], grads_log[steps + s]
+        num = den = 0.0
+        for n, a in card.items():
+            b = host[n].to(a.device)
+            d = a - b
+            num += float(torch.linalg.vector_norm(d)) ** 2
+            den += float(torch.linalg.vector_norm(b)) ** 2
+            bad = d.abs() > TRAIN_GRAD_REL * (b.abs() + acfg.eps)
+            shaky[n] = bad if s == 0 else shaky[n] | bad
+        gerr.append((num / max(den, 1e-300)) ** 0.5)
+        check(s > 0 or gerr[-1] <= TRAIN_RTOL, f"{label}: the first step's "
+              f"gradients differ from the CPU's by {gerr[-1]:.3g} normwise")
+    del grads_log
+    worst_abs, worst_shaky, n_shaky, total = 0.0, 0.0, 0, 0
+    cpu_params = dict(out["host"][1].named_parameters())
+    for n, p in out["card"][1].named_parameters():
+        a = p.detach()
+        b = cpu_params[n].detach().to(a.device)
+        diff = (a - b).abs()
+        ok = (diff <= TRAIN_ATOL + TRAIN_RTOL * b.abs()) | shaky[n]
+        if not bool(ok.all()):
+            check(False, f"{label}: {n} after {steps} steps differs from "
+                  f"the CPU's by {diff[~ok].max().item():.3g} where both "
+                  f"devices' gradients agree")
+        if bool((~shaky[n]).any()):
+            worst_abs = max(worst_abs, diff[~shaky[n]].max().item())
+        if bool(shaky[n].any()):
+            worst_shaky = max(worst_shaky, diff[shaky[n]].max().item())
+        n_shaky += int(shaky[n].sum())
+        total += b.numel()
+    check(n_shaky <= TRAIN_SHAKY_FRAC * total,
+          f"{label}: {n_shaky} of {total} elements have gradients more than "
+          f"{TRAIN_GRAD_REL:.0%} apart")
+    took = time.perf_counter() - t0
+    print(f"  {label}: losses {[m[0] for m in out['card'][0]]} (card) vs "
+          f"{[m[0] for m in out['host'][0]]} (CPU), grad_norm "
+          f"{[m[1] for m in out['card'][0]]} vs "
+          f"{[m[1] for m in out['host'][0]]}; gradients normwise "
+          f"{[float(f'{e:.3g}') for e in gerr]}; parameters after {steps} "
+          f"steps max abs diff {worst_abs:.3g} (rtol {TRAIN_RTOL} / atol "
+          f"{TRAIN_ATOL}) outside {n_shaky} shaky of {total} elements "
+          f"(their max abs diff {worst_shaky:.3g}); {took:.1f} s (the "
+          f"card's steps {spent['card']:.1f} s, the CPU's "
+          f"{spent['host']:.1f} s)", flush=True)
+    del model, cpu_model, out
+    free_card()
+    return worst_abs, n_shaky
+
+
+def run_train_reference(N):
+    """22(b)'s slice reference check: the first 3 steps of the same init
+    and batches on the card and, parameters and batches moved there, on
+    the CPU: loss and grad_norm within rtol 1e-4, the parameters after
+    step 3 within atol 1e-5 outside the shaky elements (``step_pair``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import recsys_batches
+    from repro_torch.models import recsys
+
+    cfg = get_arch(TRAIN_ARCH).config
+    stream = recsys_batches(cfg.vocab_sizes, N, seed=0)
+    batches = [next(stream) for _ in range(TRAIN_REF_STEPS)]
+    worst, _ = step_pair(
+        f"phase 22(b) reference check, {TRAIN_REF_STEPS} steps",
+        lambda: recsys.init_params(torch.Generator("cuda").manual_seed(SEED),
+                                   cfg),
+        lambda m, b: recsys.bce_loss(m, b, cfg), batches, TRAIN_REF_STEPS)
+    check(worst <= TRAIN_ATOL, f"phase 22(b): parameters after step "
+          f"{TRAIN_REF_STEPS} differ from the CPU's by {worst}")
+
+
+def run_train_families():
+    """22(c): one family at a time, ``TRAIN_C_STEPS`` steps on the card
+    against the CPU: qwen1.5-4b and olmoe-1b-7b at 2 layers of their
+    published widths in float32 (olmoe at capacity factor E / K), and
+    graphcast's reduced config on ``launch.train``'s random graph."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batches, random_graph
+    from repro_torch.models import gnn
+    from repro_torch.models import transformer as tfm
+
+    gen = lambda: torch.Generator("cuda").manual_seed(SEED)
+    for arch, n_layers in TRAIN_LM:
+        full = get_arch(arch).config
+        cfg = dataclasses.replace(full, n_layers=n_layers,
+                                  dtype=torch.float32)
+        cut = f"{n_layers} of {full.n_layers} layers, float32"
+        if cfg.moe is not None:
+            moe = dataclasses.replace(cfg.moe, capacity_factor=float(
+                cfg.moe.n_experts // cfg.moe.top_k))
+            cut += (f", capacity_factor {cfg.moe.capacity_factor} -> "
+                    f"{moe.capacity_factor} (E / K)")
+            cfg = dataclasses.replace(cfg, moe=moe)
+        stream = lm_batches(cfg.vocab, TRAIN_LM_B, TRAIN_LM_S, seed=0)
+        print(f"[phase 22(c) {arch}] {cut}; B={TRAIN_LM_B}, S={TRAIN_LM_S}",
+              flush=True)
+        step_pair(f"phase 22(c) {arch}",
+                  lambda: tfm.init_params(gen(), cfg),
+                  lambda m, b: tfm.train_loss(m, b, cfg),
+                  [next(stream) for _ in range(TRAIN_C_STEPS)],
+                  TRAIN_C_STEPS)
+    cfg = get_arch("graphcast").reduced()
+    g = random_graph(512, 2048, cfg.d_feat, cfg.n_vars, seed=0)
+    const = {"node_feats": g.node_feats, "edges": g.edges,
+             "targets": g.targets}
+    print(f"[phase 22(c) graphcast] the reduced config ({cfg.n_layers} "
+          f"layers, d_hidden {cfg.d_hidden}) on launch.train's random graph "
+          f"(512 nodes, 2048 edges)", flush=True)
+    step_pair("phase 22(c) graphcast", lambda: gnn.init_params(gen(), cfg),
+              lambda m, b: gnn.mse_loss(m, b, cfg),
+              [const] * TRAIN_C_STEPS, TRAIN_C_STEPS)
+
+
+def run_train_example():
+    """22(d): ``repro_torch.examples.train_fault_tolerant --device cuda``
+    at ``repro``'s reduced flags, two subprocesses; exit 0."""
+    from repro_torch.examples import train_fault_tolerant
+
+    t0 = time.perf_counter()
+    sys.stdout.flush()
+    rc = train_fault_tolerant.main(["--device", "cuda"])
+    check(rc == 0, f"phase 22(d): train_fault_tolerant exited {rc}")
+    print(f"[phase 22(d) train_fault_tolerant] exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def run_training(records, work):
+    """Phase 22 (aim 90 s): (a) K8's backward; (b) DeepFM at its published
+    width through ``launch.train.main`` with a failure and a resume, int8
+    error feedback, and the CPU reference check; (c) the LM and GNN
+    families a step at a time against the CPU; (d) the example."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.figures.common import device_name
+
+    t0 = time.perf_counter()
+    smi = device_name(torch.device("cuda"))
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "phase 22 runs with TF32 off")
+    cfg = get_arch(TRAIN_ARCH).config
+    records["fm_interaction_bwd"] = {"launches": 0}
+    run_fm_backward(records, cfg.n_fields, cfg.embed_dim,
+                    RECSYS_SHAPES["train_batch"].batch, smi)
+    t_a = time.perf_counter() - t0
+    N = run_train_deepfm(records, work, smi)
+    t_b1 = time.perf_counter() - t0 - t_a
+    run_train_reference(N)
+    t_b = time.perf_counter() - t0 - t_a
+    run_train_families()
+    t_c = time.perf_counter() - t0 - t_a - t_b
+    run_train_example()
+    took = time.perf_counter() - t0
+    print(f"  phase 22: {took:.1f} s ((a) {t_a:.1f} s, (b) {t_b:.1f} s of "
+          f"which the CPU reference {t_b - t_b1:.1f} s, (c) {t_c:.1f} s, "
+          f"(d) {took - t_a - t_b - t_c:.1f} s; aim {TRAIN_AIM_S:.0f} s); "
+          f"{smi}", flush=True)
+
+
 def update_times():
     """``--update-times``: the shard-local update entries alone at 16(c)'s
     shape (B = 4, D = 100, C = 65,536 of a 10^6 pool with a 10% seen
@@ -4598,6 +5150,7 @@ def run_phases(records, rng, refs):
     run_measured_tile(records, refs)
     run_static_checks(records)
     run_models(records)
+    run_training(records, refs["work"])
     print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -4653,6 +5206,12 @@ def run_main(work: Path) -> int:
         return 0
     if sys.argv[1:] == ["--models"]:
         run_models({"dpp_greedy_resident": {"launches": 0}})
+        return 0
+    if sys.argv[1:] == ["--training"]:
+        records = {"fm_interaction": {"launches": 0}}
+        run_training(records, work)
+        print(json.dumps({"fm_interaction_bwd":
+                          records["fm_interaction_bwd"]}))
         return 0
     rng = np.random.default_rng(SEED)
     records = {}

@@ -17,8 +17,9 @@ def fm_interaction(emb: torch.Tensor, block_b: int = 128,
                    force_ref: bool = False) -> torch.Tensor:
     """emb (B, F, D) -> (B,) float32 fused FM second-order term.
 
-    ``force_ref`` runs the plain PyTorch oracle (``repro``'s
-    ``force_jnp``), which, unlike the kernel, is differentiable."""
+    Differentiable: on the card the gradient comes from K8's hand-written
+    backward.  ``force_ref`` runs the plain PyTorch oracle (``repro``'s
+    ``force_jnp``), differentiated by autograd."""
     if force_ref:
         return fm_interaction_ref(emb)
     return fm_interaction_kernel(emb, block_b=block_b)

@@ -1,3 +1,6 @@
 """Entry points (the torch counterpart of ``repro.launch``): ``serve``,
-the batched recsys scoring + DPP rerank driver.
+batched recsys scoring + DPP rerank; ``serve_router`` and
+``serve_sharded``; and ``train``, fault-tolerant training
+(auto-resume, failure injection, async checkpoints, int8 error
+feedback) with its ``build_family`` and ``make_step``.
 """

@@ -1,5 +1,5 @@
 """Models (the torch counterpart of ``repro.models``): the recsys family
-(DeepFM, xDeepFM, Wide&Deep, AutoInt) for serving, its fused
+(DeepFM, xDeepFM, Wide&Deep, AutoInt) for serving and training, its fused
 EmbeddingBag, the LM family (``transformer``, ``moe``, over the LM
 layers of ``layers``), the GraphCast-style GNN (``gnn``), and the
 converters of ``repro``'s parameter trees (``convert``).
@@ -13,6 +13,7 @@ from repro_torch.models.convert import (
 from repro_torch.models.recsys import (
     RecsysConfig,
     RecsysModel,
+    bce_loss,
     forward_logits,
     init_params,
     item_embeddings,
@@ -22,6 +23,7 @@ from repro_torch.models.recsys import (
 __all__ = [
     "RecsysConfig",
     "RecsysModel",
+    "bce_loss",
     "forward_logits",
     "gnn",
     "gnn_from_jax",

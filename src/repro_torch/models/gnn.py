@@ -16,8 +16,8 @@ and batched small molecules (disjoint unions).  The MLPs' GELU is the
 tanh approximation, ``jax.nn.gelu``'s default.  Under ``max`` a node with
 no in-edge aggregates ``-inf``, as ``jax.ops.segment_max`` fills an empty
 segment; the node MLP then gives that node non-finite outputs, in
-``repro`` and here alike (ROADMAP queue 3).  ``repro``'s ``mse_loss``
-waits for the training slice (ROADMAP queue 1 item 12b).
+``repro`` and here alike (ROADMAP queue 3).  ``mse_loss`` is the
+training objective (``repro_torch.launch.train``).
 """
 from __future__ import annotations
 
@@ -144,3 +144,18 @@ def apply(params: GNN, node_feats: torch.Tensor, edges: torch.Tensor,
         m = _aggregate(e, dst, N, cfg.aggregator)
         h = h + _mlp2(p_l.node, torch.cat([h, m], dim=-1))
     return _mlp2(params.decoder, h)
+
+
+def mse_loss(params: GNN, batch: dict, cfg: GNNConfig) -> torch.Tensor:
+    """batch: node_feats, edges, targets (N, n_vars), node_mask and
+    edge_mask optional -> the mean squared error in float32, over the
+    masked nodes' ``sum(node_mask) * n_vars`` values where a node mask is
+    given."""
+    preds = apply(params, batch["node_feats"], batch["edges"], cfg,
+                  edge_mask=batch.get("edge_mask")).to(torch.float32)
+    err = (preds - batch["targets"].to(torch.float32)) ** 2
+    mask = batch.get("node_mask")
+    if mask is not None:
+        mf = mask.to(torch.float32)[:, None]
+        return torch.sum(err * mf) / (torch.sum(mf) * cfg.n_vars)
+    return torch.mean(err)

@@ -12,10 +12,11 @@ the feature-interaction stage:
               with residual projections                     [1810.11921]
 
 Serving produces (score, item embedding) pairs so the DPP reranker
-(``repro_torch.serving``) can diversify slates.  Only serving is ported:
-the loss and every gradient wait for the training slice, and K8 has no
-backward (nor has the Pallas kernel), so run the model under
-``torch.inference_mode()``.
+(``repro_torch.serving``) can diversify slates; training minimises
+``bce_loss`` (``repro_torch.launch.train``).  The FM term is
+differentiable: on the card its gradient comes from K8's hand-written
+backward.  The tables' gradients are dense, as ``jax.grad`` gives them
+through ``repro``'s gather, so AdamW moves every row.
 """
 from __future__ import annotations
 
@@ -204,6 +205,16 @@ def forward_logits(model: RecsysModel, ids: torch.Tensor,
     else:
         raise ValueError(cfg.interaction)
     return logit.to(torch.float32)
+
+
+def bce_loss(model: RecsysModel, batch: dict,
+             cfg: RecsysConfig) -> torch.Tensor:
+    """batch: ids (B, F, H) int32, labels (B,) float -> the mean binary
+    cross-entropy of the float32 logits (a 0-d tensor)."""
+    z = forward_logits(model, batch["ids"], cfg)
+    y = batch["labels"].to(torch.float32)
+    return torch.mean(torch.clamp_min(z, 0) - z * y
+                      + torch.log1p(torch.exp(-torch.abs(z))))
 
 
 def serve_scores(model: RecsysModel, ids: torch.Tensor,

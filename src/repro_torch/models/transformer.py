@@ -8,15 +8,16 @@ Covers the five LM configs of ``repro_torch.configs``:
 
 The layer stack is an ``nn.ModuleList`` run in a Python loop, each layer
 with its own window (an int, or None for global attention).  There is
-no scan and no remat: this is inference (``remat_chunks`` is accepted
-and ignored); ``repro``'s ``train_loss`` waits for the training slice
-(ROADMAP queue 1 item 12b).  Entry points:
+no scan and no remat (``remat_chunks`` is accepted and ignored).  Entry
+points:
 
   * ``forward_hidden`` - the final hidden states (and the roped K/V);
   * ``prefill``        - forward + KV-cache build + last-token logits;
   * ``decode_step``    - one token against the cache: ring buffers of the
     window's width for sliding-window layers, ``max_seq`` buffers for
     global layers, grouped by width (``layer_cache_plan``).
+  * ``train_loss``     - next-token cross-entropy plus the MoE aux loss,
+    the training objective (``repro_torch.launch.train``).
 
 ``init_params(generator, cfg)`` draws the parameters on the generator's
 device from ``repro``'s distributions (not its numbers); without a
@@ -218,6 +219,20 @@ def forward_hidden(params: Transformer, tokens: torch.Tensor,
 def logits_from_hidden(params: Transformer,
                        hidden: torch.Tensor) -> torch.Tensor:
     return hidden @ params.unembed
+
+
+def train_loss(params: Transformer, batch: dict,
+               cfg: TransformerConfig) -> torch.Tensor:
+    """Next-token cross-entropy (f32 logsumexp) + MoE aux loss (summed
+    over the layers) times ``cfg.aux_loss_coef``."""
+    tokens = batch["tokens"]
+    hidden, aux, _ = forward_hidden(params, tokens, cfg)
+    logits = logits_from_hidden(params, hidden[:, :-1]).to(torch.float32)
+    targets = tokens[:, 1:].to(torch.int64)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, targets[..., None])[..., 0]
+    ce = torch.mean(lse - picked)
+    return ce + cfg.aux_loss_coef * aux
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,9 @@ dtypes of ``tests/test_kernel_fm_topk.py``.
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; the
 CUDA kernels are held against those on a card (``test_torch_gpu.py``,
-``chip_smoke.py``).
+``chip_smoke.py``).  K8's hand-written backward has no Pallas twin: its
+plain version is held against a float64 gradcheck and ``jax.vjp`` of
+``repro``'s ``fm_interaction_ref``.
 
 Tolerances, with their reasons:
 * K8: rtol 1e-5 / atol 1e-3.  Both sides sum F * D unit-normal products
@@ -17,12 +19,14 @@ Tolerances, with their reasons:
   and tie often, so the (value descending, lowest index first) order of
   ``jax.lax.top_k`` is tested exactly.
 """
+import jax
 import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
 
 from repro.kernels.fm_interaction import fm_interaction as jax_fm
+from repro.kernels.fm_interaction import fm_interaction_ref as jax_fm_ref
 from repro.kernels.scored_topk import scored_topk as jax_topk
 from repro.kernels.scored_topk.scored_topk import (
     scored_topk_kernel as jax_topk_blocks,
@@ -30,6 +34,8 @@ from repro.kernels.scored_topk.scored_topk import (
 from repro_torch.kernels import cuda
 from repro_torch.kernels.fm_interaction import (
     fm_interaction,
+    fm_interaction_bwd_kernel,
+    fm_interaction_bwd_ref,
     fm_interaction_kernel,
     fm_interaction_ref,
 )
@@ -75,16 +81,64 @@ def test_fm_interaction_identity():
 
 
 def test_fm_interaction_refuses_grad_and_force_ref_differentiates():
+    """The wrapper no longer refuses a tensor that requires grad: K8 has a
+    backward.  The wrapper, the kernel entry and ``force_ref`` give the
+    same gradient (on the CPU, K8's plain backward against autograd of
+    the plain forward)."""
     emb = torch.randn(4, 3, 2, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        fm_interaction(emb)
-    with pytest.raises(RuntimeError, match="no backward"):
-        fm_interaction_kernel(emb)
-    fm_interaction(emb, force_ref=True).sum().backward()
-    assert emb.grad is not None and emb.grad.shape == emb.shape
+    g = torch.randn(4)
+    grads = []
+    for fn in (fm_interaction, fm_interaction_kernel,
+               lambda x: fm_interaction(x, force_ref=True)):
+        x = emb.detach().clone().requires_grad_(True)
+        fn(x).backward(g)
+        assert x.grad is not None and x.grad.shape == emb.shape
+        grads.append(x.grad)
+    torch.testing.assert_close(grads[0], grads[2], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(grads[1], grads[2], rtol=1e-6, atol=1e-6)
     with torch.inference_mode():
         x = emb.detach().clone()
         torch.testing.assert_close(fm_interaction(x), fm_interaction_ref(x))
+
+
+@pytest.mark.parametrize("B,F,D", [(5, 4, 3), (3, 39, 10), (1, 1, 1)])
+def test_fm_interaction_bwd_ref_passes_gradcheck(B, F, D):
+    """In float64: autograd of the plain forward against finite
+    differences, and the plain backward (also through ``FMInteraction``
+    on the CPU) against that autograd."""
+    rng = np.random.default_rng(B + F + D)
+    emb = torch.from_numpy(rng.normal(size=(B, F, D))).requires_grad_(True)
+    assert torch.autograd.gradcheck(fm_interaction_ref, (emb,))
+    assert torch.autograd.gradcheck(fm_interaction, (emb,))
+    g = torch.from_numpy(rng.normal(size=(B,)))
+    (want,) = torch.autograd.grad(fm_interaction_ref(emb), emb, g)
+    got = fm_interaction_bwd_ref(emb.detach(), g)
+    assert got.dtype == torch.float64
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("B,F,D", [(8, 4, 8), (64, 39, 10), (130, 26, 32)])
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
+def test_fm_interaction_bwd_matches_jax_grad(B, F, D, dtypes):
+    """K8's backward (plain on the CPU) against ``jax.vjp`` of ``repro``'s
+    ``fm_interaction_ref`` on the same input and output gradient: float32
+    within rtol 1e-5 / atol 1e-5 (a sum of F unit-normal terms in another
+    order, times g); bfloat16 within one bfloat16 ulp (both round a
+    float32 gradient once)."""
+    rng = np.random.default_rng(B * F + D)
+    j, t = _same(rng.normal(size=(B, F, D)), *dtypes)
+    g = rng.normal(size=(B,)).astype(np.float32)
+    _, vjp = jax.vjp(jax_fm_ref, j)
+    (want,) = vjp(jnp.asarray(g))
+    got = fm_interaction_bwd_kernel(t, torch.from_numpy(g))
+    assert got.dtype == t.dtype and got.shape == t.shape
+    x = t.clone().requires_grad_(True)
+    fm_interaction(x).backward(torch.from_numpy(g))
+    assert torch.equal(x.grad, got)
+    rtol, atol = (1e-5, 1e-5) if t.dtype == torch.float32 else (2 ** -7, 1e-5)
+    np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=rtol, atol=atol)
 
 
 def test_fm_interaction_cpu_counts_no_launch():

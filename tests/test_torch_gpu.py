@@ -30,7 +30,10 @@ refused before any launch.
 K8 (``fm_interaction``) and K7 (``scored_topk``) are held against their
 plain versions on the CPU: K8 within rtol 1e-5 / atol 2e-6 * F * D
 (float32 sums of F * D unit-normal terms in another order, whose
-cancellation leaves an absolute error that grows with F * D), K7 index
+cancellation leaves an absolute error that grows with F * D), K8's
+backward within rtol 1e-5 / atol 1e-6 * F (one bfloat16 ulp in
+bfloat16), one launch each through autograd, and a reduced DeepFM
+training step on the card against the CPU; K7 index
 for index on data whose float32 scores are exact in any order (small
 integers with many ties, scores ascending or descending with the row,
 all equal), in blocks and global mode, its keys on chip or forced to
@@ -112,6 +115,8 @@ from repro_torch.kernels.dpp_greedy.dpp_greedy import (
 from repro_torch.kernels.dpp_greedy.ops import _stream_tile
 from repro_torch.kernels.fm_interaction import (
     fm_interaction,
+    fm_interaction_bwd_kernel,
+    fm_interaction_bwd_ref,
     fm_interaction_ref,
 )
 from repro_torch.kernels.scored_topk import (
@@ -638,12 +643,81 @@ def test_fm_interaction_kernel_matches_plain(card, N, F, D, block_b, dtype):
 
 
 @pytest.mark.gpu
-def test_fm_interaction_kernel_refuses_grad(card):
-    x = torch.randn(4, 3, 2, device="cuda", requires_grad=True)
+@pytest.mark.parametrize("N,F,D,block_b", [
+    (1, 1, 1, 128), (130, 39, 10, 128), (65_539, 39, 10, 128),
+    (1000, 26, 32, 32), (257, 4, 8, 64), (3, 400, 130, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fm_interaction_bwd_kernel_matches_plain(card, N, F, D, block_b,
+                                                 dtype):
+    """K8's backward against its plain version: float32 within rtol 1e-5
+    / atol 1e-6 * F (a sum of F terms in another order, times g);
+    bfloat16 within one bfloat16 ulp (each rounds a float32 gradient
+    once).  Through autograd, one forward and one backward launch."""
+    rng = np.random.default_rng(N + F + D)
+    x = torch.from_numpy(rng.normal(size=(N, F, D)).astype(np.float32))
+    x = x.to(dtype)
+    g = torch.from_numpy(rng.normal(size=(N,)).astype(np.float32))
+    want = fm_interaction_bwd_ref(x, g)
     cuda.reset_launch_counts()
-    with pytest.raises(RuntimeError, match="no backward"):
-        fm_interaction(x)
-    assert cuda.launch_counts() == {}
+    got = fm_interaction_bwd_kernel(x.cuda(), g.cuda(), block_b=block_b)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts() == {"fm_interaction_bwd": 1}
+    assert got.dtype == dtype and got.shape == (N, F, D)
+    rtol, atol = ((1e-5, 1e-6 * F) if dtype == torch.float32
+                  else (2 ** -7, 1e-6 * F))
+    torch.testing.assert_close(got.cpu(), want, rtol=rtol, atol=atol)
+    xg = x.cuda().requires_grad_(True)
+    cuda.reset_launch_counts()
+    fm_interaction(xg, block_b=block_b).backward(g.cuda())
+    torch.cuda.synchronize()
+    assert cuda.launch_counts() == {"fm_interaction": 1,
+                                    "fm_interaction_bwd": 1}
+    assert torch.equal(xg.grad, got)
+
+
+@pytest.mark.gpu
+def test_deepfm_train_step_on_the_card_matches_the_cpu(card):
+    """Two ``make_step`` steps of reduced DeepFM on the card against the
+    same init and batches on the CPU: loss and grad_norm within rtol
+    1e-4, the parameters within rtol 1e-4 / atol 1e-5; one K8 forward
+    and one K8 backward launch a step."""
+    import copy
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import recsys_batches
+    from repro_torch.launch.train import make_step
+    from repro_torch.models import recsys
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = get_arch("deepfm").reduced()
+    step = make_step(lambda m, b: recsys.bce_loss(m, b, cfg),
+                     AdamWConfig(lr=1e-3), 1, 4)
+    model = recsys.init_params(torch.Generator().manual_seed(0), cfg)
+    stream = recsys_batches(cfg.vocab_sizes, 256)
+    batches = [next(stream) for _ in range(2)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(dev)
+        opt = adamw_init(dict(m.named_parameters()))
+        out = []
+        for b in batches:
+            batch = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+            cuda.reset_launch_counts()
+            m, opt, _, met = step(m, opt, None, batch)
+            out.append((float(met["loss"]), float(met["grad_norm"]),
+                        cuda.launch_counts()))
+        runs[dev] = (out, {n: p.detach().cpu()
+                           for n, p in m.named_parameters()})
+    for (l_cpu, n_cpu, c_cpu), (l, n, c) in zip(runs["cpu"][0],
+                                                runs["cuda"][0]):
+        assert c_cpu == {} and c == {"fm_interaction": 1,
+                                     "fm_interaction_bwd": 1}
+        assert abs(l - l_cpu) <= 1e-4 * abs(l_cpu)
+        assert abs(n - n_cpu) <= 1e-4 * abs(n_cpu)
+    for name, p in runs["cuda"][1].items():
+        torch.testing.assert_close(p, runs["cpu"][1][name], rtol=1e-4,
+                                   atol=1e-5)
 
 
 def _topk_data(kind, M, D, seed):

@@ -182,14 +182,26 @@ def test_forward_runs_fm_through_k8_plain_on_cpu():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-7)
 
 
-def test_forward_with_grad_refuses_k8():
-    """K8 has no backward: the FM forward outside inference mode raises
-    instead of returning a result with no gradient."""
+def test_forward_with_grad_matches_repro_grad():
+    """K8 is differentiable (the refusal it once raised is gone): the
+    gradient of reduced DeepFM's logits against a random cotangent,
+    through the FM term's plain backward on the CPU, equals ``jax.vjp``'s
+    within rtol 1e-5 / atol 1e-6, parameter for parameter."""
     jcfg = jax_configs.get_arch("deepfm").reduced()
-    _, model = jax_model(jcfg)
-    ids = torch.from_numpy(_ids(jcfg.vocab_sizes, 4, 1, 0))
-    with pytest.raises(RuntimeError, match="no backward"):
-        recsys.forward_logits(model, ids, model.cfg)
+    params, model = jax_model(jcfg)
+    ids = _ids(jcfg.vocab_sizes, 16, 1, 0)
+    ct = np.random.default_rng(1).normal(size=(16,)).astype(np.float32)
+    _, vjp = jax.vjp(lambda p: jax_recsys.forward_logits(p, jnp.asarray(ids),
+                                                         jcfg), params)
+    (grads,) = vjp(jnp.asarray(ct))
+    logits = recsys.forward_logits(model, torch.from_numpy(ids), model.cfg)
+    logits.backward(torch.from_numpy(ct))
+    want = dict(params_from_jax(jax.tree.map(np.asarray, grads),
+                                port_cfg(jcfg), device="cpu")
+                .named_parameters())
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].detach().numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
