@@ -10,9 +10,10 @@ GNN model families with the LM-embedded rerank, and training.
     python3 chip_smoke.py --update-times     # the update entries alone
     python3 chip_smoke.py --models           # phase 21 alone (run_models)
     python3 chip_smoke.py --training         # phase 22 alone (run_training)
+    python3 chip_smoke.py --fm-times [PARENT]  # K8 alone (fm_times)
 
 (Phase 12 runs ``chip_smoke.py --topk-device-times STATE`` as a child
-process for K7's profiler times: ``topk_device_times``.)
+process for K7's and K8's profiler times: ``topk_device_times``.)
 
 Builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a),
 then runs twenty-two phases through the port's entry points.  Phases 1-9
@@ -79,7 +80,12 @@ seeded ``torch.Generator``), and ``repro_torch.kernels.scored_topk``:
                       with no op after it, blocks mode beside it; the
                       same pool with its scores ascending with the row
                       index; ragged (M = 10^6 + 3, D = 10, c = 128); each
-                      with K7's launch plan printed.
+                      with K7's launch plan printed.  Its child process
+                      (a clean one, see ``topk_device_times``) also
+                      takes torch.profiler's device time of K8 at N =
+                      1,024,000 and 65,536 and of K8's backward at
+                      65,536 (F = 39, D = 10, float32), which go into
+                      K8's and its backward's records.
 
 Phase 13 runs the paper's experiments, ``repro_torch.figures``, on the
 card through each figure's ``main`` (its CSV printed):
@@ -341,7 +347,9 @@ Phase 22 trains, last (``run_training``, 90 s aim, TF32 off):
                       atol 1e-6 * F; bfloat16 one ulp), against autograd
                       of the plain forward, and through ``FMInteraction``
                       bit for bit; timed against its plain version and
-                      its 0.0611 ms bound; (b) DeepFM at its published
+                      its 0.0611 ms bound (device time from phase 12's
+                      child, or here where phase 22 runs alone); (b)
+                      DeepFM at its published
                       width, uncut, batch ``train_batch`` = 65,536,
                       through ``repro_torch.launch.train.main``: 20
                       steps, a commit every 8, an injected failure at
@@ -372,7 +380,8 @@ greedy-valid; K8 rtol 1e-5 / atol 1e-6; K7 values within 1e-5); times the
 kernel and the plain version with CUDA events (the multi-launch kernels
 K3-K6 and the update entries one event pair per launch, summed), with
 torch.profiler's device time of the same launches beside it as
-``device_ms`` (K1-K7, the update entries); and checks the outputs.
+``device_ms`` (K1-K8 and K8's backward, the update entries); and checks
+the outputs.
 Phases 3, 4 and 6-9 also print the per-step streaming floor beside the
 kernel's device time: V's bytes once per step over 3.35 TB/s and, for
 the exact kernels, the live Cholesky rows read, row t written and the
@@ -389,6 +398,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import importlib
 import json
 import os
 import shutil
@@ -1667,9 +1677,9 @@ def run_recsys_serve(records):
     N, F, Dm = emb.shape
     records["fm_interaction"]["calls_launches"] = 1
     kernel_record(records, "fm_interaction", ms, plain_ms,
-                  bound_of(4 * N * F * Dm + 4 * N,
-                           N * (3 * F * Dm + 3 * Dm + 1)),
-                  err, "one launch, CUDA events", None,
+                  fm_bound(N, F, Dm, 4, False), err,
+                  "one launch, CUDA events; device time from phase 12's "
+                  "clean process", None,
                   "no single PyTorch call computes the FM term")
     return model, cfg, user[:4], cand, scores[:4], slates[:4], feats, rr.cfg
 
@@ -1822,7 +1832,9 @@ def topk_device_times(state_json):
     no longer sees K7's launches there (an H100 probe: 6 of 6 seen before,
     0 of 6 after).  Global mode, blocks mode and the ascending order of
     the same pool; the device activity and ops of one profiled global
-    call; the pool's sum, so the caller can check the inputs."""
+    call; the pool's sum, so the caller can check the inputs.  Then K8's
+    forward and backward at DeepFM's shapes (:func:`fm_device_times`),
+    which phases 10 and 22 cannot profile for the same reason."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.scored_topk import (
@@ -1848,6 +1860,8 @@ def topk_device_times(state_json):
     asc = pool[torch.argsort(pool.double() @ q.double())].contiguous()
     out["ascending"] = device_ms(lambda: scored_topk(asc, q, c=c),
                                  "scored_topk", 1)
+    del pool, asc
+    out["fm"] = fm_device_times()
     print("topk_device_times " + json.dumps(out), flush=True)
 
 
@@ -1874,7 +1888,182 @@ def topk_child(name, state, pool):
           f"time global {ms_text(out['global'])}, blocks "
           f"{ms_text(out['blocks'])}, ascending {ms_text(out['ascending'])}",
           flush=True)
+    fm = out["fm"]
+    print(f"  the same process, K8 (F = 39, D = 10, float32): forward device "
+          f"time {ms_text(fm['serve'])} at N = {FM_SHAPES[1]}, "
+          f"{ms_text(fm['train'])} at N = {FM_SHAPES[0]}; backward "
+          f"{ms_text(fm['bwd_train'])} at N = {FM_SHAPES[0]} (these took "
+          f"{fm['seconds']:.1f} s)", flush=True)
     return out
+
+
+# K8 at DeepFM's shapes: its train batch and serve_p99's scored rows
+# (512 users x 2000 candidates)
+FM_SHAPES = (65_536, 1_024_000)
+
+
+def fm_inputs(N, F, Dm, dtype, seed):
+    """emb (N, F, Dm) in ``dtype`` and g (N,) float32, unit normal, drawn
+    on the card from ``seed``."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    emb = torch.randn((N, F, Dm), generator=gen, device="cuda").to(dtype)
+    return emb, torch.randn((N,), generator=gen, device="cuda")
+
+
+def fm_bound(N, F, Dm, itemsize, backward):
+    """K8's (``backward``: its gradient's) least time: emb read once, the
+    output (the gradient, in emb's type) written once, g read once."""
+    if backward:
+        return bound_of(2 * N * F * Dm * itemsize + 4 * N, 3 * N * F * Dm)
+    return bound_of(N * F * Dm * itemsize + 4 * N,
+                    N * (3 * F * Dm + 3 * Dm + 1))
+
+
+def fm_device_times():
+    """K8's forward at N = 1,024,000 and 65,536 and its backward at 65,536
+    (DeepFM's F and D, float32): torch.profiler's device time of one
+    launch, for :func:`topk_device_times`' clean process."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.fm_interaction import (
+        fm_interaction,
+        fm_interaction_bwd_kernel,
+    )
+
+    cfg = get_arch("deepfm").config
+    F, Dm = cfg.n_fields, cfg.embed_dim
+    t0 = time.perf_counter()
+    out = {}
+    with torch.no_grad():
+        for key, N, bwd in (("serve", FM_SHAPES[1], False),
+                            ("train", FM_SHAPES[0], False),
+                            ("bwd_train", FM_SHAPES[0], True)):
+            emb, g = fm_inputs(N, F, Dm, torch.float32, SEED + 31)
+            if bwd:
+                out[key] = device_ms(
+                    lambda: fm_interaction_bwd_kernel(emb, g),
+                    "fm_interaction_bwd", 1)
+            else:
+                out[key] = device_ms(lambda: fm_interaction(emb),
+                                     "fm_interaction", 1)
+            del emb, g
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def parent_fm(src):
+    """K8's forward and backward wrappers of another tree, loaded from
+    ``src``, a directory holding that tree's
+    ``kernels/fm_interaction/fm_interaction.py`` and its
+    ``csrc/fm_interaction.cu`` (built there into ``build/``), as a module
+    of its own beside this tree's: (forward, backward) callables."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_fm_interaction", Path(src) / "fm_interaction.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.fm_interaction_kernel, mod.fm_interaction_bwd_kernel
+
+
+def fm_times(parent=None):
+    """``--fm-times [PARENT]``: K8's forward and backward alone at
+    DeepFM's F = 39, D = 10 and N = 65,536 (train_batch) and 1,024,000
+    (serve_p99's scored rows), float32 and bfloat16: the plan, CUDA event
+    time (median of TIMING_REPS, wrapper host time included), device
+    time by torch.profiler, the bound, and the outputs against the plain
+    versions (the forward within rtol 1e-5 / atol 2e-6 * F * D, since
+    sums of F * D unit-normal terms in another order cancel to an
+    absolute error that grows with F * D, as ``tests/test_torch_gpu.py``
+    holds it; the backward within rtol 1e-5 / atol 1e-6 * F, one
+    bfloat16 ulp).  With PARENT (a directory with another tree's K8
+    wrapper and source, :func:`parent_fm`) that kernel is built beside
+    this tree's and timed in turns with it through its own wrapper
+    (parent, this tree, this tree, parent; the device times parent, this
+    tree), and its outputs held against this tree's bit for bit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.fm_interaction import (
+        fm_interaction,
+        fm_interaction_bwd_kernel,
+        fm_interaction_bwd_ref,
+        fm_interaction_ref,
+    )
+
+    fm_mod = importlib.import_module(
+        "repro_torch.kernels.fm_interaction.fm_interaction")
+    cfg = get_arch("deepfm").config
+    F, Dm = cfg.n_fields, cfg.embed_dim
+    if parent is not None:
+        src = Path(parent).resolve()
+        parent = parent_fm(src)
+        with torch.no_grad():  # build it, and print its ptxas report
+            parent[0](torch.ones((1, 1, 1), device="cuda"))
+        for log in sorted(src.glob("build/*.log")):
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas parent {log.stem[:12]}: {line.strip()}")
+    out = []
+    for N, dt, bwd in [(N, dt, bwd) for bwd in (False, True)
+                       for N in FM_SHAPES
+                       for dt in (torch.float32, torch.bfloat16)]:
+        kernel = "fm_interaction_bwd" if bwd else "fm_interaction"
+        label = (f"{kernel} N={N} F={F} D={Dm} "
+                 f"{str(dt).replace('torch.', '')}")
+        emb, g = fm_inputs(N, F, Dm, dt, SEED + 31)
+        plan = fm_mod.plan_for(emb, bwd)
+        with torch.no_grad():
+            if bwd:
+                new = lambda: fm_interaction_bwd_kernel(emb, g)
+                got, want = new(), fm_interaction_bwd_ref(emb, g)
+                rtol = FM_BWD_RTOL if dt == torch.float32 else 2 ** -7
+                atol = 1e-6 * F
+                old = None if parent is None else (
+                    lambda: parent[1](emb, g))
+            else:
+                new = lambda: fm_interaction(emb)
+                got, want = new(), fm_interaction_ref(emb)
+                # unit-normal data: tests/test_torch_gpu.py's tolerance
+                rtol, atol = FM_RTOL, 2e-6 * F * Dm
+                old = None if parent is None else (lambda: parent[0](emb))
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            check(torch.allclose(got.float(), want.float(), rtol=rtol,
+                                 atol=atol),
+                  f"--fm-times {label}: differs from the plain version by "
+                  f"{err}")
+            rec = {"kernel": kernel, "N": N, "dtype": str(dt), "plan":
+                   plan._asdict(), "max_abs_err": err}
+            if old is not None:
+                prev = old()
+                torch.cuda.synchronize()
+                rec["equal_to_parent"] = bool(torch.equal(prev, got))
+                check(rec["equal_to_parent"], f"--fm-times {label}: differs "
+                      f"from the parent's kernel")
+                del prev
+            del got, want
+            turns = ([("parent", old), ("new", new), ("new", new),
+                      ("parent", old)] if old else [("new", new)])
+            for who, fn in turns:
+                rec.setdefault(f"{who}_ms", []).append(
+                    time_events(lambda: event_ms(fn), TIMING_REPS))
+            for who, fn in turns[:2]:
+                rec[f"{who}_device_ms"] = device_ms(fn, kernel, 1)
+        b_ms, by, nbytes, _ = fm_bound(N, F, Dm, dt.itemsize, bwd)
+        rec.update(bound_ms=b_ms, bound_by=by, bytes=nbytes)
+        dev = rec["new_device_ms"]
+        share = ("not measured" if dev is None
+                 else f"{b_ms / dev:.0%} of the bound by device time")
+        print(f"  {label}: plan T={plan.tile} S={plan.stages} stage "
+              f"{plan.stage_bytes} B, {plan.smem_bytes} B a block, grid "
+              f"{plan.grid} over {plan.tiles} tiles; events "
+              f"{rec['new_ms']} ms, device {ms_text(dev)}"
+              + (f"; parent events {rec['parent_ms']} ms, device "
+                 f"{ms_text(rec['parent_device_ms'])}, outputs equal bit "
+                 f"for bit" if old else "")
+              + f"; bound {b_ms:.4f} ms by {by} ({nbytes} B), {share}; max "
+              f"abs err {err:.3g} against the plain version", flush=True)
+        out.append(rec)
+        del emb, g, new, old
+    print("fm_times " + json.dumps(out), flush=True)
 
 
 def run_scored_topk(records, pool, pool_state):
@@ -1950,6 +2139,10 @@ def run_scored_topk(records, pool, pool_state):
     topk_no_op_after(name, lambda: scored_topk(pool, q, c=c))
     times = topk_child(name, pool_state, pool)
     dev, blocks_dev = times["global"], times["blocks"]
+    # K8's device times from the clean process: the serving shape into
+    # phase 10's record, the train shape's for phase 22
+    records["fm_interaction"]["device_ms"] = times["fm"]["serve"]
+    records["fm_interaction"]["child_device"] = times["fm"]
     ms = time_events(lambda: event_ms(lambda: scored_topk(pool, q, c=c)),
                      TIMING_REPS)
     blocks_ms = time_events(
@@ -4580,22 +4773,32 @@ def run_fm_backward(records, F, Dm, N, smi):
         lambda: fm_interaction_bwd_kernel(emb, g)), TIMING_REPS)
     plain_ms = time_events(lambda: event_ms(
         lambda: fm_interaction_bwd_ref(emb, g)), PLAIN_REPS)
-    dev = device_ms(lambda: fm_interaction_bwd_kernel(emb, g),
-                    "fm_interaction_bwd", 1)
+    # device times from phase 12's clean process where it ran (a process
+    # that has profiled a cluster launch no longer sees K8's), else here
+    child = records["fm_interaction"].get("child_device")
+    if child is None:
+        dev = device_ms(lambda: fm_interaction_bwd_kernel(emb, g),
+                        "fm_interaction_bwd", 1)
+        with torch.no_grad():
+            fwd_dev = device_ms(lambda: fm_interaction(emb),
+                                "fm_interaction", 1)
+        where = "this process"
+    else:
+        dev, fwd_dev = child["bwd_train"], child["train"]
+        where = "phase 12's clean process"
     with torch.no_grad():
         fwd_ms = time_events(lambda: event_ms(lambda: fm_interaction(emb)),
                              TIMING_REPS)
-    fwd_bound = bound_of(4 * N * F * Dm + 4 * N,
-                         N * (3 * F * Dm + 3 * Dm + 1))
+    fwd_bound = fm_bound(N, F, Dm, 4, False)
     records["fm_interaction_bwd"]["calls_launches"] = 1
     kernel_record(records, "fm_interaction_bwd", ms, plain_ms,
-                  bound_of(8 * N * F * Dm + 4 * N, 3 * N * F * Dm),
-                  err32, "one launch, CUDA events", None,
+                  fm_bound(N, F, Dm, 4, True), err32,
+                  f"one launch, CUDA events; device time from {where}", None,
                   "no single PyTorch call computes the FM term's gradient",
                   device=dev)
     print(f"  fm_interaction (forward) at the same shape: {fwd_ms:.4f} ms, "
-          f"bound {fwd_bound[0]:.4f} ms by {fwd_bound[1]}; {smi}",
-          flush=True)
+          f"device {ms_text(fwd_dev)} ({where}), bound {fwd_bound[0]:.4f} ms "
+          f"by {fwd_bound[1]}; {smi}", flush=True)
 
 
 @contextlib.contextmanager
@@ -5203,6 +5406,9 @@ def run_main(work: Path) -> int:
         return 0
     if sys.argv[1:2] == ["--topk-device-times"]:
         topk_device_times(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--fm-times"] and len(sys.argv) <= 3:
+        fm_times(*sys.argv[2:])
         return 0
     if sys.argv[1:] == ["--models"]:
         run_models({"dpp_greedy_resident": {"launches": 0}})

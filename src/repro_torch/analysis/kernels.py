@@ -7,19 +7,24 @@ It never launches a kernel.  It drives the plan functions each wrapper
 calls before a launch over a sweep of geometries — ``TilePolicy.decide``
 through the tile ladder (``ops._resolve_tile_policy`` and, for the
 chunk kernels, ``ops.resolve_chunk_tile``), ``tiling.resident_cluster``
-(K1/K2), and K7's ``scored_topk.launch_plan`` — and evaluates each plan
-over its whole grid in plain Python:
+(K1/K2), K7's ``scored_topk.launch_plan`` and K8's
+``fm_interaction.fm_plan`` (its forward and backward) — and evaluates
+each plan over its whole grid in plain Python:
 
 * **coverage** — a lane's tiles (K3-K6), a user's cluster CTAs (K1/K2)
   or a segment's CTAs (K7, split as ``csrc/scored_topk.cu`` splits
   them) cover every column (row) exactly once, and no K7 CTA owns more
-  rows than its key slots;
+  rows than its key slots; K8's persistent blocks take every example
+  exactly once;
 * **alignment** — a tile is a warp multiple (``validate_tile_m``) or
   the whole M, a cluster slice 16-byte aligned, K7's block rows a
   multiple of 128 and its tiles groups of 8 rows (or, where a stage
-  holds fewer, that many);
+  holds fewer, that many); every K8 bulk copy (``tile_copy``, for views
+  0-3 elements into their storage) has a 16-byte-aligned source,
+  destination and size inside its stage;
 * **smem budget** — the bytes the launch gets (the wrapper module's own
-  binding of the model) fit ``SMEM_BUDGET_BYTES``;
+  binding of the model) fit ``SMEM_BUDGET_BYTES`` (K8: its header, S
+  stages and aux arrays, as ``fm_plan`` counts them);
 * **cluster** — a policy cluster size lies in ``CLUSTER_SIZES`` (at most
   8, portable), 16 only where the source sets the non-portable
   attribute, and the card can place the cluster;
@@ -69,6 +74,15 @@ SWEEP_C = (1, 100, 1000)
 TOPK_BLOCK_M = 8192
 # the small M the wrappers are driven at for the smem-model rule
 DRIVE_M = 2000
+# K8: DeepFM's (39, 10) at its train batch and serve_p99's scored rows,
+# other recsys widths, an odd F * D, one example past half a block; N
+# below, at and past the grid, ragged; every block_b the tests use
+SWEEP_FM_FD = ((39, 10), (26, 32), (4, 8), (13, 7), (400, 130), (1, 1))
+SWEEP_FM_N = (1, 7, 100, 8191, 65_536)
+SWEEP_FM_BLOCK_B = (32, 64, 128)
+FM_SERVE_N = 1_024_000  # at (39, 10) and block_b 128 only
+FM_OFFSETS = (0, 1, 2, 3)  # a view's elements into its storage
+_FM_REGS = 40  # K8's most registers a thread (ptxas -v)
 
 # An H100 SXM's occupancy model (the card's own queries replace it on the
 # card): SMs, resident threads / blocks / registers an SM, shared memory
@@ -84,7 +98,8 @@ _PORTABLE_CLUSTER = 8
 _NON_PORTABLE_ATTR = "cudaFuncAttributeNonPortableClusterSizeAllowed"
 
 FAMILIES = ("resident_exact", "resident_windowed", "step_exact",
-            "step_windowed", "chunk_exact", "chunk_windowed", "scored_topk")
+            "step_windowed", "chunk_exact", "chunk_windowed", "scored_topk",
+            "fm_interaction")
 COOPERATIVE = ("chunk_exact", "chunk_windowed", "scored_topk")
 
 
@@ -111,13 +126,16 @@ class Capacities:
     ``cluster(windowed)``: ``(s, smem, v_resident, state_resident) ->
     clusters`` of K1 (K2) or None; ``topk(dtype, smem)``: CTAs of K7
     (None: K7 is not checked for co-residency); ``device``: where the
-    ``"auto"`` tile lookups key."""
+    ``"auto"`` tile lookups key; ``fm(backward, dtype, smem)``: blocks of
+    K8 (its backward), its plan's grid (None: the H100 model)."""
 
     chunk: Callable[[bool], Optional[Callable[[int], int]]]
     cluster: Callable[[bool], Optional[Callable[..., int]]]
     topk: Optional[Callable[[object, int], int]]
     device: object
     source: str
+    # K8: (backward, dtype, smem) -> blocks co-resident (None: the model)
+    fm: Optional[Callable[[bool, object, int], int]] = None
 
 
 def model_capacities(sms: int = H100_SMS) -> Capacities:
@@ -139,11 +157,13 @@ def model_capacities(sms: int = H100_SMS) -> Capacities:
 def card_capacities(device) -> Capacities:
     """The occupancy queries the wrappers make on ``device``:
     ``tiled.capacity_fn`` (K5/K6), ``dpp_greedy.cluster_capacity``
-    (K1/K2) and ``scored_topk._capacity`` (K7)."""
+    (K1/K2), ``scored_topk._capacity`` (K7) and
+    ``fm_interaction._capacity`` (K8)."""
     import torch
 
     dpp_greedy, tiled = _mod("dpp_greedy.dpp_greedy"), _mod("dpp_greedy.tiled")
     scored_topk = _mod("scored_topk.scored_topk")
+    fm = _mod("fm_interaction.fm_interaction")
 
     device = torch.device(device)
     index = (torch.cuda.current_device() if device.index is None
@@ -156,8 +176,13 @@ def card_capacities(device) -> Capacities:
     def topk(dtype, smem):
         return scored_topk._capacity(dtype == torch.bfloat16, smem, index)
 
+    def fm_blocks(backward, dtype, smem):
+        return fm._capacity(fm._WHICH[backward, dtype], fm.THREADS,
+                            smem, index)
+
     return Capacities(lambda w: tiled.capacity_fn(w, device), cluster, topk,
-                      device, f"card {torch.cuda.get_device_name(index)}")
+                      device, f"card {torch.cuda.get_device_name(index)}",
+                      fm_blocks)
 
 
 # --------------------------------------------------------------------------
@@ -482,6 +507,80 @@ def _sweep_topk(caps: Capacities, report: _Report,
                        f"cooperative grid of {plan.grid} CTAs at "
                        f"{plan.smem_bytes} B against {cap} co-resident at "
                        f"the {qsmem} B the card was asked about ({geom})")
+
+
+def _sweep_fm(caps: Capacities, report: _Report,
+              fams: dict[str, _Family]) -> None:
+    """K8 and its backward: ``fm_plan`` over the sweep, its blocks' tiles
+    against the examples, its bulk copies against their stages, its
+    shared memory against the budget."""
+    import torch
+
+    from repro_torch.kernels.dpp_greedy.tiling import SMEM_BUDGET_BYTES
+    fm = _mod("fm_interaction.fm_interaction")
+
+    anchor = _anchor(fm.fm_plan)
+    fam = fams["fm_interaction"]
+    geoms = [(N, F, D, b) for (F, D), N, b in itertools.product(
+        SWEEP_FM_FD, SWEEP_FM_N, SWEEP_FM_BLOCK_B)]
+    geoms.append((FM_SERVE_N, 39, 10, 128))
+    for (N, F, D, block_b), dtype, backward in itertools.product(
+            geoms, (torch.float32, torch.bfloat16), (False, True)):
+        try:
+            T0, S, stage, smem = fm.fm_layout(F, D, dtype, block_b)
+        except ValueError:
+            fam.refused += 1
+            continue
+        cap = (H100_SMS * blocks_per_sm(smem, fm.THREADS, _FM_REGS)
+               if caps.fm is None else caps.fm(backward, dtype, smem))
+        if cap < 1:
+            report.add(anchor, "cuda-smem-budget",
+                       f"no block of {smem} B fits an SM (N={N}, F={F}, "
+                       f"D={D}, {dtype}, block_b={block_b})")
+            continue
+        plan = fm.fm_plan(N, F, D, dtype, block_b, cap)
+        if not fam.count((N, F, D, dtype, block_b, backward), plan.grid,
+                         None):
+            continue
+        geom = (f"{'backward, ' if backward else ''}N={N}, F={F}, D={D}, "
+                f"{dtype}, block_b={block_b}: T={plan.tile}, S={S} stages "
+                f"of {stage} B, {smem} B a block, grid {plan.grid} of "
+                f"{plan.tiles} tiles")
+        # coverage: the blocks' tiles, and the tiles' examples
+        spans = [(t * plan.tile, min((t + 1) * plan.tile, N))
+                 for b in range(plan.grid) for t in fm.block_tiles(plan, b)]
+        gap = span_gaps(spans, N)
+        if gap is None and not 0 < plan.grid <= plan.tiles:
+            gap = f"a grid of {plan.grid} blocks for {plan.tiles} tiles"
+        if gap is None and plan.tile > T0:
+            gap = f"tiles of {plan.tile} past the stage's {T0} examples"
+        if gap:
+            report.add(anchor, "cuda-coverage",
+                       f"{gap.replace('columns', 'examples')} ({geom})")
+        # alignment: the tiles' copies (their offsets repeat every 16
+        # tiles: the first 16 and the last)
+        ex = F * D * dtype.itemsize
+        tiles = sorted({*range(min(plan.tiles, 16)), plan.tiles - 1})
+        for off, t in itertools.product(FM_OFFSETS, tiles if S else ()):
+            c = fm.tile_copy(plan, N, F, D, dtype.itemsize,
+                             off * dtype.itemsize, t)
+            nt = min(plan.tile, N - t * plan.tile)
+            end = (off * dtype.itemsize + t * plan.tile * ex) % 16 + nt * ex
+            if (c.size and (c.src % 16 or c.dst % 16) or c.size % 16
+                    or c.dst + c.size > stage or end > stage
+                    or c.size + c.plain * dtype.itemsize != nt * ex):
+                report.add(anchor, "cuda-alignment",
+                           f"tile {t} of a view {off} elements into its "
+                           f"storage: bulk copy of {c.size} B from byte "
+                           f"{c.src} to stage byte {c.dst}, {c.plain} "
+                           f"elements by plain loads ({geom})")
+        # smem: the layout, counted again, within the budget
+        want = fm.HEADER_BYTES * (S > 0) + S * stage + 8 * T0 * D
+        if (smem != want or smem > SMEM_BUDGET_BYTES
+                or S > fm.MAX_STAGES):
+            report.add(anchor, "cuda-smem-budget",
+                       f"{smem} B of shared memory a block ({want} B by its "
+                       f"parts), budget {SMEM_BUDGET_BYTES} B ({geom})")
 
 
 # --------------------------------------------------------------------------
@@ -826,7 +925,7 @@ def check_autotune_cache(
 def check_kernel_contracts(
     capacities: Optional[Capacities] = None,
 ) -> tuple[list[Finding], dict]:
-    """Sweep every plan of K1-K7, check it, and drive the wrappers for
+    """Sweep every plan of K1-K8, check it, and drive the wrappers for
     the smem model.  ``capacities`` default to :func:`model_capacities`.
     Returns (findings, summary): per family the distinct plans checked,
     the requests (a geometry at one tile knob) the policy refuses (such a
@@ -838,6 +937,7 @@ def check_kernel_contracts(
     fams = {name: _Family() for name in FAMILIES}
     _sweep_dpp(caps, report, fams)
     _sweep_topk(caps, report, fams)
+    _sweep_fm(caps, report, fams)
     driven = _check_smem_model(caps, report)
     summary = {
         "capacities": caps.source,

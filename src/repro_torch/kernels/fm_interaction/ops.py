@@ -1,7 +1,7 @@
 """Public dispatch of the FM interaction kernel (K8).
 
-Unlike ``repro``'s wrapper, nothing is padded: the kernel masks the
-ragged last block of ``block_b`` examples itself.
+Unlike ``repro``'s wrapper, nothing is padded: the kernel takes the
+ragged last tile of examples itself.
 """
 from __future__ import annotations
 

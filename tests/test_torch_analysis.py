@@ -201,6 +201,7 @@ def test_whole_port_has_zero_findings(hermetic_cache):
     assert findings == [], "\n".join(f.format() for f in findings)
     kc = summary["kernel_contracts"]
     assert kc is not None and kc["families"] == sorted(ak.FAMILIES)
+    assert "fm_interaction" in kc["families"]
     per = kc["per_family"]
     assert kc["geometries"] == sum(f["geometries"] for f in per.values())
     # every family is exercised; the cooperative ones stay co-resident
@@ -350,6 +351,41 @@ def test_cooperative_grid_past_a_small_capacity(hermetic_cache,
     assert "cuda-coresidency" in rules
     assert any("past the 16 the card keeps co-resident" in f.message
                for f in findings)
+
+
+def _fm_broken(fm, fault):
+    """K8's plan module with one fault: a block's last tile dropped, a
+    bulk copy 8 bytes short of a 16-byte size, or shared memory past the
+    budget."""
+    if fault == "cuda-coverage":
+        real = fm.block_tiles
+        return "block_tiles", lambda plan, b: real(plan, b)[:-1] or range(0)
+    if fault == "cuda-alignment":
+        real = fm.tile_copy
+        return "tile_copy", lambda *a: real(*a)._replace(
+            size=max(0, real(*a).size - 8))
+    real = fm.fm_layout
+    return "fm_layout", lambda *a, **k: (*real(*a, **k)[:3],
+                                          tiling.SMEM_BUDGET_BYTES + 16)
+
+
+@pytest.mark.parametrize("fault", ["cuda-coverage", "cuda-alignment",
+                                   "cuda-smem-budget"])
+def test_fm_plan_faults_fire(hermetic_cache, monkeypatch, fault):
+    """The fm_interaction family: each of its three rules fires on a plan
+    broken its way, anchored at ``fm_plan``."""
+    fm = importlib.import_module(
+        "repro_torch.kernels.fm_interaction.fm_interaction")
+    monkeypatch.setattr(fm, *_fm_broken(fm, fault))
+    r = ak._Report()
+    fams = {name: ak._Family() for name in ak.FAMILIES}
+    ak._sweep_fm(ak.model_capacities(), r, fams)
+    got = r.findings()
+    assert fault in {f.rule for f in got}
+    assert all(f.path.endswith("fm_interaction.py") for f in got)
+    # a block past the budget fits no SM: no plan is made at all
+    assert (fams["fm_interaction"].geometries > 0) == (
+        fault != "cuda-smem-budget")
 
 
 def test_non_portable_cluster_size_fires(hermetic_cache, monkeypatch):

@@ -625,7 +625,7 @@ def test_k5_lanes_at_different_progress(card):
 @pytest.mark.gpu
 @pytest.mark.parametrize("N,F,D,block_b", [
     (1, 1, 1, 128), (130, 39, 10, 128), (1000, 26, 32, 32), (257, 4, 8, 64),
-    (3, 400, 130, 128)])
+    (3, 400, 130, 128), (3, 1, 29055, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_fm_interaction_kernel_matches_plain(card, N, F, D, block_b, dtype):
@@ -645,7 +645,8 @@ def test_fm_interaction_kernel_matches_plain(card, N, F, D, block_b, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("N,F,D,block_b", [
     (1, 1, 1, 128), (130, 39, 10, 128), (65_539, 39, 10, 128),
-    (1000, 26, 32, 32), (257, 4, 8, 64), (3, 400, 130, 128)])
+    (1000, 26, 32, 32), (257, 4, 8, 64), (3, 400, 130, 128),
+    (3, 1, 29055, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_fm_interaction_bwd_kernel_matches_plain(card, N, F, D, block_b,
@@ -674,6 +675,48 @@ def test_fm_interaction_bwd_kernel_matches_plain(card, N, F, D, block_b,
     assert cuda.launch_counts() == {"fm_interaction": 1,
                                     "fm_interaction_bwd": 1}
     assert torch.equal(xg.grad, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset,N", [(1, 4099), (2, 4099), (3, 4099),
+                                      (0, 8191), (0, 100), (3, 7)],
+                         ids=["offset1", "offset2", "offset3", "ragged",
+                              "below_grid", "below_grid_offset3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fm_interaction_kernels_on_views_and_short_grids(card, offset, N,
+                                                         dtype):
+    """K8 and its backward at DeepFM's F = 39, D = 10 on a view that starts
+    ``offset`` elements into its storage (every tile's span then starts
+    off 16 bytes: its ends come by plain loads, its interior by the bulk
+    copy), a ragged N (the last tile short) and N below the persistent
+    grid (fewer tiles than co-resident blocks): against the plain
+    versions (forward rtol 1e-5 / atol 2e-6 * F * D; backward rtol 1e-5 /
+    atol 1e-6 * F, one bfloat16 ulp in bfloat16) and bit for bit against
+    the same examples in a fresh, aligned tensor."""
+    F, D = 39, 10
+    rng = np.random.default_rng(offset * 7 + N)
+    flat = torch.from_numpy(rng.normal(size=(offset + N * F * D,)).astype(
+        np.float32)).to(dtype).cuda()
+    x = flat[offset:].view(N, F, D)
+    assert x.is_contiguous() and x.storage_offset() == offset
+    g = torch.from_numpy(rng.normal(size=(N,)).astype(np.float32)).cuda()
+    aligned = x.clone()
+    assert aligned.data_ptr() % 16 == 0
+    cuda.reset_launch_counts()
+    y = fm_interaction(x)
+    grad = fm_interaction_bwd_kernel(x, g)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts() == {"fm_interaction": 1,
+                                    "fm_interaction_bwd": 1}
+    torch.testing.assert_close(y.cpu(), fm_interaction_ref(x.cpu()),
+                               rtol=1e-5, atol=2e-6 * F * D)
+    rtol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(grad.cpu(),
+                               fm_interaction_bwd_ref(x.cpu(), g.cpu()),
+                               rtol=rtol, atol=1e-6 * F)
+    assert torch.equal(y, fm_interaction(aligned))
+    assert torch.equal(grad, fm_interaction_bwd_kernel(aligned, g))
 
 
 @pytest.mark.gpu
