@@ -3,20 +3,24 @@
 scoring into the rerank, the fused scoring top-c, the paper's
 experiments, the continuous-batching router, session-aware incremental
 rerank, the candidate-sharded rerank, stream and router, the LM and
-GNN model families with the LM-embedded rerank, and training.
+GNN model families with the LM-embedded rerank, training, and DeepFM
+and an MoE layer on a (data x model) mesh of ranks.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --resident-times   # K1, K2 alone (resident_times)
     python3 chip_smoke.py --update-times     # the update entries alone
     python3 chip_smoke.py --models           # phase 21 alone (run_models)
     python3 chip_smoke.py --training         # phase 22 alone (run_training)
+    python3 chip_smoke.py --mesh             # phase 23 alone (run_mesh)
     python3 chip_smoke.py --fm-times [PARENT]  # K8 alone (fm_times)
 
 (Phase 12 runs ``chip_smoke.py --topk-device-times STATE`` as a child
-process for K7's and K8's profiler times: ``topk_device_times``.)
+process for K7's and K8's profiler times: ``topk_device_times``; phase
+23 runs its ranks as ``chip_smoke.py --mesh-rank R WORK``:
+``mesh_rank``.)
 
 Builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a),
-then runs twenty-two phases through the port's entry points.  Phases 1-9
+then runs twenty-three phases through the port's entry points.  Phases 1-9
 (``repro_torch.serving.Reranker(..., use_kernel=True).rerank`` and
 ``.stream``, ``repro_torch.core.greedy_map_chunks`` and
 ``greedy_chunk_slots``) run at the paper's §5.1 setup: D = 100
@@ -362,13 +366,48 @@ Phase 22 trains, last (``run_training``, 90 s aim, TF32 off):
                       memory; then the first 3 steps again on the card
                       and on the CPU from the same init and batches
                       (``step_pair``); (c) the same, 2 steps, for
-                      qwen1.5-4b and olmoe-1b-7b at 2 layers of their
+                      qwen1.5-4b and olmoe-1b-7b at 1 layer of their
                       published widths in float32 (olmoe at capacity
                       factor E / K) and graphcast's reduced config on
                       ``launch.train``'s random graph; (d)
                       ``repro_torch.examples.train_fault_tolerant``.
                       K8's backward launches on the main path (b) go into
                       its record, its forward's into K8's.
+
+Phase 23 runs the model-parallel mesh, last (``run_mesh``, 45 s aim; TF32
+off): four gloo ranks sharing the card (NCCL refuses two ranks of one
+communicator on one GPU) as ``chip_smoke.py --mesh-rank R WORK``
+children of one ``spawn_ranks`` call, on a (2, 2) ``("data", "model")``
+``ModelMesh`` (``repro_torch.distributed``):
+
+23. mesh:             (a) DeepFM at its published width (the config of
+                      phases 10 and 22, random weights drawn on the CPU
+                      from a seeded generator), ``serve_p99`` B = 512,
+                      through ``models.recsys.forward_logits`` under
+                      ``single_pod_rules`` (the psum bag) and
+                      ``recsys_a2a_rules(False)`` (the all-to-all bag),
+                      each rank holding only its rows of both tables
+                      (``models.place_on_mesh``): the logits against the
+                      single-rank forward on the card with its FM term
+                      from ``fm_interaction_ref`` (rtol 1e-4 / atol
+                      1e-5), K8 against that plain version at (512, 39,
+                      10), K8 once a forward a rank (counted around
+                      each forward and added to K8's record), each rank's
+                      table bytes, peak memory, forward host wall and
+                      collectives printed; (b) one MoE layer at
+                      olmoe-1b-7b's published width (d_model 2048, 64
+                      experts, top-8, d_ff 1024, capacity factor E / K),
+                      each rank drawing only its 32 experts on the card,
+                      T = 128 (tokens over data x model), 130 (over
+                      model) and 129 (replicated): the output against
+                      the single-rank layer (rtol 2e-4 / atol 2e-5), the
+                      aux within 0.2-5x of the local aux; (c)
+                      ``choose_mesh_shape(4, 2)`` = (2, 2), ranks 2 and 3
+                      lost, ``make_elastic_mesh`` over the survivors (1,
+                      2), the wide table's blocks resharded onto it
+                      (``reshard``) equal to the whole table's bit for
+                      bit.  A rank that fails or passes its time limit
+                      fails the phase with every rank's stderr tail.
 
 Each phase resets the kernels' launch counters right before the main-path
 call (phases 16 and 17's ranks in their own processes), reads them right after,
@@ -4708,8 +4747,12 @@ TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-5  # card vs CPU, same init and batches
 # grad_norm and first-step gradient checks are the fine ones
 TRAIN_GRAD_REL, TRAIN_SHAKY_FRAC = 1e-2, 1e-2
 FM_BWD_RTOL = 1e-5  # K8's backward vs plain, float32; atol 1e-6 * F
-# 22(c): (arch, layers) at published widths in float32, B x S tokens
-TRAIN_LM = (("qwen1.5-4b", 2), ("olmoe-1b-7b", 2))
+# 22(c): (arch, layers) at published widths in float32, B x S tokens; one
+# layer, cut from two to make room for phase 23.  The cut takes away the
+# one check at published width of a block's backward feeding an earlier
+# block's gradients (21(b)'s 2-6 layers are forward only); the tier-1
+# tests hold 2-6-layer gradients against repro at small widths
+TRAIN_LM = (("qwen1.5-4b", 1), ("olmoe-1b-7b", 1))
 TRAIN_LM_B, TRAIN_LM_S, TRAIN_C_STEPS = 2, 64, 2
 
 
@@ -5136,7 +5179,7 @@ def run_train_reference(N):
 
 def run_train_families():
     """22(c): one family at a time, ``TRAIN_C_STEPS`` steps on the card
-    against the CPU: qwen1.5-4b and olmoe-1b-7b at 2 layers of their
+    against the CPU: qwen1.5-4b and olmoe-1b-7b at 1 layer of their
     published widths in float32 (olmoe at capacity factor E / K), and
     graphcast's reduced config on ``launch.train``'s random graph."""
     from repro_torch.configs import get_arch
@@ -5219,6 +5262,309 @@ def run_training(records, work):
           f"which the CPU reference {t_b - t_b1:.1f} s, (c) {t_c:.1f} s, "
           f"(d) {took - t_a - t_b - t_c:.1f} s; aim {TRAIN_AIM_S:.0f} s); "
           f"{smi}", flush=True)
+
+
+MESH_AIM_S = 45.0
+MESH_SHAPE = (2, 2)  # phase 23: four gloo ranks sharing the card
+MESH_ARCH, MESH_SHAPE_NAME = "deepfm", "serve_p99"  # 23(a), B = 512
+MESH_MOE_ARCH = "olmoe-1b-7b"  # 23(b): one layer at its published width
+# 23(b)'s tokens a partition: over data x model (T divides by 4), over
+# model only (by 2, not 4), replicated (odd)
+MESH_MOE_T = {"data x model": 128, "model": 130, "replicated": 129}
+MESH_FM_RTOL, MESH_FM_ATOL = 1e-4, 1e-5  # published widths, card vs card
+MESH_MOE_RTOL, MESH_MOE_ATOL = 2e-4, 2e-5
+MESH_TIMEOUT_S = 240
+
+
+def mesh_rules():
+    from repro_torch.distributed import recsys_a2a_rules, single_pod_rules
+
+    return {"psum": single_pod_rules(), "alltoall": recsys_a2a_rules(False)}
+
+
+def mesh_moe_layer(lo, hi):
+    """23(b)'s MoE layer at olmoe-1b-7b's published width (capacity
+    factor E / K) with experts ``lo:hi``: the router from one seeded
+    generator, each expert's ``wi``, ``wg``, ``wo`` from its own, all
+    drawn on the card, so a rank draws only its experts and the
+    reference the same numbers for all of them."""
+    from torch import nn
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    from repro_torch.models.layers import dense
+
+    cfg = get_arch(MESH_MOE_ARCH).config
+    mcfg = dataclasses.replace(cfg.moe, capacity_factor=float(
+        cfg.moe.n_experts // cfg.moe.top_k))
+    d, Fd = cfg.d_model, mcfg.d_ff
+    layer = moe.MoE(d, mcfg, device="meta")
+    layer.router = dense(d, mcfg.n_experts, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(SEED))
+    ws = {"wi": [], "wg": [], "wo": []}
+    for e in range(lo, hi):
+        gen = torch.Generator("cuda").manual_seed(SEED + 1 + e)
+        for name, shape, scale in (("wi", (d, Fd), d ** -0.5),
+                                   ("wg", (d, Fd), d ** -0.5),
+                                   ("wo", (Fd, d), Fd ** -0.5)):
+            ws[name].append(torch.randn(shape, generator=gen, device="cuda")
+                            * scale)
+    for name, parts in ws.items():
+        setattr(layer, name, nn.Parameter(torch.stack(parts)))
+    return layer, mcfg
+
+
+def mesh_inputs(work):
+    """23's inputs from numpy: DeepFM's ids at ``serve_p99`` and the MoE
+    layer's tokens."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.data import recsys_batches
+
+    cfg = get_arch(MESH_ARCH).config
+    B = RECSYS_SHAPES[MESH_SHAPE_NAME].batch
+    z = {"ids": next(recsys_batches(cfg.vocab_sizes, B, seed=SEED))["ids"]}
+    d = get_arch(MESH_MOE_ARCH).config.d_model
+    rng = np.random.default_rng(SEED)
+    for part, T in MESH_MOE_T.items():
+        z[f"x {part}"] = rng.standard_normal((1, T, d)).astype(np.float32)
+    np.savez(work / "mesh_in.npz", **z)
+    return z
+
+
+def mesh_rank(rank, work):
+    """``chip_smoke.py --mesh-rank R WORK``: rank R of phase 23's four
+    gloo ranks on the card, a (2, 2) mesh.  (a) DeepFM's forward under
+    each rule table, this rank holding only its rows of both tables
+    (``place_on_mesh``), K8's launches counted around each forward;
+    (b) the MoE layer, this rank's experts only, in the three token
+    partitions; (c) ranks 2 and 3 lost: the survivors' mesh and the wide
+    table resharded onto it, against the whole table's blocks.  Writes
+    ``mesh_rank{R}.npz`` and ``.json`` into WORK."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import (
+        axis_rules, choose_mesh_shape, init_group, leave_group, local_block,
+        make_elastic_mesh, make_model_mesh, reshard)
+    from repro_torch.kernels import cuda
+    from repro_torch.models import moe, place_on_mesh, recsys
+
+    t0 = time.perf_counter()
+    work = Path(work)
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    check(choose_mesh_shape(world, MESH_SHAPE[1]) == MESH_SHAPE,
+          f"choose_mesh_shape({world}, {MESH_SHAPE[1]})")
+    init_group("gloo", rank, world, work / "mesh_rdv",
+               timeout_s=MESH_TIMEOUT_S)
+    mesh = make_model_mesh(MESH_SHAPE, device="cuda")
+    z = np.load(work / "mesh_in.npz")
+    ids = torch.as_tensor(z["ids"], device="cuda")
+    out, rec = {}, {"rank": rank, "coords": mesh.coords}
+
+    base = get_arch(MESH_ARCH).config
+    whole = recsys.RecsysModel(
+        base, generator=torch.Generator("cpu").manual_seed(SEED))
+    for mode, rules in mesh_rules().items():
+        cfg = dataclasses.replace(base, emb_mode=mode)
+        torch.cuda.reset_peak_memory_stats()
+        model = place_on_mesh(copy.deepcopy(whole), mesh, rules)
+        table_bytes = sum(t.numel() * t.element_size()
+                          for t in (model.table, model.wide))
+        with torch.inference_mode(), axis_rules(rules, mesh):
+            recsys.forward_logits(model, ids, cfg)  # warm
+            torch.cuda.synchronize()
+            c0, b0 = mesh.collectives, mesh.collective_bytes
+            cuda.reset_launch_counts()
+            t1 = time.perf_counter()
+            logits = recsys.forward_logits(model, ids, cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = cuda.launch_counts().get("fm_interaction", 0)
+        out[f"logits {mode}"] = logits.cpu().numpy()
+        rec[mode] = dict(
+            table_rows=model.table.shape[0], table_bytes=table_bytes,
+            peak_bytes=torch.cuda.max_memory_allocated(), fm_launches=launches,
+            forward_ms=1e3 * wall, collectives=mesh.collectives - c0,
+            collective_bytes=mesh.collective_bytes - b0)
+        del model
+        free_card()
+
+    # (c) before (b): the whole wide table is at hand
+    spec = (("data", "model"), None)
+    block = local_block(whole.wide.detach(), spec, mesh).cuda()
+    survivors = list(range(world // 2))
+    mesh2 = (make_elastic_mesh(survivors, MESH_SHAPE[1], device="cuda")
+             if rank in survivors else None)
+    new = reshard(block, spec, mesh2, spec, old_mesh=mesh)
+    if mesh2 is not None:
+        want = local_block(whole.wide.detach(), spec, mesh2)
+        rec["elastic"] = dict(
+            shape=[mesh2.shape["data"], mesh2.shape["model"]],
+            rows=new.shape[0], equal=bool(torch.equal(new.cpu(), want)))
+    del whole, block, new
+
+    n = mesh.axis_size("model")
+    E = get_arch(MESH_MOE_ARCH).config.moe.n_experts
+    j = mesh.axis_index("model")
+    layer, mcfg = mesh_moe_layer(j * E // n, (j + 1) * E // n)
+    rec["moe_experts"] = layer.wi.shape[0]
+    for part in MESH_MOE_T:
+        x = torch.as_tensor(z[f"x {part}"], device="cuda")
+        with torch.inference_mode(), axis_rules(mesh_rules()["psum"], mesh):
+            moe.moe_apply(layer, x, mcfg)  # warm
+            torch.cuda.synchronize()
+            c0 = mesh.collectives
+            t1 = time.perf_counter()
+            y, aux = moe.moe_apply(layer, x, mcfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        out[f"moe {part}"] = y.cpu().numpy()
+        rec[f"moe {part}"] = dict(aux=float(aux), ms=1e3 * wall,
+                                  collectives=mesh.collectives - c0)
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["seconds"] = time.perf_counter() - t0
+    np.savez(work / f"mesh_rank{rank}.npz", **out)
+    (work / f"mesh_rank{rank}.json").write_text(json.dumps(rec))
+    leave_group()
+
+
+def run_mesh(records, work):
+    """Phase 23 (aim 45 s): DeepFM's forward at its published width and
+    one MoE layer at olmoe-1b-7b's on a (2, 2) mesh of four gloo ranks
+    sharing the card (NCCL refuses two ranks of one communicator on one
+    GPU), each held against the single-rank forward on the card, whose FM
+    term is K8's plain version (K8 itself is held against that plain
+    version at the ranks' shape); elastic re-meshing.  K8's launches on
+    the ranks go into its record."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import RankError, rank_env, spawn_ranks
+    from repro_torch.figures.common import device_name
+    from repro_torch.kernels.fm_interaction import (
+        fm_interaction,
+        fm_interaction_ref,
+    )
+    from repro_torch.models import moe, recsys
+
+    t0 = time.perf_counter()
+    smi = device_name(torch.device("cuda"))
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "phase 23 runs with TF32 off")
+    z = mesh_inputs(work)
+    cfg = get_arch(MESH_ARCH).config
+    B, F = z["ids"].shape[:2]
+    print(f"[phase 23(a) mesh deepfm] {MESH_ARCH}'s published config "
+          f"({cfg.n_fields} fields, {cfg.spec.total_rows} fused rows x "
+          f"{cfg.embed_dim}, MLP {cfg.mlp_dims}; {cfg.param_count()} "
+          f"parameters), {MESH_SHAPE_NAME} B = {B}, on a {MESH_SHAPE} "
+          f"mesh of 4 gloo ranks sharing the card; {smi}", flush=True)
+    model = recsys.RecsysModel(
+        cfg, generator=torch.Generator("cpu").manual_seed(SEED)).to("cuda")
+    # the single-rank reference takes its FM term from K8's plain version,
+    # so a K8 that is wrong at the ranks' shape cannot agree with itself;
+    # K8 is held against that plain version on the same embeddings
+    with torch.inference_mode():
+        emb, first = recsys.embed(
+            model, torch.as_tensor(z["ids"], device="cuda"), cfg)
+        got, plain = fm_interaction(emb), fm_interaction_ref(emb)
+        k8_err = float((got - plain).abs().max())
+        check(torch.allclose(got, plain, rtol=FM_RTOL, atol=FM_ATOL),
+              f"phase 23(a): K8 at {tuple(emb.shape)} differs from its "
+              f"plain version by {k8_err:.3g}")
+        ref = (model.bias + first + plain + model.mlp(
+            emb.reshape(B, -1))[:, 0]).to(torch.float32)
+    ref = ref.cpu().numpy()
+    rec = records["fm_interaction"]
+    rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), k8_err)
+    print(f"  phase 23(a): K8 at {tuple(emb.shape)} within rtol {FM_RTOL} "
+          f"/ atol {FM_ATOL} of fm_interaction_ref (max abs {k8_err:.3g}); "
+          f"the reference logits take their FM term from "
+          f"fm_interaction_ref", flush=True)
+    del model, emb, first, got, plain
+    free_card()
+    layer, mcfg = mesh_moe_layer(0, get_arch(
+        MESH_MOE_ARCH).config.moe.n_experts)
+    moe_ref = {}
+    with torch.inference_mode():
+        for part in MESH_MOE_T:
+            y, aux = moe.moe_apply(layer, torch.as_tensor(
+                z[f"x {part}"], device="cuda"), mcfg)
+            moe_ref[part] = (y.cpu().numpy(), float(aux))
+    del layer
+    free_card()
+    t_ref = time.perf_counter() - t0
+
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    try:
+        spawn_ranks(lambda r: [str(ROOT / "chip_smoke.py"), "--mesh-rank",
+                               str(r), str(work)], world, MESH_TIMEOUT_S,
+                    env=rank_env(world), cwd=ROOT)
+    except RankError as e:
+        check(False, f"phase 23: {e}")
+    recs = [json.loads((work / f"mesh_rank{r}.json").read_text())
+            for r in range(world)]
+    outs = [dict(np.load(work / f"mesh_rank{r}.npz")) for r in range(world)]
+    launches = 0
+    for mode in mesh_rules():
+        for r, (rec, o) in enumerate(zip(recs, outs)):
+            got, m = o[f"logits {mode}"], rec[mode]
+            err = float(np.abs(got - ref).max())
+            check(np.allclose(got, ref, rtol=MESH_FM_RTOL, atol=MESH_FM_ATOL),
+                  f"phase 23(a) {mode}: rank {r}'s logits differ from the "
+                  f"single-rank forward by {err:.3g}")
+            check(m["fm_launches"] == 1, f"phase 23(a) {mode}: rank {r} "
+                  f"launched K8 {m['fm_launches']} times in a forward")
+            launches += m["fm_launches"]
+        print(f"  phase 23(a) {mode}: logits within rtol {MESH_FM_RTOL} / "
+              f"atol {MESH_FM_ATOL} of the single-rank forward on every "
+              f"rank (max abs {max(float(np.abs(o[f'logits {mode}'] - ref).max()) for o in outs):.3g}); "
+              f"K8 once a forward a rank; per rank (rank: table rows, "
+              f"table bytes, peak bytes, forward ms, collectives, their "
+              f"bytes) " + "; ".join(
+                  f"{rec['rank']}: {rec[mode]['table_rows']}, "
+                  f"{rec[mode]['table_bytes']}, {rec[mode]['peak_bytes']}, "
+                  f"{rec[mode]['forward_ms']:.2f}, "
+                  f"{rec[mode]['collectives']}, "
+                  f"{rec[mode]['collective_bytes']}" for rec in recs)
+              + f"; {smi}", flush=True)
+    rows = cfg.spec.total_rows
+    check(all(rec["psum"]["table_rows"] == rows // MESH_SHAPE[1]
+              and rec["alltoall"]["table_rows"] == rows // world
+              for rec in recs), "phase 23(a): a rank holds more than its "
+          "rows of the table")
+    records["fm_interaction"]["launches"] += launches
+    for part, (want, aux_ref) in moe_ref.items():
+        for r, (rec, o) in enumerate(zip(recs, outs)):
+            got, aux = o[f"moe {part}"], rec[f"moe {part}"]["aux"]
+            err = float(np.abs(got - want).max())
+            check(np.allclose(got, want, rtol=MESH_MOE_RTOL,
+                              atol=MESH_MOE_ATOL),
+                  f"phase 23(b) {part}: rank {r}'s output differs from the "
+                  f"single-rank layer by {err:.3g}")
+            check(np.isfinite(aux) and 0.2 < aux / aux_ref < 5.0,
+                  f"phase 23(b) {part}: rank {r}'s aux {aux} against the "
+                  f"local {aux_ref}")
+        print(f"  phase 23(b) {part} (T = {MESH_MOE_T[part]}): output within "
+              f"rtol {MESH_MOE_RTOL} / atol {MESH_MOE_ATOL} of the "
+              f"single-rank layer on every rank; aux "
+              f"{[rec[f'moe {part}']['aux'] for rec in recs]} against the "
+              f"local {aux_ref}; ms a rank "
+              f"{[round(rec[f'moe {part}']['ms'], 2) for rec in recs]}, "
+              f"collectives {recs[0][f'moe {part}']['collectives']}; {smi}",
+              flush=True)
+    el = [rec.get("elastic") for rec in recs]
+    check(all(e is not None and e["equal"] and e["shape"] == [1, 2]
+              for e in el[:world // 2]) and el[world // 2:] == [None] * 2,
+          f"phase 23(c): elastic reshard {el}")
+    took = time.perf_counter() - t0
+    print(f"  phase 23(c) elastic: choose_mesh_shape({world}, "
+          f"{MESH_SHAPE[1]}) = {MESH_SHAPE}; ranks 2, 3 lost; the survivors' "
+          f"mesh (1, 2), the wide table's blocks ({el[0]['rows']} rows a "
+          f"rank) resharded onto it equal to the whole table's bit for bit",
+          flush=True)
+    print(f"  phase 23: {took:.1f} s (references {t_ref:.1f} s, the ranks "
+          f"{max(rec['seconds'] for rec in recs):.1f} s of work each after "
+          f"start-up; experts a rank {recs[0]['moe_experts']}; peak bytes a "
+          f"rank {[rec['peak_bytes'] for rec in recs]}; aim "
+          f"{MESH_AIM_S:.0f} s); {smi}", flush=True)
 
 
 def update_times():
@@ -5318,7 +5664,7 @@ def resident_times():
 
 
 def run_phases(records, rng, refs):
-    """Phases 1-21 in order, each adding to ``records``; ``refs`` carries
+    """Phases 1-23 in order, each adding to ``records``; ``refs`` carries
     phases 16, 17 and 19's requests and references (its ``work`` directory
     holds the requests' files)."""
     t0 = time.perf_counter()
@@ -5354,6 +5700,7 @@ def run_phases(records, rng, refs):
     run_static_checks(records)
     run_models(records)
     run_training(records, refs["work"])
+    run_mesh(records, refs["work"])
     print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -5409,6 +5756,14 @@ def run_main(work: Path) -> int:
         return 0
     if sys.argv[1:2] == ["--fm-times"] and len(sys.argv) <= 3:
         fm_times(*sys.argv[2:])
+        return 0
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank(int(sys.argv[2]), sys.argv[3])
+        return 0
+    if sys.argv[1:] == ["--mesh"]:
+        records = {"fm_interaction": {"launches": 0}}
+        run_mesh(records, work)
+        print(json.dumps({"fm_interaction": records["fm_interaction"]}))
         return 0
     if sys.argv[1:] == ["--models"]:
         run_models({"dpp_greedy_resident": {"launches": 0}})

@@ -36,10 +36,27 @@ temporary directory (never a fixed port) with an explicit timeout,
 interpreter (never ``fork``: a forked child cannot use CUDA that its
 parent initialised), each with a time limit, and ends every rank when
 one fails.
+
+The model-parallel half (``repro``'s ``context.py:26-210``) follows the
+candidate axis: :class:`ModelMesh` is a 2-D ``("data", "model")`` mesh
+of the ranks of one group, with a process group for each data row (the
+``"model"`` axis), each model column (``"data"``) and the whole mesh,
+and per-axis collectives.  ``repro``'s four rule tables map logical
+names to mesh axes; :func:`axis_rules` installs a table and a mesh for
+the code inside it (a ``contextvars`` pair, as ``repro``'s), and
+:func:`constrain` resolves names through the table and returns its
+input, as ``with_sharding_constraint`` changes no value.  A parameter
+that ``repro`` shards is held as this rank's block (:func:`local_block`);
+activations are whole at every model-level boundary: a body that
+``repro`` runs under ``shard_map`` takes its rank's slice of them on
+entry and all-gathers its output on exit (:func:`gather_block`).  A
+spec is a plain tuple, one entry a dimension: None (whole), an axis
+name, or a tuple of axis names in mesh order.
 """
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import dataclasses
 import datetime
 import os
@@ -48,7 +65,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -159,36 +176,43 @@ def _collective(mesh: CandidateMesh):
     mesh.collectives += 1
 
 
-def _staged(mesh: CandidateMesh, x: torch.Tensor) -> torch.Tensor:
-    # gloo's all-gather takes host tensors only: stage on purpose
+def _staged(mesh, x: torch.Tensor) -> torch.Tensor:
+    # gloo's collectives take host tensors only: stage on purpose
     if mesh.backend == "gloo" and x.is_cuda:
         return x.cpu()
     return x.contiguous()
+
+
+def _gather(group, n: int, backend: str, y: torch.Tensor) -> torch.Tensor:
+    # gloo has no all-gather into one tensor
+    if backend == "nccl":
+        out = torch.empty((n,) + tuple(y.shape), dtype=y.dtype,
+                          device=y.device)
+        dist.all_gather_into_tensor(out, y, group=group)
+        return out
+    parts = [torch.empty_like(y) for _ in range(n)]
+    dist.all_gather(parts, y, group=group)
+    return torch.stack(parts)
+
+
+def _sum(group, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    y = y.clone() if y is x else y
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    return y.to(x.device)
 
 
 def all_gather(mesh: CandidateMesh, x: torch.Tensor) -> torch.Tensor:
     """Every rank's ``x`` stacked in rank order: ``(P, *x.shape)`` on
     ``x``'s device."""
     with _collective(mesh):
-        y = _staged(mesh, x)
-        if mesh.backend == "nccl":
-            out = torch.empty((mesh.size,) + tuple(y.shape), dtype=y.dtype,
-                              device=y.device)
-            dist.all_gather_into_tensor(out, y, group=mesh.group)
-        else:
-            parts = [torch.empty_like(y) for _ in range(mesh.size)]
-            dist.all_gather(parts, y, group=mesh.group)
-            out = torch.stack(parts)
-        return out.to(x.device)
+        return _gather(mesh.group, mesh.size, mesh.backend,
+                       _staged(mesh, x)).to(x.device)
 
 
 def all_reduce_sum(mesh: CandidateMesh, x: torch.Tensor) -> torch.Tensor:
     """The element-wise sum of every rank's ``x``, on ``x``'s device."""
     with _collective(mesh):
-        y = _staged(mesh, x)
-        y = y.clone() if y is x else y
-        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=mesh.group)
-        return y.to(x.device)
+        return _sum(mesh.group, x, _staged(mesh, x))
 
 
 def gather_pairs(mesh: CandidateMesh, val: torch.Tensor, idx: torch.Tensor):
@@ -218,6 +242,382 @@ def bcast_from_owner(mesh: CandidateMesh, z: torch.Tensor,
     """Each user's row of ``z (B, n)`` from the rank that owns it (one SUM
     all-reduce of the owner-masked rows)."""
     return all_reduce_sum(mesh, torch.where(owner[:, None], z, 0.0))
+
+
+# ---------------------------------------------------------------------------
+# The model-parallel mesh and repro's rule tables
+# ---------------------------------------------------------------------------
+
+AxisVal = Union[None, str, Sequence[str]]
+MESH_AXES = ("data", "model")
+
+
+# ``repro``'s rule tables (its DESIGN.md §4), copied: "dp" is the pure-data
+# axis set; on the multi-pod mesh the pod axis composes with data.
+def single_pod_rules() -> Mapping[str, AxisVal]:
+    return {
+        "batch": ("data",),
+        "fsdp": ("data",),
+        "model": "model",
+        "experts": "model",
+        "vocab": "model",
+        "heads": "model",
+        "kv_seq": "model",
+        "ff": "model",
+        "rows": "model",  # embedding-table rows
+        "nodes": ("data", "model"),  # GNN full-graph node sharding
+        "edges": ("data", "model"),
+    }
+
+
+def multi_pod_rules() -> Mapping[str, AxisVal]:
+    return {
+        "batch": ("pod", "data"),
+        "fsdp": ("pod", "data"),
+        "model": "model",
+        "experts": "model",
+        "vocab": "model",
+        "heads": "model",
+        "kv_seq": "model",
+        "ff": "model",
+        "rows": "model",
+        "nodes": ("pod", "data", "model"),
+        "edges": ("pod", "data", "model"),
+    }
+
+
+def fsdp_ep_rules(multi_pod: bool) -> Mapping[str, AxisVal]:
+    """``repro``'s LM profile without tensor parallelism: dense parameters
+    over every axis, activations batch x sequence ("model" carries the
+    sequence), experts expert-parallel on "model"."""
+    dp = ("pod", "data") if multi_pod else ("data",)
+    return {
+        "batch": dp,
+        "seq": "model",
+        "fsdp": dp + ("model",),
+        "fsdp_expert": dp,  # experts already consume "model"
+        "model": "model",
+        "experts": "model",
+        "vocab": "model",
+        "heads": None,
+        "kv_seq": "model",
+        "ff": None,
+        "rows": "model",
+        "nodes": dp + ("model",),
+        "edges": dp + ("model",),
+    }
+
+
+def recsys_a2a_rules(multi_pod: bool) -> Mapping[str, AxisVal]:
+    """``repro``'s recsys profile: the batch over every axis, the table's
+    rows exchanged by all-to-all instead of a dense psum."""
+    base = dict(multi_pod_rules() if multi_pod else single_pod_rules())
+    base["batch"] = (("pod", "data", "model") if multi_pod
+                     else ("data", "model"))
+    base["rows"] = base["batch"]  # table rows over the full device grid
+    return base
+
+
+@dataclasses.dataclass(eq=False)
+class ModelMesh:
+    """One rank's view of a 2-D ``("data", "model")`` mesh of ranks.
+
+    ``ranks`` holds the mesh's global ranks row by row (the data index,
+    then the model index), ascending, so the ranks of any group in rank
+    order are its axis order, row-major over a tuple of axes, as
+    ``jax.lax.axis_index`` numbers them.  ``groups`` maps the ranks of
+    each group this rank belongs to (a data row is the ``"model"`` axis,
+    a model column the ``"data"`` axis, and the whole mesh) to its
+    process group.  A collective over axes of size 1 returns its input
+    and touches no group, so a (1, 1) mesh needs none.  ``collectives``
+    and ``collective_bytes`` count the collectives this rank called over
+    more than one rank and the bytes it put into them."""
+
+    ranks: Tuple[Tuple[int, ...], ...]
+    rank: int
+    device: torch.device
+    backend: str = "gloo"
+    groups: dict = dataclasses.field(default_factory=dict)
+    collectives: int = 0
+    collective_bytes: int = 0
+
+    @property
+    def shape(self) -> dict:
+        return {"data": len(self.ranks), "model": len(self.ranks[0])}
+
+    @property
+    def coords(self) -> Tuple[int, int]:
+        for i, row in enumerate(self.ranks):
+            if self.rank in row:
+                return i, row.index(self.rank)
+        raise ValueError(f"rank {self.rank} is not in the mesh {self.ranks}")
+
+    def axes(self, axes: AxisVal) -> Tuple[str, ...]:
+        """``axes`` (None, a name or names) as a tuple of mesh axes in
+        mesh order; an axis the mesh lacks (``"pod"``) raises, as a
+        ``NamedSharding`` over it would."""
+        axes = () if axes is None else (
+            (axes,) if isinstance(axes, str) else tuple(axes))
+        for a in axes:
+            if a not in MESH_AXES:
+                raise ValueError(f"the mesh has axes {MESH_AXES}, not {a!r}")
+        if list(axes) != sorted(set(axes), key=MESH_AXES.index):
+            raise ValueError(f"axes {axes} out of mesh order {MESH_AXES}")
+        return axes
+
+    def axis_size(self, axes: AxisVal) -> int:
+        n = 1
+        for a in self.axes(axes):
+            n *= self.shape[a]
+        return n
+
+    def axis_index(self, axes: AxisVal) -> int:
+        """This rank's index along ``axes``, row-major over them."""
+        coords = dict(zip(MESH_AXES, self.coords))
+        idx = 0
+        for a in self.axes(axes):
+            idx = idx * self.shape[a] + coords[a]
+        return idx
+
+    def group_ranks(self, axes: AxisVal) -> Tuple[int, ...]:
+        """The ranks that share this rank's indices off ``axes``."""
+        axes = self.axes(axes)
+        i, j = self.coords
+        return tuple(
+            r for a, row in enumerate(self.ranks) for b, r in enumerate(row)
+            if ("data" in axes or a == i) and ("model" in axes or b == j))
+
+    def _group(self, axes: AxisVal):
+        ranks = self.group_ranks(axes)
+        return (self.groups[ranks] if len(ranks) > 1 else None), len(ranks)
+
+    def _staged(self, x: torch.Tensor) -> torch.Tensor:
+        self.collectives += 1
+        self.collective_bytes += x.numel() * x.element_size()
+        return _staged(self, x)
+
+    def all_to_all(self, x: torch.Tensor, axes: AxisVal) -> torch.Tensor:
+        """``jax.lax.all_to_all(x, axes, 0, 0, tiled=False)``: ``x (n,
+        ...)`` with ``n`` the axes' size; row ``k`` of the result is what
+        rank ``k`` along ``axes`` sent this one as its row for it."""
+        group, n = self._group(axes)
+        if x.shape[0] != n:
+            raise ValueError(f"all_to_all over {axes} needs {n} rows, got "
+                             f"shape {tuple(x.shape)}")
+        if group is None:
+            return x
+        y = self._staged(x)
+        out = torch.empty_like(y)
+        dist.all_to_all_single(out, y, group=group)
+        return out.to(x.device)
+
+    def psum(self, x: torch.Tensor, axes: AxisVal) -> torch.Tensor:
+        """The element-wise sum of ``x`` over ``axes``."""
+        group, _ = self._group(axes)
+        if group is None:
+            return x
+        return _sum(group, x, self._staged(x))
+
+    def pmean(self, x: torch.Tensor, axes: AxisVal) -> torch.Tensor:
+        return self.psum(x, axes) / self.axis_size(axes)
+
+    def all_gather(self, x: torch.Tensor, axes: AxisVal) -> torch.Tensor:
+        """Every rank's ``x`` along ``axes`` stacked in axis order: ``(n,
+        *x.shape)``."""
+        group, n = self._group(axes)
+        if group is None:
+            return x[None]
+        return _gather(group, n, self.backend, self._staged(x)).to(x.device)
+
+
+def _mesh_group_sets(ranks) -> List[Tuple[int, ...]]:
+    """Every group of a mesh in one fixed order (the whole mesh, each
+    data row, each model column), each rank set once, none of one rank."""
+    rows = [tuple(row) for row in ranks]
+    cols = [tuple(row[j] for row in ranks) for j in range(len(ranks[0]))]
+    out = []
+    for s in [tuple(r for row in rows for r in row)] + rows + cols:
+        if len(s) > 1 and s not in out:
+            out.append(s)
+    return out
+
+
+def make_model_mesh(shape: Tuple[int, int], ranks: Optional[Sequence[int]] =
+                    None, device=None) -> Optional[ModelMesh]:
+    """A :class:`ModelMesh` of ``shape = (data, model)`` over the default
+    group (``data * model`` must be its world size), or over ``ranks``,
+    a subset of it (:func:`repro_torch.distributed.elastic.
+    make_elastic_mesh`'s survivors), laid out row by row in ascending
+    order.  Over the whole group every rank makes every group in one
+    order; over a subset only its members take part (``new_group``'s
+    local synchronisation), and a rank outside it gets None.  Blocks
+    live on ``device`` (default the card)."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_model_mesh needs an initialised process "
+                           "group (repro_torch.distributed.init_group)")
+    D, M = shape
+    world = dist.get_world_size()
+    subset = ranks is not None
+    ranks = sorted(range(world) if ranks is None else ranks)
+    if D * M != len(ranks) or (not subset and len(ranks) != world):
+        raise ValueError(f"a ({D}, {M}) mesh over {len(ranks)} ranks "
+                         f"(world size {world})")
+    backend = str(dist.get_backend())
+    if backend not in BACKENDS:
+        raise ValueError(f"unsupported backend {backend!r}; the mesh runs "
+                         f"on {BACKENDS}")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError(f"an nccl mesh needs a CUDA device, got {dev}")
+    grid = tuple(tuple(ranks[i * M:(i + 1) * M]) for i in range(D))
+    me = dist.get_rank()
+    groups = {}
+    for s in _mesh_group_sets(grid):
+        if subset and me not in s:
+            continue
+        g = dist.new_group(list(s), use_local_synchronization=subset)
+        if me in s:
+            groups[s] = g
+    if me not in ranks:
+        return None
+    return ModelMesh(grid, me, dev, backend, groups)
+
+
+_RULES: contextvars.ContextVar = contextvars.ContextVar("axis_rules",
+                                                        default=None)
+_MESH: contextvars.ContextVar = contextvars.ContextVar("model_mesh",
+                                                       default=None)
+
+
+@contextlib.contextmanager
+def axis_rules(rules: Optional[Mapping[str, AxisVal]],
+               mesh: Optional[ModelMesh] = None):
+    """Install a rule table and a mesh for the code inside."""
+    tok = _RULES.set(rules)
+    tok_m = _MESH.set(mesh)
+    try:
+        yield
+    finally:
+        _RULES.reset(tok)
+        _MESH.reset(tok_m)
+
+
+def current_mesh() -> Optional[ModelMesh]:
+    return _MESH.get()
+
+
+def current_rules() -> Optional[Mapping[str, AxisVal]]:
+    return _RULES.get()
+
+
+def data_axis_names() -> tuple:
+    """Concrete mesh axes behind the logical batch/data axis."""
+    rules = _RULES.get()
+    if rules is None:
+        return ()
+    v = rules.get("batch")
+    if v is None:
+        return ()
+    return (v,) if isinstance(v, str) else tuple(v)
+
+
+def logical_to_spec(*names: Optional[str]) -> tuple:
+    """The spec (a tuple, ``()`` without rules) the names resolve to."""
+    rules = _RULES.get()
+    if rules is None:
+        return ()
+    resolved = []
+    for n in names:
+        r = None if n is None else rules.get(n)
+        resolved.append(tuple(r) if isinstance(r, (list, tuple)) else r)
+    return tuple(resolved)
+
+
+def constrain(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
+    """``repro``'s sharding hint: returns ``x``.  With rules the names
+    are resolved, and with a mesh checked against it, as
+    ``with_sharding_constraint`` checks them."""
+    if _RULES.get() is None:
+        return x
+    if len(names) > x.dim():
+        raise ValueError(f"{len(names)} names for a tensor of "
+                         f"{x.dim()} dimensions")
+    spec = logical_to_spec(*names)
+    mesh = _MESH.get()
+    if mesh is not None:
+        for axes in spec:
+            mesh.axes(axes)
+    return x
+
+
+def axis_size(logical: str) -> int:
+    """Product of the mesh-axis sizes a logical name maps to (1 outside a
+    mesh)."""
+    rules, mesh = _RULES.get(), _MESH.get()
+    if rules is None or mesh is None:
+        return 1
+    val = rules.get(logical)
+    if val is None:
+        return 1
+    size = 1
+    for n in ((val,) if isinstance(val, str) else tuple(val)):
+        size *= mesh.shape.get(n, 1)
+    return size
+
+
+def model_axis_name() -> Optional[str]:
+    """Concrete mesh-axis name for the logical 'model' axis (or None)."""
+    rules = _RULES.get()
+    if rules is None:
+        return None
+    v = rules.get("model")
+    if isinstance(v, (list, tuple)):
+        return v[0] if v else None
+    return v
+
+
+def local_block(x: torch.Tensor, spec: Sequence[AxisVal],
+                mesh: ModelMesh) -> torch.Tensor:
+    """This rank's block of the whole tensor ``x`` under ``spec`` (a view;
+    dimensions past the spec are whole)."""
+    for dim, axes in enumerate(spec):
+        n = mesh.axis_size(axes)
+        if n == 1:
+            continue
+        if x.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of shape {tuple(x.shape)} "
+                             f"does not split {n} ways over {axes}")
+        size = x.shape[dim] // n
+        x = x.narrow(dim, mesh.axis_index(axes) * size, size)
+    return x
+
+
+def gather_block(x: torch.Tensor, spec: Sequence[AxisVal],
+                 mesh: ModelMesh) -> torch.Tensor:
+    """The whole tensor from every rank's block ``x`` under ``spec``: one
+    all-gather a sharded dimension (collective: every rank of those axes
+    calls it)."""
+    for dim, axes in enumerate(spec):
+        if mesh.axis_size(axes) > 1:
+            x = torch.cat(mesh.all_gather(x, axes).unbind(0), dim)
+    return x
+
+
+def reblock(x: torch.Tensor, held: Sequence[AxisVal],
+            want: Sequence[AxisVal], mesh: ModelMesh) -> torch.Tensor:
+    """This rank's block under ``want`` from its block ``x`` under
+    ``held``: ``x`` itself where the two specs place it alike, else a
+    gather to whole and a slice, as GSPMD reshards a ``shard_map``
+    operand on entry."""
+    def norm(spec):  # the same on every rank: no rank gathers alone
+        return [tuple(a for a in mesh.axes(x) if mesh.shape[a] > 1)
+                for x in spec]
+
+    if norm(held) == norm(want):
+        return x
+    return local_block(gather_block(x, held, mesh), want, mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -2,12 +2,14 @@
 (DeepFM, xDeepFM, Wide&Deep, AutoInt) for serving and training, its fused
 EmbeddingBag, the LM family (``transformer``, ``moe``, over the LM
 layers of ``layers``), the GraphCast-style GNN (``gnn``), and the
-converters of ``repro``'s parameter trees (``convert``).
+converters of ``repro``'s parameter trees (``convert``), whole or as a
+rank's blocks on a mesh.
 """
 from repro_torch.models import gnn, moe, transformer
 from repro_torch.models.convert import (
     gnn_from_jax,
     params_from_jax,
+    place_on_mesh,
     transformer_from_jax,
 )
 from repro_torch.models.recsys import (
@@ -31,6 +33,7 @@ __all__ = [
     "item_embeddings",
     "moe",
     "params_from_jax",
+    "place_on_mesh",
     "serve_scores",
     "transformer",
     "transformer_from_jax",

@@ -20,6 +20,13 @@ stacks the per-layer leaves of ``layers`` and ``processor`` as ``(L,
 ...)`` (its ``vmap`` init); they are unstacked into the ``ModuleList``,
 every leaf's leading dimension checked against the layer count.
 
+On a mesh, a model converted on the CPU goes through
+``place_on_mesh(model, mesh, rules, device)``, which keeps this rank's
+block of each leaf ``repro`` shards (the tables' rows under the rules'
+``"rows"`` entry, the MoE experts' ``wi``, ``wg``, ``wo`` under
+``"experts"``) and whole copies of the rest on ``device``, so no rank's
+device ever holds a whole table.
+
 ``repro``'s dense weight is ``(d_in, d_out)``, applied as ``x @ w``;
 ``nn.Linear`` stores ``(d_out, d_in)``, so every dense weight is
 transposed into its ``nn.Linear``.  The MoE experts' ``wi``, ``wg``,
@@ -33,7 +40,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.device import resolve_device
+from repro_torch.distributed.context import ModelMesh, local_block
 from repro_torch.models.gnn import GNN, GNNConfig
+from repro_torch.models.moe import MoE
 from repro_torch.models.recsys import RecsysConfig, RecsysModel
 from repro_torch.models.transformer import Transformer, TransformerConfig
 
@@ -165,3 +175,34 @@ def gnn_from_jax(tree: dict, cfg: GNNConfig, device=None) -> GNN:
     with torch.no_grad():
         _fill(model, tree, "params")
     return model
+
+
+def _sharded_as(mod: nn.Module, name: str):
+    """The logical name of the axis ``repro`` shards a parameter's first
+    dimension over, or None for a parameter it keeps whole."""
+    if isinstance(mod, RecsysModel) and name in ("table", "wide"):
+        return "rows"
+    if isinstance(mod, MoE) and name in ("wi", "wg", "wo"):
+        return "experts"
+    return None
+
+
+def place_on_mesh(model: nn.Module, mesh: ModelMesh, rules,
+                  device=None) -> nn.Module:
+    """``model`` (whole, on any device) with every parameter on ``device``
+    (default the mesh's): this rank's block under ``rules`` of each leaf
+    ``repro`` shards, whole copies of the rest.  In place; returns
+    ``model``."""
+    dev = mesh.device if device is None else resolve_device(device)
+    with torch.no_grad():
+        for mod in model.modules():
+            for name, prm in list(mod.named_parameters(recurse=False)):
+                val = prm.detach()
+                logical = _sharded_as(mod, name)
+                if logical is not None:
+                    val = local_block(val, (rules.get(logical), None), mesh)
+                new = torch.empty(val.shape, dtype=val.dtype, device=dev)
+                setattr(mod, name, nn.Parameter(
+                    new.copy_(val), requires_grad=prm.requires_grad))
+    return model
+

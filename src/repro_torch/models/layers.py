@@ -13,8 +13,10 @@ Conventions, as in ``repro``: the compute dtype is the input's (bf16 at
 the published configs); norms, RoPE, attention scores and softmax run in
 float32.  The attention is plain PyTorch: queries in chunks of
 ``chunk_q`` against the whole K/V, so the (S, S) score matrix is never
-built for a long prompt.  ``repro``'s ``constrain`` (a sharding hint, a
-no-op off a mesh) has no counterpart.
+built for a long prompt.  ``constrain`` (``repro``'s sharding hint)
+sits where ``repro`` has it and changes no value: on a mesh these layers
+run whole on every rank (their tensor-parallel layout over ``"heads"``
+and ``"ff"`` is ROADMAP item 12e's).
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from typing import Optional, Sequence, Union
 
 import torch
 from torch import nn
+
+from repro_torch.distributed.context import constrain
 
 
 def dense(d_in: int, d_out: int, *, bias: bool = False,
@@ -214,6 +218,8 @@ def attention_apply(p: Attention, x: torch.Tensor, *, n_heads: int,
     pos = torch.arange(S, dtype=torch.int64, device=x.device)
     q = apply_rope(q, pos, rope_theta)
     k = apply_rope(k, pos, rope_theta)
+    q = constrain(q, "batch", None, "heads", None)
+    k = constrain(k, "batch", None, "heads", None)
     o = gqa_attention(q, k, v, window=window, chunk_q=chunk_q)
     return p.wo(o.reshape(B, S, n_heads * d_head))
 
@@ -245,4 +251,5 @@ def mlp_init(generator: Optional[torch.Generator], d_model: int, d_ff: int,
 
 def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
     """``wo(silu(wg x) * wi x)``."""
-    return p.wo(torch.nn.functional.silu(p.wg(x)) * p.wi(x))
+    h = torch.nn.functional.silu(p.wg(x)) * p.wi(x)
+    return p.wo(constrain(h, "batch", None, "ff"))

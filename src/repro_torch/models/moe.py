@@ -1,19 +1,36 @@
 """Mixture-of-Experts layer (the torch counterpart of
 ``repro.models.moe``): GShard-style top-k token-choice routing with a
-per-expert capacity.
+per-expert capacity and ``repro``'s expert-parallel dispatch.
 
-Only ``repro``'s branch without a mesh is ported (one expert shard, no
-collectives).  The expert-parallel dispatch over a mesh (its
-``all_to_all`` and ``psum`` branches) waits for the model-parallel mesh,
-ROADMAP queue 1 item 12c: ``moe_apply`` with a mesh raises rather than
-run unsharded.
+Without a mesh the layer runs on one device with one expert shard and
+no collectives.  Under ``axis_rules`` with a
+:class:`~repro_torch.distributed.context.ModelMesh` every rank runs
+``repro``'s ``shard_map`` body: the rank holds its ``E / n_shards``
+experts of ``wi``, ``wg``, ``wo`` (the ``"model"`` axis), takes its
+slice of the whole tokens on entry and all-gathers the output on exit.
+The tokens are partitioned, by preference, over (data x model) when T
+divides by dp x n_shards, over ``"model"`` when it divides by n_shards,
+else replicated:
+
+* partitioned: one ``all_to_all`` over ``"model"`` (within the rank's
+  data row) sends each expert its slots, a second sends the outputs
+  back;
+* replicated: each shard runs its own experts on every token, reads 0
+  for a slot of another shard's expert, and the outputs are summed over
+  ``"model"``.  (``repro``'s body reads ``expert_out.at[loc_e,
+  pos].get(mode="fill")``, and JAX wraps a negative ``loc_e`` before
+  filling, so a shard there adds the slot of the expert ``E / n_shards``
+  above; ROADMAP queue 3.  The port reads 0, as its comment intends.)
+
+The capacity is the body's own: ``cap = max(8, int(capacity_factor *
+T_loc * K / E))`` over the tokens the rank routes, and the aux loss is
+averaged over the token axes (over ``"model"`` when replicated).
 
 The router weight is float32 in a bf16 model and so are its logits.
 Ties between routing probabilities go to the lower expert index, as
 ``jax.lax.top_k`` breaks them (a stable descending sort; ``torch.topk``
-promises no order).  ``cap = max(8, int(capacity_factor * T * K / E))``
-slots an expert; a (token, slot) pair at position ``cap`` or later in its
-expert's stable order is dropped and reads back 0.
+promises no order).  A (token, slot) pair at position ``cap`` or later
+in its expert's stable order is dropped and reads back 0.
 """
 from __future__ import annotations
 
@@ -24,13 +41,9 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.distributed import context as dctx
+from repro_torch.models.dispatch import dispatch_positions
 from repro_torch.models.layers import _init_device, dense
-
-MESH_REFUSAL = (
-    "the expert-parallel MoE dispatch over a mesh is not ported (ROADMAP "
-    "queue 1 item 12c, the model-parallel mesh); call moe_apply without "
-    "a mesh"
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,34 +98,51 @@ def route(x: torch.Tensor, p: MoE, cfg: MoEConfig):
     return top_w, top_e, probs
 
 
-def dispatch_positions(top_e: torch.Tensor, n_experts: int,
-                       cap: int) -> torch.Tensor:
-    """(T * K,) each (token, slot) pair's position within its expert, in
-    the stable order of the flat expert ids; ``cap`` where dropped."""
-    flat_e = top_e.reshape(-1)
-    n = flat_e.numel()
-    sort_idx = torch.argsort(flat_e, stable=True)
-    counts = torch.bincount(flat_e, minlength=n_experts)
-    starts = torch.cumsum(counts, 0) - counts  # exclusive prefix
-    pos_sorted = torch.arange(n, device=flat_e.device) - starts[
-        flat_e[sort_idx]]
-    pos = torch.empty_like(pos_sorted).scatter_(0, sort_idx, pos_sorted)
-    return torch.clamp_max(pos, cap)
-
-
 def capacity(cfg: MoEConfig, T: int) -> int:
     """Slots an expert for T tokens: ``max(8, int(cf * T * K / E))``."""
     return max(8, int(cfg.capacity_factor * T * cfg.top_k / cfg.n_experts))
 
 
+def _experts(p: MoE, cfg: MoEConfig, n_shards: int):
+    """This shard's ``wi``, ``wg``, ``wo``: the ``E / n_shards`` experts
+    the rank holds (``convert.place_on_mesh``); anything else raises."""
+    ws = (p.wi, p.wg, p.wo)
+    if ws[0].shape[0] * n_shards != cfg.n_experts:
+        raise ValueError(f"{ws[0].shape[0]} experts held, not the block of "
+                         f"{cfg.n_experts} over {n_shards} shards")
+    return ws
+
+
+def _ffn(buf: torch.Tensor, wi, wg, wo) -> torch.Tensor:
+    h = torch.einsum("ecd,edf->ecf", buf, wi)
+    g = torch.einsum("ecd,edf->ecf", buf, wg)
+    return torch.einsum("ecf,efd->ecd", F.silu(g) * h, wo)
+
+
+def _read(out_buf: torch.Tensor, e: torch.Tensor,
+          pos: torch.Tensor) -> torch.Tensor:
+    """Each slot's row of ``out_buf (E, cap, d)``; position ``cap`` (a
+    dropped pair) reads 0."""
+    E, _, d = out_buf.shape
+    return torch.cat([out_buf, out_buf.new_zeros((E, 1, d))], dim=1)[e, pos]
+
+
 def _local_moe(x: torch.Tensor, p: MoE, cfg: MoEConfig, n_shards: int = 1,
                model_axis: Optional[str] = None, psum_mode: bool = False):
-    """The MoE body on one device: x (T, d) -> (out (T, d), aux loss)."""
-    if n_shards != 1 or model_axis is not None or psum_mode:
-        raise NotImplementedError(MESH_REFUSAL)
+    """The MoE body of one rank: x (T_loc, d) -> (out (T_loc, d), aux
+    loss).  With ``model_axis`` and ``n_shards > 1`` it runs on the mesh
+    that ``axis_rules`` installed."""
     T, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
+    E_loc = E // n_shards
     cap = capacity(cfg, T)
+    mesh = None
+    if model_axis is not None and n_shards > 1:
+        mesh = dctx.current_mesh()
+        if mesh is None:
+            raise RuntimeError("the expert-parallel MoE body needs a "
+                               "ModelMesh installed by axis_rules")
+    wi, wg, wo = _experts(p, cfg, n_shards)
 
     # --- routing (f32) ---
     top_w, top_e, probs = route(x, p, cfg)
@@ -131,24 +161,63 @@ def _local_moe(x: torch.Tensor, p: MoE, cfg: MoEConfig, n_shards: int = 1,
     buf[flat_e, pos] = x[tok_idx]
     buf = buf[:, :cap]
 
-    # --- the experts ---
-    h = torch.einsum("ecd,edf->ecf", buf, p.wi)
-    g = torch.einsum("ecd,edf->ecf", buf, p.wg)
-    out_buf = torch.einsum("ecf,efd->ecd", F.silu(g) * h, p.wo)
-    out_buf = torch.cat([out_buf, out_buf.new_zeros((E, 1, d))], dim=1)
-    slot_out = out_buf[flat_e, pos]  # a dropped pair reads the zero slot
+    # --- expert-parallel compute ---
+    if mesh is not None and not psum_mode:
+        # (E, cap, d) -> (n_shards, E_loc, cap, d) -> a2a -> by source
+        recv = mesh.all_to_all(buf.reshape(n_shards, E_loc, cap, d),
+                               model_axis)
+        expert_in = recv.movedim(0, 1).reshape(E_loc, n_shards * cap, d)
+        back = _ffn(expert_in, wi, wg, wo).reshape(E_loc, n_shards, cap, d)
+        out_buf = mesh.all_to_all(back.movedim(1, 0).contiguous(),
+                                  model_axis).reshape(E, cap, d)
+        slot_out = _read(out_buf, flat_e, pos)
+    elif mesh is not None:
+        # replicated tokens: this shard's experts, the others' slots read 0
+        lo = mesh.axis_index(model_axis) * E_loc
+        expert_out = _ffn(buf[lo:lo + E_loc], wi, wg, wo)
+        loc_e = flat_e - lo
+        inside = (loc_e >= 0) & (loc_e < E_loc)
+        slot_out = _read(expert_out, torch.clamp(loc_e, 0, E_loc - 1),
+                         torch.where(inside, pos, cap))
+        slot_out = mesh.psum(slot_out, model_axis)
+    else:
+        slot_out = _read(_ffn(buf, wi, wg, wo), flat_e, pos)
 
     # --- combine: weight slots, sum over K ---
     slot_out = slot_out.reshape(T, K, d) * top_w[..., None].to(x.dtype)
     return slot_out.sum(dim=1), aux
 
 
-def moe_apply(p: MoE, x: torch.Tensor, cfg: MoEConfig,
-              mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> (out (B, S, d), aux loss scalar).  With a ``mesh``
-    it raises ``NotImplementedError`` (item 12c)."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_REFUSAL)
+def moe_apply(p: MoE, x: torch.Tensor,
+              cfg: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (out (B, S, d), aux loss scalar), both whole on
+    every rank of an installed mesh."""
     B, S, d = x.shape
-    out, aux = _local_moe(x.reshape(B * S, d), p, cfg)
-    return out.reshape(B, S, d), aux
+    xt = x.reshape(B * S, d)
+    mesh = dctx.current_mesh()
+    model_axis = dctx.model_axis_name()
+    if mesh is None or model_axis is None:
+        out, aux = _local_moe(xt, p, cfg, 1, None)
+        return out.reshape(B, S, d), aux
+
+    n_shards = mesh.axis_size(model_axis)
+    dp_axes = dctx.data_axis_names()
+    T = B * S
+    # token partitioning for dispatch, by preference: (dp x model),
+    # (model), replicated + psum
+    dp_size = 1
+    for a in dp_axes:
+        dp_size *= mesh.shape[a]
+    if T % (dp_size * n_shards) == 0:
+        tok_axes = tuple(dict.fromkeys(tuple(dp_axes) + (model_axis,)))
+        psum_mode = False
+    elif T % n_shards == 0:
+        tok_axes, psum_mode = (model_axis,), False
+    else:
+        tok_axes, psum_mode = (), True
+    x_spec = (tok_axes or None, None)
+    out, aux = _local_moe(dctx.local_block(xt, x_spec, mesh), p, cfg,
+                          n_shards, model_axis if n_shards > 1 else None,
+                          psum_mode)
+    aux = mesh.pmean(aux, tok_axes or (model_axis,))
+    return dctx.gather_block(out, x_spec, mesh).reshape(B, S, d), aux

@@ -13,7 +13,11 @@ the feature-interaction stage:
 
 Serving produces (score, item embedding) pairs so the DPP reranker
 (``repro_torch.serving``) can diversify slates; training minimises
-``bce_loss`` (``repro_torch.launch.train``).  The FM term is
+``bce_loss`` (``repro_torch.launch.train``).  Under ``axis_rules`` with a
+``ModelMesh`` (``repro_torch.distributed``) a rank holds its rows of
+``table`` and ``wide`` (``convert.place_on_mesh``), the bags run
+``repro``'s psum or all-to-all body by ``emb_mode``, and the rest of the
+forward, K8 included, runs whole on every rank.  The FM term is
 differentiable: on the card its gradient comes from K8's hand-written
 backward.  The tables' gradients are dense, as ``jax.grad`` gives them
 through ``repro``'s gather, so AdamW moves every row.
@@ -27,6 +31,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.context import constrain
 from repro_torch.kernels.fm_interaction import fm_interaction
 from repro_torch.models.embedding import (
     EmbeddingSpec,
@@ -49,7 +54,7 @@ class RecsysConfig:
     d_attn: int = 0
     hot_size: int = 1  # ids per field (multi-hot bags supported)
     item_field: int = 0  # which field is the "item" (retrieval / DPP rerank)
-    emb_mode: str = "psum"  # accepted; changes nothing without a mesh
+    emb_mode: str = "psum"  # psum | alltoall (on a mesh; see embedding)
     dtype: Any = torch.float32
 
     @property
@@ -180,6 +185,7 @@ def embed(model: RecsysModel, ids: torch.Tensor, cfg: RecsysConfig):
     """ids (B, F, H) -> (field embeddings (B, F, D), first-order term
     (B,))."""
     emb = embedding_bag(model.table, ids, cfg.spec, mode=cfg.emb_mode)
+    emb = constrain(emb, "batch", None, None)
     wide = embedding_bag(model.wide, ids, EmbeddingSpec(cfg.vocab_sizes, 1),
                          mode=cfg.emb_mode)
     return emb, wide[..., 0].sum(1)

@@ -19,6 +19,11 @@ points:
   * ``train_loss``     - next-token cross-entropy plus the MoE aux loss,
     the training objective (``repro_torch.launch.train``).
 
+Under ``axis_rules`` with a ``ModelMesh`` (``repro_torch.distributed``)
+every rank runs the same program: the MoE layers dispatch on the mesh
+(``moe.moe_apply``: this rank's experts, ``all_to_all`` or ``psum``),
+the rest runs whole on every rank, and the loss is whole on every rank.
+
 ``init_params(generator, cfg)`` draws the parameters on the generator's
 device from ``repro``'s distributions (not its numbers); without a
 generator ``Transformer(cfg, device=...)`` is left for
@@ -35,6 +40,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.context import constrain
 from repro_torch.models import layers as L
 from repro_torch.models.moe import MoE, MoEConfig, moe_apply
 
@@ -191,10 +197,13 @@ def _block(p_l: Block, x: torch.Tensor, window: Optional[int],
     pos = torch.arange(S, dtype=torch.int64, device=x.device)
     q = L.apply_rope(q, pos, cfg.rope_theta)
     k = L.apply_rope(k, pos, cfg.rope_theta)
+    q = constrain(q, "batch", "seq", "heads", None)
+    k = constrain(k, "batch", "seq", "heads", None)
     o = L.gqa_attention(q, k, v, window=window, chunk_q=cfg.chunk_q)
     x = x + p_l.attn.wo(o.reshape(B, S, cfg.n_heads * cfg.head_dim))
     ffn, aux = _ffn(p_l, L.rmsnorm(p_l.ln2, x, cfg.norm_eps), cfg)
-    return x + ffn, aux, ((k, v) if collect_kv else None)
+    x = constrain(x + ffn, "batch", "seq", None)
+    return x, aux, ((k, v) if collect_kv else None)
 
 
 def forward_hidden(params: Transformer, tokens: torch.Tensor,
@@ -203,7 +212,7 @@ def forward_hidden(params: Transformer, tokens: torch.Tensor,
 
     ``collect_kv``: also return the roped K/V stacked over layers, each
     (L, B, S, KV, dh), for the prefill cache."""
-    x = params.embed[tokens]
+    x = constrain(params.embed[tokens], "batch", "seq", None)
     auxs, ks, vs = [], [], []
     for p_l, w in zip(params.layers, cfg.layer_windows()):
         x, aux, kv = _block(p_l, x, w, cfg, collect_kv)
@@ -218,7 +227,7 @@ def forward_hidden(params: Transformer, tokens: torch.Tensor,
 
 def logits_from_hidden(params: Transformer,
                        hidden: torch.Tensor) -> torch.Tensor:
-    return hidden @ params.unembed
+    return constrain(hidden @ params.unembed, "batch", None, "vocab")
 
 
 def train_loss(params: Transformer, batch: dict,

@@ -32,6 +32,7 @@ from repro.serving import (
     RerankRequest as JaxRequest,
 )
 from repro_torch.configs import get_arch
+from repro_torch.distributed import ModelMesh, axis_rules, single_pod_rules
 from repro_torch.examples import lm_rerank
 from repro_torch.models import layers as L
 from repro_torch.models import moe, transformer as tfm
@@ -238,12 +239,23 @@ def test_local_moe_router_ties_go_to_the_lower_expert(top_k):
 
 
 def test_moe_apply_with_a_mesh_raises():
+    """The mesh refusal is gone: ``moe_apply`` takes the mesh that
+    ``axis_rules`` installs (a (1, 1) mesh gives the local layer bit for
+    bit; ``tests/test_torch_mesh_ranks.py`` holds 8 ranks against
+    ``repro``), the old ``mesh=`` argument is refused, and the
+    expert-parallel body raises when no mesh is installed."""
     cfg = moe.MoEConfig(n_experts=4, top_k=2, d_ff=8)
-    m = moe.MoE(8, cfg)
-    x = torch.zeros(1, 3, 8)
-    with pytest.raises(NotImplementedError, match="item 12c"):
+    m = moe.MoE(8, cfg, generator=torch.Generator().manual_seed(0),
+                device="cpu")
+    x = torch.randn(1, 3, 8, generator=torch.Generator().manual_seed(1))
+    want, want_aux = moe.moe_apply(m, x, cfg)
+    mesh = ModelMesh(((0,),), 0, torch.device("cpu"))
+    with axis_rules(single_pod_rules(), mesh):
+        got, aux = moe.moe_apply(m, x, cfg)
+    assert torch.equal(got, want) and torch.equal(aux, want_aux)
+    with pytest.raises(TypeError, match="mesh"):
         moe.moe_apply(m, x, cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 12c"):
+    with pytest.raises(RuntimeError, match="ModelMesh"):
         moe._local_moe(x[0], m, cfg, 2, "model")
 
 
