@@ -12,15 +12,16 @@ and an MoE layer on a (data x model) mesh of ranks.
     python3 chip_smoke.py --models           # phase 21 alone (run_models)
     python3 chip_smoke.py --training         # phase 22 alone (run_training)
     python3 chip_smoke.py --mesh             # phase 23 alone (run_mesh)
+    python3 chip_smoke.py --remat            # phase 24 alone (remat_phase)
     python3 chip_smoke.py --fm-times [PARENT]  # K8 alone (fm_times)
 
 (Phase 12 runs ``chip_smoke.py --topk-device-times STATE`` as a child
 process for K7's and K8's profiler times: ``topk_device_times``; phase
 23 runs its ranks as ``chip_smoke.py --mesh-rank R WORK``:
-``mesh_rank``.)
+``mesh_rank``; phase 24 runs as ``chip_smoke.py --remat``.)
 
 Builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a),
-then runs twenty-three phases through the port's entry points.  Phases 1-9
+then runs twenty-four phases through the port's entry points.  Phases 1-9
 (``repro_torch.serving.Reranker(..., use_kernel=True).rerank`` and
 ``.stream``, ``repro_torch.core.greedy_map_chunks`` and
 ``greedy_chunk_slots``) run at the paper's §5.1 setup: D = 100
@@ -342,7 +343,7 @@ TF32 off; each part frees its weights before the next):
                       the same parameters on the CPU.  K1's launch goes
                       into K1's record.
 
-Phase 22 trains, last (``run_training``, 90 s aim, TF32 off):
+Phase 22 trains, after phase 21 (``run_training``, 90 s aim, TF32 off):
 
 22. training:         (a) K8's backward (``fm_interaction_bwd``) at the
                       train shape, N = 65,536, F = 39, D = 10, float32
@@ -369,14 +370,17 @@ Phase 22 trains, last (``run_training``, 90 s aim, TF32 off):
                       qwen1.5-4b and olmoe-1b-7b at 1 layer of their
                       published widths in float32 (olmoe at capacity
                       factor E / K) and graphcast's reduced config on
-                      ``launch.train``'s random graph; (d)
-                      ``repro_torch.examples.train_fault_tolerant``.
-                      K8's backward launches on the main path (b) go into
-                      its record, its forward's into K8's.
+                      ``launch.train``'s random graph, every LM block and
+                      GNN layer through ``layers.remat``.  K8's backward
+                      launches on the main path (b) go into its record,
+                      its forward's into K8's.  (``examples.
+                      train_fault_tolerant``, (b)'s failure and resume at
+                      reduced DeepFM in two subprocesses, runs on the CPU
+                      only: ``tests/test_torch_train_example.py``.)
 
-Phase 23 runs the model-parallel mesh, last (``run_mesh``, 45 s aim; TF32
-off): four gloo ranks sharing the card (NCCL refuses two ranks of one
-communicator on one GPU) as ``chip_smoke.py --mesh-rank R WORK``
+Phase 23 runs the model-parallel mesh, after phase 22 (``run_mesh``, 45
+s aim; TF32 off): four gloo ranks sharing the card (NCCL refuses two
+ranks of one communicator on one GPU) as ``chip_smoke.py --mesh-rank R WORK``
 children of one ``spawn_ranks`` call, on a (2, 2) ``("data", "model")``
 ``ModelMesh`` (``repro_torch.distributed``):
 
@@ -408,6 +412,31 @@ children of one ``spawn_ranks`` call, on a (2, 2) ``("data", "model")``
                       (``reshard``) equal to the whole table's bit for
                       bit.  A rank that fails or passes its time limit
                       fails the phase with every rank's stderr tail.
+
+Phase 24 trains the LM at its published depth through remat, last
+(``run_remat``: ``chip_smoke.py --remat`` in a child process, so that
+its 80 GB and peak memory are its own; 30 s aim; TF32 off):
+
+24. remat:            (a) ``launch.train.main`` at qwen1.5-4b's published
+                      config, uncut (40 layers, bf16, about 3.95e9
+                      random parameters), B = 1 (train_4k's global batch
+                      256 cut to 1), S = 4096, 2 steps, no checkpoint
+                      directory: every block through ``layers.remat``;
+                      each step's loss (finite) and host wall, the peak
+                      memory to the end of the backward and in the
+                      optimizer against the prediction, step 2's TFLOP/s;
+                      (b) step 1's loss equal bit for bit to a no-grad
+                      ``train_loss`` without remat from the same init and
+                      first batch; (c) at S = 1024 (two chunks) the loss
+                      and every gradient with remat patched out, with
+                      block remat and with block plus chunk remat
+                      (``remat_chunks``): equal bit for bit (a leaf that
+                      parts fails the phase, named with its normwise
+                      difference), each one's peak memory, split at the
+                      head's backward; (d) the
+                      backward's peak at S = 4096 with block remat and
+                      with block plus chunk remat, the two gradients bit
+                      for bit.  It launches no hand-written kernel.
 
 Each phase resets the kernels' launch counters right before the main-path
 call (phases 16 and 17's ranks in their own processes), reads them right after,
@@ -4748,10 +4777,9 @@ TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-5  # card vs CPU, same init and batches
 TRAIN_GRAD_REL, TRAIN_SHAKY_FRAC = 1e-2, 1e-2
 FM_BWD_RTOL = 1e-5  # K8's backward vs plain, float32; atol 1e-6 * F
 # 22(c): (arch, layers) at published widths in float32, B x S tokens; one
-# layer, cut from two to make room for phase 23.  The cut takes away the
-# one check at published width of a block's backward feeding an earlier
-# block's gradients (21(b)'s 2-6 layers are forward only); the tier-1
-# tests hold 2-6-layer gradients against repro at small widths
+# layer, cut from two to make room for phase 23.  A block's backward
+# feeding an earlier block's gradients at published width is phase 24's
+# (all 40 layers of qwen1.5-4b, with and without remat)
 TRAIN_LM = (("qwen1.5-4b", 1), ("olmoe-1b-7b", 1))
 TRAIN_LM_B, TRAIN_LM_S, TRAIN_C_STEPS = 2, 64, 2
 
@@ -4920,7 +4948,7 @@ def train_probes(log):
         yield
 
 
-def run_train_main(argv, expect_failure=None):
+def run_train_main(argv, expect_failure=None, name="phase 22(b)"):
     """``launch.train.main(argv)`` with its stdout captured and echoed;
     (summary or None, the printed lines)."""
     import io
@@ -4934,11 +4962,11 @@ def run_train_main(argv, expect_failure=None):
             summary = train.main(argv)
     except RuntimeError as e:
         check(expect_failure is not None and str(e) == expect_failure,
-              f"phase 22(b): {e}")
+              f"{name}: {e}")
         print(f"  raised: {e}", flush=True)
     else:
-        check(expect_failure is None, "phase 22(b): the injected failure "
-              "did not happen")
+        check(expect_failure is None, f"{name}: the injected failure did "
+              f"not happen")
     lines = out.getvalue().splitlines()
     for line in lines:
         print(f"  | {line}", flush=True)
@@ -5219,24 +5247,11 @@ def run_train_families():
               [const] * TRAIN_C_STEPS, TRAIN_C_STEPS)
 
 
-def run_train_example():
-    """22(d): ``repro_torch.examples.train_fault_tolerant --device cuda``
-    at ``repro``'s reduced flags, two subprocesses; exit 0."""
-    from repro_torch.examples import train_fault_tolerant
-
-    t0 = time.perf_counter()
-    sys.stdout.flush()
-    rc = train_fault_tolerant.main(["--device", "cuda"])
-    check(rc == 0, f"phase 22(d): train_fault_tolerant exited {rc}")
-    print(f"[phase 22(d) train_fault_tolerant] exit 0 in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-
-
 def run_training(records, work):
     """Phase 22 (aim 90 s): (a) K8's backward; (b) DeepFM at its published
     width through ``launch.train.main`` with a failure and a resume, int8
     error feedback, and the CPU reference check; (c) the LM and GNN
-    families a step at a time against the CPU; (d) the example."""
+    families a step at a time against the CPU."""
     from repro_torch.configs import get_arch
     from repro_torch.configs.shapes import RECSYS_SHAPES
     from repro_torch.figures.common import device_name
@@ -5255,13 +5270,11 @@ def run_training(records, work):
     run_train_reference(N)
     t_b = time.perf_counter() - t0 - t_a
     run_train_families()
-    t_c = time.perf_counter() - t0 - t_a - t_b
-    run_train_example()
     took = time.perf_counter() - t0
     print(f"  phase 22: {took:.1f} s ((a) {t_a:.1f} s, (b) {t_b:.1f} s of "
-          f"which the CPU reference {t_b - t_b1:.1f} s, (c) {t_c:.1f} s, "
-          f"(d) {took - t_a - t_b - t_c:.1f} s; aim {TRAIN_AIM_S:.0f} s); "
-          f"{smi}", flush=True)
+          f"which the CPU reference {t_b - t_b1:.1f} s, (c) "
+          f"{took - t_a - t_b:.1f} s; aim {TRAIN_AIM_S:.0f} s); {smi}",
+          flush=True)
 
 
 MESH_AIM_S = 45.0
@@ -5567,6 +5580,255 @@ def run_mesh(records, work):
           f"{MESH_AIM_S:.0f} s); {smi}", flush=True)
 
 
+REMAT_AIM_S = 30.0
+REMAT_ARCH = "qwen1.5-4b"  # phase 24: the published config, all 40 layers
+REMAT_SEQ, REMAT_STEPS = 4096, 2  # train_4k's length; batch 1 of its 256
+REMAT_C_SEQ = 1024  # 24(c): two chunks of 512; the plain graph fits
+REMAT_TIMEOUT_S = 300
+# predicted from the code before the first run on the card (PERF.md
+# §6), GB of 1e9 B: (a) the step's peak (the optimizer's); (c) and (d)
+# the forward and backward's peak above what was allocated before it,
+# without remat, with block remat, with block and chunk remat
+REMAT_PRED_GB = {"a": 62.3, "c": (21.7, 7.7, 7.5), "d": (None, 13.1, 10.8)}
+REMAT_MODES = (("without remat", False, True), ("block remat", False, False),
+               ("block + chunk remat", True, False))
+
+
+def plain_remat():
+    """``layers.remat`` patched to a plain call: the un-checkpointed graph."""
+    from repro_torch.models import layers
+
+    return patched(layers, "remat", lambda fn, *args: fn(*args))
+
+
+def remat_grads(model, cfg, tokens, mode):
+    """The loss and every gradient (``torch.autograd.grad``, as
+    ``launch.train.make_step`` takes them) under one of ``REMAT_MODES``;
+    (loss, grads, (peak bytes above the allocation before the forward to
+    the end of the head's backward, and after it: the blocks' and the
+    embedding's backward), host wall between two synchronizes)."""
+    from repro_torch.models import transformer as tfm
+
+    _, remat_chunks, plain = mode
+    c = dataclasses.replace(cfg, remat_chunks=remat_chunks)
+    logits0, head = tfm.logits_from_hidden, []
+
+    def logits_from_hidden(params, hidden):
+        def split(grad):  # the head's backward is done: restart the peak
+            head.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+
+        hidden.register_hook(split)
+        return logits0(params, hidden)
+
+    free_card()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        if plain:
+            stack.enter_context(plain_remat())
+        stack.enter_context(patched(tfm, "logits_from_hidden",
+                                    logits_from_hidden))
+        loss = tfm.train_loss(model, {"tokens": tokens}, c)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(len(head) == 1, f"the head's backward hook ran {len(head)} times")
+    return (loss.detach(), grads,
+            (head[0] - base, torch.cuda.max_memory_allocated() - base), wall)
+
+
+def peak_text(peaks, pred):
+    return (f"peak {max(peaks) / 1e9:.2f} GB above the allocation before the "
+            f"forward (predicted {pred} GB): {peaks[0] / 1e9:.2f} through the "
+            f"head's backward, {peaks[1] / 1e9:.2f} in the blocks' and the "
+            f"embedding's")
+
+
+def hold_remat_grads(name, model, got, want):
+    """The loss and every gradient bit for bit; a leaf that parts fails
+    the phase with its name and its normwise difference."""
+    check(torch.equal(got[0], want[0]),
+          f"{name}: loss {got[0].item()!r} vs {want[0].item()!r}")
+    for (n, _), a, b in zip(model.named_parameters(), got[1], want[1]):
+        if not torch.equal(a, b):
+            rel = (torch.linalg.vector_norm((a - b).float())
+                   / torch.linalg.vector_norm(b.float())).item()
+            check(False, f"{name}: gradient {n} differs from the plain "
+                  f"graph's by {rel:.3g} normwise")
+
+
+def remat_phase():
+    """``--remat``, phase 24 (aim 30 s, TF32 off), in a process of its own
+    so that its 80 GB and peak readings are its own: (a) qwen1.5-4b's
+    published config, all 40 layers in bf16, two steps at B = 1, S = 4096
+    through ``launch.train.main``; (b) step 1's loss against a no-grad
+    ``train_loss`` without remat; (c) at S = 1024 the loss and every
+    gradient without remat, with block remat and with block plus chunk
+    remat, bit for bit; (d) the backward's peak at S = 4096 with block
+    and with block plus chunk remat."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batches
+    from repro_torch.figures.common import device_name
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tfm
+
+    t0 = time.perf_counter()
+    smi = device_name(torch.device("cuda"))
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "phase 24 runs with TF32 off")
+    cfg = get_arch(REMAT_ARCH).config
+    gb = lambda b: f"{b / 1e9:.2f} GB"  # noqa: E731
+    print(f"[phase 24(a) remat] launch.train.main at {REMAT_ARCH}'s published "
+          f"config: {cfg.n_layers} layers (no depth cut), d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, {cfg.dtype}, chunk_q {cfg.chunk_q}, remat_chunks "
+          f"{cfg.remat_chunks}; {REMAT_STEPS} steps at B = 1 (train_4k's "
+          f"global batch 256 cut to 1), S = {REMAT_SEQ}; no checkpoint "
+          f"directory", flush=True)
+    log = {"steps": [], "saves": [], "peaks": [], "update_s": []}
+    update0 = train.adamw_update
+
+    def adamw_update(*args, **kw):  # the backward's peak, then the update's
+        torch.cuda.synchronize()
+        log["peaks"].append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        out = update0(*args, **kw)
+        torch.cuda.synchronize()
+        log["update_s"].append(time.perf_counter() - t1)
+        log["peaks"].append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    argv = ["--arch", REMAT_ARCH, "--steps", str(REMAT_STEPS), "--batch",
+            "1", "--seq", str(REMAT_SEQ), "--warmup", "1", "--log-every",
+            "1", "--device", "cuda"]
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    with train_probes(log), patched(train, "adamw_update", adamw_update):
+        summary, _ = run_train_main(argv, name="phase 24(a)")
+    losses = [s[1] for s in log["steps"]]
+    check(len(losses) == REMAT_STEPS and np.isfinite(losses).all()
+          and summary["first_loss"] == losses[0],
+          f"phase 24(a): losses {losses}")
+    peak = max(log["peaks"])
+    for i, (wall, loss, gnorm, _) in enumerate(log["steps"]):
+        print(f"  step {i + 1}: loss {loss!r}, grad_norm {gnorm:.4g}, host "
+              f"wall {wall * 1e3:.1f} ms between two synchronizes (clipping "
+              f"and AdamW {log['update_s'][i] * 1e3:.1f} ms); peak "
+              f"{gb(log['peaks'][2 * i])} to the end of the backward, "
+              f"{gb(log['peaks'][2 * i + 1])} in clipping and AdamW",
+              flush=True)
+    print(f"  peak device memory (torch.cuda.max_memory_allocated) "
+          f"{gb(peak)} ({peak} B; predicted {REMAT_PRED_GB['a']} GB) of "
+          f"{gb(torch.cuda.get_device_properties(0).total_memory)}; {smi}",
+          flush=True)
+    t_a = time.perf_counter() - t0
+
+    # (b) the same init and first batch, no grad, no checkpoint
+    free_card()
+    model = tfm.init_params(torch.Generator("cuda").manual_seed(0), cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = lambda S: torch.as_tensor(next(lm_batches(  # noqa: E731
+        cfg.vocab, 1, S, seed=0))["tokens"], device="cuda")
+    with torch.no_grad(), plain_remat():
+        ref = tfm.train_loss(model, {"tokens": tokens(REMAT_SEQ)}, cfg).item()
+    check(ref == losses[0], f"phase 24(b): step 1's loss {losses[0]!r} vs "
+          f"{ref!r} without grad or remat")
+    print(f"[phase 24(b)] step 1's loss {losses[0]!r} equals a no-grad "
+          f"train_loss without remat from the same init and batch bit for "
+          f"bit", flush=True)
+    T = REMAT_SEQ
+    body = n_params - 2 * cfg.vocab * cfg.d_model - cfg.d_model
+    flops = 6 * n_params * T + 2 * body * T  # + the blocks' recompute
+    attn = 4 * 4 * cfg.n_layers * cfg.n_heads * cfg.head_dim * T * T
+    wall2 = log["steps"][1][0]
+    print(f"  step 2: {flops:.4g} FLOP as 6 x {n_params} parameters x {T} "
+          f"tokens plus the blocks' recompute, {flops / wall2 / 1e12:.1f} "
+          f"TFLOP/s (bf16 dense peak 989); with the attention's float32 "
+          f"score and value products ({attn:.4g} FLOP: forward, recompute, "
+          f"backward) {(flops + attn) / wall2 / 1e12:.1f} TFLOP/s; {smi}",
+          flush=True)
+    t_b = time.perf_counter() - t0 - t_a
+
+    # (c) S = 1024: the three graphs bit for bit
+    print(f"[phase 24(c)] the loss and all {len(list(model.parameters()))} "
+          f"gradients at all {cfg.n_layers} layers, B = 1, S = {REMAT_C_SEQ} "
+          f"({REMAT_C_SEQ // cfg.chunk_q} chunks of {cfg.chunk_q}), three "
+          f"ways", flush=True)
+    tok_c = tokens(REMAT_C_SEQ)
+    want = None
+    for mode, pred in zip(REMAT_MODES, REMAT_PRED_GB["c"]):
+        got = remat_grads(model, cfg, tok_c, mode)
+        if want is not None:
+            hold_remat_grads(f"phase 24(c) {mode[0]}", model, got, want)
+        print(f"  {mode[0]}: loss {got[0].item()!r}, "
+              + ("the reference" if want is None else
+                 "equal to it bit for bit")
+              + f"; {peak_text(got[2], pred)}; {got[3] * 1e3:.1f} ms",
+              flush=True)
+        if want is None:
+            want = got
+        del got
+    del want
+    t_c = time.perf_counter() - t0 - t_a - t_b
+
+    # (d) S = 4096: what remat_chunks saves on the backward
+    tok_d = tokens(REMAT_SEQ)
+    print(f"[phase 24(d)] the backward's peak at S = {REMAT_SEQ} "
+          f"({REMAT_SEQ // cfg.chunk_q} chunks)", flush=True)
+    want = None
+    for mode, pred in list(zip(REMAT_MODES, REMAT_PRED_GB["d"]))[1:]:
+        got = remat_grads(model, cfg, tok_d, mode)
+        if want is not None:
+            hold_remat_grads(f"phase 24(d) {mode[0]}", model, got, want)
+        check(got[0].item() == losses[0],
+              f"phase 24(d): loss {got[0].item()!r} vs step 1's")
+        print(f"  {mode[0]}: loss equal to step 1's, "
+              + ("" if want is None else
+                 "gradients equal to block remat's bit for bit, ")
+              + f"{peak_text(got[2], pred)}; {got[3] * 1e3:.1f} ms",
+              flush=True)
+        if want is None:
+            want = got
+        del got
+    del want, model
+    free_card()
+    took = time.perf_counter() - t0
+    print(f"  phase 24: {took:.1f} s ((a) {t_a:.1f} s, (b) {t_b:.1f} s, (c) "
+          f"{t_c:.1f} s, (d) {took - t_a - t_b - t_c:.1f} s; aim "
+          f"{REMAT_AIM_S:.0f} s); {smi}", flush=True)
+
+
+def run_remat():
+    """Phase 24: ``chip_smoke.py --remat`` in a child process, its lines
+    echoed; fails when the child does."""
+    t0 = time.perf_counter()
+    free_card()
+    free, total = torch.cuda.mem_get_info()
+    print(f"[phase 24 remat] a child process (chip_smoke.py --remat); this "
+          f"process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB, the "
+          f"card has {free / 1e9:.2f} of {total / 1e9:.2f} GB free",
+          flush=True)
+    res = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--remat"],
+        capture_output=True, text=True, timeout=REMAT_TIMEOUT_S)
+    lines = res.stdout.splitlines()
+    first = next((i for i, ln in enumerate(lines)
+                  if ln.startswith("[phase 24")), 0)
+    for line in lines[first:]:
+        print(line, flush=True)
+    check(res.returncode == 0 and any(ln.startswith("  phase 24: ")
+                                      for ln in lines),
+          f"phase 24: the child exited {res.returncode}: "
+          f"{res.stderr[-3000:]}")
+    print(f"  phase 24 with its process: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def update_times():
     """``--update-times``: the shard-local update entries alone at 16(c)'s
     shape (B = 4, D = 100, C = 65,536 of a 10^6 pool with a 10% seen
@@ -5664,7 +5926,7 @@ def resident_times():
 
 
 def run_phases(records, rng, refs):
-    """Phases 1-23 in order, each adding to ``records``; ``refs`` carries
+    """Phases 1-24 in order, each adding to ``records``; ``refs`` carries
     phases 16, 17 and 19's requests and references (its ``work`` directory
     holds the requests' files)."""
     t0 = time.perf_counter()
@@ -5701,6 +5963,7 @@ def run_phases(records, rng, refs):
     run_models(records)
     run_training(records, refs["work"])
     run_mesh(records, refs["work"])
+    run_remat()
     print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -5736,6 +5999,9 @@ def run_main(work: Path) -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
+    if sys.argv[1:] == ["--remat"]:  # runs no kernel: nothing to build
+        remat_phase()
+        return 0
     build_s = cuda.build_all()
     print(f"kernel build: {build_s:.1f} s (nvcc, sm_90a, one process per "
           f"source)", flush=True)

@@ -11,13 +11,19 @@ Message passing over an edge-index array, by scatter (``index_add_``,
                  h'_i  = h_i + MLP_n([h_i, m_i])           (residual)
   decoder:    node MLP  d_hidden -> n_vars
 
-One ``apply`` serves full graphs, padded sampled subgraphs (``edge_mask``)
-and batched small molecules (disjoint unions).  The MLPs' GELU is the
-tanh approximation, ``jax.nn.gelu``'s default.  Under ``max`` a node with
-no in-edge aggregates ``-inf``, as ``jax.ops.segment_max`` fills an empty
-segment; the node MLP then gives that node non-finite outputs, in
-``repro`` and here alike (ROADMAP queue 3).  ``mse_loss`` is the
-training objective (``repro_torch.launch.train``).
+Where gradients are recorded, each processor round runs through
+``layers.remat`` (``repro`` checkpoints its scan body): a backward pass
+keeps each round's ``h`` and ``e`` and recomputes the round's MLPs and
+aggregate one round at a time.
+
+One ``apply`` serves full graphs, padded sampled subgraphs
+(``edge_mask``) and batched small molecules (disjoint unions).  The
+MLPs' GELU is the tanh approximation, ``jax.nn.gelu``'s default.  Under
+``max`` a node with no in-edge aggregates ``-inf``, as
+``jax.ops.segment_max`` fills an empty segment; the node MLP then gives
+that node non-finite outputs, in ``repro`` and here alike (ROADMAP queue
+3).  ``mse_loss`` is the training objective
+(``repro_torch.launch.train``).
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.models import layers
 from repro_torch.models.layers import dense
 
 
@@ -137,12 +144,16 @@ def apply(params: GNN, node_feats: torch.Tensor, edges: torch.Tensor,
     mask = None if edge_mask is None else edge_mask[:, None].to(e.dtype)
     if mask is not None:
         e = e * mask
-    for p_l in params.processor:
+
+    def layer(p_l: ProcLayer, h: torch.Tensor, e: torch.Tensor):
         e = e + _mlp2(p_l.edge, torch.cat([h[src], h[dst], e], dim=-1))
         if mask is not None:
             e = e * mask
         m = _aggregate(e, dst, N, cfg.aggregator)
-        h = h + _mlp2(p_l.node, torch.cat([h, m], dim=-1))
+        return h + _mlp2(p_l.node, torch.cat([h, m], dim=-1)), e
+
+    for p_l in params.processor:
+        h, e = layers.remat(layer, p_l, h, e)
     return _mlp2(params.decoder, h)
 
 

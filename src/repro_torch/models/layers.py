@@ -1,7 +1,9 @@
 """Shared neural-net layers (the torch counterpart of
 ``repro.models.layers``): ``dense`` and the ReLU ``MLPHead`` the recsys
 and GNN models use, and the LM layers: RMSNorm, RoPE, chunked causal
-GQA attention with an optional sliding window, and the SwiGLU MLP.
+GQA attention with an optional sliding window, and the SwiGLU MLP; and
+``remat``, the recompute-on-backward wrapper that the LM blocks, the
+attention chunks and the GNN processor layers run through.
 
 ``repro``'s dense weight is ``(d_in, d_out)``, applied as ``x @ w``;
 ``nn.Linear`` stores ``(d_out, d_in)``.  The initialisation draws the
@@ -13,16 +15,21 @@ Conventions, as in ``repro``: the compute dtype is the input's (bf16 at
 the published configs); norms, RoPE, attention scores and softmax run in
 float32.  The attention is plain PyTorch: queries in chunks of
 ``chunk_q`` against the whole K/V, so the (S, S) score matrix is never
-built for a long prompt.  ``constrain`` (``repro``'s sharding hint)
-sits where ``repro`` has it and changes no value: on a mesh these layers
-run whole on every rank (their tensor-parallel layout over ``"heads"``
-and ``"ff"`` is ROADMAP item 12e's).
+built for a long prompt; with ``remat_chunks`` a backward pass
+recomputes each chunk's scores and probabilities instead of keeping
+them.  ``constrain`` (``repro``'s sharding hint) sits where ``repro``
+has it and changes no value: on a mesh these layers run whole on every
+rank (their tensor-parallel layout over ``"heads"`` and ``"ff"`` is
+ROADMAP item 12e's).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+import contextvars
+import functools
+from typing import Callable, Optional, Sequence, Union
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.distributed.context import constrain
@@ -61,6 +68,29 @@ class MLPHead(nn.Module):
         for layer in self.layers[:-1]:
             x = torch.relu(layer(x))
         return self.layers[-1](x)
+
+
+# ---------------------------------------------------------------------------
+# remat
+# ---------------------------------------------------------------------------
+
+
+def remat(fn: Callable, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    instead of kept (``repro``'s ``jax.checkpoint``): under
+    ``torch.utils.checkpoint`` when gradients are being recorded, a plain
+    call otherwise (``no_grad``, ``inference_mode``).
+
+    Non-reentrant, so ``torch.autograd.grad`` (``launch.train``) reaches
+    through it and the forward runs once.  Nothing inside draws random
+    numbers, so no RNG state is stashed.  The recompute runs in the
+    forward's ``contextvars`` context (the installed axis rules and
+    mesh): the autograd engine may run it on a thread of its own."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    run = functools.partial(contextvars.copy_context().run, fn)
+    return torch.utils.checkpoint.checkpoint(
+        run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 # ---------------------------------------------------------------------------
@@ -177,10 +207,11 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q (B, Sq, H, dh); k, v (B, Skv, KV, dh).  ``q_offset`` is the
     absolute position of q[0] (prefill continuation, decode).  A ragged
-    last chunk is padded and its padding sliced off.  ``remat_chunks``
-    (recompute chunks in a backward pass) is accepted and ignored: there
-    is no backward here.  Returns (B, Sq, H, dh) in q's dtype."""
-    del remat_chunks
+    last chunk is padded and its padding sliced off.  ``remat_chunks``:
+    where there are several chunks, each runs through ``remat``, so a
+    backward pass keeps no chunk's float32 scores and probabilities (it
+    recomputes them one chunk at a time), as ``repro`` checkpoints its
+    scan body.  Returns (B, Sq, H, dh) in q's dtype."""
     B, Sq, H, dh = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -196,12 +227,14 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     pad = (-Sq) % chunk_q
     if pad:  # ragged tail: pad queries (outputs sliced off below)
         qg = torch.nn.functional.pad(qg, (0, 0, 0, 0, 0, 0, 0, pad))
+    one = (functools.partial(remat, _chunk_attn) if remat_chunks
+           else _chunk_attn)
     outs = []
     for i in range((Sq + pad) // chunk_q):
         q_pos = q_offset + i * chunk_q + torch.arange(
             chunk_q, dtype=torch.int64, device=q.device)
-        outs.append(_chunk_attn(qg[:, i * chunk_q:(i + 1) * chunk_q], k, v,
-                                q_pos, kv_pos, window))
+        outs.append(one(qg[:, i * chunk_q:(i + 1) * chunk_q], k, v, q_pos,
+                        kv_pos, window))
     o = torch.cat(outs, dim=1).reshape(B, Sq + pad, H, dh)[:, :Sq]
     return o.to(q.dtype)
 

@@ -7,9 +7,13 @@ Covers the five LM configs of ``repro_torch.configs``:
   * MoE FFN (olmoe top-8, arctic top-2 + a parallel dense residual).
 
 The layer stack is an ``nn.ModuleList`` run in a Python loop, each layer
-with its own window (an int, or None for global attention).  There is
-no scan and no remat (``remat_chunks`` is accepted and ignored).  Entry
-points:
+with its own window (an int, or None for global attention).  Where
+gradients are recorded, every block runs through ``layers.remat``, as
+``repro`` checkpoints its scan body: a backward pass keeps each block's
+input and recomputes the rest one block at a time.  ``remat_chunks``
+also recomputes each attention chunk inside the block (``repro``'s
+``flash_remat``).  Paths without gradients run each block once, plainly.
+Entry points:
 
   * ``forward_hidden`` - the final hidden states (and the roped K/V);
   * ``prefill``        - forward + KV-cache build + last-token logits;
@@ -65,7 +69,7 @@ class TransformerConfig:
     norm_eps: float = 1e-6
     chunk_q: int = 512
     aux_loss_coef: float = 0.01
-    remat_chunks: bool = False  # accepted; nothing is recomputed here
+    remat_chunks: bool = False  # recompute attention chunks on backward
 
     @property
     def head_dim(self) -> int:
@@ -199,7 +203,8 @@ def _block(p_l: Block, x: torch.Tensor, window: Optional[int],
     k = L.apply_rope(k, pos, cfg.rope_theta)
     q = constrain(q, "batch", "seq", "heads", None)
     k = constrain(k, "batch", "seq", "heads", None)
-    o = L.gqa_attention(q, k, v, window=window, chunk_q=cfg.chunk_q)
+    o = L.gqa_attention(q, k, v, window=window, chunk_q=cfg.chunk_q,
+                        remat_chunks=cfg.remat_chunks)
     x = x + p_l.attn.wo(o.reshape(B, S, cfg.n_heads * cfg.head_dim))
     ffn, aux = _ffn(p_l, L.rmsnorm(p_l.ln2, x, cfg.norm_eps), cfg)
     x = constrain(x + ffn, "batch", "seq", None)
@@ -211,11 +216,12 @@ def forward_hidden(params: Transformer, tokens: torch.Tensor,
     """tokens (B, S) -> (hidden (B, S, d), aux loss, kv or None).
 
     ``collect_kv``: also return the roped K/V stacked over layers, each
-    (L, B, S, KV, dh), for the prefill cache."""
+    (L, B, S, KV, dh), for the prefill cache.  Each block runs through
+    ``layers.remat``."""
     x = constrain(params.embed[tokens], "batch", "seq", None)
     auxs, ks, vs = [], [], []
     for p_l, w in zip(params.layers, cfg.layer_windows()):
-        x, aux, kv = _block(p_l, x, w, cfg, collect_kv)
+        x, aux, kv = L.remat(_block, p_l, x, w, cfg, collect_kv)
         auxs.append(aux)
         if collect_kv:
             ks.append(kv[0])
