@@ -367,16 +367,14 @@ Phase 22 trains, after phase 21 (``run_training``, 90 s aim, TF32 off):
                       memory; then the first 3 steps again on the card
                       and on the CPU from the same init and batches
                       (``step_pair``); (c) the same, 2 steps, for
-                      qwen1.5-4b and olmoe-1b-7b at 1 layer of their
-                      published widths in float32 (olmoe at capacity
-                      factor E / K) and graphcast's reduced config on
-                      ``launch.train``'s random graph, every LM block and
-                      GNN layer through ``layers.remat``.  K8's backward
-                      launches on the main path (b) go into its record,
-                      its forward's into K8's.  (``examples.
-                      train_fault_tolerant``, (b)'s failure and resume at
-                      reduced DeepFM in two subprocesses, runs on the CPU
-                      only: ``tests/test_torch_train_example.py``.)
+                      qwen1.5-4b at 2 layers and olmoe-1b-7b at 1 layer
+                      of their published widths in float32 (olmoe at
+                      capacity factor E / K) and graphcast's reduced
+                      config on ``launch.train``'s random graph, every LM
+                      block and GNN layer through ``layers.remat``; (d)
+                      ``repro_torch.examples.train_fault_tolerant``.
+                      K8's backward launches on the main path (b) go into
+                      its record, its forward's into K8's.
 
 Phase 23 runs the model-parallel mesh, after phase 22 (``run_mesh``, 45
 s aim; TF32 off): four gloo ranks sharing the card (NCCL refuses two
@@ -424,7 +422,7 @@ its 80 GB and peak memory are its own; 30 s aim; TF32 off):
                       directory: every block through ``layers.remat``;
                       each step's loss (finite) and host wall, the peak
                       memory to the end of the backward and in the
-                      optimizer against the prediction, step 2's TFLOP/s;
+                      optimizer, step 2's TFLOP/s;
                       (b) step 1's loss equal bit for bit to a no-grad
                       ``train_loss`` without remat from the same init and
                       first batch; (c) at S = 1024 (two chunks) the loss
@@ -4776,11 +4774,12 @@ TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-5  # card vs CPU, same init and batches
 # grad_norm and first-step gradient checks are the fine ones
 TRAIN_GRAD_REL, TRAIN_SHAKY_FRAC = 1e-2, 1e-2
 FM_BWD_RTOL = 1e-5  # K8's backward vs plain, float32; atol 1e-6 * F
-# 22(c): (arch, layers) at published widths in float32, B x S tokens; one
-# layer, cut from two to make room for phase 23.  A block's backward
-# feeding an earlier block's gradients at published width is phase 24's
-# (all 40 layers of qwen1.5-4b, with and without remat)
-TRAIN_LM = (("qwen1.5-4b", 1), ("olmoe-1b-7b", 1))
+# 22(c): (arch, layers) at published widths in float32, B x S tokens.
+# qwen1.5-4b's two layers hold a block's backward feeding an earlier
+# block's gradients, card against CPU (phase 24 holds remat only against
+# no remat, on the card); olmoe-1b-7b keeps one layer, cut from two to
+# make room for phase 23 (its 64 experts are most of the CPU's time)
+TRAIN_LM = (("qwen1.5-4b", 2), ("olmoe-1b-7b", 1))
 TRAIN_LM_B, TRAIN_LM_S, TRAIN_C_STEPS = 2, 64, 2
 
 
@@ -5207,7 +5206,7 @@ def run_train_reference(N):
 
 def run_train_families():
     """22(c): one family at a time, ``TRAIN_C_STEPS`` steps on the card
-    against the CPU: qwen1.5-4b and olmoe-1b-7b at 1 layer of their
+    against the CPU: qwen1.5-4b at 2 layers and olmoe-1b-7b at 1 of their
     published widths in float32 (olmoe at capacity factor E / K), and
     graphcast's reduced config on ``launch.train``'s random graph."""
     from repro_torch.configs import get_arch
@@ -5247,11 +5246,24 @@ def run_train_families():
               [const] * TRAIN_C_STEPS, TRAIN_C_STEPS)
 
 
+def run_train_example():
+    """22(d): ``repro_torch.examples.train_fault_tolerant --device cuda``
+    at ``repro``'s reduced flags, two subprocesses; exit 0."""
+    from repro_torch.examples import train_fault_tolerant
+
+    t0 = time.perf_counter()
+    sys.stdout.flush()
+    rc = train_fault_tolerant.main(["--device", "cuda"])
+    check(rc == 0, f"phase 22(d): train_fault_tolerant exited {rc}")
+    print(f"[phase 22(d) train_fault_tolerant] exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def run_training(records, work):
     """Phase 22 (aim 90 s): (a) K8's backward; (b) DeepFM at its published
     width through ``launch.train.main`` with a failure and a resume, int8
     error feedback, and the CPU reference check; (c) the LM and GNN
-    families a step at a time against the CPU."""
+    families a step at a time against the CPU; (d) the example."""
     from repro_torch.configs import get_arch
     from repro_torch.configs.shapes import RECSYS_SHAPES
     from repro_torch.figures.common import device_name
@@ -5270,11 +5282,13 @@ def run_training(records, work):
     run_train_reference(N)
     t_b = time.perf_counter() - t0 - t_a
     run_train_families()
+    t_c = time.perf_counter() - t0 - t_a - t_b
+    run_train_example()
     took = time.perf_counter() - t0
     print(f"  phase 22: {took:.1f} s ((a) {t_a:.1f} s, (b) {t_b:.1f} s of "
-          f"which the CPU reference {t_b - t_b1:.1f} s, (c) "
-          f"{took - t_a - t_b:.1f} s; aim {TRAIN_AIM_S:.0f} s); {smi}",
-          flush=True)
+          f"which the CPU reference {t_b - t_b1:.1f} s, (c) {t_c:.1f} s, "
+          f"(d) {took - t_a - t_b - t_c:.1f} s; aim {TRAIN_AIM_S:.0f} s); "
+          f"{smi}", flush=True)
 
 
 MESH_AIM_S = 45.0
@@ -5585,11 +5599,6 @@ REMAT_ARCH = "qwen1.5-4b"  # phase 24: the published config, all 40 layers
 REMAT_SEQ, REMAT_STEPS = 4096, 2  # train_4k's length; batch 1 of its 256
 REMAT_C_SEQ = 1024  # 24(c): two chunks of 512; the plain graph fits
 REMAT_TIMEOUT_S = 300
-# predicted from the code before the first run on the card (PERF.md
-# §6), GB of 1e9 B: (a) the step's peak (the optimizer's); (c) and (d)
-# the forward and backward's peak above what was allocated before it,
-# without remat, with block remat, with block and chunk remat
-REMAT_PRED_GB = {"a": 62.3, "c": (21.7, 7.7, 7.5), "d": (None, 13.1, 10.8)}
 REMAT_MODES = (("without remat", False, True), ("block remat", False, False),
                ("block + chunk remat", True, False))
 
@@ -5640,11 +5649,10 @@ def remat_grads(model, cfg, tokens, mode):
             (head[0] - base, torch.cuda.max_memory_allocated() - base), wall)
 
 
-def peak_text(peaks, pred):
+def peak_text(peaks):
     return (f"peak {max(peaks) / 1e9:.2f} GB above the allocation before the "
-            f"forward (predicted {pred} GB): {peaks[0] / 1e9:.2f} through the "
-            f"head's backward, {peaks[1] / 1e9:.2f} in the blocks' and the "
-            f"embedding's")
+            f"forward: {peaks[0] / 1e9:.2f} through the head's backward, "
+            f"{peaks[1] / 1e9:.2f} in the blocks' and the embedding's")
 
 
 def hold_remat_grads(name, model, got, want):
@@ -5723,7 +5731,7 @@ def remat_phase():
               f"{gb(log['peaks'][2 * i + 1])} in clipping and AdamW",
               flush=True)
     print(f"  peak device memory (torch.cuda.max_memory_allocated) "
-          f"{gb(peak)} ({peak} B; predicted {REMAT_PRED_GB['a']} GB) of "
+          f"{gb(peak)} ({peak} B) of "
           f"{gb(torch.cuda.get_device_properties(0).total_memory)}; {smi}",
           flush=True)
     t_a = time.perf_counter() - t0
@@ -5742,12 +5750,15 @@ def remat_phase():
           f"train_loss without remat from the same init and batch bit for "
           f"bit", flush=True)
     T = REMAT_SEQ
-    body = n_params - 2 * cfg.vocab * cfg.d_model - cfg.d_model
-    flops = 6 * n_params * T + 2 * body * T  # + the blocks' recompute
+    # the embedding is a gather and its gradient a scatter: no products
+    dense = n_params - model.embed.numel()
+    body = dense - model.unembed.numel() - model.ln_f.scale.numel()
+    flops = 6 * dense * T + 2 * body * T  # + the blocks' recompute
     attn = 4 * 4 * cfg.n_layers * cfg.n_heads * cfg.head_dim * T * T
     wall2 = log["steps"][1][0]
-    print(f"  step 2: {flops:.4g} FLOP as 6 x {n_params} parameters x {T} "
-          f"tokens plus the blocks' recompute, {flops / wall2 / 1e12:.1f} "
+    print(f"  step 2: {flops:.4g} FLOP as 6 x {dense} parameters (all but "
+          f"the embedding's {model.embed.numel()}) x {T} tokens plus the "
+          f"blocks' recompute, {flops / wall2 / 1e12:.1f} "
           f"TFLOP/s (bf16 dense peak 989); with the attention's float32 "
           f"score and value products ({attn:.4g} FLOP: forward, recompute, "
           f"backward) {(flops + attn) / wall2 / 1e12:.1f} TFLOP/s; {smi}",
@@ -5761,14 +5772,14 @@ def remat_phase():
           f"ways", flush=True)
     tok_c = tokens(REMAT_C_SEQ)
     want = None
-    for mode, pred in zip(REMAT_MODES, REMAT_PRED_GB["c"]):
+    for mode in REMAT_MODES:
         got = remat_grads(model, cfg, tok_c, mode)
         if want is not None:
             hold_remat_grads(f"phase 24(c) {mode[0]}", model, got, want)
         print(f"  {mode[0]}: loss {got[0].item()!r}, "
               + ("the reference" if want is None else
                  "equal to it bit for bit")
-              + f"; {peak_text(got[2], pred)}; {got[3] * 1e3:.1f} ms",
+              + f"; {peak_text(got[2])}; {got[3] * 1e3:.1f} ms",
               flush=True)
         if want is None:
             want = got
@@ -5781,7 +5792,7 @@ def remat_phase():
     print(f"[phase 24(d)] the backward's peak at S = {REMAT_SEQ} "
           f"({REMAT_SEQ // cfg.chunk_q} chunks)", flush=True)
     want = None
-    for mode, pred in list(zip(REMAT_MODES, REMAT_PRED_GB["d"]))[1:]:
+    for mode in REMAT_MODES[1:]:
         got = remat_grads(model, cfg, tok_d, mode)
         if want is not None:
             hold_remat_grads(f"phase 24(d) {mode[0]}", model, got, want)
@@ -5790,7 +5801,7 @@ def remat_phase():
         print(f"  {mode[0]}: loss equal to step 1's, "
               + ("" if want is None else
                  "gradients equal to block remat's bit for bit, ")
-              + f"{peak_text(got[2], pred)}; {got[3] * 1e3:.1f} ms",
+              + f"{peak_text(got[2])}; {got[3] * 1e3:.1f} ms",
               flush=True)
         if want is None:
             want = got
@@ -5805,7 +5816,14 @@ def remat_phase():
 
 def run_remat():
     """Phase 24: ``chip_smoke.py --remat`` in a child process, its lines
-    echoed; fails when the child does."""
+    echoed; fails when the child does.  Each line is stamped as it
+    arrives, so the time outside ``remat_phase`` is split: the child's
+    start to its first line (the interpreter, torch's import, nvidia-smi),
+    on to phase 24's first line (the port's imports, the config), and
+    from phase 24's last line to the child's exit (the CUDA context and
+    its 80 GB torn down)."""
+    import threading
+
     t0 = time.perf_counter()
     free_card()
     free, total = torch.cuda.mem_get_info()
@@ -5813,20 +5831,36 @@ def run_remat():
           f"process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB, the "
           f"card has {free / 1e9:.2f} of {total / 1e9:.2f} GB free",
           flush=True)
-    res = subprocess.run(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "--remat"],
-        capture_output=True, text=True, timeout=REMAT_TIMEOUT_S)
-    lines = res.stdout.splitlines()
-    first = next((i for i, ln in enumerate(lines)
-                  if ln.startswith("[phase 24")), 0)
-    for line in lines[first:]:
-        print(line, flush=True)
-    check(res.returncode == 0 and any(ln.startswith("  phase 24: ")
-                                      for ln in lines),
-          f"phase 24: the child exited {res.returncode}: "
-          f"{res.stderr[-3000:]}")
-    print(f"  phase 24 with its process: {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    with tempfile.TemporaryFile("w+") as err:
+        t_launch = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--remat"],
+            stdout=subprocess.PIPE, stderr=err, text=True)
+        watchdog = threading.Timer(REMAT_TIMEOUT_S, proc.kill)
+        watchdog.start()
+        lines, stamps, echo = [], [], False
+        for line in proc.stdout:
+            stamps.append(time.perf_counter())
+            lines.append(line.rstrip("\n"))
+            echo = echo or line.startswith("[phase 24")
+            if echo:
+                print(lines[-1], flush=True)
+        rc = proc.wait()
+        t_exit = time.perf_counter()
+        watchdog.cancel()
+        err.seek(0)
+        tail = err.read()[-3000:]
+    at = lambda prefix: next(  # noqa: E731
+        (t for ln, t in zip(lines, stamps) if ln.startswith(prefix)), None)
+    t_first, t_end = at("[phase 24(a)"), at("  phase 24: ")
+    check(rc == 0 and t_end is not None,
+          f"phase 24: the child exited {rc}: {tail}")
+    print(f"  phase 24 with its process: {t_exit - t0:.1f} s (this "
+          f"process's free_card {t_launch - t0:.1f} s; the child's start to "
+          f"its first line {stamps[0] - t_launch:.1f} s, to phase 24's "
+          f"first {t_first - stamps[0]:.1f} s, phase 24 "
+          f"{t_end - t_first:.1f} s, its last line to the child's exit "
+          f"{t_exit - t_end:.1f} s)", flush=True)
 
 
 def update_times():
