@@ -3,8 +3,9 @@
 scoring into the rerank, the fused scoring top-c, the paper's
 experiments, the continuous-batching router, session-aware incremental
 rerank, the candidate-sharded rerank, stream and router, the LM and
-GNN model families with the LM-embedded rerank, training, and DeepFM
-and an MoE layer on a (data x model) mesh of ranks.
+GNN model families with the LM-embedded rerank, training, DeepFM
+and an MoE layer on a (data x model) mesh of ranks, remat, and the
+dry-run cells on a fake world of the production meshes.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --resident-times   # K1, K2 alone (resident_times)
@@ -13,15 +14,18 @@ and an MoE layer on a (data x model) mesh of ranks.
     python3 chip_smoke.py --training         # phase 22 alone (run_training)
     python3 chip_smoke.py --mesh             # phase 23 alone (run_mesh)
     python3 chip_smoke.py --remat            # phase 24 alone (remat_phase)
+    python3 chip_smoke.py --dryrun           # phase 25 alone (dryrun_phase)
     python3 chip_smoke.py --fm-times [PARENT]  # K8 alone (fm_times)
 
 (Phase 12 runs ``chip_smoke.py --topk-device-times STATE`` as a child
 process for K7's and K8's profiler times: ``topk_device_times``; phase
 23 runs its ranks as ``chip_smoke.py --mesh-rank R WORK``:
-``mesh_rank``; phase 24 runs as ``chip_smoke.py --remat``.)
+``mesh_rank``; phase 24 runs as ``chip_smoke.py --remat``; phase 25 as
+``chip_smoke.py --dryrun``, which runs its fake worlds as
+``chip_smoke.py --dryrun-fake DEVICE OUT``: ``dryrun_fake``.)
 
 Builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a),
-then runs twenty-four phases through the port's entry points.  Phases 1-9
+then runs twenty-five phases through the port's entry points.  Phases 1-9
 (``repro_torch.serving.Reranker(..., use_kernel=True).rerank`` and
 ``.stream``, ``repro_torch.core.greedy_map_chunks`` and
 ``greedy_chunk_slots``) run at the paper's §5.1 setup: D = 100
@@ -435,6 +439,31 @@ its 80 GB and peak memory are its own; 30 s aim; TF32 off):
                       backward's peak at S = 4096 with block remat and
                       with block plus chunk remat, the two gradients bit
                       for bit.  It launches no hand-written kernel.
+
+Phase 25 runs the dry run, last (``run_dryrun``: ``chip_smoke.py
+--dryrun`` in a child process; 45 s aim):
+
+25. dryrun:           (a) deepfm serve_p99 and retrieval_cand, qwen1.5-4b
+                      decode_32k and olmoe-1b-7b prefill_32k on the pod
+                      mesh and deepfm serve_p99 on the multipod, each
+                      through ``launch.dryrun.dry_run`` on a fake world of
+                      512 ranks, in two children at once: fake CUDA
+                      tensors (that process's peak card memory must stay
+                      0) and fake CPU tensors; every record ok, static
+                      bytes (by ``repro``'s rule and the local blocks'
+                      own) and FLOPs equal between the two, the
+                      collective tables side by side; (b) deepfm
+                      retrieval_cand at (1, 1) with real tensors at its
+                      published width (1,000,448 padded candidates): the
+                      placed bytes and ``FlopCounterMode``'s FLOPs equal
+                      to the fake (1, 1) cell's, K8 launched once and held
+                      against its plain version on the step's own
+                      embeddings, the slate equal to the same step with
+                      K8's plain version; (c) qwen1.5-4b prefill at (1, 1)
+                      at its published width cut to two layers, B = 1, S =
+                      1024 (prefill_32k's 32 x 32,768 cut): the same bytes
+                      and FLOPs checks, the logits against the plain
+                      prefill of the same weights.
 
 Each phase resets the kernels' launch counters right before the main-path
 call (phases 16 and 17's ranks in their own processes), reads them right after,
@@ -5863,6 +5892,347 @@ def run_remat():
           f"{t_exit - t_end:.1f} s)", flush=True)
 
 
+DRYRUN_AIM_S = 45.0
+DRYRUN_TIMEOUT_S = 600
+# (a): cells on the production meshes, fake CUDA tensors in one process
+DRYRUN_CELLS = (("deepfm", "serve_p99", "pod"),
+                ("deepfm", "retrieval_cand", "pod"),
+                ("qwen1.5-4b", "decode_32k", "pod"),
+                ("olmoe-1b-7b", "prefill_32k", "pod"),
+                ("deepfm", "serve_p99", "multipod"))
+DRYRUN_FAKE = {"card": "cuda", "host": "cpu"}  # (a)'s two fake worlds
+DRYRUN_LM = "qwen1.5-4b"  # (c): the published width, cut to two layers
+DRYRUN_LM_LAYERS, DRYRUN_LM_B, DRYRUN_LM_S = 2, 1, 1024
+
+
+def dryrun_one_cells():
+    """(b) and (c)'s cells at (1, 1): deepfm ``retrieval_cand`` at its
+    published config; qwen1.5-4b ``prefill_32k`` at its published width
+    cut to two layers, B = 1 and S = 1024 (of 32 x 32,768)."""
+    from repro_torch.configs import get_arch
+
+    fm = get_arch("deepfm")
+    lm = get_arch(DRYRUN_LM)
+    lm = dataclasses.replace(lm, config=dataclasses.replace(
+        lm.config, n_layers=DRYRUN_LM_LAYERS))
+    return {"b": (fm, fm.shapes["retrieval_cand"]),
+            "c": (lm, dataclasses.replace(
+                lm.shapes["prefill_32k"], global_batch=DRYRUN_LM_B,
+                seq_len=DRYRUN_LM_S))}
+
+
+def dryrun_fake(device, out_path):
+    """``--dryrun-fake DEVICE OUT``: phase 25(a)'s cells, and (b) and (c)'s
+    at (1, 1), traced with fake tensors on ``device`` in one fake world of
+    512 ranks (this process holds no real group); the records and this
+    process's peak card memory into ``OUT``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hostdev import fake_world
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+
+    t0 = time.perf_counter()
+    peaks = []  # (after what, the card's peak bytes so far)
+
+    def peak(label):
+        if device == "cuda":
+            peaks.append((label, torch.cuda.max_memory_allocated()))
+
+    context_bytes = None
+    if device == "cuda":
+        # torch's FakeTensor makes one real 4-byte tensor the first time a
+        # fake tensor names a CUDA device (``fake_tensor.init_gpu_context``:
+        # its CUDA context for a later backward), once a device name; make
+        # those first, then hold the cells to a peak of 0
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        with FakeTensorMode():
+            for name in ("cuda", torch.device("cuda"), "cuda:0",
+                         torch.device("cuda", 0)):
+                torch.empty(1, device=name)
+            torch.empty(1).to("cuda")
+        context_bytes = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    fake_world(512)
+    peak("fake_world")
+    out = {"cells": {}, "one": {}}
+    for arch_id, shape_name, mesh_name in DRYRUN_CELLS:
+        arch = get_arch(arch_id)
+        mesh = make_production_mesh(multi_pod=mesh_name == "multipod",
+                                    device=device)
+        peak(f"{mesh_name} mesh")
+        rec, _ = dryrun.dry_run(arch, arch.shapes[shape_name], mesh,
+                                mesh_name)
+        out["cells"][f"{arch_id} {shape_name} {mesh_name}"] = rec
+        peak(f"{arch_id} {shape_name} {mesh_name}")
+    one = make_host_mesh(1, 1, device=device)
+    peak("(1, 1) mesh")
+    for part, (arch, shape) in dryrun_one_cells().items():
+        rec, _ = dryrun.dry_run(arch, shape, one, "(1, 1)")
+        out["one"][part] = rec
+        peak(part)
+    out["peaks"] = peaks
+    out["context_bytes"] = context_bytes
+    out["max_memory_allocated"] = (torch.cuda.max_memory_allocated()
+                                   if device == "cuda" else None)
+    out["seconds"] = time.perf_counter() - t0
+    Path(out_path).write_text(json.dumps(out))
+
+
+def dryrun_real(part, work):
+    """(b) or (c) at (1, 1) with real tensors on the card through
+    ``dryrun.dry_run``: ``(record, trace result, cell inputs)``."""
+    from repro_torch.data import recsys_batches
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import recsys
+    from repro_torch.models import transformer as tfm
+
+    arch, shape = dryrun_one_cells()[part]
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    if part == "b":
+        model = recsys.init_params(gen, arch.config)
+        Mc = shape.n_candidates
+        user = torch.as_tensor(next(recsys_batches(
+            arch.config.vocab_sizes, 1, seed=1))["ids"], device="cuda")
+        cand = torch.zeros(-(-Mc // 512) * 512, dtype=torch.int32,
+                           device="cuda")  # phase 11's ids, padded with 0
+        cand[:Mc] = torch.arange(Mc, dtype=torch.int32, device="cuda")
+        batch = {"user_ids": user, "cand_ids": cand}
+    else:
+        model = tfm.init_params(gen, arch.config)
+        batch = {"tokens": torch.randint(
+            0, arch.config.vocab, (shape.global_batch, shape.seq_len),
+            generator=gen, device="cuda", dtype=torch.int32)}
+    inputs = {"model_whole": {k: v.detach().clone() for k, v in
+                              model.state_dict().items()} if part == "c"
+              else None, "batch": {k: v.clone() for k, v in batch.items()}}
+    mesh = make_host_mesh(1, 1, device="cuda")
+    rec, res = dryrun.dry_run(arch, shape, mesh, "(1, 1)", params=model,
+                              batch=batch)
+    return rec, res, inputs, model
+
+
+def dryrun_phase():
+    """``--dryrun``, phase 25 (aim 45 s): the dry-run cells
+    (``repro_torch.launch.dryrun``) in a process of its own.  (a) two
+    children, at once, trace phase 25's cells on a fake world of 512
+    ranks, one with fake CUDA tensors and one with fake CPU tensors: every
+    record ``ok``, the CUDA child's peak card memory 0, static bytes and
+    FLOPs equal between them, their collective tables side by side.
+    Meanwhile, on a one-rank NCCL group, (b) deepfm ``retrieval_cand`` and
+    (c) qwen1.5-4b prefill at (1, 1) with real tensors: placed bytes and
+    FLOPs equal to the fake (1, 1) records; in (b) K8 launches once, held
+    against its plain version on the step's own embeddings, and the slate
+    against the same step with K8's plain version."""
+    from repro_torch.distributed import init_group
+    from repro_torch.figures.common import device_name
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.fm_interaction import (
+        fm_interaction,
+        fm_interaction_ref,
+    )
+    from repro_torch.models import recsys
+    from repro_torch.models import transformer as tfm
+
+    t0 = time.perf_counter()
+    smi = device_name(torch.device("cuda"))
+    work = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    print(f"[phase 25(a) dryrun] {len(DRYRUN_CELLS)} cells on the "
+          f"production meshes ({', '.join(' '.join(c) for c in DRYRUN_CELLS)})"
+          f" traced on a fake world of 512 ranks, fake CUDA tensors and fake "
+          f"CPU tensors in two child processes at once; {smi}", flush=True)
+    children = {run: subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-fake", dev,
+         str(work / f"{run}.json")], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for run, dev in DRYRUN_FAKE.items()}
+    try:
+        init_group("nccl", 0, 1, work / "rdv",
+                   device=torch.device("cuda", torch.cuda.current_device()))
+        real = {}
+        for part in ("b", "c"):
+            torch.cuda.synchronize()
+            t_part = time.perf_counter()
+            captured = []
+            fm0 = recsys.fm_interaction
+
+            def capture(emb):
+                captured.append(emb.detach())
+                return fm0(emb)
+
+            cuda.reset_launch_counts()
+            with patched(recsys, "fm_interaction", capture):
+                rec, res, inputs, model = dryrun_real(part, work)
+            torch.cuda.synchronize()
+            launches = cuda.launch_counts()
+            real[part] = {"rec": rec, "res": res, "inputs": inputs,
+                          "model": model, "launches": launches,
+                          "emb": captured,
+                          "s": time.perf_counter() - t_part}
+        # (b): K8 against its plain version on the step's embeddings; the
+        # slate against the step with K8's plain version
+        b = real["b"]
+        check(b["launches"] == {"fm_interaction": 1},
+              f"phase 25(b): launches {b['launches']} in the step (K8 once)")
+        check(len(b["emb"]) == 1, "phase 25(b): the FM term ran "
+              f"{len(b['emb'])} times")
+        emb = b["emb"][0]
+        got, want = fm_interaction(emb), fm_interaction_ref(emb)
+        k8_err = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=FM_RTOL, atol=FM_ATOL),
+              f"phase 25(b): K8 at {tuple(emb.shape)} differs from its "
+              f"plain version by {k8_err:.3g}")
+        slate, d_hist = b["res"]["out"]
+        with patched(recsys, "fm_interaction", fm_interaction_ref):
+            _, res_p, _, _ = dryrun_real("b", work)
+        p_slate, p_hist = res_p["out"]
+        check(torch.equal(slate.cpu(), p_slate.cpu()),
+              "phase 25(b): the slate differs from the step with K8's "
+              "plain version")
+        check(torch.allclose(d_hist, p_hist, rtol=RTOL, atol=ATOL),
+              "phase 25(b): d_hist differs from the step with K8's plain "
+              "version")
+        n_sel = int((slate >= 0).sum())
+        # (c): the logits against the plain (no-DTensor) prefill of the
+        # same weights
+        c = real["c"]
+        arch_c, shape_c = dryrun_one_cells()["c"]
+        whole = tfm.Transformer(arch_c.config, device="cuda")
+        whole.load_state_dict(c["inputs"]["model_whole"])
+        with torch.no_grad():
+            ref_logits, _ = tfm.prefill(whole, c["inputs"]["batch"]["tokens"],
+                                        arch_c.config,
+                                        max_seq=shape_c.seq_len)
+        logits = c["res"]["out"][0].to_local()
+        lm_err = float((logits - ref_logits).abs().max())
+        check(torch.isfinite(logits).all() and torch.allclose(
+            logits, ref_logits, rtol=1e-5, atol=1e-5),
+              f"phase 25(c): the (1, 1) prefill's logits differ from the "
+              f"plain prefill by {lm_err:.3g}")
+        del whole, ref_logits
+    finally:
+        outs = {run: p.communicate(timeout=DRYRUN_TIMEOUT_S)
+                for run, p in children.items()}
+    for run, p in children.items():
+        check(p.returncode == 0, f"phase 25(a): the fake {run} child exited "
+              f"{p.returncode}: {outs[run][1][-3000:]}")
+    fake = {run: json.loads((work / f"{run}.json").read_text())
+            for run in children}
+    check(fake["card"]["max_memory_allocated"] == 0,
+          f"phase 25(a): the fake CUDA process allocated "
+          f"{fake['card']['max_memory_allocated']} bytes on the card "
+          f"(peak after each step: {fake['card']['peaks']})")
+    print(f"  phase 25(a): the fake CUDA process's peak card memory over "
+          f"the cells 0 bytes (torch's fake-tensor context, made first: "
+          f"{fake['card']['context_bytes']} bytes, then the peak reset)",
+          flush=True)
+    for key in fake["card"]["cells"]:
+        rc, rp = fake["card"]["cells"][key], fake["host"]["cells"][key]
+        check(rc["status"] == "ok" and rp["status"] == "ok",
+              f"phase 25(a) {key}: {rc['status']}, {rp['status']}")
+        mc, mp = rc["memory_stats"], rp["memory_stats"]
+        check(mc["static_args_per_chip_bytes"] ==
+              mc["static_args_held_bytes"] ==
+              mp["static_args_per_chip_bytes"],
+              f"phase 25(a) {key}: static bytes {mc} on cuda, {mp} on cpu")
+        check(rc["flop_counter_per_rank"] == rp["flop_counter_per_rank"],
+              f"phase 25(a) {key}: FLOPs {rc['flop_counter_per_rank']} on "
+              f"cuda, {rp['flop_counter_per_rank']} on cpu")
+        check(rc["real_tensors_seen"] == 0 and rp["real_tensors_seen"] == 0,
+              f"phase 25(a) {key}: a real tensor met")
+        print(f"  phase 25(a) {key}: ok; {rc['chips']} ranks; "
+              f"{mc['static_args_per_chip_bytes']} static bytes a rank "
+              f"(fits 80 GB: {mc['fits_80gb_h100_args']}); "
+              f"{rc['flop_counter_per_rank']} FLOPs a rank against "
+              f"{rc['model_flops']:.6g} model FLOPs (useful ratio "
+              f"{rc['useful_flops_ratio']:.4f}); collectives (count, bytes "
+              f"a rank) on cuda {json.dumps(rc['coll_op_counts'])} "
+              f"{json.dumps(per_rank(rc))} | on cpu "
+              f"{json.dumps(rp['coll_op_counts'])} "
+              f"{json.dumps(per_rank(rp))}; trace "
+              f"{rc['trace_s']:.2f} s (cuda), {rp['trace_s']:.2f} s (cpu)",
+              flush=True)
+    for part in ("b", "c"):
+        r, f_ = real[part]["rec"], fake["card"]["one"][part]
+        check(r["memory_stats"]["static_args_held_bytes"] ==
+              f_["memory_stats"]["static_args_per_chip_bytes"],
+              f"phase 25({part}): placed bytes "
+              f"{r['memory_stats']['static_args_held_bytes']} against the "
+              f"dry run's {f_['memory_stats']['static_args_per_chip_bytes']}")
+        check(r["flop_counter_per_rank"] == f_["flop_counter_per_rank"],
+              f"phase 25({part}): FLOPs {r['flop_counter_per_rank']} against "
+              f"the dry run's {f_['flop_counter_per_rank']}")
+        check(r["coll_op_counts"] == {} and f_["coll_op_counts"] == {},
+              f"phase 25({part}): collectives at (1, 1)")
+    b_arch, b_shape = dryrun_one_cells()["b"]
+    nparam = sum(p.numel() for p in real["b"]["model"].parameters())
+    print(f"[phase 25(b) dryrun real] deepfm retrieval_cand at (1, 1): "
+          f"{nparam} parameters, {b_shape.n_candidates} candidates padded "
+          f"to {-(-b_shape.n_candidates // 512) * 512}; placed bytes "
+          f"{real['b']['rec']['memory_stats']['static_args_held_bytes']} = "
+          f"the dry run's; FLOPs {real['b']['rec']['flop_counter_per_rank']}"
+          f" = the dry run's; K8 launched once, within rtol {FM_RTOL} / atol "
+          f"{FM_ATOL} of fm_interaction_ref on the step's emb "
+          f"{tuple(emb.shape)} (max abs {k8_err:.3g}); slate ({n_sel} of "
+          f"{slate.numel()} selected) equal to the step with K8's plain "
+          f"version; step {real['b']['s']:.2f} s with the model's draw; "
+          f"{smi}", flush=True)
+    c_arch, c_shape = dryrun_one_cells()["c"]
+    print(f"[phase 25(c) dryrun real] {DRYRUN_LM} prefill at (1, 1), its "
+          f"published width cut to {DRYRUN_LM_LAYERS} layers (of "
+          f"{get_arch_layers(DRYRUN_LM)}), B = {c_shape.global_batch}, S = "
+          f"{c_shape.seq_len} (prefill_32k's 32 x 32,768 cut); placed bytes "
+          f"{real['c']['rec']['memory_stats']['static_args_held_bytes']} = "
+          f"the dry run's; FLOPs {real['c']['rec']['flop_counter_per_rank']}"
+          f" = the dry run's; logits within rtol 1e-5 / atol 1e-5 of the "
+          f"plain prefill (max abs {lm_err:.3g}); {smi}", flush=True)
+    took = time.perf_counter() - t0
+    print(f"  phase 25: {took:.1f} s (the fake children "
+          f"{fake['card']['seconds']:.1f} s on cuda, "
+          f"{fake['host']['seconds']:.1f} s on cpu, after start-up; (b) "
+          f"{real['b']['s']:.1f} s, (c) {real['c']['s']:.1f} s; aim "
+          f"{DRYRUN_AIM_S:.0f} s); {smi}", flush=True)
+    print("dryrun_k8 " + json.dumps({"launches": 1, "max_abs_err": k8_err}),
+          flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def per_rank(rec):
+    """A dry-run record's collective bytes by kind, a rank's."""
+    return {k: v // rec["chips"] for k, v in rec["coll_by_kind"].items()}
+
+
+def get_arch_layers(arch_id):
+    from repro_torch.configs import get_arch
+
+    return get_arch(arch_id).config.n_layers
+
+
+def run_dryrun(records):
+    """Phase 25: ``chip_smoke.py --dryrun`` in a child process, its lines
+    echoed; fails when the child does.  K8's launch in (b) and its error
+    go into K8's record."""
+    t0 = time.perf_counter()
+    free_card()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--dryrun"], capture_output=True, text=True,
+                          timeout=DRYRUN_TIMEOUT_S)
+    k8 = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("[phase 25") or line.startswith("  phase 25"):
+            print(line, flush=True)
+        if line.startswith("dryrun_k8 "):
+            k8 = json.loads(line[len("dryrun_k8 "):])
+    check(proc.returncode == 0 and k8 is not None,
+          f"phase 25: the child exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    rec = records["fm_interaction"]
+    rec["launches"] += k8["launches"]
+    rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), k8["max_abs_err"])
+    print(f"  phase 25 with its process: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def update_times():
     """``--update-times``: the shard-local update entries alone at 16(c)'s
     shape (B = 4, D = 100, C = 65,536 of a 10^6 pool with a 10% seen
@@ -5960,7 +6330,7 @@ def resident_times():
 
 
 def run_phases(records, rng, refs):
-    """Phases 1-24 in order, each adding to ``records``; ``refs`` carries
+    """Phases 1-25 in order, each adding to ``records``; ``refs`` carries
     phases 16, 17 and 19's requests and references (its ``work`` directory
     holds the requests' files)."""
     t0 = time.perf_counter()
@@ -5998,6 +6368,7 @@ def run_phases(records, rng, refs):
     run_training(records, refs["work"])
     run_mesh(records, refs["work"])
     run_remat()
+    run_dryrun(records)
     print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -6036,6 +6407,9 @@ def run_main(work: Path) -> int:
     if sys.argv[1:] == ["--remat"]:  # runs no kernel: nothing to build
         remat_phase()
         return 0
+    if sys.argv[1:2] == ["--dryrun-fake"]:  # launches nothing
+        dryrun_fake(sys.argv[2], sys.argv[3])
+        return 0
     build_s = cuda.build_all()
     print(f"kernel build: {build_s:.1f} s (nvcc, sm_90a, one process per "
           f"source)", flush=True)
@@ -6067,6 +6441,9 @@ def run_main(work: Path) -> int:
         return 0
     if sys.argv[1:] == ["--models"]:
         run_models({"dpp_greedy_resident": {"launches": 0}})
+        return 0
+    if sys.argv[1:] == ["--dryrun"]:
+        dryrun_phase()
         return 0
     if sys.argv[1:] == ["--training"]:
         records = {"fm_interaction": {"launches": 0}}

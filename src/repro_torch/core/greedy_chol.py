@@ -25,6 +25,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.device import constant
+
 NEG_INF = float("-inf")
 
 
@@ -48,7 +50,7 @@ class GreedyResult(NamedTuple):
 
 def lane_steps(t, B: int, device) -> torch.Tensor:
     """A step index — an int or per-lane counters — as ``(B,)`` int64."""
-    return torch.as_tensor(t, device=device).to(torch.int64).expand(B)
+    return constant(t, device=device).to(torch.int64).expand(B)
 
 
 def greedy_step_exact(row_fn, t, c, d2, stopped, eps2):
@@ -76,7 +78,7 @@ def greedy_step_exact(row_fn, t, c, d2, stopped, eps2):
     e = torch.where(stopped[:, None], 0.0, e)
     c[ar, :, col] = torch.where(stopped[:, None], c[ar, :, col], e)
     d2_next = d2 - e * e
-    d2_next[ar, j] = NEG_INF  # remove j from candidates
+    d2_next[ar, j] = constant(NEG_INF, d2.dtype, d2.device)  # remove j
     d2 = torch.where(stopped[:, None], d2, d2_next)
     return c, d2, stopped, j, dj
 
@@ -96,7 +98,7 @@ def _greedy_loop(
     """
     B, M = diag.shape
     dtype, dev = diag.dtype, diag.device
-    eps2 = torch.tensor(eps, dtype=dtype, device=dev) ** 2
+    eps2 = constant(eps, dtype=dtype, device=dev) ** 2
 
     d2 = torch.where(mask, diag, NEG_INF)
     c = torch.zeros((B, M, k), dtype=dtype, device=dev)

@@ -18,10 +18,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import constant
+
 
 def map_relevance(r: torch.Tensor, alpha) -> torch.Tensor:
     """Paper eq. (21): m(r_i) = alpha ** r_i, computed in log space."""
-    alpha = torch.as_tensor(alpha, dtype=r.dtype, device=r.device)
+    alpha = constant(alpha, dtype=r.dtype, device=r.device)
     return torch.exp(r * torch.log(alpha))
 
 

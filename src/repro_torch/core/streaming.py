@@ -68,7 +68,7 @@ from repro_torch.core.sharded import (
     dpp_greedy_sharded_stream_init,
 )
 from repro_torch.core.windowed import greedy_step_windowed, window_solve
-from repro_torch.device import resolve_device, same_device
+from repro_torch.device import constant, resolve_device, same_device
 from repro_torch.distributed.context import shard_bounds
 from repro_torch.obs.dispatch import (
     record_chunk,
@@ -168,8 +168,8 @@ def _chunk_body(row_fn, state: GreedyState, chunk: int, eps: float):
     C, d2, win, stopped = state.C, state.d2, state.win, state.stopped
     B = d2.shape[0]
     dtype, dev = d2.dtype, d2.device
-    eps2 = torch.tensor(eps, dtype=dtype, device=dev) ** 2
-    tiny = torch.tensor(1e-30, dtype=dtype, device=dev)
+    eps2 = constant(eps, dtype=dtype, device=dev) ** 2
+    tiny = constant(1e-30, dtype=dtype, device=dev)
     t = lane_steps(state.t, B, dev)
     windowed = win.shape[-1] > 0
     sel = torch.full((B, chunk), -1, dtype=torch.int32, device=dev)

@@ -29,6 +29,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import constant
+
 from repro_torch.core.greedy_chol import (
     NEG_INF,
     GreedyResult,
@@ -118,8 +120,8 @@ def _windowed_loop(diag, row_fn, k: int, window: int, eps: float, mask):
     B, M = diag.shape
     w = min(window, k)
     dtype, dev = diag.dtype, diag.device
-    eps2 = torch.tensor(eps, dtype=dtype, device=dev) ** 2
-    tiny = torch.tensor(1e-30, dtype=dtype, device=dev)
+    eps2 = constant(eps, dtype=dtype, device=dev) ** 2
+    tiny = constant(1e-30, dtype=dtype, device=dev)
 
     d2 = torch.where(mask, diag, NEG_INF)
     C = torch.zeros((B, w, M), dtype=dtype, device=dev)
@@ -251,7 +253,7 @@ def dpp_greedy_windowed_rebuild(
     M = L.shape[0]
     w = min(window, k)
     dtype, dev = L.dtype, L.device
-    eps2 = torch.tensor(eps, dtype=dtype, device=dev) ** 2
+    eps2 = constant(eps, dtype=dtype, device=dev) ** 2
     if mask is None:
         mask = torch.ones((M,), dtype=torch.bool, device=dev)
     diag = torch.diagonal(L)

@@ -37,6 +37,24 @@ def to_device(x, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), device=device, dtype=dtype)
 
 
+def constant(x, dtype=None, device=None) -> torch.Tensor:
+    """A constant (a number, a numpy array or a tensor) as a tensor on
+    ``device``.  A number is made there by a factory (``torch.full``), an
+    array on the host and then moved.  Under ``FakeTensorMode`` (the dry
+    run) neither allocates on the card: a tensor made from data is a
+    constant the mode computes with for real where it holds one element,
+    on the device it names (``torch.tensor(x, device="cuda")`` would)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    if isinstance(x, (bool, int, float)):
+        return torch.full((), x, dtype=dtype, device=device)
+    a = np.asarray(x)
+    if a.size == 1:
+        dt = dtype or torch.from_numpy(np.empty(0, a.dtype)).dtype
+        return torch.full(a.shape, a.item(), dtype=dt, device=device)
+    return torch.as_tensor(a, dtype=dtype).to(device)
+
+
 def same_device(a: torch.device, b: torch.device) -> bool:
     """Whether ``a`` and ``b`` name one device (a CUDA device without an
     index is the current card)."""

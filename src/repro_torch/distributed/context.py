@@ -23,8 +23,11 @@ user each step:
   all-reduce of a vector that every rank but its owner zeroed.
 
 Backends are ``nccl`` and ``gloo``, named by the caller and never
-swapped on error.  gloo's all-gather does not take CUDA tensors, so
-under gloo every collective of a CUDA mesh stages its few values
+swapped on error, and ``fake`` (``torch.testing``'s fake process group:
+every collective returns at once, so one process stands for a rank of
+a production world, ``repro_torch.launch.hostdev.fake_world``).  gloo's
+all-gather does not take CUDA tensors, so under gloo every collective
+of a CUDA mesh stages its few values
 through host tensors on purpose (which also synchronises the device);
 NCCL keeps them on the card.  Several gloo ranks may share one card;
 NCCL refuses two ranks of one communicator on one GPU.
@@ -51,7 +54,19 @@ activations are whole at every model-level boundary: a body that
 ``repro`` runs under ``shard_map`` takes its rank's slice of them on
 entry and all-gathers its output on exit (:func:`gather_block`).  A
 spec is a plain tuple, one entry a dimension: None (whole), an axis
-name, or a tuple of axis names in mesh order.
+name, or a tuple of axis names in mesh order.  A mesh may carry a
+leading ``"pod"`` axis, so that ``multi_pod_rules``' ``("pod",
+"data")`` resolve.
+
+On DTensors (``torch.distributed.tensor``, the dry run's placements over
+a ``DeviceMesh``, ``repro_torch.launch``) :func:`constrain` redistributes
+to the resolved spec, as ``with_sharding_constraint`` reshards, and
+:func:`place` places a tensor the code makes itself (a cache buffer);
+a mesh axis that does not divide its dimension is dropped, the
+partitioner's choice written down by :func:`note`.  A ``ModelMesh``
+built over a ``DeviceMesh`` (:func:`model_mesh_from_device_mesh`) uses
+its process groups, so the bodies that ``local_map`` enters see the
+same groups as the DTensors around them.
 """
 from __future__ import annotations
 
@@ -59,6 +74,8 @@ import contextlib
 import contextvars
 import dataclasses
 import datetime
+import functools
+import itertools
 import os
 import subprocess
 import sys
@@ -72,7 +89,7 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
-BACKENDS = ("nccl", "gloo")
+BACKENDS = ("nccl", "gloo", "fake")
 DEFAULT_TIMEOUT_S = 120.0
 
 
@@ -184,8 +201,9 @@ def _staged(mesh, x: torch.Tensor) -> torch.Tensor:
 
 
 def _gather(group, n: int, backend: str, y: torch.Tensor) -> torch.Tensor:
-    # gloo has no all-gather into one tensor
-    if backend == "nccl":
+    # gloo has no all-gather into one tensor; a fake group stands for
+    # nccl on the card and for gloo on the CPU
+    if backend == "nccl" or (backend == "fake" and y.is_cuda):
         out = torch.empty((n,) + tuple(y.shape), dtype=y.dtype,
                           device=y.device)
         dist.all_gather_into_tensor(out, y, group=group)
@@ -250,6 +268,7 @@ def bcast_from_owner(mesh: CandidateMesh, z: torch.Tensor,
 
 AxisVal = Union[None, str, Sequence[str]]
 MESH_AXES = ("data", "model")
+POD_MESH_AXES = ("pod",) + MESH_AXES
 
 
 # ``repro``'s rule tables (its DESIGN.md §4), copied: "dp" is the pure-data
@@ -320,15 +339,18 @@ def recsys_a2a_rules(multi_pod: bool) -> Mapping[str, AxisVal]:
 
 @dataclasses.dataclass(eq=False)
 class ModelMesh:
-    """One rank's view of a 2-D ``("data", "model")`` mesh of ranks.
+    """One rank's view of a 2-D ``("data", "model")`` mesh of ranks, or
+    with ``pods > 1`` a 3-D ``("pod", "data", "model")`` one.
 
     ``ranks`` holds the mesh's global ranks row by row (the data index,
-    then the model index), ascending, so the ranks of any group in rank
-    order are its axis order, row-major over a tuple of axes, as
-    ``jax.lax.axis_index`` numbers them.  ``groups`` maps the ranks of
-    each group this rank belongs to (a data row is the ``"model"`` axis,
-    a model column the ``"data"`` axis, and the whole mesh) to its
-    process group.  A collective over axes of size 1 returns its input
+    then the model index; on a 3-D mesh the rows run pod by pod),
+    ascending, so the ranks of any group in rank order are its axis
+    order, row-major over a tuple of axes, as ``jax.lax.axis_index``
+    numbers them.  ``groups`` maps the ranks of each group this rank
+    belongs to (a data row is the ``"model"`` axis, a model column the
+    ``"data"`` axis, and the whole mesh) to its process group; a mesh
+    over a ``DeviceMesh`` (``device_mesh``) takes every group from it
+    when first asked.  A collective over axes of size 1 returns its input
     and touches no group, so a (1, 1) mesh needs none.  ``collectives``
     and ``collective_bytes`` count the collectives this rank called over
     more than one rank and the bytes it put into them."""
@@ -340,29 +362,48 @@ class ModelMesh:
     groups: dict = dataclasses.field(default_factory=dict)
     collectives: int = 0
     collective_bytes: int = 0
+    pods: int = 1
+    device_mesh: object = None
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return POD_MESH_AXES if self.pods > 1 else MESH_AXES
 
     @property
     def shape(self) -> dict:
+        if self.pods > 1:
+            return {"pod": self.pods, "data": len(self.ranks) // self.pods,
+                    "model": len(self.ranks[0])}
         return {"data": len(self.ranks), "model": len(self.ranks[0])}
 
+    @functools.cached_property
+    def _coord_map(self) -> dict:
+        d = len(self.ranks) // self.pods
+        return {r: ((i // d, i % d, j) if self.pods > 1 else (i, j))
+                for i, row in enumerate(self.ranks)
+                for j, r in enumerate(row)}
+
+    def _coords_of(self, rank: int) -> Tuple[int, ...]:
+        if rank not in self._coord_map:
+            raise ValueError(f"rank {rank} is not in the mesh {self.ranks}")
+        return self._coord_map[rank]
+
     @property
-    def coords(self) -> Tuple[int, int]:
-        for i, row in enumerate(self.ranks):
-            if self.rank in row:
-                return i, row.index(self.rank)
-        raise ValueError(f"rank {self.rank} is not in the mesh {self.ranks}")
+    def coords(self) -> Tuple[int, ...]:
+        return self._coords_of(self.rank)
 
     def axes(self, axes: AxisVal) -> Tuple[str, ...]:
         """``axes`` (None, a name or names) as a tuple of mesh axes in
-        mesh order; an axis the mesh lacks (``"pod"``) raises, as a
-        ``NamedSharding`` over it would."""
+        mesh order; an axis the mesh lacks (``"pod"`` on a 2-D mesh)
+        raises, as a ``NamedSharding`` over it would."""
         axes = () if axes is None else (
             (axes,) if isinstance(axes, str) else tuple(axes))
+        names = self.axis_names
         for a in axes:
-            if a not in MESH_AXES:
-                raise ValueError(f"the mesh has axes {MESH_AXES}, not {a!r}")
-        if list(axes) != sorted(set(axes), key=MESH_AXES.index):
-            raise ValueError(f"axes {axes} out of mesh order {MESH_AXES}")
+            if a not in names:
+                raise ValueError(f"the mesh has axes {names}, not {a!r}")
+        if list(axes) != sorted(set(axes), key=names.index):
+            raise ValueError(f"axes {axes} out of mesh order {names}")
         return axes
 
     def axis_size(self, axes: AxisVal) -> int:
@@ -373,7 +414,7 @@ class ModelMesh:
 
     def axis_index(self, axes: AxisVal) -> int:
         """This rank's index along ``axes``, row-major over them."""
-        coords = dict(zip(MESH_AXES, self.coords))
+        coords = dict(zip(self.axis_names, self.coords))
         idx = 0
         for a in self.axes(axes):
             idx = idx * self.shape[a] + coords[a]
@@ -382,14 +423,21 @@ class ModelMesh:
     def group_ranks(self, axes: AxisVal) -> Tuple[int, ...]:
         """The ranks that share this rank's indices off ``axes``."""
         axes = self.axes(axes)
-        i, j = self.coords
+        keep = [a not in axes for a in self.axis_names]
+        mine = self.coords
         return tuple(
-            r for a, row in enumerate(self.ranks) for b, r in enumerate(row)
-            if ("data" in axes or a == i) and ("model" in axes or b == j))
+            r for row in self.ranks for r in row
+            if all(c == m for c, m, k in
+                   zip(self._coord_map[r], mine, keep) if k))
 
     def _group(self, axes: AxisVal):
         ranks = self.group_ranks(axes)
-        return (self.groups[ranks] if len(ranks) > 1 else None), len(ranks)
+        if len(ranks) <= 1:
+            return None, len(ranks)
+        if ranks not in self.groups and self.device_mesh is not None:
+            self.groups[ranks] = _device_mesh_group(self.device_mesh,
+                                                    self.axes(axes))
+        return self.groups[ranks], len(ranks)
 
     def _staged(self, x: torch.Tensor) -> torch.Tensor:
         self.collectives += 1
@@ -430,37 +478,85 @@ class ModelMesh:
         return _gather(group, n, self.backend, self._staged(x)).to(x.device)
 
 
-def _mesh_group_sets(ranks) -> List[Tuple[int, ...]]:
+def _device_mesh_group(dm, axes: Tuple[str, ...]):
+    """The process group of ``dm`` over ``axes`` (this rank's): the axis's
+    own group, or that of the axes flattened into one (made here, so
+    outside any fake mode: ``model_mesh_from_device_mesh`` makes them
+    all)."""
+    if len(axes) == 1:
+        return dm.get_group(axes[0])
+    return dm[axes]._flatten().get_group()
+
+
+def model_mesh_from_device_mesh(dm) -> ModelMesh:
+    """A :class:`ModelMesh` over the ranks of a ``DeviceMesh`` with axes
+    ``("data", "model")`` or ``("pod", "data", "model")``, whose
+    collectives run on ``dm``'s groups (made when first used) and whose
+    blocks live on ``dm``'s device type."""
+    names = tuple(dm.mesh_dim_names or ())
+    if names not in (MESH_AXES, POD_MESH_AXES):
+        raise ValueError(f"a model mesh needs axes {MESH_AXES} or "
+                         f"{POD_MESH_AXES}, got {names}")
+    backend = str(dist.get_backend())
+    if backend not in BACKENDS:
+        raise ValueError(f"unsupported backend {backend!r}; the mesh runs "
+                         f"on {BACKENDS}")
+    grid = dm.mesh.reshape(-1, dm.mesh.shape[-1]).tolist()
+    pods = dm.mesh.shape[0] if names == POD_MESH_AXES else 1
+    mesh = ModelMesh(tuple(tuple(int(r) for r in row) for row in grid),
+                     dist.get_rank(), torch.device(dm.device_type), backend,
+                     pods=pods, device_mesh=dm)
+    for n in range(1, len(names) + 1):
+        for axes in itertools.combinations(names, n):
+            mesh._group(axes)
+    return mesh
+
+
+def _mesh_group_sets(ranks, pods: int = 1) -> List[Tuple[int, ...]]:
     """Every group of a mesh in one fixed order (the whole mesh, each
-    data row, each model column), each rank set once, none of one rank."""
+    data row, each model column; on a 3-D mesh then every other set of
+    axes), each rank set once, none of one rank."""
     rows = [tuple(row) for row in ranks]
     cols = [tuple(row[j] for row in ranks) for j in range(len(ranks[0]))]
+    sets = [tuple(r for row in rows for r in row)] + rows + cols
+    if pods > 1:
+        view = ModelMesh(tuple(rows), rows[0][0], torch.device("cpu"),
+                         pods=pods)
+        for n in (1, 2):
+            for axes in itertools.combinations(POD_MESH_AXES, n):
+                for r in view._coord_map:
+                    view.rank = r
+                    sets.append(view.group_ranks(axes))
     out = []
-    for s in [tuple(r for row in rows for r in row)] + rows + cols:
+    for s in sets:
         if len(s) > 1 and s not in out:
             out.append(s)
     return out
 
 
-def make_model_mesh(shape: Tuple[int, int], ranks: Optional[Sequence[int]] =
+def make_model_mesh(shape: Tuple[int, ...], ranks: Optional[Sequence[int]] =
                     None, device=None) -> Optional[ModelMesh]:
-    """A :class:`ModelMesh` of ``shape = (data, model)`` over the default
-    group (``data * model`` must be its world size), or over ``ranks``,
-    a subset of it (:func:`repro_torch.distributed.elastic.
-    make_elastic_mesh`'s survivors), laid out row by row in ascending
-    order.  Over the whole group every rank makes every group in one
-    order; over a subset only its members take part (``new_group``'s
-    local synchronisation), and a rank outside it gets None.  Blocks
-    live on ``device`` (default the card)."""
+    """A :class:`ModelMesh` of ``shape = (data, model)`` or ``(pod, data,
+    model)`` over the default group (its ranks must be the world size),
+    or over ``ranks``, a subset of it (:func:`repro_torch.distributed.
+    elastic.make_elastic_mesh`'s survivors), laid out row by row in
+    ascending order.  Over the whole group every rank makes every group
+    in one order; over a subset only its members take part
+    (``new_group``'s local synchronisation), and a rank outside it gets
+    None.  Blocks live on ``device`` (default the card)."""
     if not dist.is_initialized():
         raise RuntimeError("make_model_mesh needs an initialised process "
                            "group (repro_torch.distributed.init_group)")
-    D, M = shape
+    if len(shape) not in (2, 3):
+        raise ValueError(f"a mesh shape is (data, model) or (pod, data, "
+                         f"model), got {shape}")
+    pods = shape[0] if len(shape) == 3 else 1
+    D, M = shape[-2:]
     world = dist.get_world_size()
     subset = ranks is not None
     ranks = sorted(range(world) if ranks is None else ranks)
-    if D * M != len(ranks) or (not subset and len(ranks) != world):
-        raise ValueError(f"a ({D}, {M}) mesh over {len(ranks)} ranks "
+    if pods * D * M != len(ranks) or (not subset and len(ranks) != world):
+        raise ValueError(f"a {tuple(shape)} mesh over {len(ranks)} ranks "
                          f"(world size {world})")
     backend = str(dist.get_backend())
     if backend not in BACKENDS:
@@ -471,10 +567,10 @@ def make_model_mesh(shape: Tuple[int, int], ranks: Optional[Sequence[int]] =
         dev = torch.device("cuda", torch.cuda.current_device())
     if backend == "nccl" and dev.type != "cuda":
         raise ValueError(f"an nccl mesh needs a CUDA device, got {dev}")
-    grid = tuple(tuple(ranks[i * M:(i + 1) * M]) for i in range(D))
+    grid = tuple(tuple(ranks[i * M:(i + 1) * M]) for i in range(pods * D))
     me = dist.get_rank()
     groups = {}
-    for s in _mesh_group_sets(grid):
+    for s in _mesh_group_sets(grid, pods):
         if subset and me not in s:
             continue
         g = dist.new_group(list(s), use_local_synchronization=subset)
@@ -482,13 +578,15 @@ def make_model_mesh(shape: Tuple[int, int], ranks: Optional[Sequence[int]] =
             groups[s] = g
     if me not in ranks:
         return None
-    return ModelMesh(grid, me, dev, backend, groups)
+    return ModelMesh(grid, me, dev, backend, groups, pods=pods)
 
 
 _RULES: contextvars.ContextVar = contextvars.ContextVar("axis_rules",
                                                         default=None)
 _MESH: contextvars.ContextVar = contextvars.ContextVar("model_mesh",
                                                        default=None)
+_NOTES: contextvars.ContextVar = contextvars.ContextVar("mesh_notes",
+                                                        default=None)
 
 
 @contextlib.contextmanager
@@ -536,9 +634,12 @@ def logical_to_spec(*names: Optional[str]) -> tuple:
 
 
 def constrain(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
-    """``repro``'s sharding hint: returns ``x``.  With rules the names
-    are resolved, and with a mesh checked against it, as
-    ``with_sharding_constraint`` checks them."""
+    """``repro``'s sharding hint.  With rules the names are resolved, and
+    with a mesh checked against it, as ``with_sharding_constraint``
+    checks them.  A plain tensor is returned as it is; a DTensor is
+    redistributed to the resolved spec (a mesh axis that does not divide
+    its dimension dropped, see :func:`fix_spec`), as
+    ``with_sharding_constraint`` reshards."""
     if _RULES.get() is None:
         return x
     if len(names) > x.dim():
@@ -549,7 +650,174 @@ def constrain(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
     if mesh is not None:
         for axes in spec:
             mesh.axes(axes)
+    if is_dtensor(x):
+        return _redistribute(x, spec, names)
     return x
+
+
+def place(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
+    """A tensor the code makes itself (every rank the same value, a cache
+    buffer) as a DTensor placed by ``names`` when the installed mesh
+    stands on a ``DeviceMesh``: each rank keeps its block, no collective.
+    Anywhere else ``x`` itself (a DTensor is constrained)."""
+    if is_dtensor(x):
+        return constrain(x, *names)
+    mesh = _MESH.get()
+    if (_RULES.get() is None or mesh is None
+            or getattr(mesh, "device_mesh", None) is None):
+        return x
+    dm = mesh.device_mesh
+    spec = _fixed(logical_to_spec(*names), x.shape, dm, names)
+    return as_dtensor(x, dm, spec_placements(spec, dm))
+
+
+def as_dtensor(x: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """``x`` (the whole tensor, the same on every rank) as a DTensor on the
+    ``DeviceMesh`` ``mesh`` under ``placements``: this rank keeps its block,
+    cut by ``narrow`` (the mesh axes that split one dimension in mesh
+    order, the first the outer split), with no collective.  The splits must
+    be even (``fix_spec`` keeps only dividing axes).  It cuts only this
+    rank's block, where ``distribute_tensor`` cuts every rank's."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    local, coord = x, mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            n = mesh.shape[i]
+            if local.shape[p.dim] % n:
+                raise ValueError(f"dimension {p.dim} of {tuple(x.shape)} "
+                                 f"does not split {n} ways")
+            size = local.shape[p.dim] // n
+            local = local.narrow(p.dim, coord[i] * size, size)
+    return DTensor.from_local(local.contiguous(), mesh, placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+@contextlib.contextmanager
+def collect_notes():
+    """Collect what :func:`note` writes inside (a list, each line once)."""
+    notes: List[str] = []
+    tok = _NOTES.set(notes)
+    try:
+        yield notes
+    finally:
+        _NOTES.reset(tok)
+
+
+def note(msg: str) -> None:
+    """Write down a layout choice (a resharding the partitioner makes) for
+    the :func:`collect_notes` around it; nothing outside one."""
+    notes = _NOTES.get()
+    if notes is not None and msg not in notes:
+        notes.append(msg)
+
+
+def _axes_of(entry: AxisVal) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def fix_spec(spec: Sequence[AxisVal], shape: Sequence[int],
+             sizes: Mapping[str, int]) -> tuple:
+    """``repro``'s ``_fix_spec``: each dimension keeps the longest prefix
+    of its mesh axes whose size product divides it (and is at most it);
+    ``sizes`` maps a mesh axis to its size."""
+    fixed = []
+    for i, entry in enumerate(spec):
+        if entry is None or i >= len(shape):
+            fixed.append(entry)
+            continue
+        axes = list(_axes_of(entry))
+        while axes:
+            prod = 1
+            for a in axes:
+                prod *= sizes[a]
+            if shape[i] % prod == 0 and shape[i] >= prod:
+                break
+            axes.pop()
+        fixed.append(None if not axes else
+                     (tuple(axes) if len(axes) != 1 else axes[0]))
+    return tuple(fixed)
+
+
+def spec_placements(spec: Sequence[AxisVal], mesh) -> list:
+    """DTensor placements on ``mesh`` (a ``DeviceMesh``), one a mesh axis,
+    of a spec: ``Shard(d)`` on every axis of more than one rank that
+    splits dimension ``d`` (axes of one dimension in mesh order, so the
+    first is the outer split, row-major as ``repro``'s), ``Replicate()``
+    elsewhere (an axis of one rank splits nothing)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        for a in _axes_of(entry):
+            i = names.index(a)
+            if mesh.shape[i] > 1:
+                out[i] = Shard(dim)
+    return out
+
+
+def _fixed(spec, shape, dm, names) -> tuple:
+    sizes = dict(zip(dm.mesh_dim_names, dm.shape))
+    fixed = fix_spec(spec, shape, sizes)
+    for dim, (want, got) in enumerate(zip(spec, fixed)):
+        if _axes_of(want) != _axes_of(got):
+            note(f"{'/'.join(str(n) for n in names)} on "
+                 f"{tuple(shape)}: dim {dim} keeps {got} of {want} "
+                 f"(size {shape[dim]} does not split further)")
+    return fixed
+
+
+def _redistribute(x, spec, names):
+    dm = x.device_mesh
+    want = spec_placements(_fixed(spec, x.shape, dm, names), dm)
+    if tuple(x.placements) == tuple(want):
+        return x
+    return x.redistribute(dm, want)
+
+
+def gathered(x: torch.Tensor) -> torch.Tensor:
+    """The whole of a DTensor on this rank, as a plain tensor (an
+    all-gather over every axis that splits it)."""
+    from torch.distributed.tensor import Replicate
+
+    full = [Replicate()] * x.device_mesh.ndim
+    return x.redistribute(x.device_mesh, full).to_local()
+
+
+def whole_units(x: torch.Tensor, dim: int, unit: int,
+                what: str) -> torch.Tensor:
+    """``x`` with dimension ``dim`` held in whole units of ``unit`` (the
+    heads of a ``(..., H * dh)`` projection before its split into ``(...,
+    H, dh)``): on a DTensor whose block of ``dim`` is not a whole number
+    of units, that dimension is gathered first (written down by
+    :func:`note`); anything else is returned as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    dim = dim % x.dim()
+    pl = list(x.placements)
+    split = [i for i, p in enumerate(pl) if p == Shard(dim)]
+    n = 1
+    for i in split:
+        n *= x.device_mesh.shape[i]
+    if n == 1 or (x.shape[dim] % n == 0 and (x.shape[dim] // n) % unit == 0):
+        return x
+    note(f"{what}: a block of {x.shape[dim]} / {n} is not whole units of "
+         f"{unit}; gathered before the split")
+    for i in split:
+        pl[i] = Replicate()
+    return x.redistribute(x.device_mesh, pl)
 
 
 def axis_size(logical: str) -> int:

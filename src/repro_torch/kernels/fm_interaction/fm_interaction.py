@@ -18,7 +18,11 @@ sum_f v`` in float32 over the same ring and plan.  ``FMInteraction``, a
 
 Each wrapper runs its plain PyTorch version for CPU tensors (the tests)
 and launches its kernel for CUDA tensors, or raises: no path on the card
-gives way to the plain version.
+gives way to the plain version.  A fake tensor (``FakeTensorMode``, the
+dry run's, ``repro_torch.launch.dryrun``) on any other device takes a
+shape-only route: its output is allocated (as a fake tensor) and
+nothing launches (:func:`shape_only`).  A meta tensor is refused, as
+any tensor off the CPU and the card is.
 """
 from __future__ import annotations
 
@@ -287,6 +291,7 @@ def _launch(backward: bool, emb: torch.Tensor, g, out: torch.Tensor,
 
 
 def _check_emb(emb: torch.Tensor, block_b: int) -> None:
+    """Check K8's operand (a shape-only one for shape and dtype only)."""
     if emb.ndim != 3:
         raise ValueError(
             f"emb must be (N, F, D), got shape {tuple(emb.shape)}")
@@ -294,7 +299,17 @@ def _check_emb(emb: torch.Tensor, block_b: int) -> None:
         raise TypeError(f"emb must be float32 or bfloat16, got {emb.dtype}")
     if block_b <= 0:
         raise ValueError(f"block_b must be >= 1, got {block_b}")
-    cuda.require(emb, "emb", emb.dtype, tuple(emb.shape))
+    if not shape_only(emb):
+        cuda.require(emb, "emb", emb.dtype, tuple(emb.shape))
+
+
+def shape_only(emb: torch.Tensor) -> bool:
+    """Whether ``emb`` is a fake tensor (``FakeTensorMode``): it holds no
+    data to launch on.  Only such a tensor off the CPU takes the
+    wrappers' shape-only route; a real tensor never does."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    return is_fake(emb)
 
 
 def _forward(emb: torch.Tensor, block_b: int) -> torch.Tensor:
@@ -303,7 +318,7 @@ def _forward(emb: torch.Tensor, block_b: int) -> torch.Tensor:
     _check_emb(emb, block_b)
     out = torch.empty((emb.shape[0],), dtype=torch.float32,
                       device=emb.device)
-    if emb.shape[0]:
+    if emb.shape[0] and not shape_only(emb):
         _launch(False, emb, None, out, block_b)
     return out
 
@@ -317,9 +332,10 @@ def fm_interaction_bwd_kernel(emb: torch.Tensor, g: torch.Tensor,
         return fm_interaction_bwd_ref(emb, g)
     _check_emb(emb, block_b)
     g = g.to(torch.float32).contiguous()
-    cuda.require(g, "g", torch.float32, (emb.shape[0],))
+    if not shape_only(emb):
+        cuda.require(g, "g", torch.float32, (emb.shape[0],))
     grad = torch.empty_like(emb)
-    if emb.shape[0]:
+    if emb.shape[0] and not shape_only(emb):
         _launch(True, emb, g, grad, block_b)
     return grad
 

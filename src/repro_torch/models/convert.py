@@ -20,6 +20,13 @@ stacks the per-layer leaves of ``layers`` and ``processor`` as ``(L,
 ...)`` (its ``vmap`` init); they are unstacked into the ``ModuleList``,
 every leaf's leading dimension checked against the layer count.
 
+``repro_leaves(model)`` names, for each of the port's parameters, the
+leaf of ``repro``'s tree it is filled from: its ``/``-joined path (a
+stacked ``layers/...`` leaf once for every layer), whether the
+parameter is that leaf transposed (an ``nn.Linear`` weight) and whether
+it is one layer of a stacked leaf.  The dry run keys ``repro``'s
+sharding rules by it (``repro_torch.launch.shardings``).
+
 On a mesh, a model converted on the CPU goes through
 ``place_on_mesh(model, mesh, rules, device)``, which keeps this rank's
 block of each leaf ``repro`` shards (the tables' rows under the rules'
@@ -175,6 +182,51 @@ def gnn_from_jax(tree: dict, cfg: GNNConfig, device=None) -> GNN:
     with torch.no_grad():
         _fill(model, tree, "params")
     return model
+
+
+def _walk(mod: nn.Module, port: str, path: str, stacked: bool, out: dict):
+    """``_fill``'s walk: every parameter under ``mod`` by its port name."""
+    def join(a, b):
+        return f"{a}.{b}" if a else b
+
+    def jpath(a, b):
+        return f"{a}/{b}" if a else b
+
+    if isinstance(mod, nn.Linear):
+        out[join(port, "weight")] = (jpath(path, "w"), True, stacked)
+        if mod.bias is not None:
+            out[join(port, "bias")] = (jpath(path, "b"), False, stacked)
+        return
+    for key, _ in mod.named_parameters(recurse=False):
+        out[join(port, key)] = (jpath(path, key), False, stacked)
+    for key, child in mod.named_children():
+        if isinstance(child, nn.ModuleList):
+            for i, layer in enumerate(child):
+                _walk(layer, join(port, f"{key}.{i}"), jpath(path, key), True,
+                      out)
+        else:
+            _walk(child, join(port, key), jpath(path, key), stacked, out)
+
+
+def repro_leaves(model: nn.Module) -> dict:
+    """``{port parameter name: (repro path, transposed, stacked)}`` for a
+    ``RecsysModel``, ``Transformer`` or ``GNN``: the leaf of ``repro``'s
+    tree each parameter is converted from (``params_from_jax``,
+    ``transformer_from_jax``, ``gnn_from_jax``)."""
+    out: dict = {}
+    if not isinstance(model, RecsysModel):
+        _walk(model, "", "", False, out)
+        return out
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "cin":  # a ParameterList: (H_next, H_k, F) as is
+            out[name] = ("/".join(parts), False, False)
+        elif len(parts) > 1 and parts[-1] in ("weight", "bias"):
+            leaf = "w" if parts[-1] == "weight" else "b"
+            out[name] = ("/".join(parts[:-1] + [leaf]), leaf == "w", False)
+        else:
+            out[name] = (name, False, False)
+    return out
 
 
 def _sharded_as(mod: nn.Module, name: str):

@@ -27,6 +27,12 @@ Two paths, as in ``repro``:
     dropped and read 0, and a padding id goes to owner 0 as row 0 and
     takes one of its slots, exactly as ``repro`` does (ROADMAP queue 3:
     under skew ``repro``'s bag sums come back short, and so do these).
+
+On DTensors (a table and ids placed on a ``DeviceMesh``, the dry run)
+the same bodies run under ``local_map``, torch's ``shard_map``: the
+table is redistributed to the block the body wants, the ids to its
+batch block, and the output stays a DTensor sharded over that batch
+block instead of being gathered whole.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import constant
 from repro_torch.distributed import context as dctx
 from repro_torch.models.dispatch import dispatch_positions
 
@@ -70,7 +77,7 @@ def init_table(generator: torch.Generator, spec: EmbeddingSpec,
 def _flat_ids(ids: torch.Tensor, spec: EmbeddingSpec):
     """(B, F, H) field-local ids (-1 pad) -> (B, F, H) fused row ids
     (int64, 0 at padding) and the validity mask."""
-    offs = torch.as_tensor(spec.offsets, device=ids.device)[None, :, None]
+    offs = constant(spec.offsets, device=ids.device)[None, :, None]
     valid = ids >= 0
     return torch.where(valid, ids.to(torch.int64) + offs, 0), valid
 
@@ -162,12 +169,34 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
         # psum path: ids must NOT be sharded over the model axis
         want = model_axis
         ids_axes = tuple(a for a in batch_axes if a != model_axis) or None
+    if dctx.is_dtensor(table):
+        return _bag_local_map(table, flat, valid, mesh, model_axis, want,
+                              ids_axes)
     table_loc = _rows(table, spec.total_rows, (want, None), mesh)
     f = dctx.local_block(flat, (ids_axes,), mesh)
     v = dctx.local_block(valid, (ids_axes,), mesh)
     out = (_psum_body(table_loc, f, v, mesh, model_axis) if want == model_axis
            else _a2a_body(table_loc, f, v, mesh, want))
     return dctx.gather_block(out, (ids_axes,), mesh)
+
+
+def _bag_local_map(table, flat, valid, mesh, model_axis, want, ids_axes):
+    """The psum or all-to-all body on each rank's blocks of DTensors: the
+    table's ``want`` rows, the ids' ``ids_axes`` batch block."""
+    from torch.distributed.tensor.experimental import local_map
+
+    t_pl = dctx.spec_placements((want, None), mesh.device_mesh)
+    i_pl = dctx.spec_placements((ids_axes,), mesh.device_mesh)
+
+    def body(t, f, v):
+        if want == model_axis:
+            return _psum_body(t, f, v, mesh, model_axis)
+        return _a2a_body(t, f, v, mesh, want)
+
+    return local_map(body, out_placements=i_pl, in_placements=(t_pl, i_pl,
+                                                               i_pl),
+                     device_mesh=mesh.device_mesh,
+                     redistribute_inputs=True)(table, flat, valid)
 
 
 def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,

@@ -18,9 +18,13 @@ float32.  The attention is plain PyTorch: queries in chunks of
 built for a long prompt; with ``remat_chunks`` a backward pass
 recomputes each chunk's scores and probabilities instead of keeping
 them.  ``constrain`` (``repro``'s sharding hint) sits where ``repro``
-has it and changes no value: on a mesh these layers run whole on every
-rank (their tensor-parallel layout over ``"heads"`` and ``"ff"`` is
-ROADMAP item 12e's).
+has it and changes no value: on a ``ModelMesh`` these layers run whole
+on every rank; on DTensor parameters and activations (the dry run,
+``repro_torch.launch``) DTensor's sharding propagation lays them out
+(tensor-parallel over ``"heads"`` and ``"ff"``, FSDP over the data
+axes), ``constrain`` reshards where ``repro`` hints, and a projection
+whose block is not whole heads is gathered before its split
+(:func:`split_heads`).
 """
 from __future__ import annotations
 
@@ -31,8 +35,13 @@ from typing import Callable, Optional, Sequence, Union
 import torch
 import torch.utils.checkpoint
 from torch import nn
+from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.distributed.context import constrain
+from repro_torch.distributed.context import (
+    constrain,
+    is_dtensor,
+    whole_units,
+)
 
 
 def dense(d_in: int, d_out: int, *, bias: bool = False,
@@ -47,6 +56,30 @@ def dense(d_in: int, d_out: int, *, bias: bool = False,
             if bias:
                 lin.bias.zero_()
     return lin
+
+
+def linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``lin(x)``.  A DTensor ``x`` whose tokens are split over more than
+    one leading dimension (batch x sequence, ``fsdp_ep``'s layout) is
+    applied under ``local_map``: each rank multiplies its tokens by the
+    gathered weight, as FSDP does (DTensor's own ``linear`` would flatten
+    the two splits into one it cannot hold)."""
+    if not is_dtensor(x):
+        return lin(x)
+    from torch.distributed.tensor import Replicate, Shard
+
+    lead = {p.dim for p in x.placements
+            if isinstance(p, Shard) and p.dim < x.dim() - 1}
+    if len(lead) < 2:
+        return lin(x)
+    pl = [p if isinstance(p, Shard) and p.dim < x.dim() - 1 else Replicate()
+          for p in x.placements]
+    rep = [Replicate()] * x.device_mesh.ndim
+    args = (x, lin.weight) + ((lin.bias,) if lin.bias is not None else ())
+    return local_map(torch.nn.functional.linear, out_placements=pl,
+                     in_placements=(pl,) + (rep,) * (len(args) - 1),
+                     device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(*args)
 
 
 class MLPHead(nn.Module):
@@ -148,6 +181,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """(..., n * d) -> (..., n, d); a DTensor whose block of the last
+    dimension is not whole heads has that dimension gathered first."""
+    x = whole_units(x, -1, d, f"{n} heads of {d}")
+    return x.reshape(*x.shape[:-1], n, d)
+
+
+def group_heads(q: torch.Tensor, kv: int) -> torch.Tensor:
+    """q (..., H, dh) -> (..., KV, H // KV, dh), a DTensor's block of H
+    first made whole groups."""
+    H = q.shape[-2]
+    q = whole_units(q, -2, H // kv, f"{H} query heads in {kv} groups")
+    return q.reshape(*q.shape[:-2], kv, H // kv, q.shape[-1])
+
+
 class Attention(nn.Module):
     """``repro``'s ``attention_init``: ``wq``, ``wk``, ``wv`` (biased with
     ``qkv_bias``) and ``wo``."""
@@ -198,6 +246,28 @@ def _chunk_attn(q, k, v, q_pos, kv_pos, window: Optional[int]):
                         v.float())
 
 
+def attention_blocks(q, n_kv: int, heads: bool = True) -> list:
+    """The placements attention runs on for a DTensor ``q (B, S, H, dh)``
+    with ``n_kv`` K/V heads: each mesh axis that splits q's batch keeps
+    splitting it; one that splits its heads keeps splitting them (and
+    K/V's) while the K/V heads still divide (so a rank's query heads are
+    whole groups of its K/V heads); anything else is gathered.  With
+    ``heads=False`` only the batch stays split."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out, n = [], 1
+    for i, p in enumerate(q.placements):
+        size = q.device_mesh.shape[i]
+        if p == Shard(0):
+            out.append(p)
+        elif heads and p == Shard(2) and n_kv % (n * size) == 0:
+            n *= size
+            out.append(p)
+        else:
+            out.append(Replicate())
+    return out
+
+
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   window: Optional[int] = None,
                   q_offset: Union[int, torch.Tensor] = 0,
@@ -211,11 +281,21 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     where there are several chunks, each runs through ``remat``, so a
     backward pass keeps no chunk's float32 scores and probabilities (it
     recomputes them one chunk at a time), as ``repro`` checkpoints its
-    scan body.  Returns (B, Sq, H, dh) in q's dtype."""
+    scan body.  Returns (B, Sq, H, dh) in q's dtype.
+
+    On DTensors it runs under ``local_map`` on each rank's block of the
+    batch and of the heads (:func:`attention_blocks`)."""
+    if is_dtensor(q):
+        pl = attention_blocks(q, k.shape[2])
+        fn = functools.partial(gqa_attention, window=window,
+                               q_offset=q_offset, chunk_q=chunk_q,
+                               remat_chunks=remat_chunks)
+        return local_map(fn, out_placements=pl, in_placements=(pl, pl, pl),
+                         device_mesh=q.device_mesh,
+                         redistribute_inputs=True)(q, k, v)
     B, Sq, H, dh = q.shape
     KV = k.shape[2]
-    G = H // KV
-    qg = q.reshape(B, Sq, KV, G, dh)
+    qg = group_heads(q, KV)
     kv_pos = torch.arange(k.shape[1], dtype=torch.int64, device=q.device)
 
     if Sq <= chunk_q:
@@ -245,16 +325,16 @@ def attention_apply(p: Attention, x: torch.Tensor, *, n_heads: int,
                     chunk_q: int = 512) -> torch.Tensor:
     """Self-attention over x (B, S, d_model) with RoPE; returns (B, S, d)."""
     B, S, _ = x.shape
-    q = p.wq(x).reshape(B, S, n_heads, d_head)
-    k = p.wk(x).reshape(B, S, n_kv_heads, d_head)
-    v = p.wv(x).reshape(B, S, n_kv_heads, d_head)
+    q = split_heads(linear(p.wq, x), n_heads, d_head)
+    k = split_heads(linear(p.wk, x), n_kv_heads, d_head)
+    v = split_heads(linear(p.wv, x), n_kv_heads, d_head)
     pos = torch.arange(S, dtype=torch.int64, device=x.device)
     q = apply_rope(q, pos, rope_theta)
     k = apply_rope(k, pos, rope_theta)
     q = constrain(q, "batch", None, "heads", None)
     k = constrain(k, "batch", None, "heads", None)
     o = gqa_attention(q, k, v, window=window, chunk_q=chunk_q)
-    return p.wo(o.reshape(B, S, n_heads * d_head))
+    return linear(p.wo, o.reshape(B, S, n_heads * d_head))
 
 
 # ---------------------------------------------------------------------------
@@ -284,5 +364,5 @@ def mlp_init(generator: Optional[torch.Generator], d_model: int, d_ff: int,
 
 def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
     """``wo(silu(wg x) * wi x)``."""
-    h = torch.nn.functional.silu(p.wg(x)) * p.wi(x)
-    return p.wo(constrain(h, "batch", None, "ff"))
+    h = torch.nn.functional.silu(linear(p.wg, x)) * linear(p.wi, x)
+    return linear(p.wo, constrain(h, "batch", None, "ff"))

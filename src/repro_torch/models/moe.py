@@ -22,6 +22,11 @@ else replicated:
   filling, so a shard there adds the slot of the expert ``E / n_shards``
   above; ROADMAP queue 3.  The port reads 0, as its comment intends.)
 
+On DTensors (the dry run's placements on a ``DeviceMesh``) the same
+body runs under ``local_map`` on each rank's block of tokens and its
+experts (the experts' FSDP split gathered on entry); the output stays a
+DTensor split over the batch as the input was.
+
 The capacity is the body's own: ``cap = max(8, int(capacity_factor *
 T_loc * K / E))`` over the tokens the rank routes, and the aux loss is
 averaged over the token axes (over ``"model"`` when replicated).
@@ -35,6 +40,8 @@ in its expert's stable order is dropped and reads back 0.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import types
 from typing import Optional, Tuple
 
 import torch
@@ -188,6 +195,38 @@ def _local_moe(x: torch.Tensor, p: MoE, cfg: MoEConfig, n_shards: int = 1,
     return slot_out.sum(dim=1), aux
 
 
+def _moe_local_map(p: MoE, x, cfg: MoEConfig, mesh, n_shards: int,
+                   model_axis: str, psum_mode: bool, tok_axes, x_spec):
+    """``_local_moe`` on each rank's blocks of DTensors: the tokens ``(B *
+    S, d)`` over ``x_spec`` (from ``x`` with only its batch split kept),
+    the rank's whole experts, the router replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    B, S, d = x.shape
+    dm = mesh.device_mesh
+    keep = [pl if pl == Shard(0) else Replicate() for pl in x.placements]
+    xt = x.redistribute(dm, keep).reshape(B * S, d)
+    x_pl = dctx.spec_placements(x_spec, dm)
+    e_pl = dctx.spec_placements(
+        (model_axis if n_shards > 1 else None, None, None), dm)
+    rep = [Replicate()] * dm.ndim
+
+    def body(xl, wr, wi, wg, wo):
+        lp = types.SimpleNamespace(router=functools.partial(F.linear,
+                                                            weight=wr),
+                                   wi=wi, wg=wg, wo=wo)
+        out, aux = _local_moe(xl, lp, cfg, n_shards,
+                              model_axis if n_shards > 1 else None, psum_mode)
+        return out, mesh.pmean(aux, tok_axes or (model_axis,))
+
+    out, aux = local_map(body, out_placements=(x_pl, rep),
+                         in_placements=(x_pl, rep, e_pl, e_pl, e_pl),
+                         device_mesh=dm, redistribute_inputs=True)(
+        xt, p.router.weight, p.wi, p.wg, p.wo)
+    return out.redistribute(dm, keep).reshape(B, S, d), aux
+
+
 def moe_apply(p: MoE, x: torch.Tensor,
               cfg: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out (B, S, d), aux loss scalar), both whole on
@@ -216,6 +255,9 @@ def moe_apply(p: MoE, x: torch.Tensor,
     else:
         tok_axes, psum_mode = (), True
     x_spec = (tok_axes or None, None)
+    if dctx.is_dtensor(x):
+        return _moe_local_map(p, x, cfg, mesh, n_shards, model_axis,
+                              psum_mode, tok_axes, x_spec)
     out, aux = _local_moe(dctx.local_block(xt, x_spec, mesh), p, cfg,
                           n_shards, model_axis if n_shards > 1 else None,
                           psum_mode)

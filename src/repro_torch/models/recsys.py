@@ -31,7 +31,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.distributed.context import constrain
+from repro_torch.distributed.context import constrain, is_dtensor
 from repro_torch.kernels.fm_interaction import fm_interaction
 from repro_torch.models.embedding import (
     EmbeddingSpec,
@@ -144,8 +144,17 @@ def init_params(generator: torch.Generator, cfg: RecsysConfig) -> RecsysModel:
 def fm_second_order(emb: torch.Tensor) -> torch.Tensor:
     """(B, F, D) -> (B,)  0.5 * sum_d[(sum_f v)^2 - sum_f v^2], through the
     fm_interaction kernel (K8) on the card, its plain version on the
-    CPU."""
-    return fm_interaction(emb)
+    CPU.  On a DTensor K8 runs under ``local_map`` on the rank's block of
+    examples (any split of F or D gathered first)."""
+    if not is_dtensor(emb):
+        return fm_interaction(emb)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = [p if p == Shard(0) else Replicate() for p in emb.placements]
+    return local_map(fm_interaction, out_placements=pl, in_placements=(pl,),
+                     device_mesh=emb.device_mesh,
+                     redistribute_inputs=True)(emb)
 
 
 def cin(emb: torch.Tensor, weights, out_proj: nn.Linear) -> torch.Tensor:
@@ -231,8 +240,14 @@ def serve_scores(model: RecsysModel, ids: torch.Tensor,
 def item_embeddings(model: RecsysModel, item_ids: torch.Tensor,
                     cfg: RecsysConfig) -> torch.Tensor:
     """Item-side feature vectors (for DPP similarity). item_ids (M,) local
-    ids within the item field -> (M, D) l2-normalized."""
+    ids within the item field -> (M, D) l2-normalized (over the batch
+    axes on a mesh: a row-sharded table's rows are summed there)."""
     offs = int(cfg.spec.offsets[cfg.item_field])
-    rows = model.table[item_ids.to(torch.int64) + offs]
+    ids = (item_ids.to(torch.int64) + offs)[:, None, None]
+    # a bag of one fused row id each (one field of the table's rows): on a
+    # mesh the bag's own body fetches the rows from their owners
+    whole = EmbeddingSpec((model.table.shape[0],), cfg.embed_dim,
+                          pad_to_multiple=1)
+    rows = embedding_bag(model.table, ids, whole, mode=cfg.emb_mode)[:, 0]
     norm = torch.linalg.vector_norm(rows, dim=-1, keepdim=True)
     return rows / torch.clamp_min(norm, 1e-9)

@@ -44,7 +44,12 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.distributed.context import constrain
+from repro_torch.distributed.context import (
+    constrain,
+    current_mesh,
+    is_dtensor,
+    place,
+)
 from repro_torch.models import layers as L
 from repro_torch.models.moe import MoE, MoEConfig, moe_apply
 
@@ -195,9 +200,9 @@ def _block(p_l: Block, x: torch.Tensor, window: Optional[int],
     Returns (x, aux, (k, v) roped keys/values if collect_kv)."""
     B, S, _ = x.shape
     h = L.rmsnorm(p_l.ln1, x, cfg.norm_eps)
-    q = p_l.attn.wq(h).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = p_l.attn.wk(h).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = p_l.attn.wv(h).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q = L.split_heads(L.linear(p_l.attn.wq, h), cfg.n_heads, cfg.head_dim)
+    k = L.split_heads(L.linear(p_l.attn.wk, h), cfg.n_kv_heads, cfg.head_dim)
+    v = L.split_heads(L.linear(p_l.attn.wv, h), cfg.n_kv_heads, cfg.head_dim)
     pos = torch.arange(S, dtype=torch.int64, device=x.device)
     q = L.apply_rope(q, pos, cfg.rope_theta)
     k = L.apply_rope(k, pos, cfg.rope_theta)
@@ -205,7 +210,7 @@ def _block(p_l: Block, x: torch.Tensor, window: Optional[int],
     k = constrain(k, "batch", "seq", "heads", None)
     o = L.gqa_attention(q, k, v, window=window, chunk_q=cfg.chunk_q,
                         remat_chunks=cfg.remat_chunks)
-    x = x + p_l.attn.wo(o.reshape(B, S, cfg.n_heads * cfg.head_dim))
+    x = x + L.linear(p_l.attn.wo, o.reshape(B, S, cfg.n_heads * cfg.head_dim))
     ffn, aux = _ffn(p_l, L.rmsnorm(p_l.ln2, x, cfg.norm_eps), cfg)
     x = constrain(x + ffn, "batch", "seq", None)
     return x, aux, ((k, v) if collect_kv else None)
@@ -278,7 +283,10 @@ def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
                device=None) -> dict:
     """``{"pos": 0, "groups": {key: {"k", "v"}}}``, each group's buffers
     (n_layers_in_group, batch, width, KV, dh) zeros in ``cfg.dtype`` on
-    ``device`` (default the card).  ``pos`` is a Python int."""
+    ``device`` (default the card), placed as ``repro``'s cache is (batch
+    over the data axes, width over ``"kv_seq"``) where the installed mesh
+    places DTensors (``constrain``'s ``place``).  ``pos`` is a Python
+    int."""
     dev = resolve_device(device)
     KV, dh = cfg.n_kv_heads, cfg.head_dim
     sizes: Dict[str, int] = {}
@@ -287,8 +295,9 @@ def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
         sizes[key] = idx + 1
         widths[key] = width
     groups = {
-        key: {kv: torch.zeros((n, batch, widths[key], KV, dh),
-                              dtype=cfg.dtype, device=dev)
+        key: {kv: place(torch.zeros((n, batch, widths[key], KV, dh),
+                                    dtype=cfg.dtype, device=dev),
+                        None, "batch", "kv_seq", None, None)
               for kv in ("k", "v")}
         for key, n in sizes.items()
     }
@@ -311,28 +320,91 @@ def _decode_attn(p_attn: L.Attention, x: torch.Tensor, kc: torch.Tensor,
     B = x.shape[0]
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     W = kc.shape[1]
-    q = p_attn.wq(x).reshape(B, 1, H, dh)
-    k = p_attn.wk(x).reshape(B, 1, KV, dh)
-    v = p_attn.wv(x).reshape(B, 1, KV, dh)
+    q = L.split_heads(L.linear(p_attn.wq, x), H, dh)
+    k = L.split_heads(L.linear(p_attn.wk, x), KV, dh)
+    v = L.split_heads(L.linear(p_attn.wv, x), KV, dh)
     pos_arr = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     q = L.apply_rope(q, pos_arr, cfg.rope_theta)
     k = L.apply_rope(k, pos_arr, cfg.rope_theta)
 
     slot = pos % W if is_ring else pos
-    kc[:, slot] = k[:, 0].to(kc.dtype)
-    vc[:, slot] = v[:, 0].to(vc.dtype)
+    if is_dtensor(kc):
+        # a cache split over its width: each rank writes the slot where it
+        # holds it (an indexed write would land in a gathered copy)
+        hit = (torch.arange(W, device=x.device) == slot)[None, :, None, None]
+        kc.copy_(torch.where(hit, k.to(kc.dtype), kc))
+        vc.copy_(torch.where(hit, v.to(vc.dtype), vc))
+    else:
+        kc[:, slot] = k[:, 0].to(kc.dtype)
+        vc[:, slot] = v[:, 0].to(vc.dtype)
 
     idx = torch.arange(W, dtype=torch.int64, device=x.device)
     kv_pos = pos - torch.remainder(pos - idx, W) if is_ring else idx
     mask = (kv_pos >= 0) & (kv_pos <= pos)
+    o = _decode_core(q, kc, vc, mask, KV).reshape(B, 1, H * dh).to(x.dtype)
+    return L.linear(p_attn.wo, o), kc, vc
 
-    qg = q.reshape(B, KV, H // KV, dh).float()
+
+def _decode_core(q, kc, vc, mask, KV: int):
+    """q (B, 1, H, dh) against the cache kc, vc (B, W, KV, dh) under
+    ``mask (W,)``: (B, KV, G, dh) float32.  On DTensors it runs under
+    ``local_map`` on each rank's block of the batch and of the cache's
+    width (:func:`_decode_core_split`)."""
+    if is_dtensor(q):
+        return _decode_core_split(q, kc, vc, mask, KV)
+    dh = q.shape[-1]
+    qg = L.group_heads(q, KV)[:, 0].float()
     s = torch.einsum("bkgd,btkd->bkgt", qg, kc.float()) * (dh ** -0.5)
     s = s.masked_fill(~mask[None, None, None], -1e30)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgt,btkd->bkgd", p, vc.float())
-    o = o.reshape(B, 1, H * dh).to(x.dtype)
-    return p_attn.wo(o), kc, vc
+    return torch.einsum("bkgt,btkd->bkgd", p, vc.float())
+
+
+def _decode_core_split(q, kc, vc, mask, KV: int):
+    """``_decode_core`` on DTensors: each rank takes its batch block and
+    its block of the cache's width (``"kv_seq"``), scores its keys, and
+    the softmax is combined over the width's ranks (the running max by an
+    all-gather, the normaliser and the output by sums), so no rank
+    gathers the cache."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    dm = q.device_mesh
+    names = dm.mesh_dim_names
+    q_pl, c_pl, w_axes = [], [], []
+    for i, (pq, pc) in enumerate(zip(q.placements, kc.placements)):
+        if pc == Shard(1):
+            q_pl.append(Replicate())
+            c_pl.append(pc)
+            w_axes.append(names[i])
+        elif pq == Shard(0):
+            q_pl.append(pq)
+            c_pl.append(pq)
+        else:
+            q_pl.append(Replicate())
+            c_pl.append(Replicate())
+    mesh = current_mesh()
+    w_axes = tuple(w_axes)
+
+    def body(ql, kl, vl):
+        if not w_axes:
+            return _decode_core(ql, kl, vl, mask, KV)
+        W = kl.shape[1]
+        lo = mesh.axis_index(w_axes) * W
+        dh = ql.shape[-1]
+        qg = L.group_heads(ql, KV)[:, 0].float()
+        s = torch.einsum("bkgd,btkd->bkgt", qg, kl.float()) * (dh ** -0.5)
+        s = s.masked_fill(~mask[lo:lo + W][None, None, None], -1e30)
+        m = mesh.all_gather(s.amax(dim=-1, keepdim=True), w_axes).amax(0)
+        p = torch.exp(s - m)
+        den = mesh.psum(p.sum(dim=-1, keepdim=True), w_axes)
+        num = mesh.psum(torch.einsum("bkgt,btkd->bkgd", p, vl.float()),
+                        w_axes)
+        return num / den
+
+    return local_map(body, out_placements=q_pl, in_placements=(q_pl, c_pl,
+                                                               c_pl),
+                     device_mesh=dm, redistribute_inputs=True)(q, kc, vc)
 
 
 def _decode_block(p_l: Block, x: torch.Tensor, kc, vc, pos: int,

@@ -678,6 +678,33 @@ def test_fm_interaction_bwd_kernel_matches_plain(card, N, F, D, block_b,
 
 
 @pytest.mark.gpu
+def test_fm_interaction_shape_only_route_is_for_fake_tensors_only(card):
+    """A real CUDA tensor launches K8 (and its backward); a fake CUDA
+    tensor of the same shape takes the shape-only route and launches
+    nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels.fm_interaction.fm_interaction import shape_only
+
+    x = torch.randn(300, 39, 10, device="cuda")
+    assert not shape_only(x)
+    cuda.reset_launch_counts()
+    got = fm_interaction(x)
+    fm_interaction_bwd_kernel(x, torch.ones(300, device="cuda"))
+    torch.cuda.synchronize()
+    assert cuda.launch_counts() == {"fm_interaction": 1,
+                                    "fm_interaction_bwd": 1}
+    torch.testing.assert_close(got.cpu(), fm_interaction_ref(x.cpu()),
+                               rtol=1e-5, atol=2e-6 * 390)
+    cuda.reset_launch_counts()
+    with FakeTensorMode():
+        fx = torch.empty(300, 39, 10, device="cuda")
+        assert shape_only(fx)
+        assert fm_interaction(fx).shape == (300,)
+    assert cuda.launch_counts() == {}
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("offset,N", [(1, 4099), (2, 4099), (3, 4099),
                                       (0, 8191), (0, 100), (3, 7)],
                          ids=["offset1", "offset2", "offset3", "ragged",
