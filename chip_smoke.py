@@ -463,7 +463,27 @@ Phase 25 runs the dry run, last (``run_dryrun``: ``chip_smoke.py
                       at its published width cut to two layers, B = 1, S =
                       1024 (prefill_32k's 32 x 32,768 cut): the same bytes
                       and FLOPs checks, the logits against the plain
-                      prefill of the same weights.
+                      prefill of the same weights.  (a) also traces three
+                      training cells on the pod mesh, their gradients and
+                      AdamW: deepfm train_batch under a2a_emb (the
+                      all-to-all bag's gradient, K8 and its backward on
+                      the shape-only route), olmoe-1b-7b train_4k under
+                      fsdp_ep_remat (the expert-parallel gradients,
+                      FSDP's reduce-scatter, remat on the mesh), graphcast
+                      ogb_products (2,449,408 nodes and 61,859,328 edges
+                      after padding, both over the whole grid), with (a)'s
+                      checks; (d) deepfm train_batch at (1, 1) with real
+                      tensors at its published width (b's model, batch
+                      65,536): one step through the cell, K8 and its
+                      backward launched once each and held against
+                      ``fm_interaction_ref`` / ``fm_interaction_bwd_ref``
+                      on the step's own operands, the placed bytes
+                      (parameters, AdamW's moments and step, the batch)
+                      and FLOPs equal to the fake (1, 1) cell's, the loss
+                      against a no-grad ``bce_loss`` of the same weights
+                      and batch; (e) qwen1.5-4b train_4k at (1, 1) with
+                      (c)'s model (B = 1, S = 1024) under flash_remat: the
+                      bytes and FLOPs checks.
 
 Each phase resets the kernels' launch counters right before the main-path
 call (phases 16 and 17's ranks in their own processes), reads them right after,
@@ -5892,33 +5912,47 @@ def run_remat():
           f"{t_exit - t_end:.1f} s)", flush=True)
 
 
-DRYRUN_AIM_S = 45.0
+DRYRUN_AIM_S = 70.0  # 45 s for the serving cells, 25 s for training's
 DRYRUN_TIMEOUT_S = 600
-# (a): cells on the production meshes, fake CUDA tensors in one process
-DRYRUN_CELLS = (("deepfm", "serve_p99", "pod"),
-                ("deepfm", "retrieval_cand", "pod"),
-                ("qwen1.5-4b", "decode_32k", "pod"),
-                ("olmoe-1b-7b", "prefill_32k", "pod"),
-                ("deepfm", "serve_p99", "multipod"))
+# (a): cells on the production meshes, fake CUDA tensors in one process:
+# (arch, shape, mesh, profile), the training cells last
+DRYRUN_CELLS = (("deepfm", "serve_p99", "pod", "baseline"),
+                ("deepfm", "retrieval_cand", "pod", "baseline"),
+                ("qwen1.5-4b", "decode_32k", "pod", "baseline"),
+                ("olmoe-1b-7b", "prefill_32k", "pod", "baseline"),
+                ("deepfm", "serve_p99", "multipod", "baseline"),
+                ("deepfm", "train_batch", "pod", "a2a_emb"),
+                ("olmoe-1b-7b", "train_4k", "pod", "fsdp_ep_remat"),
+                ("graphcast", "ogb_products", "pod", "baseline"))
 DRYRUN_FAKE = {"card": "cuda", "host": "cpu"}  # (a)'s two fake worlds
-DRYRUN_LM = "qwen1.5-4b"  # (c): the published width, cut to two layers
+DRYRUN_LM = "qwen1.5-4b"  # (c), (e): the published width, two layers
 DRYRUN_LM_LAYERS, DRYRUN_LM_B, DRYRUN_LM_S = 2, 1, 1024
 
 
+def dryrun_key(arch_id, shape_name, mesh_name, profile):
+    return " ".join((arch_id, shape_name, mesh_name) + (
+        (profile,) if profile != "baseline" else ()))
+
+
 def dryrun_one_cells():
-    """(b) and (c)'s cells at (1, 1): deepfm ``retrieval_cand`` at its
-    published config; qwen1.5-4b ``prefill_32k`` at its published width
-    cut to two layers, B = 1 and S = 1024 (of 32 x 32,768)."""
+    """(b) to (e)'s cells at (1, 1), ``(arch, shape, profile)``: deepfm
+    ``retrieval_cand`` and ``train_batch`` at its published config;
+    qwen1.5-4b ``prefill_32k`` and ``train_4k`` (under ``flash_remat``)
+    at its published width cut to two layers, B = 1 and S = 1024 (of 32 x
+    32,768 and 256 x 4096)."""
     from repro_torch.configs import get_arch
 
     fm = get_arch("deepfm")
     lm = get_arch(DRYRUN_LM)
     lm = dataclasses.replace(lm, config=dataclasses.replace(
         lm.config, n_layers=DRYRUN_LM_LAYERS))
-    return {"b": (fm, fm.shapes["retrieval_cand"]),
-            "c": (lm, dataclasses.replace(
-                lm.shapes["prefill_32k"], global_batch=DRYRUN_LM_B,
-                seq_len=DRYRUN_LM_S))}
+    cut = dict(global_batch=DRYRUN_LM_B, seq_len=DRYRUN_LM_S)
+    return {"b": (fm, fm.shapes["retrieval_cand"], "baseline"),
+            "c": (lm, dataclasses.replace(lm.shapes["prefill_32k"], **cut),
+                  "baseline"),
+            "d": (fm, fm.shapes["train_batch"], "baseline"),
+            "e": (lm, dataclasses.replace(lm.shapes["train_4k"], **cut),
+                  "flash_remat")}
 
 
 def dryrun_fake(device, out_path):
@@ -5956,19 +5990,20 @@ def dryrun_fake(device, out_path):
     fake_world(512)
     peak("fake_world")
     out = {"cells": {}, "one": {}}
-    for arch_id, shape_name, mesh_name in DRYRUN_CELLS:
+    for cell in DRYRUN_CELLS:
+        arch_id, shape_name, mesh_name, profile = cell
         arch = get_arch(arch_id)
         mesh = make_production_mesh(multi_pod=mesh_name == "multipod",
                                     device=device)
         peak(f"{mesh_name} mesh")
         rec, _ = dryrun.dry_run(arch, arch.shapes[shape_name], mesh,
-                                mesh_name)
-        out["cells"][f"{arch_id} {shape_name} {mesh_name}"] = rec
-        peak(f"{arch_id} {shape_name} {mesh_name}")
+                                mesh_name, profile)
+        out["cells"][dryrun_key(*cell)] = rec
+        peak(dryrun_key(*cell))
     one = make_host_mesh(1, 1, device=device)
     peak("(1, 1) mesh")
-    for part, (arch, shape) in dryrun_one_cells().items():
-        rec, _ = dryrun.dry_run(arch, shape, one, "(1, 1)")
+    for part, (arch, shape, profile) in dryrun_one_cells().items():
+        rec, _ = dryrun.dry_run(arch, shape, one, "(1, 1)", profile)
         out["one"][part] = rec
         peak(part)
     out["peaks"] = peaks
@@ -5979,16 +6014,32 @@ def dryrun_fake(device, out_path):
     Path(out_path).write_text(json.dumps(out))
 
 
-def dryrun_real(part, work):
-    """(b) or (c) at (1, 1) with real tensors on the card through
-    ``dryrun.dry_run``: ``(record, trace result, cell inputs)``."""
+def unplaced(model):
+    """``model`` with every DTensor parameter of a (1, 1) mesh replaced by
+    its local tensor (the whole of it), in place: the model of an earlier
+    (1, 1) cell, ready for the next."""
+    from repro_torch.distributed.context import is_dtensor
+
+    for mod in model.modules():
+        for key, prm in list(mod.named_parameters(recurse=False)):
+            if is_dtensor(prm):
+                setattr(mod, key, torch.nn.Parameter(
+                    prm.detach().to_local(), requires_grad=False))
+    return model
+
+
+def dryrun_real(part, work, model=None):
+    """(b) to (e) at (1, 1) with real tensors on the card through
+    ``dryrun.dry_run``: ``(record, trace result, cell inputs, model)``.
+    (d) and (e) take ``model``, (b)'s and (c)'s, as ``unplaced`` left
+    it."""
     from repro_torch.data import recsys_batches
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import recsys
     from repro_torch.models import transformer as tfm
 
-    arch, shape = dryrun_one_cells()[part]
+    arch, shape, profile = dryrun_one_cells()[part]
     gen = torch.Generator("cuda").manual_seed(SEED)
     if part == "b":
         model = recsys.init_params(gen, arch.config)
@@ -5999,8 +6050,15 @@ def dryrun_real(part, work):
                            device="cuda")  # phase 11's ids, padded with 0
         cand[:Mc] = torch.arange(Mc, dtype=torch.int32, device="cuda")
         batch = {"user_ids": user, "cand_ids": cand}
+    elif part == "d":
+        b = next(recsys_batches(arch.config.vocab_sizes, shape.batch,
+                                seed=2))
+        batch = {"ids": torch.as_tensor(b["ids"], device="cuda"),
+                 "labels": torch.as_tensor(b["labels"], dtype=torch.float32,
+                                           device="cuda")}
     else:
-        model = tfm.init_params(gen, arch.config)
+        model = model if model is not None else tfm.init_params(
+            gen, arch.config)
         batch = {"tokens": torch.randint(
             0, arch.config.vocab, (shape.global_batch, shape.seq_len),
             generator=gen, device="cuda", dtype=torch.int32)}
@@ -6008,23 +6066,135 @@ def dryrun_real(part, work):
                               model.state_dict().items()} if part == "c"
               else None, "batch": {k: v.clone() for k, v in batch.items()}}
     mesh = make_host_mesh(1, 1, device="cuda")
-    rec, res = dryrun.dry_run(arch, shape, mesh, "(1, 1)", params=model,
-                              batch=batch)
+    rec, res = dryrun.dry_run(arch, shape, mesh, "(1, 1)", profile,
+                              params=model, batch=batch)
     return rec, res, inputs, model
 
 
+def dryrun_train_real(real, work):
+    """Phase 25 (d) and (e) on the one-rank group: one training step of
+    deepfm ``train_batch`` (on (b)'s model) and of qwen1.5-4b ``train_4k``
+    (on (c)'s) through their (1, 1) cells; (d)'s K8 and K8 backward
+    launches counted and their operands captured, its loss held against a
+    no-grad ``bce_loss`` of the same weights and batch."""
+    from repro_torch.data import recsys_batches
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.fm_interaction import (
+        fm_interaction,
+        fm_interaction_bwd_ref,
+        fm_interaction_ref,
+    )
+    from repro_torch.models import recsys
+
+    k8 = sys.modules["repro_torch.kernels.fm_interaction.fm_interaction"]
+    out = {}
+    arch_d, shape_d, _ = dryrun_one_cells()["d"]
+    model = unplaced(real["b"]["model"])
+    b = next(recsys_batches(arch_d.config.vocab_sizes, shape_d.batch,
+                            seed=2))
+    ids = torch.as_tensor(b["ids"], device="cuda")
+    labels = torch.as_tensor(b["labels"], dtype=torch.float32,
+                             device="cuda")
+    with torch.no_grad():
+        ref_loss = float(recsys.bce_loss(model, {"ids": ids,
+                                                 "labels": labels},
+                                         arch_d.config))
+    del ids, labels
+    fwd, bwd = [], []
+    fm0, bwd0 = recsys.fm_interaction, k8.fm_interaction_bwd_kernel
+
+    def capture(emb):
+        fwd.append(emb.detach())
+        return fm0(emb)
+
+    def capture_bwd(emb, g, *a):
+        bwd.append((emb.detach(), g.detach()))
+        return bwd0(emb, g, *a)
+
+    torch.cuda.synchronize()
+    t_part = time.perf_counter()
+    cuda.reset_launch_counts()
+    with patched(recsys, "fm_interaction", capture), patched(
+            k8, "fm_interaction_bwd_kernel", capture_bwd):
+        rec, res, _, model = dryrun_real("d", work, model)
+    torch.cuda.synchronize()
+    launches = cuda.launch_counts()
+    out["d"] = {"rec": rec, "res": res, "model": model, "launches": launches,
+                "s": time.perf_counter() - t_part, "ref_loss": ref_loss}
+    check(launches == {"fm_interaction": 1, "fm_interaction_bwd": 1},
+          f"phase 25(d): launches {launches} in the step (K8 and its "
+          f"backward once each)")
+    check(len(fwd) == 1 and len(bwd) == 1, f"phase 25(d): the FM term ran "
+          f"{len(fwd)} times forward, {len(bwd)} backward")
+    # the step's values are small (embeddings at scale 0.01, the BCE
+    # cotangent about 1e-5 a row), below FM_ATOL in the backward: each
+    # comparison is also held normwise, relative to the plain version, and
+    # the backward once more with a unit-scale g on the step's emb
+    def held(what, got, want):
+        err = float((got - want).abs().max())
+        rel = float(torch.linalg.vector_norm(got - want)
+                    / torch.linalg.vector_norm(want))
+        check(torch.allclose(got, want, rtol=FM_RTOL, atol=FM_ATOL)
+              and rel <= FM_RTOL,
+              f"phase 25(d): {what} differs from its plain version by "
+              f"{err:.3g} (max abs), {rel:.3g} (normwise)")
+        return err, rel, float(want.abs().max())
+
+    emb = fwd[0]
+    out["d"]["k8"] = held(f"K8 at {tuple(emb.shape)}", fm_interaction(emb),
+                          fm_interaction_ref(emb))
+    emb, g = bwd[0]
+    out["d"]["bwd"] = held(f"K8's backward at {tuple(emb.shape)}",
+                           k8.fm_interaction_bwd_kernel(emb, g),
+                           fm_interaction_bwd_ref(emb, g))
+    g1 = torch.randn(g.shape, generator=torch.Generator().manual_seed(25),
+                     dtype=torch.float32).to(g.device)
+    out["d"]["bwd_unit"] = held(f"K8's backward at {tuple(emb.shape)} with "
+                                f"a unit-scale g",
+                                k8.fm_interaction_bwd_kernel(emb, g1),
+                                fm_interaction_bwd_ref(emb, g1))
+    out["d"]["g_max"] = float(g.abs().max())
+    out["d"]["shape"] = tuple(emb.shape)
+    loss = float(res["out"][2]["loss"].to_local())
+    out["d"]["loss"] = loss
+    check(np.isfinite(loss) and abs(loss - ref_loss) <= 1e-6 * abs(ref_loss),
+          f"phase 25(d): the step's loss {loss!r} against a no-grad "
+          f"bce_loss's {ref_loss!r}")
+    del fwd, bwd, emb, g, g1, res, model
+    out["d"].pop("res")
+    out["d"].pop("model")
+
+    torch.cuda.synchronize()
+    t_part = time.perf_counter()
+    rec, res, _, model = dryrun_real("e", work, unplaced(
+        real["c"].pop("model")))
+    torch.cuda.synchronize()
+    loss = float(res["out"][2]["loss"].to_local())
+    check(np.isfinite(loss), f"phase 25(e): the step's loss {loss}")
+    out["e"] = {"rec": rec, "loss": loss, "s": time.perf_counter() - t_part}
+    del res, model
+    return out
+
+
 def dryrun_phase():
-    """``--dryrun``, phase 25 (aim 45 s): the dry-run cells
-    (``repro_torch.launch.dryrun``) in a process of its own.  (a) two
-    children, at once, trace phase 25's cells on a fake world of 512
-    ranks, one with fake CUDA tensors and one with fake CPU tensors: every
-    record ``ok``, the CUDA child's peak card memory 0, static bytes and
-    FLOPs equal between them, their collective tables side by side.
-    Meanwhile, on a one-rank NCCL group, (b) deepfm ``retrieval_cand`` and
-    (c) qwen1.5-4b prefill at (1, 1) with real tensors: placed bytes and
-    FLOPs equal to the fake (1, 1) records; in (b) K8 launches once, held
-    against its plain version on the step's own embeddings, and the slate
-    against the same step with K8's plain version."""
+    """``--dryrun``, phase 25 (aim ``DRYRUN_AIM_S``, 70 s): the dry-run
+    cells (``repro_torch.launch.dryrun``) in a process of its own.  (a)
+    two children, at once, trace phase 25's serving and training cells on
+    a fake world of 512 ranks, one with fake CUDA tensors and one with
+    fake CPU tensors: every record ``ok``, the CUDA child's peak card
+    memory 0, static bytes and FLOPs equal between them, their collective
+    tables side by side.  Meanwhile, on a one-rank NCCL group, with real
+    tensors at (1, 1): (b) deepfm ``retrieval_cand`` and (c) qwen1.5-4b
+    prefill, then one training step each of (d) deepfm ``train_batch`` on
+    (b)'s model and (e) qwen1.5-4b ``train_4k`` on (c)'s.  Every one's
+    placed bytes and FLOPs equal the fake (1, 1) record's.  In (b) K8
+    launches once, held against its plain version on the step's own
+    embeddings, and the slate against the same step with K8's plain
+    version; in (d) K8 and its backward launch once each, held against
+    their plain versions on the step's own operands (and the backward at a
+    unit-scale cotangent), and the loss against a no-grad ``bce_loss``.
+    The ``dryrun_k8`` line carries the launches counted in (b) and (d) by
+    kernel, and the largest error of each kernel's comparisons."""
     from repro_torch.distributed import init_group
     from repro_torch.figures.common import device_name
     from repro_torch.kernels import cuda
@@ -6096,7 +6266,7 @@ def dryrun_phase():
         # (c): the logits against the plain (no-DTensor) prefill of the
         # same weights
         c = real["c"]
-        arch_c, shape_c = dryrun_one_cells()["c"]
+        arch_c, shape_c, _ = dryrun_one_cells()["c"]
         whole = tfm.Transformer(arch_c.config, device="cuda")
         whole.load_state_dict(c["inputs"]["model_whole"])
         with torch.no_grad():
@@ -6110,6 +6280,7 @@ def dryrun_phase():
               f"phase 25(c): the (1, 1) prefill's logits differ from the "
               f"plain prefill by {lm_err:.3g}")
         del whole, ref_logits
+        real.update(dryrun_train_real(real, work))
     finally:
         outs = {run: p.communicate(timeout=DRYRUN_TIMEOUT_S)
                 for run, p in children.items()}
@@ -6152,7 +6323,7 @@ def dryrun_phase():
               f"{json.dumps(per_rank(rp))}; trace "
               f"{rc['trace_s']:.2f} s (cuda), {rp['trace_s']:.2f} s (cpu)",
               flush=True)
-    for part in ("b", "c"):
+    for part in ("b", "c", "d", "e"):
         r, f_ = real[part]["rec"], fake["card"]["one"][part]
         check(r["memory_stats"]["static_args_held_bytes"] ==
               f_["memory_stats"]["static_args_per_chip_bytes"],
@@ -6164,7 +6335,7 @@ def dryrun_phase():
               f"the dry run's {f_['flop_counter_per_rank']}")
         check(r["coll_op_counts"] == {} and f_["coll_op_counts"] == {},
               f"phase 25({part}): collectives at (1, 1)")
-    b_arch, b_shape = dryrun_one_cells()["b"]
+    b_arch, b_shape, _ = dryrun_one_cells()["b"]
     nparam = sum(p.numel() for p in real["b"]["model"].parameters())
     print(f"[phase 25(b) dryrun real] deepfm retrieval_cand at (1, 1): "
           f"{nparam} parameters, {b_shape.n_candidates} candidates padded "
@@ -6177,7 +6348,7 @@ def dryrun_phase():
           f"{slate.numel()} selected) equal to the step with K8's plain "
           f"version; step {real['b']['s']:.2f} s with the model's draw; "
           f"{smi}", flush=True)
-    c_arch, c_shape = dryrun_one_cells()["c"]
+    c_arch, c_shape, _ = dryrun_one_cells()["c"]
     print(f"[phase 25(c) dryrun real] {DRYRUN_LM} prefill at (1, 1), its "
           f"published width cut to {DRYRUN_LM_LAYERS} layers (of "
           f"{get_arch_layers(DRYRUN_LM)}), B = {c_shape.global_batch}, S = "
@@ -6186,15 +6357,56 @@ def dryrun_phase():
           f"the dry run's; FLOPs {real['c']['rec']['flop_counter_per_rank']}"
           f" = the dry run's; logits within rtol 1e-5 / atol 1e-5 of the "
           f"plain prefill (max abs {lm_err:.3g}); {smi}", flush=True)
+    d, e = real["d"], real["e"]
+    d_arch, d_shape, _ = dryrun_one_cells()["d"]
+    print(f"[phase 25(d) dryrun real] deepfm train_batch at (1, 1): "
+          f"{nparam} parameters (b's model), batch {d_shape.batch}; placed "
+          f"bytes (parameters, m, v, step, batch) "
+          f"{d['rec']['memory_stats']['static_args_held_bytes']} = the dry "
+          f"run's; FLOPs {d['rec']['flop_counter_per_rank']} = the dry "
+          f"run's; K8 and its backward launched once each, within rtol "
+          f"{FM_RTOL} / atol {FM_ATOL} and normwise {FM_RTOL} of "
+          f"fm_interaction_ref / fm_interaction_bwd_ref on the step's emb "
+          f"{d['shape']} and g (max |g| {d['g_max']:.3g}): (max abs, "
+          f"normwise, max |plain|) K8 {fmt_held(d['k8'])}, backward "
+          f"{fmt_held(d['bwd'])}, backward at a unit-scale g "
+          f"{fmt_held(d['bwd_unit'])}; loss "
+          f"{d['loss']!r} against a no-grad bce_loss's {d['ref_loss']!r}; "
+          f"trace_s {d['rec']['trace_s']} (fake cuda "
+          f"{fake['card']['one']['d']['trace_s']}); step {d['s']:.2f} s; "
+          f"{smi}", flush=True)
+    e_arch, e_shape, _ = dryrun_one_cells()["e"]
+    print(f"[phase 25(e) dryrun real] {DRYRUN_LM} train_4k at (1, 1) under "
+          f"flash_remat, (c)'s model ({DRYRUN_LM_LAYERS} of "
+          f"{get_arch_layers(DRYRUN_LM)} layers), B = {e_shape.global_batch}"
+          f", S = {e_shape.seq_len}: placed bytes "
+          f"{e['rec']['memory_stats']['static_args_held_bytes']} = the dry "
+          f"run's; FLOPs {e['rec']['flop_counter_per_rank']} = the dry "
+          f"run's; loss {e['loss']:.6g}; trace_s {e['rec']['trace_s']} "
+          f"(fake cuda {fake['card']['one']['e']['trace_s']}); step "
+          f"{e['s']:.2f} s; {smi}", flush=True)
     took = time.perf_counter() - t0
     print(f"  phase 25: {took:.1f} s (the fake children "
           f"{fake['card']['seconds']:.1f} s on cuda, "
           f"{fake['host']['seconds']:.1f} s on cpu, after start-up; (b) "
-          f"{real['b']['s']:.1f} s, (c) {real['c']['s']:.1f} s; aim "
+          f"{real['b']['s']:.1f} s, (c) {real['c']['s']:.1f} s, (d) "
+          f"{real['d']['s']:.1f} s, (e) {real['e']['s']:.1f} s; aim "
           f"{DRYRUN_AIM_S:.0f} s); {smi}", flush=True)
-    print("dryrun_k8 " + json.dumps({"launches": 1, "max_abs_err": k8_err}),
-          flush=True)
+    errs = {"fm_interaction": max(k8_err, d["k8"][0]),
+            "fm_interaction_bwd": max(d["bwd"][0], d["bwd_unit"][0])}
+    k8_line = {}
+    for part in ("b", "d"):
+        for name, n in real[part]["launches"].items():
+            k8_line.setdefault(name, {"launches": 0,
+                                      "max_abs_err": errs[name]})
+            k8_line[name]["launches"] += n
+    print("dryrun_k8 " + json.dumps(k8_line), flush=True)
     shutil.rmtree(work, ignore_errors=True)
+
+
+def fmt_held(h):
+    """``(max abs error, normwise error, max |plain|)`` as printed."""
+    return "(" + ", ".join(f"{x:.3g}" for x in h) + ")"
 
 
 def per_rank(rec):
@@ -6210,8 +6422,8 @@ def get_arch_layers(arch_id):
 
 def run_dryrun(records):
     """Phase 25: ``chip_smoke.py --dryrun`` in a child process, its lines
-    echoed; fails when the child does.  K8's launch in (b) and its error
-    go into K8's record."""
+    echoed; fails when the child does.  K8's launches in (b) and (d) and
+    its backward's in (d), and their errors, go into their records."""
     t0 = time.perf_counter()
     free_card()
     proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
@@ -6226,9 +6438,11 @@ def run_dryrun(records):
     check(proc.returncode == 0 and k8 is not None,
           f"phase 25: the child exited {proc.returncode}: "
           f"{proc.stderr[-3000:]}")
-    rec = records["fm_interaction"]
-    rec["launches"] += k8["launches"]
-    rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), k8["max_abs_err"])
+    for name, got in k8.items():
+        rec = records.setdefault(name, {"launches": 0})
+        rec["launches"] += got["launches"]
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0),
+                                 got["max_abs_err"])
     print(f"  phase 25 with its process: {time.perf_counter() - t0:.1f} s",
           flush=True)
 

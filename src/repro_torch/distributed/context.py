@@ -67,6 +67,15 @@ partitioner's choice written down by :func:`note`.  A ``ModelMesh``
 built over a ``DeviceMesh`` (:func:`model_mesh_from_device_mesh`) uses
 its process groups, so the bodies that ``local_map`` enters see the
 same groups as the DTensors around them.
+
+The ``ModelMesh`` collectives are differentiable, for a loss that is the
+same on every rank (a training step): a cotangent reaching a collective
+is whole on each rank, so ``psum``'s backward passes it through,
+``all_gather``'s keeps the rank's slice and ``all_to_all``'s exchanges
+it back.  :func:`grad_placements` names what a ``local_map`` body's
+input gradients are (a partial sum over the axes that split only the
+work), and :func:`pinned` brings a DTensor's gradient back in its own
+layout.
 """
 from __future__ import annotations
 
@@ -444,10 +453,7 @@ class ModelMesh:
         self.collective_bytes += x.numel() * x.element_size()
         return _staged(self, x)
 
-    def all_to_all(self, x: torch.Tensor, axes: AxisVal) -> torch.Tensor:
-        """``jax.lax.all_to_all(x, axes, 0, 0, tiled=False)``: ``x (n,
-        ...)`` with ``n`` the axes' size; row ``k`` of the result is what
-        rank ``k`` along ``axes`` sent this one as its row for it."""
+    def _all_to_all(self, x: torch.Tensor, axes: AxisVal) -> torch.Tensor:
         group, n = self._group(axes)
         if x.shape[0] != n:
             raise ValueError(f"all_to_all over {axes} needs {n} rows, got "
@@ -459,23 +465,81 @@ class ModelMesh:
         dist.all_to_all_single(out, y, group=group)
         return out.to(x.device)
 
-    def psum(self, x: torch.Tensor, axes: AxisVal) -> torch.Tensor:
-        """The element-wise sum of ``x`` over ``axes``."""
+    def _psum(self, x: torch.Tensor, axes: AxisVal) -> torch.Tensor:
         group, _ = self._group(axes)
         if group is None:
             return x
         return _sum(group, x, self._staged(x))
+
+    def _all_gather(self, x: torch.Tensor, axes: AxisVal) -> torch.Tensor:
+        group, n = self._group(axes)
+        if group is None:
+            return x[None]
+        return _gather(group, n, self.backend, self._staged(x)).to(x.device)
+
+    def all_to_all(self, x: torch.Tensor, axes: AxisVal) -> torch.Tensor:
+        """``jax.lax.all_to_all(x, axes, 0, 0, tiled=False)``: ``x (n,
+        ...)`` with ``n`` the axes' size; row ``k`` of the result is what
+        rank ``k`` along ``axes`` sent this one as its row for it.  Its
+        backward is the same all-to-all of the cotangent (the exchange is
+        its own inverse)."""
+        return _one_rank_or(_AllToAll, self._all_to_all, self, x, axes)
+
+    def psum(self, x: torch.Tensor, axes: AxisVal) -> torch.Tensor:
+        """The element-wise sum of ``x`` over ``axes``.  Its backward
+        passes the cotangent through: the loss is the same on every rank,
+        so the sum's cotangent is already whole on each."""
+        return _one_rank_or(_PSum, self._psum, self, x, axes)
 
     def pmean(self, x: torch.Tensor, axes: AxisVal) -> torch.Tensor:
         return self.psum(x, axes) / self.axis_size(axes)
 
     def all_gather(self, x: torch.Tensor, axes: AxisVal) -> torch.Tensor:
         """Every rank's ``x`` along ``axes`` stacked in axis order: ``(n,
-        *x.shape)``."""
-        group, n = self._group(axes)
-        if group is None:
-            return x[None]
-        return _gather(group, n, self.backend, self._staged(x)).to(x.device)
+        *x.shape)``.  Its backward keeps this rank's slice of the
+        cotangent (whole on every rank, as for :meth:`psum`)."""
+        return _one_rank_or(_AllGather, self._all_gather, self, x, axes)
+
+
+def _one_rank_or(fn, raw, mesh, x, axes):
+    """The autograd ``Function`` ``fn`` (its forward ``raw``); over axes of
+    one rank ``raw`` itself, which touches no group and returns ``x`` (or
+    a view of it), so autograd sees through it."""
+    if mesh._group(axes)[0] is None:
+        return raw(x, axes)
+    return fn.apply(mesh, x, axes)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, x, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return mesh._all_to_all(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.mesh._all_to_all(g.contiguous(), ctx.axes), None
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, x, axes):
+        return mesh._psum(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, x, axes):
+        ctx.index = mesh.axis_index(axes)
+        return mesh._all_gather(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g[ctx.index], None
 
 
 def _device_mesh_group(dm, axes: Tuple[str, ...]):
@@ -764,6 +828,34 @@ def spec_placements(spec: Sequence[AxisVal], mesh) -> list:
             if mesh.shape[i] > 1:
                 out[i] = Shard(dim)
     return out
+
+
+def grad_placements(held: Sequence, work: Sequence) -> list:
+    """The placements of the gradient of a ``local_map`` input held under
+    ``held`` in a body whose work (its tokens, its batch) is split under
+    ``work``: the input's own split on an axis that splits it; a partial
+    sum on an axis that splits only the work (each rank's share of the
+    gradient); whole elsewhere (every rank computed the same one)."""
+    from torch.distributed.tensor import Partial, Shard
+
+    return [h if isinstance(h, Shard) else
+            (Partial() if isinstance(w, Shard) else h)
+            for h, w in zip(held, work)]
+
+
+def pinned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself; on a DTensor, its gradient is redistributed to ``x``'s
+    own placements on the way back.  DTensor hands a gradient back in the
+    layout the operation that used ``x`` chose, and a backward that
+    flattens two split dimensions into one (a linear layer's weight
+    gradient) cannot take every layout."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = tuple(x.placements)
+    return local_map(lambda t: t, out_placements=list(pl), in_placements=(pl,),
+                     device_mesh=x.device_mesh)(x)
 
 
 def _fixed(spec, shape, dm, names) -> tuple:

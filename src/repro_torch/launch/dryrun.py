@@ -217,8 +217,10 @@ def rules_for(profile: str, multi: bool):
 
 def trace(cell, mesh, rules) -> dict:
     """Run ``cell``'s step once on ``mesh`` (a ``DeviceMesh``) under
-    ``rules``, without gradients: ``{"out", "flops", "counts", "bytes",
-    "notes", "real", "trace_s"}``."""
+    ``rules``: ``{"out", "flops", "counts", "bytes", "notes", "real",
+    "trace_s"}``.  A serving cell runs without gradients; a training
+    cell's step records them, and both counters see its backward (the
+    recompute of its remat sites included) and AdamW."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.distributed import context as dctx
@@ -232,7 +234,8 @@ def trace(cell, mesh, rules) -> dict:
         st.enter_context(dctx.axis_rules(rules, mm))
         notes = st.enter_context(dctx.collect_notes())
         st.enter_context(implicit_replication())
-        st.enter_context(torch.no_grad())
+        if not cell.train:
+            st.enter_context(torch.no_grad())
         st.enter_context(uncounted_meta_propagation())
         st.enter_context(flops)
         st.enter_context(coll)

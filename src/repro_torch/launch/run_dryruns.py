@@ -6,10 +6,9 @@ cells (the torch counterpart of ``repro.launch.run_dryruns``).
       [--only arch1,arch2] [--timeout 3600] [--force] [--device cpu]
 
 Besides ``baseline`` every LM cell runs under ``fsdp_ep`` and every
-recsys cell under ``a2a_emb``.  A cell that
-fails records ``status: "error"`` and its exception, as ``repro``'s do.
-The run ends nonzero only for failures other than the training cells'
-``NotImplementedError`` (ROADMAP item 12e(b)).
+recsys cell under ``a2a_emb``, the training cells as the serving ones.
+A cell that fails records ``status: "error"`` and its exception, as
+``repro``'s do, and the run ends nonzero.
 """
 from __future__ import annotations
 
@@ -35,18 +34,9 @@ def cell_record(out_dir, arch, shape, mesh, profile):
 
 
 def cell_done(out_dir, arch, shape, mesh, profile="baseline") -> bool:
-    """Recorded ``ok`` or ``skipped``, or a training cell's record of the
-    ROADMAP item it waits for."""
+    """Recorded ``ok`` or ``skipped``."""
     rec = cell_record(out_dir, arch, shape, mesh, profile)
-    return rec is not None and (rec.get("status") in ("ok", "skipped")
-                                or not_yet_ported(rec))
-
-
-def not_yet_ported(rec) -> bool:
-    """A training cell's record: the ``NotImplementedError`` that names
-    the next ROADMAP item, not a failure."""
-    return (rec is not None and rec.get("status") == "error"
-            and rec.get("error_type") == "NotImplementedError")
+    return rec is not None and rec.get("status") in ("ok", "skipped")
 
 
 def cells(archs, meshes):
@@ -80,7 +70,7 @@ def main(argv=None):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (src, os.environ.get("PYTHONPATH")) if p))
     print(f"{len(todo)} cells")
-    failures, later = [], []
+    failures = []
     for i, (a, s, m, p) in enumerate(todo):
         tag = f"[{i + 1}/{len(todo)}] {a} {s} {m} {p}"
         if not args.force and cell_done(args.out, a, s, m, p):
@@ -104,16 +94,12 @@ def main(argv=None):
                           f)
         rec = cell_record(args.out, a, s, m, p)
         status = rec.get("status", "?") if rec else "no record"
-        if not_yet_ported(rec):
-            later.append((a, s, m, p))
-            status = "not yet ported"
-        elif status not in ("ok", "skipped"):
+        if status not in ("ok", "skipped"):
             failures.append((a, s, m, p))
         print(f"{tag}: {status} ({time.time() - t0:.0f}s)")
-        if status not in ("ok", "skipped", "not yet ported") and tail:
+        if status not in ("ok", "skipped") and tail:
             print("  stderr tail:", tail.replace("\n", "\n  "))
-    print(f"done; {len(later)} training cells not yet ported; "
-          f"{len(failures)} failures: {failures}")
+    print(f"done; {len(failures)} failures: {failures}")
     return 1 if failures else 0
 
 

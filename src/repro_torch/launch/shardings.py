@@ -194,7 +194,8 @@ def batch_axes_for(rules, n: int, mesh) -> tuple:
     return axes if axes and n % size == 0 and n >= size else ()
 
 
-def place_params(model: nn.Module, mesh, placements: dict) -> nn.Module:
+def place_params(model: nn.Module, mesh, placements: dict,
+                 requires_grad: bool = False) -> nn.Module:
     """Every parameter of ``model`` as a DTensor on ``mesh`` under
     ``placements`` (``param_shardings``), in place: each rank keeps its
     block of the tensor it holds, with no collective (every rank holds
@@ -204,5 +205,5 @@ def place_params(model: nn.Module, mesh, placements: dict) -> nn.Module:
         for key, prm in list(mod.named_parameters(recurse=False)):
             name = f"{prefix}.{key}" if prefix else key
             d = as_dtensor(prm.detach(), mesh, placements[name])
-            setattr(mod, key, nn.Parameter(d, requires_grad=False))
+            setattr(mod, key, nn.Parameter(d, requires_grad=requires_grad))
     return model

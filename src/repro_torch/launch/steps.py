@@ -11,12 +11,15 @@ so a cell of arctic-480b's 480B parameters allocates nothing, and
 parameters and a real batch (``params=``, ``batch=``), the same cell
 runs them: each rank keeps its block of the whole tensors it was given.
 
-Covered: the serving cells, an LM's prefill and decode (``decode_32k``,
-``long_500k``) and a recsys model's serve and retrieval shapes, under
-``repro``'s profiles (``fsdp_ep``, its remat variant, ``flash_remat``,
-``a2a_emb``).  A training shape raises ``NotImplementedError``: the
-training cells, with the gradients of the sharded bag and MoE bodies
-and of FSDP, are ROADMAP item 12e(b).
+Every cell of ``repro``: the serving cells (an LM's prefill and decode,
+``decode_32k`` and ``long_500k``, a recsys model's serve and retrieval
+shapes) and the training cells (an LM's ``train_4k``, a recsys model's
+``train_batch``, graphcast's four graph shapes), under ``repro``'s
+profiles (``fsdp_ep``, its remat variant, ``flash_remat``,
+``a2a_emb``).  A training step is ``repro``'s ``_train_wrapper``: the
+loss, its gradients (each redistributed to its parameter's placements:
+FSDP's reduce-scatter, the all-reduce of a replicated leaf), then AdamW
+at ``AdamWConfig()`` on moments placed like the parameters.
 """
 from __future__ import annotations
 
@@ -36,23 +39,23 @@ from repro_torch.launch.shardings import (
     param_specs,
     place_params,
 )
+from repro_torch.models import gnn as gnn_mod
 from repro_torch.models import recsys as recsys_mod
 from repro_torch.models.convert import repro_leaves
 from repro_torch.models import transformer as tfm
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.serving import DPPRerankConfig, Reranker, RerankRequest
-
-TRAINING_TODO = ("the training cells (train_4k, train_batch and graphcast's "
-                 "shapes) are ROADMAP item 12e(b): they need the gradients "
-                 "of the sharded bag and MoE bodies and of FSDP")
 
 
 @dataclasses.dataclass
 class Cell:
     """One cell: ``step_fn(*args)`` on the mesh.  ``leaves`` names every
-    argument leaf (``params/<repro path>[/<layer>]``, ``batch/...``,
-    ``cache/...``) with ``(tensor, spec in the port's layout, repro
-    path, transposed, stacked)``; ``fake_mode`` is the mode the fake
-    arguments belong to (None for a cell of real tensors)."""
+    argument leaf (``params/<repro path>[/<layer>]``, ``opt/m/...``,
+    ``opt/v/...``, ``opt/step``, ``batch/...``, ``cache/...``) with
+    ``(tensor, spec in the port's layout, repro path, transposed,
+    stacked)``; ``fake_mode`` is the mode the fake arguments belong to
+    (None for a cell of real tensors); ``train``: the step records
+    gradients (a training cell)."""
 
     arch_id: str
     shape_name: str
@@ -62,6 +65,7 @@ class Cell:
     notes: str = ""
     model_flops_per_step: float = 0.0
     fake_mode: Any = None
+    train: bool = False
 
     def shard_shapes(self, mesh) -> dict:
         """``{repro leaf path: this rank's block shape}`` in ``repro``'s
@@ -128,18 +132,34 @@ class _Builder:
         return self.fake_mode if self.fake_mode is not None else (
             contextlib.nullcontext())
 
-    def params(self, family, model, rules, profile):
+    def params(self, family, model, rules, profile, train=False):
         specs = param_specs(family, model, self.mesh, rules, profile)
         names = repro_leaves(model)
         place_params(model, self.mesh, {
             n: dctx.spec_placements(s, self.mesh)
-            for n, s in specs.items()})
+            for n, s in specs.items()}, requires_grad=train)
         for name, prm in model.named_parameters():
             path, transposed, stacked = names[name]
             self.leaves[f"params/{name}"] = (prm, specs[name],
                                              f"params/{path}", transposed,
                                              stacked)
         return model
+
+    def opt(self, model):
+        """AdamW's state of ``model``'s placed parameters: ``m`` and ``v``
+        placed like each parameter (leaves ``opt/m/<repro path>``,
+        ``opt/v/...``), ``step`` replicated (``opt/step``)."""
+        opt = adamw_init(dict(model.named_parameters()))
+        for name in opt["m"]:
+            _, spec, path, transposed, stacked = self.leaves[
+                f"params/{name}"]
+            leaf = path[len("params/"):]
+            for k in ("m", "v"):
+                self.leaves[f"opt/{k}/{name}"] = (
+                    opt[k][name], spec, f"opt/{k}/{leaf}", transposed,
+                    stacked)
+        self.leaves["opt/step"] = (opt["step"], (), "opt/step", False, False)
+        return opt
 
     def tensor(self, name, given, shape, dtype, spec):
         t = given if given is not None else torch.zeros(
@@ -156,11 +176,24 @@ def _lm_cell(arch: ArchSpec, shape: ShapeSpec, mesh, rules, b: _Builder,
     b_axes = batch_axes_for(rules, B, mesh)
     M = _res(rules, "model")
     kv_seq = _res(rules, "kv_seq")
+    train = shape.kind == "train"
     with b.mode():
         model = params if params is not None else tfm.Transformer(
             cfg, device=b.device)
-        b.params("lm", model, rules, profile)
+        b.params("lm", model, rules, profile, train=train)
         batch = batch or {}
+        if train:
+            opt = b.opt(model)
+            seq = _res(rules, "seq")  # fsdp_ep: the sequence over "model"
+            tokens = b.tensor("batch/tokens", batch.get("tokens"), (B, S),
+                              torch.int32, (b_axes or None, seq))
+    if train:
+        return Cell(arch.id, shape.name, train_step(
+            lambda p, bt: tfm.train_loss(p, bt, cfg)),
+                    (model, opt, {"tokens": tokens}), b.leaves,
+                    model_flops_per_step=6.0 * cfg.active_param_count() * B
+                    * S, fake_mode=b.fake_mode, train=True)
+    with b.mode():
         S_in = S if shape.kind == "prefill" else 1
         tokens = b.tensor("batch/tokens", batch.get("tokens"), (B, S_in),
                           torch.int32, (b_axes or None, None))
@@ -202,6 +235,93 @@ def _lm_cell(arch: ArchSpec, shape: ShapeSpec, mesh, rules, b: _Builder,
                 fake_mode=b.fake_mode)
 
 
+def _gnn_dims(shape: ShapeSpec) -> Tuple[int, int, str]:
+    """``repro``'s graph size of a GNN shape: ``(nodes, edges, note)``,
+    both padded to a multiple of 512."""
+    if shape.name == "minibatch_lg":
+        b, (f1, f2) = shape.batch_nodes, shape.fanout
+        n = b * (1 + f1 + f1 * f2)
+        e = b * f1 + b * f1 * f2
+        note = f"sampled subgraph: {b} seeds, fanout {shape.fanout}, padded"
+    elif shape.name == "molecule":
+        n = shape.n_graphs * shape.nodes_per_graph
+        e = shape.n_graphs * shape.edges_per_graph
+        note = f"{shape.n_graphs} disjoint molecules"
+    else:
+        n, e = shape.n_nodes, shape.n_edges
+        note = "full graph"
+    return _round_up(n, 512), _round_up(e, 512), note + " (padded to /512)"
+
+
+def _gnn_cell(arch: ArchSpec, shape: ShapeSpec, mesh, rules, b: _Builder,
+              params, batch, profile: str) -> Cell:
+    cfg = dataclasses.replace(arch.config, d_feat=shape.d_feat)
+    N, E, note = _gnn_dims(shape)
+    nodes, edges = _res(rules, "nodes"), _res(rules, "edges")
+    batch = batch or {}
+    with b.mode():
+        model = params if params is not None else gnn_mod.GNN(
+            cfg, device=b.device)
+        b.params("gnn", model, rules, profile, train=True)
+        opt = b.opt(model)
+        args = {k: b.tensor(f"batch/{k}", batch.get(k), shp, dt, spec)
+                for k, shp, dt, spec in (
+                    ("node_feats", (N, cfg.d_feat), torch.float32,
+                     (nodes, None)),
+                    ("edges", (E, 2), torch.int32, (edges, None)),
+                    ("targets", (N, cfg.n_vars), torch.float32,
+                     (nodes, None)),
+                    ("node_mask", (N,), torch.bool, (nodes,)),
+                    ("edge_mask", (E,), torch.bool, (edges,)))}
+    # the processor's MLPs, per edge and per node, x3 for the backward
+    fwd = cfg.n_layers * (
+        E * 2 * (2 * cfg.d_hidden + cfg.d_edge) * cfg.d_hidden
+        + N * 2 * (cfg.d_hidden + cfg.d_edge) * cfg.d_hidden)
+    return Cell(arch.id, shape.name, train_step(
+        lambda p, bt: gnn_mod.mse_loss(p, bt, cfg)), (model, opt, args),
+                b.leaves, notes=note, model_flops_per_step=3.0 * fwd,
+                fake_mode=b.fake_mode, train=True)
+
+
+def _replicated(x):
+    """A DTensor whole on every rank (a partial sum completed)."""
+    from torch.distributed.tensor import Replicate
+
+    if not dctx.is_dtensor(x):
+        return x
+    want = [Replicate()] * x.device_mesh.ndim
+    return x if list(x.placements) == want else x.redistribute(
+        x.device_mesh, want)
+
+
+def train_step(loss_fn: Callable):
+    """``repro``'s ``_train_wrapper``: ``step(model, opt, batch) -> (model,
+    opt, {"loss", "grad_norm"})``.  The loss (made whole on every rank),
+    its gradients (zeros for a parameter it does not use, as
+    ``jax.grad`` gives), each redistributed to its parameter's
+    placements, then ``adamw_update`` at ``AdamWConfig()``, in place."""
+
+    def step(model, opt, batch):
+        params = dict(model.named_parameters())
+        with torch.enable_grad():
+            loss = _replicated(loss_fn(model, batch))
+            raw = torch.autograd.grad(loss, list(params.values()),
+                                      allow_unused=True)
+        grads = {}
+        for (name, p), g in zip(params.items(), raw):
+            if g is None:
+                g = torch.zeros_like(p)
+            elif dctx.is_dtensor(g) and tuple(g.placements) != tuple(
+                    p.placements):
+                g = g.redistribute(p.device_mesh, p.placements)
+            grads[name] = g
+        _, opt, metrics = adamw_update(params, grads, opt,
+                                       AdamWConfig())
+        return model, opt, {"loss": loss.detach(), **metrics}
+
+    return step
+
+
 def _mlp_flops(cfg: recsys_mod.RecsysConfig) -> int:
     dims = (cfg.n_fields * cfg.embed_dim,) + tuple(cfg.mlp_dims) + (1,)
     return sum(2 * a * c for a, c in zip(dims[:-1], dims[1:]))
@@ -212,10 +332,26 @@ def _recsys_cell(arch: ArchSpec, shape: ShapeSpec, mesh, rules, b: _Builder,
     cfg: recsys_mod.RecsysConfig = arch.config
     F, H = cfg.n_fields, cfg.hot_size
     batch = batch or {}
+    train = shape.kind == "train"
     with b.mode():
         model = params if params is not None else recsys_mod.RecsysModel(
             cfg, device=b.device)
-        b.params("recsys", model, rules, profile)
+        b.params("recsys", model, rules, profile, train=train)
+
+    if train:
+        B = shape.batch
+        b_axes = batch_axes_for(rules, B, mesh)
+        with b.mode():
+            opt = b.opt(model)
+            ids = b.tensor("batch/ids", batch.get("ids"), (B, F, H),
+                           torch.int32, (b_axes or None, None, None))
+            labels = b.tensor("batch/labels", batch.get("labels"), (B,),
+                              torch.float32, (b_axes or None,))
+        return Cell(arch.id, shape.name, train_step(
+            lambda p, bt: recsys_mod.bce_loss(p, bt, cfg)),
+                    (model, opt, {"ids": ids, "labels": labels}), b.leaves,
+                    model_flops_per_step=3.0 * B * _mlp_flops(cfg),
+                    fake_mode=b.fake_mode, train=True)
 
     if shape.kind == "serve":
         B = shape.batch
@@ -302,9 +438,7 @@ def build_cell(arch: ArchSpec, shape: ShapeSpec, mesh, rules,
     if profile == "a2a_emb" and arch.family == "recsys":
         arch = dataclasses.replace(arch, config=dataclasses.replace(
             arch.config, emb_mode="alltoall"))
-    if shape.kind in ("train", "graph_train") or arch.family == "gnn":
-        raise NotImplementedError(
-            f"{arch.id} {shape.name}: {TRAINING_TODO}")
-    fn = {"lm": _lm_cell, "recsys": _recsys_cell}[arch.family]
+    fn = {"lm": _lm_cell, "gnn": _gnn_cell,
+          "recsys": _recsys_cell}[arch.family]
     return fn(arch, shape, mesh, rules, _Builder(mesh, params is not None),
               params, batch, profile)

@@ -195,6 +195,8 @@ def _bag_local_map(table, flat, valid, mesh, model_axis, want, ids_axes):
 
     return local_map(body, out_placements=i_pl, in_placements=(t_pl, i_pl,
                                                                i_pl),
+                     in_grad_placements=(dctx.grad_placements(t_pl, i_pl),
+                                         i_pl, i_pl),
                      device_mesh=mesh.device_mesh,
                      redistribute_inputs=True)(table, flat, valid)
 

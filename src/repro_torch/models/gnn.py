@@ -28,6 +28,7 @@ that node non-finite outputs, in ``repro`` and here alike (ROADMAP queue
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import torch
@@ -35,6 +36,11 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.context import (
+    constrain,
+    grad_placements,
+    is_dtensor,
+)
 from repro_torch.models import layers
 from repro_torch.models.layers import dense
 
@@ -129,28 +135,83 @@ def _aggregate(msgs: torch.Tensor, dst: torch.Tensor, n_nodes: int,
     raise ValueError(how)
 
 
+def _endpoints(h: torch.Tensor, src: torch.Tensor,
+               dst: torch.Tensor) -> torch.Tensor:
+    """``[h[src], h[dst]]`` (E, 2 d).  On DTensors (h over the nodes, the
+    edges over theirs) under ``local_map``: every rank gathers ``h``
+    whole once and reads its edges' endpoints; ``h``'s gradient is each
+    rank's share, summed onto its nodes (a reduce-scatter)."""
+    if not is_dtensor(h):
+        return torch.cat([h[src], h[dst]], dim=-1)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    dm = h.device_mesh
+    rep = [Replicate()] * dm.ndim
+    e_pl = list(src.placements)
+    return local_map(lambda hl, s, d: torch.cat([hl[s], hl[d]], dim=-1),
+                     out_placements=e_pl, in_placements=(rep, e_pl, e_pl),
+                     in_grad_placements=(grad_placements(rep, e_pl), e_pl,
+                                         e_pl),
+                     device_mesh=dm, redistribute_inputs=True)(h, src, dst)
+
+
+def _aggregate_split(msgs: torch.Tensor, dst: torch.Tensor, n_nodes: int,
+                     nodes) -> torch.Tensor:
+    """The sum aggregate of DTensor messages split over the edges, placed
+    on the nodes as ``nodes`` (placements): each rank's edges scattered
+    into a whole (N, d) partial sum under ``local_map``, completed onto
+    the nodes by a reduce-scatter."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    e_pl = list(dst.placements)
+    part = [Partial() if isinstance(p, Shard) else Replicate() for p in e_pl]
+    s = local_map(functools.partial(_aggregate, n_nodes=n_nodes, how="sum"),
+                  out_placements=part, in_placements=(e_pl, e_pl),
+                  device_mesh=msgs.device_mesh,
+                  redistribute_inputs=True)(msgs, dst)
+    return s.redistribute(msgs.device_mesh, nodes)
+
+
 def apply(params: GNN, node_feats: torch.Tensor, edges: torch.Tensor,
           cfg: GNNConfig,
           edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """node_feats (N, d_feat), edges (E, 2) [src, dst], edge_mask (E,)
-    bool (False: a padding edge) -> per-node predictions (N, n_vars)."""
+    bool (False: a padding edge) -> per-node predictions (N, n_vars).
+    On DTensors (the nodes and the edges each split over the whole
+    grid, ``"nodes"`` and ``"edges"``) ``h`` is held on the nodes where
+    ``repro`` constrains it; the endpoint reads and the (sum) aggregation
+    run under ``local_map`` (:func:`_endpoints`,
+    :func:`_aggregate_split`)."""
     N = node_feats.shape[0]
     edges = edges.long()
     src, dst = edges[:, 0], edges[:, 1]
-    h = _mlp2(params.encoder, node_feats.to(cfg.dtype))
+    h = constrain(_mlp2(params.encoder, node_feats.to(cfg.dtype)),
+                  "nodes", None)
 
     # initial edge features from endpoint embeddings
-    e = params.edge_embed(torch.cat([h[src], h[dst]], dim=-1))
+    e = params.edge_embed(_endpoints(h, src, dst))
     mask = None if edge_mask is None else edge_mask[:, None].to(e.dtype)
     if mask is not None:
         e = e * mask
 
+    def aggregate(e, h):
+        if not is_dtensor(e):
+            return _aggregate(e, dst, N, cfg.aggregator)
+        if cfg.aggregator != "sum":  # graphcast's; no cell runs another
+            raise NotImplementedError(
+                f"aggregator {cfg.aggregator!r} on DTensors: only sum")
+        return _aggregate_split(e, dst, N, h.placements)
+
     def layer(p_l: ProcLayer, h: torch.Tensor, e: torch.Tensor):
-        e = e + _mlp2(p_l.edge, torch.cat([h[src], h[dst], e], dim=-1))
+        e = e + _mlp2(p_l.edge, torch.cat([_endpoints(h, src, dst), e],
+                                          dim=-1))
         if mask is not None:
             e = e * mask
-        m = _aggregate(e, dst, N, cfg.aggregator)
-        return h + _mlp2(p_l.node, torch.cat([h, m], dim=-1)), e
+        m = aggregate(e, h)
+        h = h + _mlp2(p_l.node, torch.cat([h, m], dim=-1))
+        return constrain(h, "nodes", None), e
 
     for p_l in params.processor:
         h, e = layers.remat(layer, p_l, h, e)

@@ -39,7 +39,9 @@ from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.distributed.context import (
     constrain,
+    grad_placements,
     is_dtensor,
+    pinned,
     whole_units,
 )
 
@@ -63,7 +65,9 @@ def linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     one leading dimension (batch x sequence, ``fsdp_ep``'s layout) is
     applied under ``local_map``: each rank multiplies its tokens by the
     gathered weight, as FSDP does (DTensor's own ``linear`` would flatten
-    the two splits into one it cannot hold)."""
+    the two splits into one it cannot hold).  Any other DTensor runs
+    DTensor's ``linear`` with its output :func:`pinned`, so its weight
+    gradient meets the output's gradient in the output's layout."""
     if not is_dtensor(x):
         return lin(x)
     from torch.distributed.tensor import Replicate, Shard
@@ -71,14 +75,16 @@ def linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     lead = {p.dim for p in x.placements
             if isinstance(p, Shard) and p.dim < x.dim() - 1}
     if len(lead) < 2:
-        return lin(x)
+        return pinned(lin(x))
     pl = [p if isinstance(p, Shard) and p.dim < x.dim() - 1 else Replicate()
           for p in x.placements]
     rep = [Replicate()] * x.device_mesh.ndim
     args = (x, lin.weight) + ((lin.bias,) if lin.bias is not None else ())
+    n_w = len(args) - 1
     return local_map(torch.nn.functional.linear, out_placements=pl,
-                     in_placements=(pl,) + (rep,) * (len(args) - 1),
-                     device_mesh=x.device_mesh,
+                     in_placements=(pl,) + (rep,) * n_w,
+                     in_grad_placements=(pl,) + (grad_placements(rep, pl),)
+                     * n_w, device_mesh=x.device_mesh,
                      redistribute_inputs=True)(*args)
 
 
@@ -186,6 +192,15 @@ def split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
     dimension is not whole heads has that dimension gathered first."""
     x = whole_units(x, -1, d, f"{n} heads of {d}")
     return x.reshape(*x.shape[:-1], n, d)
+
+
+def merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """(..., n, d) -> (..., n * d), :func:`pinned`: on a DTensor the
+    gradient comes back in the merged tensor's own layout, so its split
+    into heads on the way back never splits a head the forward kept
+    whole (a row-parallel projection hands back a gradient split over
+    the width, 20 or 56 heads over 16 ranks)."""
+    return pinned(o.reshape(*o.shape[:-2], o.shape[-2] * o.shape[-1]))
 
 
 def group_heads(q: torch.Tensor, kv: int) -> torch.Tensor:
@@ -334,7 +349,7 @@ def attention_apply(p: Attention, x: torch.Tensor, *, n_heads: int,
     q = constrain(q, "batch", None, "heads", None)
     k = constrain(k, "batch", None, "heads", None)
     o = gqa_attention(q, k, v, window=window, chunk_q=chunk_q)
-    return linear(p.wo, o.reshape(B, S, n_heads * d_head))
+    return linear(p.wo, merge_heads(o))
 
 
 # ---------------------------------------------------------------------------

@@ -195,19 +195,39 @@ def _local_moe(x: torch.Tensor, p: MoE, cfg: MoEConfig, n_shards: int = 1,
     return slot_out.sum(dim=1), aux
 
 
+def _aux_mean(mesh, aux: torch.Tensor, tok_axes, model_axis: str):
+    """The aux loss averaged over the token axes (over ``model_axis`` when
+    the tokens are replicated).  Replicated tokens give every rank the
+    whole aux, so there the mean's cotangent reaches each rank whole
+    rather than divided among them (the value is the mean's)."""
+    mean = mesh.pmean(aux, tok_axes or (model_axis,))
+    if tok_axes:
+        return mean
+    return aux + (mean - aux).detach()
+
+
 def _moe_local_map(p: MoE, x, cfg: MoEConfig, mesh, n_shards: int,
-                   model_axis: str, psum_mode: bool, tok_axes, x_spec):
-    """``_local_moe`` on each rank's blocks of DTensors: the tokens ``(B *
-    S, d)`` over ``x_spec`` (from ``x`` with only its batch split kept),
-    the rank's whole experts, the router replicated."""
+                   model_axis: str, psum_mode: bool, tok_axes):
+    """``_local_moe`` on each rank's blocks of DTensors, its tokens
+    ``repro``'s: the ``B * S`` tokens in contiguous blocks over
+    ``tok_axes`` in order.  ``x (B, S, d)`` enters split over the batch
+    by the longest prefix of ``tok_axes`` that divides ``B``; the body
+    flattens its block and takes its part over the rest of ``tok_axes``
+    (an all-gather over them puts the block back together on the way
+    out), so no DTensor is flattened across two splits.  The rank's whole
+    experts, the router replicated."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     B, S, d = x.shape
     dm = mesh.device_mesh
-    keep = [pl if pl == Shard(0) else Replicate() for pl in x.placements]
-    xt = x.redistribute(dm, keep).reshape(B * S, d)
-    x_pl = dctx.spec_placements(x_spec, dm)
+    split = 0
+    while (split < len(tok_axes)
+           and B % mesh.axis_size(tok_axes[:split + 1]) == 0):
+        split += 1
+    rows, rest = tok_axes[:split], tok_axes[split:]
+    x_pl = dctx.spec_placements((rows or None, None, None), dm)
+    work = dctx.spec_placements((tok_axes or None,), dm)
     e_pl = dctx.spec_placements(
         (model_axis if n_shards > 1 else None, None, None), dm)
     rep = [Replicate()] * dm.ndim
@@ -216,15 +236,29 @@ def _moe_local_map(p: MoE, x, cfg: MoEConfig, mesh, n_shards: int,
         lp = types.SimpleNamespace(router=functools.partial(F.linear,
                                                             weight=wr),
                                    wi=wi, wg=wg, wo=wo)
-        out, aux = _local_moe(xl, lp, cfg, n_shards,
+        xt = xl.reshape(-1, d)
+        if rest:
+            xt = dctx.local_block(xt, (rest,), mesh)
+        out, aux = _local_moe(xt, lp, cfg, n_shards,
                               model_axis if n_shards > 1 else None, psum_mode)
-        return out, mesh.pmean(aux, tok_axes or (model_axis,))
+        if rest:
+            out = dctx.gather_block(out, (rest,), mesh)
+        return (out.reshape(xl.shape),
+                _aux_mean(mesh, aux, tok_axes, model_axis))
 
+    g_rep, g_e = (dctx.grad_placements(rep, work),
+                  dctx.grad_placements(e_pl, work))
     out, aux = local_map(body, out_placements=(x_pl, rep),
                          in_placements=(x_pl, rep, e_pl, e_pl, e_pl),
+                         in_grad_placements=(dctx.grad_placements(x_pl,
+                                                                  work),
+                                             g_rep, g_e, g_e, g_e),
                          device_mesh=dm, redistribute_inputs=True)(
-        xt, p.router.weight, p.wi, p.wg, p.wo)
-    return out.redistribute(dm, keep).reshape(B, S, d), aux
+        x, p.router.weight, p.wi, p.wg, p.wo)
+    keep = [pl if pl == Shard(0) else Replicate() for pl in x.placements]
+    if list(out.placements) != keep:
+        out = out.redistribute(dm, keep)
+    return out, aux
 
 
 def moe_apply(p: MoE, x: torch.Tensor,
@@ -232,11 +266,10 @@ def moe_apply(p: MoE, x: torch.Tensor,
     """x (B, S, d) -> (out (B, S, d), aux loss scalar), both whole on
     every rank of an installed mesh."""
     B, S, d = x.shape
-    xt = x.reshape(B * S, d)
     mesh = dctx.current_mesh()
     model_axis = dctx.model_axis_name()
     if mesh is None or model_axis is None:
-        out, aux = _local_moe(xt, p, cfg, 1, None)
+        out, aux = _local_moe(x.reshape(B * S, d), p, cfg, 1, None)
         return out.reshape(B, S, d), aux
 
     n_shards = mesh.axis_size(model_axis)
@@ -257,9 +290,10 @@ def moe_apply(p: MoE, x: torch.Tensor,
     x_spec = (tok_axes or None, None)
     if dctx.is_dtensor(x):
         return _moe_local_map(p, x, cfg, mesh, n_shards, model_axis,
-                              psum_mode, tok_axes, x_spec)
+                              psum_mode, tok_axes)
+    xt = x.reshape(B * S, d)
     out, aux = _local_moe(dctx.local_block(xt, x_spec, mesh), p, cfg,
                           n_shards, model_axis if n_shards > 1 else None,
                           psum_mode)
-    aux = mesh.pmean(aux, tok_axes or (model_axis,))
+    aux = _aux_mean(mesh, aux, tok_axes, model_axis)
     return dctx.gather_block(out, x_spec, mesh).reshape(B, S, d), aux

@@ -47,6 +47,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.context import (
     constrain,
     current_mesh,
+    grad_placements,
     is_dtensor,
     place,
 )
@@ -210,10 +211,34 @@ def _block(p_l: Block, x: torch.Tensor, window: Optional[int],
     k = constrain(k, "batch", "seq", "heads", None)
     o = L.gqa_attention(q, k, v, window=window, chunk_q=cfg.chunk_q,
                         remat_chunks=cfg.remat_chunks)
-    x = x + L.linear(p_l.attn.wo, o.reshape(B, S, cfg.n_heads * cfg.head_dim))
+    x = x + L.linear(p_l.attn.wo, L.merge_heads(o))
     ffn, aux = _ffn(p_l, L.rmsnorm(p_l.ln2, x, cfg.norm_eps), cfg)
     x = constrain(x + ffn, "batch", "seq", None)
     return x, aux, ((k, v) if collect_kv else None)
+
+
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  Where the table's gradient is recorded on a
+    DTensor (a training step) it runs under ``local_map``: every rank
+    gathers the table whole, as FSDP does, and reads its block of the
+    tokens; the table's gradient is each rank's share, summed onto the
+    table's own split on the way back (DTensor's indexed write of that
+    gradient fails on torch 2.11 for a table and tokens split over
+    different axes).  A serving step keeps DTensor's own lookup, which
+    gathers no table."""
+    if not (is_dtensor(table) and table.requires_grad
+            and torch.is_grad_enabled()):
+        return table[tokens]
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    dm = table.device_mesh
+    rep = [Replicate()] * dm.ndim
+    t_pl = list(tokens.placements) if is_dtensor(tokens) else rep
+    return local_map(lambda w, t: w[t], out_placements=t_pl,
+                     in_placements=(rep, t_pl),
+                     in_grad_placements=(grad_placements(rep, t_pl), t_pl),
+                     device_mesh=dm, redistribute_inputs=True)(table, tokens)
 
 
 def forward_hidden(params: Transformer, tokens: torch.Tensor,
@@ -223,7 +248,7 @@ def forward_hidden(params: Transformer, tokens: torch.Tensor,
     ``collect_kv``: also return the roped K/V stacked over layers, each
     (L, B, S, KV, dh), for the prefill cache.  Each block runs through
     ``layers.remat``."""
-    x = constrain(params.embed[tokens], "batch", "seq", None)
+    x = constrain(embed_tokens(params.embed, tokens), "batch", "seq", None)
     auxs, ks, vs = [], [], []
     for p_l, w in zip(params.layers, cfg.layer_windows()):
         x, aux, kv = L.remat(_block, p_l, x, w, cfg, collect_kv)
@@ -249,10 +274,46 @@ def train_loss(params: Transformer, batch: dict,
     hidden, aux, _ = forward_hidden(params, tokens, cfg)
     logits = logits_from_hidden(params, hidden[:, :-1]).to(torch.float32)
     targets = tokens[:, 1:].to(torch.int64)
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, targets[..., None])[..., 0]
-    ce = torch.mean(lse - picked)
+    ce = torch.mean(_token_ce(logits, targets))
     return ce + cfg.aux_loss_coef * aux
+
+
+def _token_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Each token's ``logsumexp(logits) - logits[target]`` (float32).  On a
+    DTensor whose vocabulary is split it runs under ``local_map`` on each
+    rank's block of the vocabulary: the running max by an all-gather, the
+    normaliser and the target's logit by sums over the vocabulary's
+    ranks, so no rank gathers the logits."""
+    if not is_dtensor(logits):
+        lse = torch.logsumexp(logits, dim=-1)
+        return lse - torch.gather(logits, -1, targets[..., None])[..., 0]
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    dm = logits.device_mesh
+    names = dm.mesh_dim_names
+    l_pl = [p if p in (Shard(0), Shard(2)) else Replicate()
+            for p in logits.placements]
+    t_pl = [Replicate() if p == Shard(2) else p for p in l_pl]
+    v_axes = tuple(names[i] for i, p in enumerate(l_pl) if p == Shard(2))
+    mesh = current_mesh()
+
+    def body(lg, tg):
+        if not v_axes:
+            return _token_ce(lg, tg)
+        V = lg.shape[-1]
+        lo = mesh.axis_index(v_axes) * V
+        m = mesh.all_gather(lg.detach().amax(dim=-1), v_axes).amax(0)
+        lse = m + torch.log(mesh.psum(torch.exp(lg - m[..., None]).sum(-1),
+                                      v_axes))
+        t = tg - lo
+        hit = (t >= 0) & (t < V)
+        got = torch.gather(lg, -1, torch.clamp(t, 0, V - 1)[..., None])
+        return lse - mesh.psum(torch.where(hit, got[..., 0], 0.0), v_axes)
+
+    return local_map(body, out_placements=t_pl, in_placements=(l_pl, t_pl),
+                     device_mesh=dm, redistribute_inputs=True)(logits,
+                                                              targets)
 
 
 # ---------------------------------------------------------------------------
@@ -423,7 +484,7 @@ def decode_step(params: Transformer, cache: dict, tokens: torch.Tensor,
     for this position) and returned with ``pos + 1``; layers run in
     schedule order, each against its group's buffer."""
     pos = int(cache["pos"])
-    x = params.embed[tokens[:, :1]]
+    x = embed_tokens(params.embed, tokens[:, :1])
     plan = layer_cache_plan(cfg, cache_max_seq(cfg, cache))
     groups = cache["groups"]
     for p_l, (_, key, gidx), w in zip(params.layers, plan,

@@ -264,3 +264,156 @@ def test_error_feedback_matches_repro():
             np.testing.assert_allclose(ef.residual[n].numpy(),
                                        np.asarray(jef.residual[n]),
                                        rtol=1e-6, atol=1.01 * scale)
+
+
+# ---------------------------------------------------------------------------
+# AdamW on DTensor parameters: four gloo ranks on a (2, 2) mesh
+# ---------------------------------------------------------------------------
+
+# name: (shape, placements by mesh axis ("data", "model"), dtype)
+DT_LEAVES = {
+    "w": ((8, 6), ("S0", "S1"), "float32"),  # FSDP x TP
+    "table": ((40, 8), ("R", "S0"), "float32"),  # rows over "model"
+    "bias": ((6,), ("R", "R"), "float32"),  # replicated
+    "emb": ((12, 4), ("S0", "S0"), "bfloat16"),  # over the whole grid
+}
+DT_STEPS = 3
+
+_DT_RANK = r"""
+import json, sys
+import numpy as np
+import torch
+from torch.distributed.tensor import Replicate, Shard
+from repro_torch.distributed import context as dctx
+from repro_torch.distributed import init_group, leave_group
+from repro_torch.launch.dryrun import CollectiveCounter
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+r, rdv, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+leaves, steps = json.loads(sys.argv[4]), int(sys.argv[5])
+init_group("gloo", r, 4, rdv)
+mesh = make_host_mesh(2, 2, device="cpu")
+pl = {"R": Replicate(), "S0": Shard(0), "S1": Shard(1)}
+rng = np.random.default_rng(0)
+whole = {n: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+    getattr(torch, dt)) for n, (s, _, dt) in leaves.items()}
+grads = [{n: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+    getattr(torch, dt)) for n, (s, _, dt) in leaves.items()}
+    for _ in range(steps)]
+place = lambda n, t: dctx.as_dtensor(t, mesh, [pl[a] for a in leaves[n][1]])
+res = {}
+for clip in (None, 1.0):
+    cfg = AdamWConfig(grad_clip_norm=clip)
+    params = {n: place(n, t.clone()) for n, t in whole.items()}
+    opt = adamw_init(params)
+    res["placed"] = all(
+        tuple(opt[k][n].placements) == tuple(params[n].placements)
+        and opt[k][n].to_local().shape == params[n].to_local().shape
+        and opt[k][n].dtype == torch.float32 for k in ("m", "v")
+        for n in params)
+    res["step_replicated"] = tuple(opt["step"].placements) == (
+        Replicate(), Replicate())
+    norms, counts = [], []
+    for g in grads:
+        coll = CollectiveCounter()
+        with coll:
+            _, opt, met = adamw_update(
+                params, {n: place(n, t) for n, t in g.items()}, opt, cfg)
+        counts.append(dict(coll.counts))
+        norms.append(float(dctx.gathered(met["grad_norm"])))
+    res[f"norms_{clip}"], res[f"counts_{clip}"] = norms, counts
+    res[f"step_{clip}"] = int(dctx.gathered(opt["step"]))
+    for n, p in params.items():
+        np.save(f"{out}/r{r}_{clip}_{n}.npy",
+                dctx.gathered(p).to(torch.float32).numpy())
+        for k in ("m", "v"):
+            np.save(f"{out}/r{r}_{clip}_{k}_{n}.npy",
+                    dctx.gathered(opt[k][n]).numpy())
+np.savez(f"{out}/inputs.npz", **{f"p_{n}": t.to(torch.float32).numpy()
+                                 for n, t in whole.items()},
+         **{f"g{i}_{n}": t.to(torch.float32).numpy()
+            for i, g in enumerate(grads) for n, t in g.items()})
+with open(f"{out}/r{r}.json", "w") as f:
+    json.dump(res, f)
+leave_group()
+"""
+
+
+@pytest.fixture(scope="module")
+def dtensor_ranks(tmp_path_factory):
+    import json
+
+    from repro_torch.distributed import rank_env, spawn_ranks
+
+    tmp = tmp_path_factory.mktemp("adamw_dtensor")
+    spawn_ranks(lambda r: ["-c", _DT_RANK, str(r), str(tmp / "rdv"),
+                           str(tmp), json.dumps(DT_LEAVES), str(DT_STEPS)],
+                4, 120, env=rank_env(4, {"OMP_NUM_THREADS": "1"}))
+    return tmp, [json.loads((tmp / f"r{r}.json").read_text())
+                 for r in range(4)]
+
+
+def _plain_steps(tmp, clip):
+    """The same steps on plain tensors in this process."""
+    z = np.load(tmp / "inputs.npz")
+    dt = {n: getattr(torch, d) for n, (_, _, d) in DT_LEAVES.items()}
+    params = {n: torch.from_numpy(z[f"p_{n}"]).to(dt[n]) for n in DT_LEAVES}
+    opt = adamw_init(params)
+    cfg = AdamWConfig(grad_clip_norm=clip)
+    norms = []
+    for i in range(DT_STEPS):
+        _, opt, met = adamw_update(params, {
+            n: torch.from_numpy(z[f"g{i}_{n}"]).to(dt[n]) for n in DT_LEAVES},
+            opt, cfg)
+        norms.append(float(met["grad_norm"]))
+    return params, opt, norms
+
+
+@pytest.mark.parametrize("r", range(4))
+def test_adamw_init_places_moments_like_dtensor_parameters(dtensor_ranks, r):
+    res = dtensor_ranks[1][r]
+    assert res["placed"] and res["step_replicated"]
+    assert res["step_None"] == res["step_1.0"] == DT_STEPS
+
+
+def test_adamw_on_dtensor_blocks_keeps_the_plain_bits(dtensor_ranks):
+    """Without clipping each rank's block runs the plain arithmetic: the
+    gathered parameters and moments equal the plain tensors' bit for
+    bit; the norm is a sum in another order (rtol 1e-6)."""
+    tmp, res = dtensor_ranks
+    params, opt, norms = _plain_steps(tmp, None)
+    for r in range(4):
+        np.testing.assert_allclose(res[r]["norms_None"], norms, rtol=1e-6)
+        for n in DT_LEAVES:
+            np.testing.assert_array_equal(
+                np.load(tmp / f"r{r}_None_{n}.npy"), _np(params[n]))
+            for k in ("m", "v"):
+                np.testing.assert_array_equal(
+                    np.load(tmp / f"r{r}_None_{k}_{n}.npy"),
+                    opt[k][n].numpy())
+
+
+def test_adamw_on_dtensor_blocks_clips_by_the_global_norm(dtensor_ranks):
+    """With clipping the scale comes from the norm, a sum of the blocks'
+    squares in another order: the clipped steps within rtol 1e-5 / atol
+    1e-6 (one bfloat16 ulp on the bfloat16 leaf)."""
+    tmp, res = dtensor_ranks
+    params, opt, norms = _plain_steps(tmp, 1.0)
+    for r in range(4):
+        np.testing.assert_allclose(res[r]["norms_1.0"], norms, rtol=1e-6)
+        for n, (_, _, dt) in DT_LEAVES.items():
+            rtol = 2 ** -7 if dt == "bfloat16" else 1e-5
+            np.testing.assert_allclose(np.load(tmp / f"r{r}_1.0_{n}.npy"),
+                                       _np(params[n]), rtol=rtol, atol=1e-6)
+            np.testing.assert_allclose(np.load(tmp / f"r{r}_1.0_m_{n}.npy"),
+                                       opt["m"][n].numpy(), rtol=1e-5,
+                                       atol=1e-6)
+
+
+def test_global_norm_on_dtensors_is_one_all_reduce(dtensor_ranks):
+    """Every leaf's share, however it is split, goes into one all-reduce
+    over the whole mesh a step; the update itself calls no collective."""
+    for res in dtensor_ranks[1]:
+        for clip in ("None", "1.0"):
+            assert res[f"counts_{clip}"] == [{"all-reduce": 1}] * DT_STEPS
